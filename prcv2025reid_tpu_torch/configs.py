@@ -1,0 +1,163 @@
+"""Typed configuration for the PyTorch port: the fields the vision
+gallery-embed path reads.
+
+Own copy of the JAX package's ``TrainingConfig`` subset: the same field
+names, defaults (full-width ViT-B/16) and validation.  A value that the JAX
+package accepts but this port does not implement yet raises
+``NotImplementedError`` naming the ROADMAP.md item it waits for; it is never
+silently ignored.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Tuple
+
+from prcv2025reid_tpu_torch.utils.modalities import MODALITIES
+
+_JAX_BLOCK_IMPLS = {
+    "xla", "fused", "fused_int8", "fused_int8_mlp", "fused_qkv",
+    "fused_interpret", "fused_int8_interpret", "fused_int8_mlp_interpret",
+    "fused_qkv_interpret",
+}
+_BLOCK_IMPL_TODO = {
+    "fused_int8": "ROADMAP.md §2 items 6-7 (int8 LN+QKV and int8 out-proj+MLP kernels)",
+    "fused_int8_mlp": "ROADMAP.md §2 item 8 (mixed int8 out-proj+MLP kernel)",
+    "fused_qkv": "ROADMAP.md §1 item 3 (the remaining MERBlock options)",
+}
+
+
+@dataclass
+class TrainingConfig:
+    # ----- model widths (defaults: ViT-B/16) -----
+    fusion_dim: int = 512
+    vision_hidden_dim: int = 768
+    vision_layers: int = 12
+    vision_heads: int = 12
+    vision_mlp_dim: int = 3072
+    patch_size: int = 16
+    image_size: int = 224
+
+    # MER LoRA routing
+    enable_mer: bool = True
+    mer_lora_rank: int = 4
+    mer_lora_alpha: float = 1.0
+
+    modalities: Tuple[str, ...] = ("vis", "nir", "sk", "cp", "text")
+
+    # fusion module
+    fusion_num_heads: int = 8
+    fusion_mlp_ratio: float = 2.0
+
+    # numerics and compute-path selectors
+    compute_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    use_pallas_attention: bool = False
+    attn_backend: str = "xla"
+    gelu_impl: str = "erf"
+    use_fused_mlp: bool = False
+    use_fused_resln: bool = False
+    block_impl: str = "xla"
+    token_keep: int = 0
+    token_reduce_layer: int = 6
+
+    @property
+    def vision_modalities(self) -> Tuple[str, ...]:
+        return tuple(m for m in self.modalities if m != "text")
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+    def replace(self, **kw) -> "TrainingConfig":
+        return dataclasses.replace(self, **kw)
+
+    def __post_init__(self):
+        self.modalities = tuple(self.modalities)
+        unknown_mods = [m for m in self.modalities if m not in MODALITIES]
+        if unknown_mods:
+            raise ValueError(
+                f"unknown modalities {unknown_mods}; valid: {list(MODALITIES)}"
+            )
+        if len(set(self.modalities)) != len(self.modalities):
+            raise ValueError(f"duplicate modalities: {self.modalities}")
+        if not self.modalities or self.modalities[0] != "vis":
+            raise ValueError(
+                f"modalities must start with 'vis', got {self.modalities}"
+            )
+        if "text" in self.modalities and self.modalities[-1] != "text":
+            raise ValueError(
+                f"'text' must be the last modality, got {self.modalities}"
+            )
+        if self.block_impl not in _JAX_BLOCK_IMPLS:
+            raise ValueError(
+                f"block_impl={self.block_impl!r}; valid: {sorted(_JAX_BLOCK_IMPLS)}"
+            )
+        if self.attn_backend not in ("xla", "splash", "onesaug"):
+            raise ValueError(
+                f"attn_backend={self.attn_backend!r}; valid: "
+                "['onesaug', 'splash', 'xla']"
+            )
+        if self.use_pallas_attention and self.attn_backend != "xla":
+            raise ValueError(
+                "use_pallas_attention=True conflicts with "
+                f"attn_backend={self.attn_backend!r} — pick one attention core"
+            )
+        if self.gelu_impl not in ("erf", "tanh", "poly"):
+            raise ValueError(
+                f"gelu_impl={self.gelu_impl!r}; valid: ['erf', 'poly', 'tanh']"
+            )
+        if self.token_keep < 0:
+            raise ValueError(f"token_keep={self.token_keep} must be >= 0")
+        if self.token_keep and not (0 < self.token_reduce_layer < self.vision_layers):
+            raise ValueError(
+                f"token_reduce_layer={self.token_reduce_layer} must be in "
+                f"[1, vision_layers-1={self.vision_layers - 1}]"
+            )
+        if self.compute_dtype not in ("bfloat16", "float32"):
+            raise ValueError(
+                f"compute_dtype={self.compute_dtype!r}; valid: ['bfloat16', 'float32']"
+            )
+        if self.param_dtype != "float32":
+            raise ValueError(f"param_dtype={self.param_dtype!r}; valid: ['float32']")
+        self._reject_unported()
+
+    def _reject_unported(self):
+        """Values the JAX package runs but this port does not have yet."""
+        impl = self.block_impl.removesuffix("_interpret")
+        if impl != self.block_impl:
+            raise NotImplementedError(
+                f"block_impl={self.block_impl!r}: interpret mode is a Pallas "
+                "test device; the port runs the plain version for CPU tensors "
+                f"— use block_impl={impl!r}"
+            )
+        if impl in _BLOCK_IMPL_TODO:
+            raise NotImplementedError(
+                f"block_impl={impl!r} is not ported yet: {_BLOCK_IMPL_TODO[impl]}"
+            )
+        if self.attn_backend != "xla":
+            raise NotImplementedError(
+                f"attn_backend={self.attn_backend!r} is not ported yet: "
+                "ROADMAP.md §1 item 2 ('onesaug' core) and §2 item 1 ('splash' "
+                "through the Hopper attention kernel)"
+            )
+        if self.gelu_impl != "erf":
+            raise NotImplementedError(
+                f"gelu_impl={self.gelu_impl!r} is not ported yet: ROADMAP.md "
+                "§1 item 2 (tanh and poly GELU)"
+            )
+        if self.use_fused_mlp:
+            raise NotImplementedError(
+                "use_fused_mlp=True is not ported yet: ROADMAP.md §2 item 4 "
+                "(fused MLP kernel)"
+            )
+        if self.use_fused_resln:
+            raise NotImplementedError(
+                "use_fused_resln=True is not ported yet: ROADMAP.md §2 item 5 "
+                "(fused residual+LN kernel)"
+            )
+        if self.token_keep > 0:
+            raise NotImplementedError(
+                f"token_keep={self.token_keep} is not ported yet: ROADMAP.md "
+                "§1 item 4 (token reduction in the trunk)"
+            )

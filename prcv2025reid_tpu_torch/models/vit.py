@@ -1,0 +1,104 @@
+"""Vision trunk, eval forward: per-modality patch embedding + MER transformer
+stack (counterpart of the JAX package's ``models/vit.py``).
+
+patchify -> +CLS -> +pos-embed -> blocks 0..L-2 -> CLS-only last block ->
+final LN -> projection.  Patchify is a reshape + matmul: the 16x16/stride-16
+"conv" is a linear map on non-overlapping patches, so the patch kernel keeps
+its ``[P, P, C, D]`` layout flattened in (i, j, c) order (no ``conv2d``,
+whose weight layout differs and which cuDNN runs in TF32 for f32).
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+from torch import nn
+
+from prcv2025reid_tpu_torch.data.augment import normalize_images_device
+from prcv2025reid_tpu_torch.models.mer import Dense, LNParams, MERBlock, _param, ln_apply
+from prcv2025reid_tpu_torch.utils.modalities import SINGLE_CHANNEL, VISION_MODALITIES
+
+
+def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """[N, H, W, C] -> [N, num_patches, P*P*C], (i, j, c) order in a patch."""
+    N, H, W, C = images.shape
+    P = patch_size
+    h, w = H // P, W // P
+    x = images.reshape(N, h, P, w, P, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(N, h * w, P * P * C)
+
+
+class PatchEmbed(nn.Module):
+    """Single-modality patch embedding.  1-channel modalities (nir/sk) reduce
+    an RGB input to grayscale by channel mean first."""
+
+    def __init__(self, embed_dim: int, patch_size: int = 16, in_chans: int = 3,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.patch_size, self.in_chans, self.dtype = patch_size, in_chans, dtype
+        self.kernel = _param(patch_size, patch_size, in_chans, embed_dim, device=device)
+        self.bias = _param(embed_dim, device=device)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        P = self.patch_size
+        images = normalize_images_device(images)
+        if self.in_chans == 1 and images.shape[-1] == 3:
+            images = images.mean(dim=-1, keepdim=True)
+        dt = self.dtype
+        patches = patchify(images.to(dt), P)
+        w = self.kernel.reshape(P * P * self.in_chans, -1).to(dt)
+        return torch.matmul(patches, w) + self.bias.to(dt)
+
+
+class MERVisionTransformer(nn.Module):
+    """The MER-routed ViT trunk, eval forward."""
+
+    def __init__(self, embed_dim: int = 768, num_layers: int = 12, num_heads: int = 12,
+                 mlp_dim: int = 3072, patch_size: int = 16, image_size: int = 224,
+                 fusion_dim: int = 512, lora_rank: int = 4, lora_alpha: float = 1.0,
+                 enable_mer: bool = True,
+                 modalities: Tuple[str, ...] = VISION_MODALITIES, dtype=torch.float32,
+                 attn_impl: str = "xla", block_impl: str = "xla", device=None):
+        super().__init__()
+        self.embed_dim, self.num_layers, self.dtype = embed_dim, num_layers, dtype
+        self.modalities = tuple(modalities)
+        num_patches = (image_size // patch_size) ** 2
+        for mod in self.modalities:
+            self.add_module(f"patch_embed_{mod}", PatchEmbed(
+                embed_dim, patch_size, 1 if mod in SINGLE_CHANNEL else 3, dtype, device))
+        self.cls_token = _param(1, 1, embed_dim, device=device)
+        self.pos_embed = _param(num_patches + 1, embed_dim, device=device)
+        for i in range(num_layers):
+            self.add_module(f"block_{i}", MERBlock(
+                embed_dim, num_heads, mlp_dim, len(self.modalities), rank=lora_rank,
+                alpha=lora_alpha, dtype=dtype, attn_impl=attn_impl,
+                enable_mer=enable_mer, block_impl=block_impl, device=device))
+        self.ln_final = LNParams(embed_dim, device=device)
+        self.proj = Dense(embed_dim, fusion_dim, use_bias=False, device=device)
+
+    def patch_embed(self, mod: str) -> PatchEmbed:
+        return getattr(self, f"patch_embed_{mod}")
+
+    @property
+    def blocks(self) -> Tuple[MERBlock, ...]:
+        return tuple(getattr(self, f"block_{i}") for i in range(self.num_layers))
+
+    def trunk(self, patch_tokens: torch.Tensor, expert_ids: Sequence[int]) -> torch.Tensor:
+        """[G, B, num_patches, D] + one expert id per group -> [G, B, fusion_dim]."""
+        G, B = patch_tokens.shape[:2]
+        dt = self.dtype
+        cls = self.cls_token.to(dt).expand(G, B, 1, self.embed_dim)
+        x = torch.cat([cls, patch_tokens.to(dt)], dim=2)
+        x = x + self.pos_embed.to(dt)[None, None]
+        blocks = self.blocks
+        for block in blocks[:-1]:
+            x = block(x, expert_ids)
+        cls = blocks[-1].cls_only_call(x, expert_ids)
+        cls = ln_apply(cls, *self.ln_final.params())
+        return self.proj(cls, dt)
+
+    def encode_single(self, images: torch.Tensor, modality_id: int) -> torch.Tensor:
+        """Encode one modality: images [B, H, W, 3] -> [B, fusion_dim]."""
+        mod = self.modalities[modality_id]
+        tokens = self.patch_embed(mod)(images)[None]
+        return self.trunk(tokens, (modality_id,))[0]

@@ -1,0 +1,110 @@
+"""Package hygiene of the PyTorch port: it imports nothing of JAX or of the
+JAX package, its entry points refuse to fall back to the CPU silently, and
+every compute-path value it does not implement yet raises."""
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from prcv2025reid_tpu_torch import TrainingConfig, build_model, make_combo_embed_step
+from prcv2025reid_tpu_torch.ops.fused_attention import fused_mha
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "prcv2025reid_tpu_torch"
+# the JAX package's name is a prefix of the port's: match it only as a whole name
+JAX_IMPORT = re.compile(
+    r"^\s*(from|import)\s+(jax|flax|prcv2025reid_tpu)(?![_\w])", re.MULTILINE)
+
+TINY = dict(vision_hidden_dim=64, vision_layers=2, vision_heads=4, vision_mlp_dim=128,
+            image_size=32, fusion_dim=32, fusion_num_heads=4, compute_dtype="float32")
+
+
+def test_import_leaves_jax_out_of_sys_modules():
+    code = (
+        "import sys\n"
+        "import prcv2025reid_tpu_torch, prcv2025reid_tpu_torch.engine\n"
+        "import prcv2025reid_tpu_torch.models.reid_model, prcv2025reid_tpu_torch.models.mer\n"
+        "import prcv2025reid_tpu_torch.ops.fused_block, prcv2025reid_tpu_torch.ops.attention\n"
+        "import prcv2025reid_tpu_torch.ops.fused_attention, prcv2025reid_tpu_torch.params\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'prcv2025reid_tpu')]\n"
+        "print(repr(bad))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_no_port_source_imports_the_jax_package():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [str(f.relative_to(ROOT)) for f in files if JAX_IMPORT.search(f.read_text())]
+    assert not offenders, offenders
+    # the regex itself: the port's own name must not match, the JAX package's must
+    assert not JAX_IMPORT.search("from prcv2025reid_tpu_torch.ops import x")
+    assert JAX_IMPORT.search("from prcv2025reid_tpu.ops import x")
+    assert JAX_IMPORT.search("import prcv2025reid_tpu")
+
+
+def test_build_model_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(TrainingConfig(**TINY), num_classes=3)
+    model = build_model(TrainingConfig(**TINY), num_classes=3, device="cpu")
+    assert model.null_tokens.device.type == "cpu"
+
+
+@pytest.mark.parametrize("override", [
+    {"block_impl": "fused_int8"},
+    {"block_impl": "fused_int8_mlp"},
+    {"block_impl": "fused_qkv"},
+    {"block_impl": "fused_interpret"},
+    {"attn_backend": "splash"},
+    {"attn_backend": "onesaug"},
+    {"gelu_impl": "tanh"},
+    {"gelu_impl": "poly"},
+    {"use_fused_mlp": True},
+    {"use_fused_resln": True},
+    {"token_keep": 4, "token_reduce_layer": 1},
+])
+def test_unported_values_raise(override):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md|interpret"):
+        TrainingConfig(**{**TINY, **override})
+
+
+@pytest.mark.parametrize("override", [
+    {"block_impl": "fusd"},
+    {"attn_backend": "flash"},
+    {"gelu_impl": "relu"},
+    {"modalities": ("nir", "vis")},
+    {"modalities": ("vis", "text", "nir")},
+    {"token_keep": -1},
+    {"use_pallas_attention": True, "attn_backend": "splash"},
+])
+def test_invalid_values_raise_like_jax(override):
+    with pytest.raises(ValueError):
+        TrainingConfig(**{**TINY, **override})
+
+
+def test_text_in_active_set_raises():
+    model = build_model(TrainingConfig(**TINY), num_classes=3, device="cpu")
+    with pytest.raises(NotImplementedError, match="text tower"):
+        make_combo_embed_step(model, ("vis", "text"))
+    images = torch.zeros(1, 4, 32, 32, 3, dtype=torch.uint8)
+    with pytest.raises(NotImplementedError, match="text tower"):
+        model.encode_subset(images, torch.ones(1, 4), None, None, ("text",))
+
+
+def test_defaults_are_vit_b16():
+    cfg = TrainingConfig()
+    assert (cfg.vision_hidden_dim, cfg.vision_layers, cfg.vision_heads,
+            cfg.vision_mlp_dim, cfg.patch_size, cfg.image_size, cfg.fusion_dim) == (
+        768, 12, 12, 3072, 16, 224, 512)
+    assert cfg.compute_dtype == "bfloat16" and cfg.block_impl == "xla"
+
+
+def test_fused_mha_rejects_unknown_kernel_version():
+    q = torch.zeros(1, 1, 4, 8)
+    with pytest.raises(ValueError, match="kernel_version"):
+        fused_mha(q, q, q, kernel_version=3)

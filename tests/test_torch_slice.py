@@ -1,0 +1,154 @@
+"""The port's gallery-embed slice against the JAX model, end to end.
+
+One JAX ``MultiModalReIDModel`` is initialised at tiny f32 widths; its
+lora_B, biases and BN running statistics are perturbed (JAX initialises
+them to zero / one, which would hide folding, bias and BN bugs), the tree is
+flattened the way ``params_to_npz`` writes it and loaded into the port
+through ``params.py``.  ``encode_subset`` is compared on one seeded uint8
+batch in which one sample has every image masked (the all-masked rescue),
+under the plain block path, the fused block path (JAX: ``fused_interpret``)
+and ``use_pallas_attention=True`` (JAX resolves it to its plain core on the
+CPU; the port's dispatch does the same for CPU tensors).
+"""
+import dataclasses
+import sys
+from pathlib import Path
+
+import flax.traverse_util as tu
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, str(Path(__file__).parent))
+from conftest import TINY_BASE  # noqa: E402
+
+from prcv2025reid_tpu.configs import TrainingConfig as JaxConfig  # noqa: E402
+from prcv2025reid_tpu.models.reid_model import MultiModalReIDModel as JaxModel  # noqa: E402
+from prcv2025reid_tpu_torch import TrainingConfig, build_model, make_combo_embed_step  # noqa: E402
+from prcv2025reid_tpu_torch.params import init_params, load_params  # noqa: E402
+
+NUM_CLASSES = 7
+B, MV, S = 3, 4, 32
+TOL = 2e-4  # abs, on the x8-scaled bn_features (f32; summation order only)
+
+CONFIGS = {
+    "xla": ({}, {}),
+    "fused": ({"block_impl": "fused_interpret"}, {"block_impl": "fused"}),
+    "pallas_attention": ({"use_pallas_attention": True}, {"use_pallas_attention": True}),
+}
+
+
+def port_config(jcfg: JaxConfig, **over) -> TrainingConfig:
+    names = {f.name for f in dataclasses.fields(TrainingConfig)}
+    kw = {n: getattr(jcfg, n) for n in names}
+    kw.update(over)
+    return TrainingConfig(**kw)
+
+
+@pytest.fixture(scope="module")
+def batch():
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (B, MV, S, S, 3), dtype=np.uint8)
+    image_mask = np.ones((B, MV), np.float32)
+    image_mask[1] = 0.0  # sample 1: every modality missing -> rescue path
+    image_mask[2, 2] = 0.0  # sample 2: sk missing
+    tokens = np.zeros((B, TINY_BASE["text_context_length"]), np.int32)
+    return images, image_mask, tokens, np.zeros((B,), np.float32)
+
+
+@pytest.fixture(scope="module")
+def flat_params(batch):
+    cfg = JaxConfig(**TINY_BASE)
+    images, image_mask, tokens, text_mask = batch
+    variables = JaxModel(config=cfg, num_classes=NUM_CLASSES).init(
+        {"params": jax.random.PRNGKey(0)}, jnp.asarray(images, jnp.float32),
+        jnp.asarray(image_mask), jnp.asarray(tokens), jnp.asarray(text_mask), train=False,
+    )
+    flat = {k: np.asarray(v) for k, v in tu.flatten_dict(variables, sep="/").items()}
+    rng = np.random.default_rng(1)
+    for k, v in flat.items():
+        if k.endswith("lora_B"):
+            flat[k] = rng.normal(0.0, 0.2, v.shape).astype(np.float32)
+        elif k.endswith("/bias") or k.endswith("bn/mean"):
+            flat[k] = rng.normal(0.0, 0.05, v.shape).astype(np.float32)
+        elif k.endswith("bn/var"):
+            flat[k] = rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
+    return flat
+
+
+@pytest.fixture(scope="module")
+def jax_variables(flat_params):
+    return tu.unflatten_dict({tuple(k.split("/")): jnp.asarray(v) for k, v in flat_params.items()})
+
+
+@pytest.mark.parametrize("active", [("vis",), ("nir", "sk")])
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_encode_subset_matches_jax(name, active, batch, flat_params, jax_variables):
+    jax_over, port_over = CONFIGS[name]
+    jcfg = JaxConfig(**{**TINY_BASE, **jax_over})
+    images, image_mask, tokens, text_mask = batch
+    jmodel = JaxModel(config=jcfg, num_classes=NUM_CLASSES)
+    want = jmodel.apply(
+        jax_variables, jnp.asarray(images), jnp.asarray(image_mask), jnp.asarray(tokens),
+        jnp.asarray(text_mask), active, method=jmodel.encode_subset,
+    )
+    model = build_model(port_config(JaxConfig(**TINY_BASE), **port_over),
+                        flat_params, device="cpu")
+    with torch.inference_mode():
+        got = model.encode_subset(torch.from_numpy(images), torch.from_numpy(image_mask),
+                                  None, None, active)
+    assert got.dtype == torch.float32 and got.shape == (B, TINY_BASE["fusion_dim"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL)
+
+
+def test_embed_step_is_normalized_encode_subset(batch, flat_params):
+    images, image_mask, _, _ = batch
+    model = build_model(port_config(JaxConfig(**TINY_BASE)), flat_params, device="cpu")
+    emb = make_combo_embed_step(model, ("vis",))(images, image_mask)
+    with torch.inference_mode():
+        raw = model.encode_subset(torch.from_numpy(images), torch.from_numpy(image_mask),
+                                  None, None, ("vis",))
+    torch.testing.assert_close(emb, raw / raw.norm(dim=1, keepdim=True))
+    assert emb.device.type == "cpu"
+
+
+def test_loader_rejects_unknown_and_missing_keys(flat_params):
+    cfg = port_config(JaxConfig(**TINY_BASE))
+    with pytest.raises(ValueError, match="do(es)? not know"):
+        build_model(cfg, {**flat_params, "params/encoder/vision/extra": np.zeros(1)},
+                    device="cpu")
+    partial = {k: v for k, v in flat_params.items() if not k.endswith("ln_final/scale")}
+    with pytest.raises(ValueError, match="missing"):
+        build_model(cfg, partial, device="cpu")
+    bad = dict(flat_params)
+    bad["params/null_tokens"] = np.zeros((2, 2), np.float32)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        build_model(cfg, bad, device="cpu")
+
+
+def test_loader_skips_only_unported_modules(flat_params):
+    from prcv2025reid_tpu_torch.models.reid_model import MultiModalReIDModel
+
+    model = MultiModalReIDModel(port_config(JaxConfig(**TINY_BASE)), NUM_CLASSES)
+    skipped = load_params(model, flat_params)
+    assert skipped and all(
+        k.startswith(("params/encoder/text/", "params/encoder/text_proj/", "params/sdm_module/"))
+        for k in skipped)
+    torch.testing.assert_close(model.bn_neck.bn.var,
+                               torch.from_numpy(flat_params["batch_stats/bn_neck/bn/var"]))
+
+
+def test_init_params_matches_jax_tree(flat_params):
+    ours = init_params(port_config(JaxConfig(**TINY_BASE)), NUM_CLASSES, seed=3)
+    unported = ("params/encoder/text/", "params/encoder/text_proj/", "params/sdm_module/")
+    jax_subset = {k: v.shape for k, v in flat_params.items() if not k.startswith(unported)}
+    assert {k: v.shape for k, v in ours.items()} == jax_subset
+    assert all(v.dtype == np.float32 for v in ours.values())
+    assert all(np.abs(v).max() > 0 for k, v in ours.items() if k.endswith(("lora_B", "bn/mean")))
+    assert any(np.abs(ours[k] - 1).max() > 0 for k in ours if k.endswith("bn/var"))
+    again = init_params(port_config(JaxConfig(**TINY_BASE)), NUM_CLASSES, seed=3)
+    assert all(np.array_equal(ours[k], again[k]) for k in ours)
+    plain = init_params(port_config(JaxConfig(**TINY_BASE)), NUM_CLASSES, perturb=False)
+    assert all(not plain[k].any() for k in plain if k.endswith("lora_B"))
