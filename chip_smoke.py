@@ -23,7 +23,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   5. time every kernel, its plain version and (where one PyTorch call
      computes the same function) that call with CUDA events, median of
      TIMED_RUNS after warm-up, beside the least time the card could take;
-     time end-to-end embeds/s per configuration.
+     time end-to-end embeds/s per configuration (in turns, median of
+     E2E_ROUNDS rounds) and print torch.profiler's device time per kernel
+     for one embed step of each.
 
 Results go to standard output; the line before the last is the JSON
 ``{"kernels": [...]}``, the last line ``{"ok": true, "device": {...}}``.
@@ -45,7 +47,9 @@ MIN_COSINE = 0.999
 F32_MIN_COSINE = 0.99
 TIMED_RUNS = 25
 WARMUP_RUNS = 3
-E2E_ITERS = 8
+E2E_ITERS = 10
+E2E_ROUNDS = 3
+TOP_KERNELS = 8
 BATCH = 128
 NUM_CLASSES = 400
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
@@ -75,6 +79,12 @@ def time_ms(torch, fn, runs=TIMED_RUNS):
         pairs.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def device_time(event) -> float:
+    """Device (CUDA) self time of a profiler row in microseconds."""
+    t = getattr(event, "self_device_time_total", None)
+    return t if t is not None else event.self_cuda_time_total
 
 
 def errors(torch, got, want):
@@ -133,7 +143,7 @@ def main() -> int:
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
 
-    results, failures = {}, []
+    failures = []
     # attention operands as the model hands them over: views of one QKV projection
     qkv = randn(BATCH, S, 3, H, Dh).bfloat16()
     q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
@@ -282,18 +292,42 @@ def main() -> int:
     }
     print("yardsticks: " + json.dumps(yard))
 
-    e2e = {}
+    # end to end: the configurations in turns, E2E_ROUNDS rounds, median rate
+    rates = {name: [] for name in steps}
     for name, step in steps.items():
         step(images, image_mask)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(E2E_ITERS):
-            out = step(images, image_mask)
-        torch.cuda.synchronize()
-        e2e[name] = BATCH * E2E_ITERS / (time.perf_counter() - t0)
-        del out
+    for rnd in range(E2E_ROUNDS):
+        for name in (list(steps) if rnd % 2 == 0 else list(steps)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(E2E_ITERS):
+                steps[name](images, image_mask)
+            torch.cuda.synchronize()
+            rates[name].append(BATCH * E2E_ITERS / (time.perf_counter() - t0))
+    e2e = {name: statistics.median(r) for name, r in rates.items()}
+    print("end_to_end_rounds: " + json.dumps(rates))
+
+    # where one embed step's device time goes, per configuration
+    from torch.profiler import ProfilerActivity, profile
+
+    device_ms = {}
+    for name, step in steps.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(images, image_mask)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and device_time(e) > 0]
+        total = sum(device_time(e) for e in events)
+        top = sorted(events, key=device_time, reverse=True)[:TOP_KERNELS]
+        wall_ms = BATCH / e2e[name] * 1e3
+        device_ms[name] = total / 1e3
+        print(f"profile {name}: device {total / 1e3:.3f} ms of {wall_ms:.3f} ms per step "
+              f"(idle share {1 - total / 1e3 / wall_ms:.3f}) in {len(events)} kernels; top: "
+              + json.dumps([[e.key[:60], e.count, round(device_time(e) / 1e3, 4)] for e in top]))
+
     print("end_to_end: " + json.dumps({
-        "card": card, "batch": BATCH, "embeds_per_sec": e2e, "min_cosine_vs_xla": gate,
+        "card": card, "batch": BATCH, "embeds_per_sec": e2e, "device_ms_per_step": device_ms,
+        "min_cosine_vs_xla": gate,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     for r in rows:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "

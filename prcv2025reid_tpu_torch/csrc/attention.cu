@@ -9,9 +9,9 @@
 // products against 155 MB of q/k/v/out, so it is memory-bound (~46 us at
 // 3.35 TB/s).  Design: one block of 4 warps per (batch, head, 64-row query
 // tile).  The head's K and V (S x 64 bf16) and the Q tile are staged in shared
-// memory once; each warp keeps its 16 rows of f32 scores for ALL keys in
-// registers (S <= 256), so scores, max-subtracted softmax and P never touch
-// device memory.  QK^T and PV run on the tensor cores (mma.sync m16n8k16,
+// memory once, with all copies in flight together (cp.async); each warp keeps
+// its 16 rows of f32 scores for ALL keys in registers (S <= 256), so scores,
+// max-subtracted softmax and P never touch device memory.  QK^T and PV run on the tensor cores (mma.sync m16n8k16,
 // f32 accumulation); P is normalised in f32 and cast to bf16 before PV, as the
 // TPU kernel does.  Keys >= S are masked by index to -1e9 (no padded copies of
 // the inputs); causal masking is optional.  q/k/v/out are read and written
@@ -33,7 +33,7 @@ struct Strides {
 };
 
 template <int KCH>  // keys staged in chunks of 16: S <= 16 * KCH
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(128, 3)  // 3 blocks (12 warps) per SM: <= 170 registers
 attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o, int S,
                 Strides qs, Strides ks, Strides vs, Strides os, float scale,
@@ -50,23 +50,21 @@ attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + b * ks.b + h * ks.h;
   const bf16* vb = v + b * vs.b + h * vs.h;
 
-  // stage K, V (zero rows past S, so masked keys multiply zeros) and Q
-  for (int i = tid; i < KCH * 16 * (DH / 8); i += blockDim.x) {
-    const int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
-    if (r < S) {
-      kv = *reinterpret_cast<const uint4*>(kb + r * ks.s + c);
-      vv = *reinterpret_cast<const uint4*>(vb + r * vs.s + c);
-    }
-    *reinterpret_cast<uint4*>(sK + r * LDS + c) = kv;
-    *reinterpret_cast<uint4*>(sV + r * LDS + c) = vv;
-  }
+  // stage Q, K, V with every copy in flight at once (zero rows past S, so
+  // masked keys multiply zeros)
   for (int i = tid; i < QT * (DH / 8); i += blockDim.x) {
     const int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
-    uint4 qv = make_uint4(0, 0, 0, 0);
-    if (q0 + r < S) qv = *reinterpret_cast<const uint4*>(qb + (q0 + r) * qs.s + c);
-    *reinterpret_cast<uint4*>(sQ + r * LDS + c) = qv;
+    const bool in = q0 + r < S;
+    cp_async16(sQ + r * LDS + c, in ? qb + (q0 + r) * qs.s + c : qb, in);
   }
+  for (int i = tid; i < KCH * 16 * (DH / 8); i += blockDim.x) {
+    const int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
+    const bool in = r < S;
+    cp_async16(sK + r * LDS + c, in ? kb + r * ks.s + c : kb, in);
+    cp_async16(sV + r * LDS + c, in ? vb + r * vs.s + c : vb, in);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
 
   const int wrow = warp * 16;  // this warp's first row inside the tile

@@ -11,22 +11,28 @@
 // (~271 us); both are compute-bound.  The TPU design keeps every weight and a
 // whole row tile resident in ~15 MB of VMEM; a Hopper block has 227 KB of
 // shared memory, so the weights are streamed instead:
-//   fused_ln_qkv   = one GEMM launch: LN1 prologue (f32 row statistics over
-//                    all D columns, normalised tile cast to bf16 in shared
-//                    memory) and a bias epilogue writing bf16.
-//   fused_out_mlp  = three GEMM launches of the same core:
+//   fused_ln_qkv   = row statistics (f32 mean and variance of each row over
+//                    all D columns, one warp per row, the row read once), then
+//                    one GEMM whose prologue normalises each A tile in shared
+//                    memory and casts it to bf16, and whose epilogue adds the
+//                    f32 bias and writes bf16.
+//   fused_out_mlp  = the same pieces, four launches:
 //                    1. attn @ Wo, epilogue x2 = x + (acc + bo), kept in f32
 //                       (the TPU kernel never rounds x2 to bf16);
-//                    2. LN2 prologue on x2, x2n @ W1, epilogue
+//                    2. row statistics of x2;
+//                    3. LN2 prologue on x2, x2n @ W1, epilogue
 //                       h = bf16(GELU_erf(acc + b1)) with the Abramowitz-Stegun
 //                       erf the TPU kernel uses;
-//                    3. h @ W2, epilogue out = bf16(x2 + (acc + b2)).
+//                    4. h @ W2, epilogue out = bf16(x2 + (acc + b2)).
 //                  The [T, F] round trip of h through device memory is the cost
-//                  of this first version.
-// The core: 128x128x32 block tiles, 8 warps of 64x32, mma.sync m16n8k16 with
-// f32 accumulators, register-staged double buffering of the A and W tiles
-// (the A tile is transformed on its way to shared memory, which is where the
-// LayerNorm prologue lives), ldmatrix fragment loads from padded rows.
+//                  of this version.
+// The GEMM core: 128x128x32 block tiles, 8 warps of 64x32, mma.sync m16n8k16
+// with f32 accumulators, a 3- or 4-stage cp.async pipeline for the A and W
+// tiles and ldmatrix fragment loads from padded rows.  With the LayerNorm
+// prologue each raw A tile (bf16 x, or f32 x2) is normalised in shared memory
+// into one of two alternating bf16 tiles, one tile ahead of the MMAs, so the
+// normalisation of tile k+1 overlaps other warps' products on tile k.  Computing the statistics once per row, not once
+// per (row tile, column tile), is what keeps the prologue cheap.
 #include "common.cuh"
 
 using namespace port;
@@ -45,7 +51,8 @@ struct GemmArgs {
   const void* a;  long long a_g;    // A [G, M, K] (bf16, or f32 with LN)
   const bf16* w;  long long w_g;    // W [G, K, N] bf16
   const float* bias; long long bias_g;  // [G, N] f32
-  const float* ln_s; const float* ln_b; float eps;  // LN over K (prologue)
+  const float* ln_s; const float* ln_b;  // LN over K (prologue) ...
+  const float2* stats;                   // ... with (mean, rstd) per row [G, M]
   const void* res; long long res_g;  // residual [G, M, N]: bf16 or f32
   void* out;      long long out_g;   // [G, M, N]: bf16 or f32
   int M, N, K;
@@ -87,18 +94,83 @@ __device__ __forceinline__ void load8<float>(const float* p, float (&v)[8]) {
   v[4] = x1.x; v[5] = x1.y; v[6] = x1.z; v[7] = x1.w;
 }
 
+// f32 LayerNorm statistics, one warp per row: mean, then the mean squared
+// deviation (two passes over the row held in registers), rstd = 1/sqrt(var+eps).
+// Each row is read once; the GEMM prologue then normalises with them.
+constexpr int STATS_MAX_K = 32 * 8 * 4;
+
 template <typename AT>
-__device__ __forceinline__ float to_f32(AT x);
-template <>
-__device__ __forceinline__ float to_f32<bf16>(bf16 x) { return __bfloat162float(x); }
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
+__global__ void __launch_bounds__(256) row_stats_kernel(const AT* __restrict__ x,
+                                                        float2* __restrict__ stats,
+                                                        int rows, int K, float eps) {
+  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const AT* xr = x + static_cast<long long>(row) * K;
+  float v[4][8], sum = 0.f;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int col = (c * 32 + lane) * 8;
+    if (col < K) {
+      load8<AT>(xr + col, v[c]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[c][e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sum += v[c][e];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  const float mu = sum / K;
+  float sq = 0.f;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if ((c * 32 + lane) * 8 < K) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sq += (v[c][e] - mu) * (v[c][e] - mu);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+  if (lane == 0) stats[row] = make_float2(mu, rsqrtf(sq / K + eps));
+}
+
+template <typename AT>
+cudaError_t run_stats(const void* x, float2* stats, int rows, int K, float eps,
+                      cudaStream_t stream) {
+  if (K > STATS_MAX_K || K % 8 != 0) return cudaErrorInvalidValue;
+  row_stats_kernel<AT><<<(rows + 7) / 8, 256, 0, stream>>>(
+      static_cast<const AT*>(x), stats, rows, K, eps);
+  return cudaGetLastError();
+}
+
+template <typename AT, bool LN>
+struct Smem {
+  // cp.async pipeline depth (the f32 raw tiles of the LN2 GEMM leave room for 3)
+  static constexpr int STAGES = (LN && sizeof(AT) == 2) ? 4 : 3;
+  // LN: raw A tiles (bf16 x or f32 x2) land in `raw` and are normalised into
+  // two alternating bf16 `a` tiles; no LN: one bf16 `a` tile per stage
+  static constexpr int LDR = BK + 16 / static_cast<int>(sizeof(AT));  // 16-B pad per row
+  static constexpr int RAW = LN ? STAGES * BM * LDR * static_cast<int>(sizeof(AT)) : 0;
+  static constexpr int A = (LN ? 2 : STAGES) * BM * LDA * 2;
+  static constexpr int B = STAGES * BK * LDB * 2;
+  // LN: per-row (mean, rstd) and the per-column scale and bias
+  static constexpr int LNP = LN ? (2 * BM + 2 * STATS_MAX_K) * 4 : 0;
+  static constexpr int BYTES = RAW + A + B + LNP;
+};
 
 template <typename AT, bool LN, int EPI>
-__global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs p) {
-  __shared__ __align__(16) bf16 sA[2][BM * LDA];
-  __shared__ __align__(16) bf16 sB[2][BK * LDB];
-  __shared__ float s_mu[LN ? BM : 1], s_rstd[LN ? BM : 1];
+__global__ void __launch_bounds__(THREADS, 2) gemm_kernel(GemmArgs p) {
+  using SM = Smem<AT, LN>;
+  constexpr int STAGES = SM::STAGES;
+  extern __shared__ __align__(16) unsigned char smem[];
+  AT* sRaw = reinterpret_cast<AT*>(smem);
+  bf16* sA = reinterpret_cast<bf16*>(smem + SM::RAW);
+  bf16* sB = reinterpret_cast<bf16*>(smem + SM::RAW + SM::A);
+  float* s_mu = reinterpret_cast<float*>(smem + SM::RAW + SM::A + SM::B);
+  float* s_rstd = s_mu + BM;
+  float* s_lns = s_rstd + BM;
+  float* s_lnb = s_lns + STATS_MAX_K;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wm = warp / 4, wn = warp % 4;  // 2 x 4 warps of 64 x 32
@@ -107,77 +179,78 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs p) {
   const int M = p.M, N = p.N, K = p.K;
   const AT* A = static_cast<const AT*>(p.a) + grp * p.a_g;
   const bf16* W = p.w + grp * p.w_g;
+  const int nk = (K + BK - 1) / BK;
 
-  if (LN) {
-    // f32 row statistics over all K columns: mean, then mean squared deviation
-    for (int r = warp; r < BM; r += THREADS / 32) {
-      const int row = bm + r;
-      float mu = 0.f, rstd = 0.f;
-      if (row < M) {
-        const AT* x = A + static_cast<long long>(row) * K;
-        float sum = 0.f;
-        for (int c = lane; c < K; c += 32) sum += to_f32<AT>(x[c]);
+  // issue the copies of k-tile kt into pipeline stage st
+  auto issue = [&](int kt, int st) {
+    const int k0 = kt * BK;
+    if (kt < nk) {
+      constexpr int EPC = 16 / static_cast<int>(sizeof(AT));  // A elements per 16 B
+      constexpr int ACH = BM * BK / EPC;                       // A chunks per tile
 #pragma unroll
-        for (int off = 16; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-        mu = sum / K;
-        float sq = 0.f;
-        for (int c = lane; c < K; c += 32) {
-          const float d = to_f32<AT>(x[c]) - mu;
-          sq += d * d;
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off /= 2) sq += __shfl_xor_sync(0xffffffffu, sq, off);
-        rstd = rsqrtf(sq / K + p.eps);
+      for (int i = 0; i < ACH / THREADS; ++i) {
+        const int c = tid + i * THREADS;
+        const int r = c / (BK / EPC), col = (c % (BK / EPC)) * EPC;
+        const bool in = bm + r < M && k0 + col + EPC <= K;
+        const AT* src = in ? A + static_cast<long long>(bm + r) * K + k0 + col : A;
+        void* dst = LN ? static_cast<void*>(sRaw + (st * BM + r) * SM::LDR + col)
+                       : static_cast<void*>(sA + (st * BM + r) * LDA + col);
+        cp_async16(dst, src, in);
       }
-      if (lane == 0) {
-        s_mu[r] = mu;
-        s_rstd[r] = rstd;
+#pragma unroll
+      for (int i = 0; i < BK * BN / 8 / THREADS; ++i) {
+        const int c = tid + i * THREADS;
+        const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
+        const bool in = k0 + r < K && bn + col + 8 <= N;
+        const bf16* src = in ? W + static_cast<long long>(k0 + r) * N + bn + col : W;
+        cp_async16(sB + (st * BK + r) * LDB + col, src, in);
       }
     }
-    __syncthreads();
-  }
+    cp_async_commit();  // an empty group past the end keeps the wait counts uniform
+  };
 
-  // register staging: 2 chunks of 8 A values and 2 chunks of 8 W values per thread
-  uint4 ra[2], rb[2];
-  auto load_tiles = [&](int k0) {
+  // LN: normalise raw k-tile kt into bf16 A buffer kt % 2: ((x - mu) * rstd) * s + b
+  auto normalise = [&](int kt) {
+    const int k0 = kt * BK, st = kt % STAGES;
+    bf16* dst = sA + (kt & 1) * BM * LDA;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < BM * BK / 8 / THREADS; ++i) {
       const int c = tid + i * THREADS;
       const int r = c / (BK / 8), col = (c % (BK / 8)) * 8;
-      const int row = bm + r, kc = k0 + col;
       float v[8];
-      if (row < M && kc + 8 <= K) {
-        load8<AT>(A + static_cast<long long>(row) * K + kc, v);
-        if (LN) {
+      if (k0 + col + 8 <= K) {
+        load8<AT>(sRaw + (st * BM + r) * SM::LDR + col, v);
 #pragma unroll
-          for (int e = 0; e < 8; ++e)
-            v[e] = ((v[e] - s_mu[r]) * s_rstd[r]) * p.ln_s[kc + e] + p.ln_b[kc + e];
-        }
+        for (int e = 0; e < 8; ++e)
+          v[e] = ((v[e] - s_mu[r]) * s_rstd[r]) * s_lns[k0 + col + e] + s_lnb[k0 + col + e];
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[e] = 0.f;
       }
-      ra[i] = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
-                         pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * THREADS;
-      const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
-      const int kr = k0 + r, n = bn + col;
-      rb[i] = make_uint4(0, 0, 0, 0);
-      if (kr < K && n + 8 <= N)
-        rb[i] = *reinterpret_cast<const uint4*>(W + static_cast<long long>(kr) * N + n);
+      *reinterpret_cast<uint4*>(dst + r * LDA + col) =
+          make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                     pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
     }
   };
-  auto store_tiles = [&](int st) {
+
+  // the first STAGES-1 tiles are in flight while the LN parameters load
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * THREADS;
-      *reinterpret_cast<uint4*>(&sA[st][(c / (BK / 8)) * LDA + (c % (BK / 8)) * 8]) = ra[i];
-      *reinterpret_cast<uint4*>(&sB[st][(c / (BN / 8)) * LDB + (c % (BN / 8)) * 8]) = rb[i];
+  for (int s = 0; s < STAGES - 1; ++s) issue(s, s);
+  if (LN) {
+    for (int r = tid; r < BM; r += THREADS) {
+      const float2 st = bm + r < M ? p.stats[grp * static_cast<long long>(M) + bm + r]
+                                   : make_float2(0.f, 0.f);
+      s_mu[r] = st.x;
+      s_rstd[r] = st.y;
     }
-  };
+    for (int c = tid; c < K; c += THREADS) {
+      s_lns[c] = p.ln_s[c];
+      s_lnb[c] = p.ln_b[c];
+    }
+    cp_async_wait<STAGES - 2>();  // k-tile 0 has landed
+    __syncthreads();
+    normalise(0);
+  }
 
   float acc[4][4][4];
 #pragma unroll
@@ -185,32 +258,34 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs p) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
 
-  const int nk = (K + BK - 1) / BK;
-  load_tiles(0);
-  store_tiles(0);
-  __syncthreads();
   for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < nk) load_tiles((kt + 1) * BK);  // global loads in flight during the MMAs
+    const int st = kt % STAGES;
+    // no LN: k-tile kt has landed; LN: k-tile kt+1 has landed (kt is normalised)
+    if (LN) cp_async_wait<STAGES - 3>(); else cp_async_wait<STAGES - 2>();
+    __syncthreads();  // everyone's copies visible; stage kt-1 and A buffer (kt+1)%2 free
+    issue(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
+    const bf16* a_tile = sA + (LN ? (kt & 1) : st) * BM * LDA;
+    const bf16* b_tile = sB + st * BK * LDB;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       uint32_t af[4][4], bfr[2][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        ldmatrix_x4(af[i], &sA[st][(wm * 64 + i * 16 + lane % 16) * LDA + kk + (lane / 16) * 8]);
+        ldmatrix_x4(af[i], a_tile + (wm * 64 + i * 16 + lane % 16) * LDA + kk + (lane / 16) * 8);
 #pragma unroll
       for (int jp = 0; jp < 2; ++jp)
-        ldmatrix_x4_trans(bfr[jp], &sB[st][(kk + lane % 8 + ((lane / 8) % 2) * 8) * LDB +
-                                           wn * 32 + jp * 16 + (lane / 16) * 8]);
+        ldmatrix_x4_trans(bfr[jp], b_tile + (kk + lane % 8 + ((lane / 8) % 2) * 8) * LDB +
+                                       wn * 32 + jp * 16 + (lane / 16) * 8);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           mma_bf16(acc[i][j], af[i], bfr[j / 2][(j % 2) * 2], bfr[j / 2][(j % 2) * 2 + 1]);
     }
-    if (kt + 1 < nk) store_tiles(st ^ 1);
-    __syncthreads();
+    // the next tile is normalised while other warps still multiply this one
+    if (LN && kt + 1 < nk) normalise(kt + 1);
   }
+  cp_async_wait<0>();
 
   // epilogue: each thread owns pairs of neighbouring columns
   const float* bias = p.bias + grp * p.bias_g;
@@ -251,41 +326,51 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs p) {
 
 template <typename AT, bool LN, int EPI>
 cudaError_t run_gemm(const GemmArgs& p, int G, cudaStream_t stream) {
+  constexpr int bytes = Smem<AT, LN>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(
+      gemm_kernel<AT, LN, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
   dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, G);
-  gemm_kernel<AT, LN, EPI><<<grid, THREADS, 0, stream>>>(p);
+  gemm_kernel<AT, LN, EPI><<<grid, THREADS, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // qkv[g] = bf16(LN(x[g]) @ w[g] + b[g]);  x [G,T,D] bf16, w [G,D,O] bf16,
-// ln_s/ln_b [D] f32, b [G,O] f32, out [G,T,O] bf16.
+// ln_s/ln_b [D] f32, b [G,O] f32, out [G,T,O] bf16; stats [G*T] float2 is
+// caller-allocated scratch.  Two launches: row statistics, then the GEMM.
 extern "C" int ln_qkv(const void* x, const void* ln_s, const void* ln_b,
-                      const void* w, const void* b, void* out, int G, int T,
-                      int D, int O, float eps, void* stream) {
+                      const void* w, const void* b, void* stats, void* out, int G,
+                      int T, int D, int O, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  float2* rs = static_cast<float2*>(stats);
+  if ((e = run_stats<bf16>(x, rs, G * T, D, eps, st)) != cudaSuccess) return e;
   GemmArgs p{};
   p.a = x;  p.a_g = static_cast<long long>(T) * D;
   p.w = static_cast<const bf16*>(w);  p.w_g = static_cast<long long>(D) * O;
   p.bias = static_cast<const float*>(b);  p.bias_g = O;
   p.ln_s = static_cast<const float*>(ln_s);  p.ln_b = static_cast<const float*>(ln_b);
-  p.eps = eps;
+  p.stats = rs;
   p.out = out;  p.out_g = static_cast<long long>(T) * O;
   p.M = T;  p.N = O;  p.K = D;
-  return static_cast<int>(
-      run_gemm<bf16, true, EPI_BIAS>(p, G, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(run_gemm<bf16, true, EPI_BIAS>(p, G, st));
 }
 
 // out[g] = bf16(x2 + GELU(LN(x2) @ w1[g] + b1[g]) @ w2[g] + b2[g]) with
 // x2 = x[g] + attn[g] @ wo[g] + bo[g] in f32.  attn, x [G,T,D] bf16; wo
 // [G,D,D], w1 [G,D,F], w2 [G,F,D] bf16; bo, b1, b2 [G,*] f32; ln [D] f32.
-// x2 [G,T,D] f32 and h [G,T,F] bf16 are caller-allocated scratch.
+// x2 [G,T,D] f32, stats [G*T] float2 and h [G,T,F] bf16 are caller-allocated
+// scratch.  Four launches: out-proj, row statistics of x2, fc1, fc2.
 extern "C" int out_mlp(const void* attn, const void* x, const void* wo,
                        const void* bo, const void* ln_s, const void* ln_b,
                        const void* w1, const void* b1, const void* w2,
-                       const void* b2, void* x2, void* h, void* out, int G,
-                       int T, int D, int F, float eps, void* stream) {
+                       const void* b2, void* x2, void* stats, void* h, void* out,
+                       int G, int T, int D, int F, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long TD = static_cast<long long>(T) * D, TF = static_cast<long long>(T) * F;
+  float2* rs = static_cast<float2*>(stats);
   cudaError_t e;
 
   GemmArgs p1{};
@@ -296,13 +381,14 @@ extern "C" int out_mlp(const void* attn, const void* x, const void* wo,
   p1.out = x2;  p1.out_g = TD;
   p1.M = T;  p1.N = D;  p1.K = D;
   if ((e = run_gemm<bf16, false, EPI_RES_F32>(p1, G, st)) != cudaSuccess) return e;
+  if ((e = run_stats<float>(x2, rs, G * T, D, eps, st)) != cudaSuccess) return e;
 
   GemmArgs p2{};
   p2.a = x2;  p2.a_g = TD;
   p2.w = static_cast<const bf16*>(w1);  p2.w_g = static_cast<long long>(D) * F;
   p2.bias = static_cast<const float*>(b1);  p2.bias_g = F;
   p2.ln_s = static_cast<const float*>(ln_s);  p2.ln_b = static_cast<const float*>(ln_b);
-  p2.eps = eps;
+  p2.stats = rs;
   p2.out = h;  p2.out_g = TF;
   p2.M = T;  p2.N = F;  p2.K = D;
   if ((e = run_gemm<float, true, EPI_GELU>(p2, G, st)) != cudaSuccess) return e;

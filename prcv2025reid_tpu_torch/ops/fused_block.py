@@ -21,6 +21,7 @@ from prcv2025reid_tpu_torch.ops import _kernels
 from prcv2025reid_tpu_torch.ops.kernel_math import gelu_exact
 
 LN_EPS = 1e-5
+MAX_LN_WIDTH = 1024  # the row-statistics kernel holds a row in registers
 
 
 def _ln_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -73,18 +74,20 @@ def fused_ln_qkv(x, ln_scale, ln_bias, w, b):
     fn = "fused_ln_qkv"
     G, T, D = x.shape
     O = w.shape[-1]
-    _kernels.require(D % 8 == 0 and O % 8 == 0, f"{fn}: D={D} and O={O} must be multiples of 8")
+    _kernels.require(D % 8 == 0 and O % 8 == 0 and D <= MAX_LN_WIDTH,
+                     f"{fn}: D={D} and O={O} must be multiples of 8, D <= {MAX_LN_WIDTH}")
     _bf16_operand(fn, "x", x, (G, T, D))
     _bf16_operand(fn, "w", w, (G, D, O))
     lns = _f32_vector(fn, "ln_scale", ln_scale, (D,), x.device)
     lnb = _f32_vector(fn, "ln_bias", ln_bias, (D,), x.device)
     bf = _f32_vector(fn, "b", b, (G, O), x.device)
+    stats = torch.empty(G * T, 2, dtype=torch.float32, device=x.device)
     out = torch.empty(G, T, O, dtype=x.dtype, device=x.device)
     c = _kernels.lib("fused_block").ln_qkv
-    c.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    c.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     c.restype = ctypes.c_int
     rc = c(x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w.data_ptr(), bf.data_ptr(),
-           out.data_ptr(), G, T, D, O, LN_EPS, _kernels.stream_ptr(x))
+           stats.data_ptr(), out.data_ptr(), G, T, D, O, LN_EPS, _kernels.stream_ptr(x))
     _kernels.check(rc, fn)
     fused_ln_qkv.launches += 1
     return out
@@ -93,15 +96,16 @@ def fused_ln_qkv(x, ln_scale, ln_bias, w, b):
 def fused_out_mlp(attn, x, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2):
     """x + attn@wo + bo, then + MLP(LN2(.)) with exact (A-S erf) GELU.
     attn, x [G,T,D] bf16; wo [G,D,D], w1 [G,D,F], w2 [G,F,D] bf16; biases
-    [G,*]; ln_* [D] -> [G,T,D] bf16.  On the card this is three launches of
-    one GEMM kernel (out-proj, LN2+fc1+GELU, fc2+residual); it counts as one
-    launch of the fused kernel."""
+    [G,*]; ln_* [D] -> [G,T,D] bf16.  On the card this is four launches
+    (out-proj GEMM, LN2 row statistics, LN2+fc1+GELU GEMM, fc2+residual
+    GEMM); it counts as one launch of the fused kernel."""
     if not x.is_cuda:
         return out_mlp_plain(attn, x, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2)
     fn = "fused_out_mlp"
     G, T, D = x.shape
     F = w1.shape[-1]
-    _kernels.require(D % 8 == 0 and F % 8 == 0, f"{fn}: D={D} and F={F} must be multiples of 8")
+    _kernels.require(D % 8 == 0 and F % 8 == 0 and D <= MAX_LN_WIDTH,
+                     f"{fn}: D={D} and F={F} must be multiples of 8, D <= {MAX_LN_WIDTH}")
     _bf16_operand(fn, "attn", attn, (G, T, D))
     _bf16_operand(fn, "x", x, (G, T, D))
     _bf16_operand(fn, "wo", wo, (G, D, D))
@@ -113,14 +117,15 @@ def fused_out_mlp(attn, x, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2):
     lns = _f32_vector(fn, "ln_scale", ln_scale, (D,), x.device)
     lnb = _f32_vector(fn, "ln_bias", ln_bias, (D,), x.device)
     x2 = torch.empty(G, T, D, dtype=torch.float32, device=x.device)
+    stats = torch.empty(G * T, 2, dtype=torch.float32, device=x.device)
     h = torch.empty(G, T, F, dtype=x.dtype, device=x.device)
     out = torch.empty(G, T, D, dtype=x.dtype, device=x.device)
     c = _kernels.lib("fused_block").out_mlp
-    c.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    c.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     c.restype = ctypes.c_int
     rc = c(attn.data_ptr(), x.data_ptr(), wo.data_ptr(), bof.data_ptr(), lns.data_ptr(),
            lnb.data_ptr(), w1.data_ptr(), b1f.data_ptr(), w2.data_ptr(), b2f.data_ptr(),
-           x2.data_ptr(), h.data_ptr(), out.data_ptr(), G, T, D, F, LN_EPS,
+           x2.data_ptr(), stats.data_ptr(), h.data_ptr(), out.data_ptr(), G, T, D, F, LN_EPS,
            _kernels.stream_ptr(x))
     _kernels.check(rc, fn)
     fused_out_mlp.launches += 1
