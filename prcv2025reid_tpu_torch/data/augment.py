@@ -9,13 +9,12 @@ IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
-def normalize_images_device(images: torch.Tensor, dtype=None) -> torch.Tensor:
-    """uint8 [..., H, W, 3] -> ImageNet-normalized float on the tensor's
+def normalize_images_device(images: torch.Tensor) -> torch.Tensor:
+    """uint8 [..., H, W, 3] -> ImageNet-normalized float32 on the tensor's
     device.  Float inputs pass through unchanged (already normalized)."""
-    if images.dtype == torch.uint8:
-        dt = dtype or torch.float32
-        x = images.to(dt) / 255.0
-        mean = torch.as_tensor(IMAGENET_MEAN, dtype=dt, device=images.device)
-        std = torch.as_tensor(IMAGENET_STD, dtype=dt, device=images.device)
-        return (x - mean) / std
-    return images if dtype is None else images.to(dtype)
+    if images.dtype != torch.uint8:
+        return images
+    x = images.to(torch.float32) / 255.0
+    mean = torch.as_tensor(IMAGENET_MEAN, device=images.device)
+    std = torch.as_tensor(IMAGENET_STD, device=images.device)
+    return (x - mean) / std

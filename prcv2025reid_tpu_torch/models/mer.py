@@ -111,7 +111,7 @@ class MERDense(nn.Module):
                  alpha: float = 1.0, dtype=torch.float32, enable: bool = True,
                  device=None):
         super().__init__()
-        self.features, self.rank, self.alpha = features, rank, alpha
+        self.rank, self.alpha = rank, alpha
         self.dtype, self.enable = dtype, enable
         self.shared = Dense(in_dim, features, device=device)
         self.lora_A = _param(num_experts, in_dim, rank, device=device)
@@ -146,8 +146,8 @@ class MERAttention(nn.Module):
                  alpha: float = 1.0, dtype=torch.float32, attn_impl: str = "xla",
                  enable: bool = True, device=None):
         super().__init__()
-        if attn_impl not in ("xla", "auto", "pallas"):
-            raise ValueError(f"attn_impl={attn_impl!r}; valid: ['auto', 'pallas', 'xla']")
+        if attn_impl not in ("xla", "auto"):
+            raise ValueError(f"attn_impl={attn_impl!r}; valid: ['auto', 'xla']")
         self.num_heads, self.dtype, self.attn_impl = num_heads, dtype, attn_impl
         mer = dict(num_experts=num_experts, rank=rank, alpha=alpha, dtype=dtype,
                    enable=enable, device=device)
@@ -176,7 +176,7 @@ class MERAttention(nn.Module):
         impl = self.attn_impl
         if impl == "auto":
             impl = "pallas" if kernel_available(x) else "xla"
-        if impl == "xla":
+        if impl == "xla":  # the einsum core, on the [B, S, H, Dh] layout
             def merge2(t):
                 return t.reshape(G * B, S, H, Dh)
 

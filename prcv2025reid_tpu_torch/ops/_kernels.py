@@ -5,8 +5,8 @@ plain C interface and bound with ``ctypes``; all sources build in parallel,
 one ``nvcc`` process each.  Libraries go to ``<package>/_build/`` (listed in
 ``.gitignore``) under a name that carries a hash of the sources and flags, so
 an edited source never loads a stale build.  Nothing here runs at import
-time: the CPU tests import every module, and this machine-independent code
-only touches ``nvcc`` when a CUDA tensor reaches a kernel wrapper.
+time (the CPU tests import every module): ``nvcc`` runs only when a CUDA
+tensor first reaches a kernel wrapper, or when ``build_all`` is called.
 """
 from __future__ import annotations
 
