@@ -181,8 +181,8 @@ __global__ void __launch_bounds__(THREADS, 2) gemm_kernel(GemmArgs p) {
   const bf16* W = p.w + grp * p.w_g;
   const int nk = (K + BK - 1) / BK;
 
-  // issue the copies of k-tile kt into pipeline stage st
-  auto issue = [&](int kt, int st) {
+  // start the copies of k-tile kt into pipeline stage st
+  auto load_stage = [&](int kt, int st) {
     const int k0 = kt * BK;
     if (kt < nk) {
       constexpr int EPC = 16 / static_cast<int>(sizeof(AT));  // A elements per 16 B
@@ -235,7 +235,7 @@ __global__ void __launch_bounds__(THREADS, 2) gemm_kernel(GemmArgs p) {
 
   // the first STAGES-1 tiles are in flight while the LN parameters load
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) issue(s, s);
+  for (int s = 0; s < STAGES - 1; ++s) load_stage(s, s);
   if (LN) {
     for (int r = tid; r < BM; r += THREADS) {
       const float2 st = bm + r < M ? p.stats[grp * static_cast<long long>(M) + bm + r]
@@ -263,7 +263,7 @@ __global__ void __launch_bounds__(THREADS, 2) gemm_kernel(GemmArgs p) {
     // no LN: k-tile kt has landed; LN: k-tile kt+1 has landed (kt is normalised)
     if (LN) cp_async_wait<STAGES - 3>(); else cp_async_wait<STAGES - 2>();
     __syncthreads();  // everyone's copies visible; stage kt-1 and A buffer (kt+1)%2 free
-    issue(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
+    load_stage(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
     const bf16* a_tile = sA + (LN ? (kt & 1) : st) * BM * LDA;
     const bf16* b_tile = sB + st * BK * LDB;
 #pragma unroll
