@@ -10,16 +10,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   3. hold each kernel against its plain PyTorch version at the gallery-embed
      shapes (B=128 images of 197 tokens, ViT-B/16 widths) on the same bf16
      inputs: relative Frobenius error <= REL_TOL and max-abs error <= ABS_TOL;
-     attention also with causal=True and kernel_version=1;
+     attention also with causal=True and kernel_version=1, the fused MLP also
+     with G=3 groups of 32 images (6,304 rows, not a multiple of its tile);
   4. build the full-width ViT-B/16 model (fusion_dim 512, 400 classes, bf16
      compute) from init_params(seed=0, perturb=True) and embed one seeded
      uint8 batch through the entry points (build_model,
-     make_combo_embed_step) under block_impl="xla" (plain path),
-     block_impl="fused" and use_pallas_attention=True.  Each kernel
-     configuration must reach min-cosine >= 0.999 against the plain path, and
-     its kernels' launch counters, zeroed just before the run, must read
-     exactly one launch per block 0..L-2.  The plain path must also agree with
-     an f32 embedding of the same images computed by the port on the CPU;
+     make_combo_embed_step) under five paths: block_impl="xla" (plain),
+     block_impl="fused", use_pallas_attention=True, use_fused_mlp=True and
+     the fused-stream trunk (use_fused_resln=True with use_fused_mlp and
+     use_pallas_attention).  Each kernel path must reach min-cosine >= 0.999
+     against the plain path, and the launch counters, zeroed just before each
+     run, must read exactly EXPECTED (one launch per block 0..L-2 where the
+     last block is CLS-only; the fused-stream trunk runs all L blocks with two
+     residual+LN launches each).  The fused-stream trunk is also held against
+     the plain path on the MM-3 query combo (nir, sk, cp: three groups).
+     Every path must also agree with an f32 embedding of the same images
+     computed by the port on the CPU;
   5. time every kernel, its plain version and (where one PyTorch call
      computes the same function) that call with CUDA events, median of
      TIMED_RUNS after warm-up, beside the least time the card could take;
@@ -53,7 +59,9 @@ TOP_KERNELS = 8
 BATCH = 128
 NUM_CLASSES = 400
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
+PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+MM3_QUERY = ("nir", "sk", "cp")
 
 
 def fail(msg: str) -> "NoReturn":  # noqa: F821
@@ -61,8 +69,8 @@ def fail(msg: str) -> "NoReturn":  # noqa: F821
     sys.exit(1)
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -121,6 +129,8 @@ def main() -> int:
     from prcv2025reid_tpu_torch.ops import _kernels
     from prcv2025reid_tpu_torch.ops import fused_block as fb
     from prcv2025reid_tpu_torch.ops.fused_attention import fused_mha, mha_plain
+    from prcv2025reid_tpu_torch.ops.fused_mlp import fused_mlp, mlp_plain
+    from prcv2025reid_tpu_torch.ops.fused_resln import fused_residual_ln, resln_plain
     from prcv2025reid_tpu_torch.params import init_params
 
     # ---- 2. build
@@ -167,10 +177,23 @@ def main() -> int:
     w2, b2 = randn(1, F, D, scale=F**-0.5).bfloat16(), 0.1 * randn(1, D)
     qkv_args = (x, lns, lnb, wqkv, bqkv)
     mlp_args = (attn, x, wo, bo, lns, lnb, w1, b1, w2, b2)
+    # the fused MLP takes bf16 biases (the model casts them to the compute dtype)
+    fmlp_args = (x, w1, b1.bfloat16(), w2, b2.bfloat16())
+    G3, N3 = len(MM3_QUERY), 32 * S  # the MM-3 query batch: 6,304 rows per group
+    fmlp3_args = (randn(G3, N3, D).bfloat16(), randn(G3, D, F, scale=D**-0.5).bfloat16(),
+                  (0.1 * randn(G3, F)).bfloat16(), randn(G3, F, D, scale=F**-0.5).bfloat16(),
+                  (0.1 * randn(G3, D)).bfloat16())
+    resln_args = (x[0], attn[0], lns, lnb)
     block_checks = {}
     for name, kern, plain, args in (
         ("fused_ln_qkv", fb.fused_ln_qkv, fb.ln_qkv_plain, qkv_args),
         ("fused_out_mlp", fb.fused_out_mlp, fb.out_mlp_plain, mlp_args),
+        ("fused_mlp", fused_mlp, mlp_plain, fmlp_args),
+        ("fused_mlp G=3", fused_mlp, mlp_plain, fmlp3_args),
+        ("fused_residual_ln xn", lambda *a: fused_residual_ln(*a)[0],
+         lambda *a: resln_plain(*a)[0], resln_args),
+        ("fused_residual_ln y", lambda *a: fused_residual_ln(*a)[1],
+         lambda *a: resln_plain(*a)[1], resln_args),
     ):
         got = kern(*args)
         torch.cuda.synchronize()
@@ -186,45 +209,71 @@ def main() -> int:
     t0 = time.perf_counter()
     params = init_params(cfg, NUM_CLASSES, seed=0, perturb=True)
     print(f"init_params: {time.perf_counter() - t0:.1f} s, {sum(a.size for a in params.values())} values")
+    L = cfg.vision_layers
     configs = {
         "xla": cfg,
         "fused": cfg.replace(block_impl="fused"),
         "pallas_attention": cfg.replace(use_pallas_attention=True),
+        "fused_mlp": cfg.replace(use_fused_mlp=True),
+        "fused_trunk": cfg.replace(use_fused_resln=True, use_fused_mlp=True,
+                                   use_pallas_attention=True),
     }
     counters = {"fused_mha": fused_mha, "fused_ln_qkv": fb.fused_ln_qkv,
-                "fused_out_mlp": fb.fused_out_mlp}
-    expected = {
+                "fused_out_mlp": fb.fused_out_mlp, "fused_mlp": fused_mlp,
+                "fused_residual_ln": fused_residual_ln}
+    expected = {  # launches per forward
         "xla": {},
-        "fused": {"fused_ln_qkv": cfg.vision_layers - 1, "fused_out_mlp": cfg.vision_layers - 1},
-        "pallas_attention": {"fused_mha": cfg.vision_layers - 1},
+        "fused": {"fused_ln_qkv": L - 1, "fused_out_mlp": L - 1},
+        "pallas_attention": {"fused_mha": L - 1},
+        "fused_mlp": {"fused_mlp": L - 1},
+        "fused_trunk": {"fused_mha": L, "fused_mlp": L, "fused_residual_ln": 2 * L},
     }
     Mv = len(cfg.vision_modalities)
     images = torch.randint(0, 256, (BATCH, Mv, cfg.image_size, cfg.image_size, 3),
                            generator=gen, device=dev, dtype=torch.uint8)
     image_mask = torch.ones(BATCH, Mv, device=dev)
-    steps, embeds, launches = {}, {}, {}
-    for name, c in configs.items():
-        steps[name] = make_combo_embed_step(build_model(c, params, device="cuda"), ("vis",))
+    models, steps, embeds, launches = {}, {}, {}, {}
+
+    def run_counted(name, step, active):
+        """One embed with every counter zeroed just before it; fails unless
+        the counts read EXPECTED and the embedding is finite and unit-norm."""
         for counter in counters.values():
             counter.launches = 0
-        embeds[name] = steps[name](images, image_mask)
+        e = step(images, image_mask)
         torch.cuda.synchronize()
-        launches[name] = {n: f.launches for n, f in counters.items()}
-        e = embeds[name]
+        got = {n: f.launches for n, f in counters.items()}
         norms = e.norm(dim=1)
         if e.shape != (BATCH, cfg.fusion_dim) or not torch.isfinite(e).all() or \
                 (norms - 1).abs().max().item() > 1e-3:
-            fail(f"{name}: embedding not finite/unit-norm of shape {(BATCH, cfg.fusion_dim)}")
+            fail(f"{name} {active}: embedding not finite/unit-norm of shape "
+                 f"{(BATCH, cfg.fusion_dim)}")
         want = {n: expected[name].get(n, 0) for n in counters}
-        print(f"main path {name}: launches {launches[name]} (expected {want})")
-        if launches[name] != want:
-            fail(f"{name}: launch counts {launches[name]} != {want}")
+        print(f"main path {name} {active}: launches {got} (expected {want})")
+        if got != want:
+            fail(f"{name} {active}: launch counts {got} != {want}")
+        return e, got
+
+    for name, c in configs.items():
+        models[name] = build_model(c, params, device="cuda")
+        steps[name] = make_combo_embed_step(models[name], ("vis",))
+        embeds[name], launches[name] = run_counted(name, steps[name], ("vis",))
     gate = {}
-    for name in ("fused", "pallas_attention"):
+    for name in configs:
+        if name == "xla":
+            continue
         gate[name] = (embeds[name] * embeds["xla"]).sum(dim=1).min().item()
         print(f"gate {name} vs xla: min-cosine {gate[name]:.6f} (>= {MIN_COSINE})")
         if gate[name] < MIN_COSINE:
             fail(f"{name}: min-cosine {gate[name]} < {MIN_COSINE}")
+    # the MM-3 query combo: three vision groups in one trunk call
+    mm3 = {name: run_counted(name, make_combo_embed_step(models[name], MM3_QUERY), MM3_QUERY)[0]
+           for name in ("xla", "fused_trunk")}
+    gate["fused_trunk " + "+".join(MM3_QUERY)] = g3 = \
+        (mm3["fused_trunk"] * mm3["xla"]).sum(dim=1).min().item()
+    print(f"gate fused_trunk {MM3_QUERY} vs xla: min-cosine {g3:.6f} (>= {MIN_COSINE})")
+    if g3 < MIN_COSINE:
+        fail(f"fused_trunk {MM3_QUERY}: min-cosine {g3} < {MIN_COSINE}")
+    del models, mm3
 
     # reference on a small input: the port in f32 on the CPU, same images
     n_ref = 4
@@ -277,18 +326,46 @@ def main() -> int:
         plain_ms=time_ms(torch, lambda: fb.out_mlp_plain(*mlp_args), runs=20),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     ))
-    # yardsticks outside the contract: cuBLAS on the bare products of the block kernels
+    fmlp_bytes = 2 * T * D * 2 + 2 * D * F * 2 + (F + D) * 2
+    b_ms, b_by = bound_ms(4 * T * D * F, fmlp_bytes)
+    rows.append(dict(
+        name="fused_mlp", route="cuda", source="prcv2025reid_tpu_torch/csrc/fused_mlp.cu",
+        replaces="prcv2025reid_tpu/ops/fused_mlp.py:43",
+        launches=launches["fused_trunk"]["fused_mlp"],
+        max_abs_err=block_checks["fused_mlp"][0],
+        ms=time_ms(torch, lambda: fused_mlp(*fmlp_args)),
+        plain_ms=time_ms(torch, lambda: mlp_plain(*fmlp_args), runs=20),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    ))
+    b_ms, b_by = bound_ms(8 * T * D, 4 * T * D * 2 + 2 * D * 4, PEAK_F32_FLOPS)
+    rows.append(dict(
+        name="fused_residual_ln", route="cuda",
+        source="prcv2025reid_tpu_torch/csrc/fused_resln.cu",
+        replaces="prcv2025reid_tpu/ops/fused_resln.py:33",
+        launches=launches["fused_trunk"]["fused_residual_ln"],
+        max_abs_err=max(block_checks["fused_residual_ln xn"][0],
+                        block_checks["fused_residual_ln y"][0]),
+        ms=time_ms(torch, lambda: fused_residual_ln(*resln_args)),
+        plain_ms=time_ms(torch, lambda: resln_plain(*resln_args)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    ))
+    # yardsticks outside the contract: cuBLAS on the bare products of the MLP and
+    # block kernels, PyTorch's add + layer_norm beside the residual+LN pass
     x2d, a2d = x[0], attn[0]
     h2d = torch.empty(T, F, device=dev, dtype=torch.bfloat16).normal_(generator=gen)
+    fc1_ms, fc2_ms = time_ms(torch, lambda: x2d @ w1[0]), time_ms(torch, lambda: h2d @ w2[0])
     yard = {
         "cublas_qkv_gemm_ms": time_ms(torch, lambda: x2d @ wqkv[0]),
-        "cublas_out_mlp_gemms_ms": (time_ms(torch, lambda: a2d @ wo[0])
-                                    + time_ms(torch, lambda: x2d @ w1[0])
-                                    + time_ms(torch, lambda: h2d @ w2[0])),
+        "cublas_out_mlp_gemms_ms": time_ms(torch, lambda: a2d @ wo[0]) + fc1_ms + fc2_ms,
+        "cublas_mlp_gemms_ms": fc1_ms + fc2_ms,
+        "torch_add_layer_norm_ms": time_ms(torch, lambda: Fn.layer_norm(
+            x2d + a2d, (D,), lns.bfloat16(), lnb.bfloat16(), 1e-5)),
+        "fused_mlp_g3_rel_err": block_checks["fused_mlp G=3"][1],
         "attention_causal_v2_rel_err": att_checks[(True, 2)][1],
         "attention_v1_rel_err": att_checks[(False, 1)][1],
         "rel_err": {"fused_mha": att_checks[(False, 2)][1],
                     **{n: v[1] for n, v in block_checks.items()}},
+        "launches_by_path": launches,
     }
     print("yardsticks: " + json.dumps(yard))
 

@@ -5,7 +5,8 @@ Own copy of the JAX package's ``TrainingConfig`` subset: the same field
 names, defaults (full-width ViT-B/16) and validation.  A value that the JAX
 package accepts but this port does not implement yet raises
 ``NotImplementedError`` naming the ROADMAP.md item it waits for; it is never
-silently ignored.
+silently ignored.  A combination that the JAX package accepts and then
+silently bypasses raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -120,7 +121,24 @@ class TrainingConfig:
             )
         if self.param_dtype != "float32":
             raise ValueError(f"param_dtype={self.param_dtype!r}; valid: ['float32']")
+        self._reject_bypasses()
         self._reject_unported()
+
+    def _reject_bypasses(self):
+        """Combinations the JAX package accepts but then silently bypasses:
+        its fused-stream trunk (``vit.py::_trunk_fused``) calls ``block.attn``
+        and ``block.mlp`` directly, so it never reaches the block kernels,
+        and it ignores the token reduction."""
+        if self.use_fused_resln and self.block_impl != "xla":
+            raise ValueError(
+                f"use_fused_resln=True conflicts with block_impl={self.block_impl!r}: "
+                "the fused-stream trunk never runs the block kernels — pick one"
+            )
+        if self.use_fused_resln and self.token_keep > 0:
+            raise ValueError(
+                f"use_fused_resln=True conflicts with token_keep={self.token_keep}: "
+                "the fused-stream trunk runs every token through every block"
+            )
 
     def _reject_unported(self):
         """Values the JAX package runs but this port does not have yet."""
@@ -145,16 +163,6 @@ class TrainingConfig:
             raise NotImplementedError(
                 f"gelu_impl={self.gelu_impl!r} is not ported yet: ROADMAP.md "
                 "§1 item 2 (tanh and poly GELU)"
-            )
-        if self.use_fused_mlp:
-            raise NotImplementedError(
-                "use_fused_mlp=True is not ported yet: ROADMAP.md §2 item 4 "
-                "(fused MLP kernel)"
-            )
-        if self.use_fused_resln:
-            raise NotImplementedError(
-                "use_fused_resln=True is not ported yet: ROADMAP.md §2 item 5 "
-                "(fused residual+LN kernel)"
             )
         if self.token_keep > 0:
             raise NotImplementedError(

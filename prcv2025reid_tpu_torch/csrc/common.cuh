@@ -67,4 +67,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// 0.5 x (1 + erf(x / sqrt 2)) with the Abramowitz-Stegun 7.1.26 erf
+// (|err| <= 1.5e-7) that the TPU kernels use (kernel_math.gelu_exact)
+__device__ __forceinline__ float gelu_as(float x) {
+  const float u = x * 0.7071067811865476f;
+  const float a = fabsf(u);
+  const float tt = 1.0f / (1.0f + 0.3275911f * a);
+  const float poly =
+      tt * (0.254829592f +
+            tt * (-0.284496736f + tt * (1.421413741f + tt * (-1.453152027f + tt * 1.061405429f))));
+  const float sgn = (u > 0.f) ? 1.f : ((u < 0.f) ? -1.f : 0.f);
+  const float erf_u = sgn * (1.0f - poly * expf(-a * a));
+  return 0.5f * x * (1.0f + erf_u);
+}
+
 }  // namespace port

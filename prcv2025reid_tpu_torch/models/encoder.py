@@ -35,6 +35,8 @@ class UnifiedEncoder(nn.Module):
             modalities=config.vision_modalities,
             dtype=DTYPES[config.compute_dtype],
             attn_impl="auto" if config.use_pallas_attention else config.attn_backend,
+            mlp_impl="auto" if config.use_fused_mlp else "xla",
+            resln_impl="auto" if config.use_fused_resln else "xla",
             block_impl=config.block_impl,
             device=device,
         ))

@@ -26,6 +26,7 @@ from prcv2025reid_tpu_torch.ops.attention import (
     kernel_available,
 )
 from prcv2025reid_tpu_torch.ops.fused_block import fused_ln_qkv, fused_out_mlp
+from prcv2025reid_tpu_torch.ops.fused_mlp import fused_mlp
 
 
 def _param(*shape, device=None) -> nn.Parameter:
@@ -192,12 +193,19 @@ class MERAttention(nn.Module):
 
 
 class MERMlp(nn.Module):
-    """fc1 -> exact (erf) GELU -> fc2, both MER-routed."""
+    """fc1 -> exact (erf) GELU -> fc2, both MER-routed.  ``impl``: 'xla'
+    (two grouped matmuls) or 'auto' (JAX's ``impl="auto"``: the folded
+    weights through ``fused_mlp``, which launches the fused kernel for CUDA
+    tensors and runs its plain version for CPU tensors).  ``enable=False``
+    keeps the plain MLP: the kernel takes folded, routed weights."""
 
     def __init__(self, dim: int, mlp_dim: int, num_experts: int, rank: int = 4,
-                 alpha: float = 1.0, dtype=torch.float32, enable: bool = True,
-                 device=None):
+                 alpha: float = 1.0, dtype=torch.float32, impl: str = "xla",
+                 enable: bool = True, device=None):
         super().__init__()
+        if impl not in ("xla", "auto"):
+            raise ValueError(f"impl={impl!r}; valid: ['auto', 'xla']")
+        self.dtype, self.impl, self.enable = dtype, impl, enable
         mer = dict(num_experts=num_experts, rank=rank, alpha=alpha, dtype=dtype,
                    enable=enable, device=device)
         self.fc1 = MERDense(dim, mlp_dim, **mer)
@@ -208,7 +216,13 @@ class MERMlp(nn.Module):
         return (*self.fc1.folded(expert_ids), *self.fc2.folded(expert_ids))
 
     def forward(self, x: torch.Tensor, expert_ids: Sequence[int]) -> torch.Tensor:
-        return self.fc2(gelu_erf(self.fc1(x, expert_ids)), expert_ids)
+        if self.impl == "xla" or not self.enable:
+            return self.fc2(gelu_erf(self.fc1(x, expert_ids)), expert_ids)
+        G, B, S, D = x.shape
+        w1, b1, w2, b2 = self.folded(expert_ids)
+        out = fused_mlp(x.to(self.dtype).reshape(G, B * S, D), w1.contiguous(),
+                        b1[None].expand(G, -1), w2.contiguous(), b2[None].expand(G, -1))
+        return out.reshape(G, B, S, D)
 
 
 class MERBlock(nn.Module):
@@ -216,11 +230,12 @@ class MERBlock(nn.Module):
     activations [G, B, S, D] with static per-group expert ids.
 
     ``block_impl``: 'xla' (plain modules) or 'fused' (the two bf16 block
-    kernels with the einsum attention core between them)."""
+    kernels with the einsum attention core between them, which bypasses
+    ``attn_impl`` and ``mlp_impl`` as in the JAX package)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_dim: int, num_experts: int,
                  rank: int = 4, alpha: float = 1.0, dtype=torch.float32,
-                 attn_impl: str = "xla", enable_mer: bool = True,
+                 attn_impl: str = "xla", mlp_impl: str = "xla", enable_mer: bool = True,
                  block_impl: str = "xla", device=None):
         super().__init__()
         if block_impl not in ("xla", "fused"):
@@ -233,7 +248,7 @@ class MERBlock(nn.Module):
         self.ln1 = LNParams(dim, device=device)
         self.ln2 = LNParams(dim, device=device)
         self.attn = MERAttention(dim, num_heads, attn_impl=attn_impl, enable=enable_mer, **mer)
-        self.mlp = MERMlp(dim, mlp_dim, enable=enable_mer, **mer)
+        self.mlp = MERMlp(dim, mlp_dim, impl=mlp_impl, enable=enable_mer, **mer)
 
     def forward(self, x: torch.Tensor, expert_ids: Sequence[int]) -> torch.Tensor:
         if self.block_impl != "xla":

@@ -2,7 +2,8 @@
 stack (counterpart of the JAX package's ``models/vit.py``).
 
 patchify -> +CLS -> +pos-embed -> blocks 0..L-2 -> CLS-only last block ->
-final LN -> projection.  Patchify is a reshape + matmul: the 16x16/stride-16
+final LN -> projection; with ``resln_impl="auto"`` the fused-stream trunk
+(``_trunk_fused``) instead.  Patchify is a reshape + matmul: the 16x16/stride-16
 "conv" is a linear map on non-overlapping patches, so the patch kernel keeps
 its ``[P, P, C, D]`` layout flattened in (i, j, c) order (no ``conv2d``,
 whose weight layout differs and which cuDNN runs in TF32 for f32).
@@ -16,6 +17,7 @@ from torch import nn
 
 from prcv2025reid_tpu_torch.data.augment import normalize_images_device
 from prcv2025reid_tpu_torch.models.mer import Dense, LNParams, MERBlock, _param, ln_apply
+from prcv2025reid_tpu_torch.ops.fused_resln import fused_residual_ln
 from prcv2025reid_tpu_torch.utils.modalities import SINGLE_CHANNEL, VISION_MODALITIES
 
 
@@ -51,16 +53,23 @@ class PatchEmbed(nn.Module):
 
 
 class MERVisionTransformer(nn.Module):
-    """The MER-routed ViT trunk, eval forward."""
+    """The MER-routed ViT trunk, eval forward.  ``mlp_impl`` goes to every
+    block's MLP (see ``MERMlp``); ``resln_impl`` 'auto' selects the
+    fused-stream trunk on every device (its residual+LN wrapper runs the
+    plain version for CPU tensors), 'xla' the plain one."""
 
     def __init__(self, embed_dim: int = 768, num_layers: int = 12, num_heads: int = 12,
                  mlp_dim: int = 3072, patch_size: int = 16, image_size: int = 224,
                  fusion_dim: int = 512, lora_rank: int = 4, lora_alpha: float = 1.0,
                  enable_mer: bool = True,
                  modalities: Tuple[str, ...] = VISION_MODALITIES, dtype=torch.float32,
-                 attn_impl: str = "xla", block_impl: str = "xla", device=None):
+                 attn_impl: str = "xla", mlp_impl: str = "xla", resln_impl: str = "xla",
+                 block_impl: str = "xla", device=None):
         super().__init__()
+        if resln_impl not in ("xla", "auto"):
+            raise ValueError(f"resln_impl={resln_impl!r}; valid: ['auto', 'xla']")
         self.embed_dim, self.num_layers, self.dtype = embed_dim, num_layers, dtype
+        self.resln_impl = resln_impl
         self.modalities = tuple(modalities)
         num_patches = (image_size // patch_size) ** 2
         for mod in self.modalities:
@@ -71,7 +80,7 @@ class MERVisionTransformer(nn.Module):
         for i in range(num_layers):
             self.add_module(f"block_{i}", MERBlock(
                 embed_dim, num_heads, mlp_dim, len(self.modalities), rank=lora_rank,
-                alpha=lora_alpha, dtype=dtype, attn_impl=attn_impl,
+                alpha=lora_alpha, dtype=dtype, attn_impl=attn_impl, mlp_impl=mlp_impl,
                 enable_mer=enable_mer, block_impl=block_impl, device=device))
         self.ln_final = LNParams(embed_dim, device=device)
         self.proj = Dense(embed_dim, fusion_dim, use_bias=False, device=device)
@@ -90,12 +99,35 @@ class MERVisionTransformer(nn.Module):
         cls = self.cls_token.to(dt).expand(G, B, 1, self.embed_dim)
         x = torch.cat([cls, patch_tokens.to(dt)], dim=2)
         x = x + self.pos_embed.to(dt)[None, None]
+        if self.resln_impl == "auto":
+            return self._trunk_fused(x, expert_ids)
         blocks = self.blocks
         for block in blocks[:-1]:
             x = block(x, expert_ids)
         cls = blocks[-1].cls_only_call(x, expert_ids)
         cls = ln_apply(cls, *self.ln_final.params())
         return self.proj(cls, dt)
+
+    def _trunk_fused(self, x: torch.Tensor, expert_ids: Sequence[int]) -> torch.Tensor:
+        """Eval trunk with the residual add fused into every LayerNorm
+        (``fused_residual_ln``).  The pairs cross block boundaries: block i's
+        MLP residual fuses with block i+1's ln1 (or ln_final), so the stream
+        carries (residual x, normalised h).  Every block runs in full (no
+        CLS-only last block)."""
+        shape = x.shape
+        D = shape[-1]
+
+        def fused(x_res, branch, ln):
+            xn, h = fused_residual_ln(x_res.reshape(-1, D), branch.reshape(-1, D), *ln.params())
+            return xn.reshape(shape), h.reshape(shape)
+
+        blocks = self.blocks
+        h = ln_apply(x, *blocks[0].ln1.params())
+        for i, block in enumerate(blocks):
+            x, h = fused(x, block.attn(h, expert_ids), block.ln2)
+            next_ln = blocks[i + 1].ln1 if i + 1 < len(blocks) else self.ln_final
+            x, h = fused(x, block.mlp(h, expert_ids), next_ln)
+        return self.proj(h[:, :, 0], self.dtype)
 
     def encode_single(self, images: torch.Tensor, modality_id: int) -> torch.Tensor:
         """Encode one modality: images [B, H, W, 3] -> [B, fusion_dim]."""

@@ -23,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("attention", "fused_block")
+SOURCES = ("attention", "fused_block", "fused_mlp", "fused_resln")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -107,3 +107,21 @@ def stream_ptr(t: torch.Tensor) -> int:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def bf16_operand(fn: str, name: str, t: torch.Tensor, shape) -> None:
+    """Raise unless ``t`` is a contiguous, 16-byte aligned CUDA bf16 tensor
+    of ``shape`` (what the kernels' 16-byte loads take)."""
+    require(t.is_cuda, f"{fn}: {name} is on {t.device}, x is on CUDA")
+    require(t.dtype == torch.bfloat16, f"{fn}: {name} must be bfloat16, got {t.dtype}")
+    require(tuple(t.shape) == tuple(shape), f"{fn}: {name} shape {tuple(t.shape)} != {tuple(shape)}")
+    require(t.is_contiguous() and t.data_ptr() % 16 == 0,
+            f"{fn}: {name} must be contiguous and 16-byte aligned")
+
+
+def f32_vector(fn: str, name: str, t: torch.Tensor, shape, device) -> torch.Tensor:
+    """``t`` as a contiguous f32 tensor on ``device``; raises on another
+    device or shape."""
+    require(t.device == device, f"{fn}: {name} is on {t.device}, x is on {device}")
+    require(tuple(t.shape) == tuple(shape), f"{fn}: {name} shape {tuple(t.shape)} != {tuple(shape)}")
+    return t.float().contiguous()

@@ -18,23 +18,14 @@ import ctypes
 import torch
 
 from prcv2025reid_tpu_torch.ops import _kernels
-from prcv2025reid_tpu_torch.ops.kernel_math import gelu_exact
+from prcv2025reid_tpu_torch.ops.kernel_math import LN_EPS, gelu_exact, ln_f32
 
-LN_EPS = 1e-5
 MAX_LN_WIDTH = 1024  # the row-statistics kernel holds a row in registers
-
-
-def _ln_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """f32 LayerNorm over the last axis (two-pass statistics)."""
-    xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mu).square().mean(dim=-1, keepdim=True)
-    return (xf - mu) * torch.rsqrt(var + LN_EPS) * scale.float() + bias.float()
 
 
 def ln_qkv_plain(x, ln_scale, ln_bias, w, b):
     """x [G,T,D]; w [G,D,O]; b [G,O] -> [G,T,O] in x.dtype."""
-    y = _ln_f32(x, ln_scale, ln_bias).to(x.dtype).float()
+    y = ln_f32(x, ln_scale, ln_bias).to(x.dtype).float()
     o = torch.matmul(y, w.float()) + b.float()[:, None, :]
     return o.to(x.dtype)
 
@@ -44,25 +35,11 @@ def out_mlp_plain(attn, x, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2):
     dt = x.dtype
     proj = torch.matmul(attn.float(), wo.float()) + bo.float()[:, None, :]
     x2 = x.float() + proj
-    y = _ln_f32(x2, ln_scale, ln_bias)
+    y = ln_f32(x2, ln_scale, ln_bias)
     h = torch.matmul(y.to(dt).float(), w1.float()) + b1.float()[:, None, :]
     h = gelu_exact(h)
     o = torch.matmul(h.to(dt).float(), w2.float()) + b2.float()[:, None, :]
     return (x2 + o).to(dt)
-
-
-def _bf16_operand(fn: str, name: str, t: torch.Tensor, shape) -> None:
-    _kernels.require(t.is_cuda, f"{fn}: {name} is on {t.device}, x is on CUDA")
-    _kernels.require(t.dtype == torch.bfloat16, f"{fn}: {name} must be bfloat16, got {t.dtype}")
-    _kernels.require(tuple(t.shape) == tuple(shape), f"{fn}: {name} shape {tuple(t.shape)} != {tuple(shape)}")
-    _kernels.require(t.is_contiguous() and t.data_ptr() % 16 == 0,
-                     f"{fn}: {name} must be contiguous and 16-byte aligned")
-
-
-def _f32_vector(fn: str, name: str, t: torch.Tensor, shape, device) -> torch.Tensor:
-    _kernels.require(t.device == device, f"{fn}: {name} is on {t.device}, x is on {device}")
-    _kernels.require(tuple(t.shape) == tuple(shape), f"{fn}: {name} shape {tuple(t.shape)} != {tuple(shape)}")
-    return t.float().contiguous()
 
 
 def fused_ln_qkv(x, ln_scale, ln_bias, w, b):
@@ -76,11 +53,11 @@ def fused_ln_qkv(x, ln_scale, ln_bias, w, b):
     O = w.shape[-1]
     _kernels.require(D % 8 == 0 and O % 8 == 0 and D <= MAX_LN_WIDTH,
                      f"{fn}: D={D} and O={O} must be multiples of 8, D <= {MAX_LN_WIDTH}")
-    _bf16_operand(fn, "x", x, (G, T, D))
-    _bf16_operand(fn, "w", w, (G, D, O))
-    lns = _f32_vector(fn, "ln_scale", ln_scale, (D,), x.device)
-    lnb = _f32_vector(fn, "ln_bias", ln_bias, (D,), x.device)
-    bf = _f32_vector(fn, "b", b, (G, O), x.device)
+    _kernels.bf16_operand(fn, "x", x, (G, T, D))
+    _kernels.bf16_operand(fn, "w", w, (G, D, O))
+    lns = _kernels.f32_vector(fn, "ln_scale", ln_scale, (D,), x.device)
+    lnb = _kernels.f32_vector(fn, "ln_bias", ln_bias, (D,), x.device)
+    bf = _kernels.f32_vector(fn, "b", b, (G, O), x.device)
     stats = torch.empty(G * T, 2, dtype=torch.float32, device=x.device)
     out = torch.empty(G, T, O, dtype=x.dtype, device=x.device)
     c = _kernels.lib("fused_block").ln_qkv
@@ -106,16 +83,16 @@ def fused_out_mlp(attn, x, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2):
     F = w1.shape[-1]
     _kernels.require(D % 8 == 0 and F % 8 == 0 and D <= MAX_LN_WIDTH,
                      f"{fn}: D={D} and F={F} must be multiples of 8, D <= {MAX_LN_WIDTH}")
-    _bf16_operand(fn, "attn", attn, (G, T, D))
-    _bf16_operand(fn, "x", x, (G, T, D))
-    _bf16_operand(fn, "wo", wo, (G, D, D))
-    _bf16_operand(fn, "w1", w1, (G, D, F))
-    _bf16_operand(fn, "w2", w2, (G, F, D))
-    bof = _f32_vector(fn, "bo", bo, (G, D), x.device)
-    b1f = _f32_vector(fn, "b1", b1, (G, F), x.device)
-    b2f = _f32_vector(fn, "b2", b2, (G, D), x.device)
-    lns = _f32_vector(fn, "ln_scale", ln_scale, (D,), x.device)
-    lnb = _f32_vector(fn, "ln_bias", ln_bias, (D,), x.device)
+    _kernels.bf16_operand(fn, "attn", attn, (G, T, D))
+    _kernels.bf16_operand(fn, "x", x, (G, T, D))
+    _kernels.bf16_operand(fn, "wo", wo, (G, D, D))
+    _kernels.bf16_operand(fn, "w1", w1, (G, D, F))
+    _kernels.bf16_operand(fn, "w2", w2, (G, F, D))
+    bof = _kernels.f32_vector(fn, "bo", bo, (G, D), x.device)
+    b1f = _kernels.f32_vector(fn, "b1", b1, (G, F), x.device)
+    b2f = _kernels.f32_vector(fn, "b2", b2, (G, D), x.device)
+    lns = _kernels.f32_vector(fn, "ln_scale", ln_scale, (D,), x.device)
+    lnb = _kernels.f32_vector(fn, "ln_bias", ln_bias, (D,), x.device)
     x2 = torch.empty(G, T, D, dtype=torch.float32, device=x.device)
     stats = torch.empty(G * T, 2, dtype=torch.float32, device=x.device)
     h = torch.empty(G, T, F, dtype=x.dtype, device=x.device)

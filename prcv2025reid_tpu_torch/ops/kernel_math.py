@@ -1,11 +1,13 @@
-"""Shared scalar math of the fused kernels (counterpart of the JAX package's
-``ops/kernel_math.py``): the Abramowitz-Stegun erf that the fused out-proj +
-MLP kernel evaluates in its GELU epilogue (csrc/fused_block.cu)."""
+"""Shared math of the fused kernels' plain versions (counterpart of the JAX
+package's ``ops/kernel_math.py``): the Abramowitz-Stegun erf that the MLP
+kernels evaluate in their GELU epilogues (csrc/fused_block.cu,
+csrc/fused_mlp.cu) and the two-pass f32 LayerNorm of the LN kernels."""
 from __future__ import annotations
 
 import torch
 
 SQRT_HALF = 0.7071067811865476
+LN_EPS = 1e-5
 
 
 def erf_approx(x: torch.Tensor) -> torch.Tensor:
@@ -28,3 +30,13 @@ def erf_approx(x: torch.Tensor) -> torch.Tensor:
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     """0.5 * x * (1 + erf(x / sqrt(2))) via :func:`erf_approx`."""
     return 0.5 * x * (1.0 + erf_approx(x * SQRT_HALF))
+
+
+def ln_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+           eps: float = LN_EPS) -> torch.Tensor:
+    """f32 LayerNorm over the last axis: the mean, then the mean squared
+    deviation (two passes), as the kernels compute them."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    return (xf - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()

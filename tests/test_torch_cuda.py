@@ -14,6 +14,8 @@ import torch
 from prcv2025reid_tpu_torch import TrainingConfig, build_model, make_combo_embed_step
 from prcv2025reid_tpu_torch.ops import fused_block as fb
 from prcv2025reid_tpu_torch.ops.fused_attention import fused_mha, mha_plain
+from prcv2025reid_tpu_torch.ops.fused_mlp import fused_mlp, mlp_plain
+from prcv2025reid_tpu_torch.ops.fused_resln import fused_residual_ln, resln_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -60,6 +62,62 @@ def test_block_kernels(cuda):
     assert _rel(out, fb.out_mlp_plain(attn, x, wo, bo, lns, lnb, w1, b1, w2, b2)) < 1e-2
 
 
+@pytest.mark.parametrize("N,D,F", [(77, 128, 200), (131, 64, 64), (300, 768, 3072)])
+def test_fused_mlp_kernel(cuda, N, D, F):
+    """G = 2; N not a multiple of the 64-row tile, F not one of the 64-unit
+    hidden chunk, D below the 384-column block."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    G = 2
+
+    def r(*shape, s=1.0):
+        return torch.randn(*shape, generator=g, device=cuda) * s
+
+    x = r(G, N, D).bfloat16()
+    w1, b1 = r(G, D, F, s=D**-0.5).bfloat16(), (0.1 * r(G, F)).bfloat16()
+    w2, b2 = r(G, F, D, s=F**-0.5).bfloat16(), (0.1 * r(G, D)).bfloat16()
+    out = fused_mlp(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert out.shape == (G, N, D) and out.dtype == torch.bfloat16
+    assert _rel(out, mlp_plain(x, w1, b1, w2, b2)) < 1e-2
+
+
+@pytest.mark.parametrize("N,D", [(77, 200), (1000, 768)])
+def test_fused_resln_kernel(cuda, N, D):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x, branch = (torch.randn(N, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    scale = 1 + 0.1 * torch.randn(D, generator=g, device=cuda)
+    bias = 0.1 * torch.randn(D, generator=g, device=cuda)
+    xn, y = fused_residual_ln(x, branch, scale, bias)
+    torch.cuda.synchronize()
+    want_xn, want_y = resln_plain(x, branch, scale, bias)
+    assert torch.equal(xn, want_xn)
+    assert _rel(y, want_y) < 1e-2
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(2, 8, 64, device=cuda)  # f32
+    w1, w2 = torch.zeros(2, 64, 64, device=cuda), torch.zeros(2, 64, 64, device=cuda)
+    b = torch.zeros(2, 64, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_mlp(x, w1, b, w2, b)
+    bf = [t.bfloat16() for t in (x, w1, w2)]
+    with pytest.raises(ValueError, match="aligned"):  # contiguous, 2 bytes off 16
+        fused_mlp(torch.zeros(2 * 8 * 64 + 1, device=cuda, dtype=torch.bfloat16)[1:]
+                  .view(2, 8, 64), bf[1], b, bf[2], b)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        z = torch.zeros(2, 8, 40, device=cuda, dtype=torch.bfloat16)
+        fused_mlp(z, torch.zeros(2, 40, 64, device=cuda, dtype=torch.bfloat16), b,
+                  torch.zeros(2, 64, 40, device=cuda, dtype=torch.bfloat16), b[:, :40])
+    s = torch.ones(64, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_residual_ln(x[0], x[0], s, s)
+    with pytest.raises(ValueError, match="aligned"):
+        fused_residual_ln(bf[0][0], bf[0][0].t().contiguous().t(), s, s)
+    with pytest.raises(ValueError, match="aligned"):
+        off = torch.zeros(8 * 64 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(8, 64)
+        fused_residual_ln(off, off, s, s)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 2, 16, 64, device=cuda)  # f32
     with pytest.raises(ValueError, match="bfloat16"):
@@ -69,22 +127,32 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fused_mha(z, z, z)
 
 
-@pytest.mark.parametrize("over,counter", [
-    ({"block_impl": "fused"}, "block"),
-    ({"use_pallas_attention": True}, "attention"),
+COUNTERS = {"fused_mha": fused_mha, "fused_ln_qkv": fb.fused_ln_qkv,
+            "fused_out_mlp": fb.fused_out_mlp, "fused_mlp": fused_mlp,
+            "fused_residual_ln": fused_residual_ln}
+L = 3  # vision_layers: blocks 0..L-2 in full, then the CLS-only block (plain)
+
+
+@pytest.mark.parametrize("over,expected", [
+    ({"block_impl": "fused"}, {"fused_ln_qkv": L - 1, "fused_out_mlp": L - 1}),
+    ({"use_pallas_attention": True}, {"fused_mha": L - 1}),
+    ({"use_fused_mlp": True}, {"fused_mlp": L - 1}),
+    # the fused-stream trunk runs every block in full
+    ({"use_fused_resln": True, "use_fused_mlp": True, "use_pallas_attention": True},
+     {"fused_mha": L, "fused_mlp": L, "fused_residual_ln": 2 * L}),
 ])
-def test_model_paths_launch_kernels(cuda, over, counter):
-    base = dict(vision_hidden_dim=128, vision_layers=3, vision_heads=2, vision_mlp_dim=256,
+def test_model_paths_launch_kernels(cuda, over, expected):
+    base = dict(vision_hidden_dim=128, vision_layers=L, vision_heads=2, vision_mlp_dim=256,
                 image_size=64, fusion_dim=32, fusion_num_heads=4)
     cfg = TrainingConfig(**base)
     plain = build_model(cfg, num_classes=5, device=cuda)
     fast = build_model(cfg.replace(**over), num_classes=5, device=cuda)
     imgs = np.random.default_rng(0).integers(0, 256, (4, 4, 64, 64, 3), dtype=np.uint8)
     mask = np.ones((4, 4), np.float32)
-    fused_mha.launches = fb.fused_ln_qkv.launches = fb.fused_out_mlp.launches = 0
+    for counter in COUNTERS.values():
+        counter.launches = 0
     got = make_combo_embed_step(fast, ("vis",))(imgs, mask)
+    counts = {n: c.launches for n, c in COUNTERS.items()}
     want = make_combo_embed_step(plain, ("vis",))(imgs, mask)
-    counts = (fused_mha.launches,) if counter == "attention" else (
-        fb.fused_ln_qkv.launches, fb.fused_out_mlp.launches)
-    assert all(c == cfg.vision_layers - 1 for c in counts), counts
+    assert counts == {n: expected.get(n, 0) for n in COUNTERS}, counts
     assert (got * want).sum(dim=1).min().item() > 0.999

@@ -18,7 +18,7 @@ from prcv2025reid_tpu.ops.pallas_attention import pallas_mha
 from prcv2025reid_tpu_torch.ops import attention as tatt
 from prcv2025reid_tpu_torch.ops import fused_block as tfb
 from prcv2025reid_tpu_torch.ops.fused_attention import fused_mha
-from prcv2025reid_tpu_torch.ops.kernel_math import gelu_exact
+from prcv2025reid_tpu_torch.ops.kernel_math import gelu_exact, ln_f32
 
 G, T, D, F = 2, 70, 64, 128
 
@@ -106,6 +106,6 @@ def test_bf16_plain_versions_round_like_the_kernels(block_data):
     d = {k: _t(v).bfloat16() for k, v in block_data.items()}
     got = tfb.fused_ln_qkv(d["x"], d["lns"], d["lnb"], d["wqkv"], d["bqkv"])
     assert got.dtype == torch.bfloat16
-    y = tfb._ln_f32(d["x"], d["lns"], d["lnb"]).bfloat16().float()
+    y = ln_f32(d["x"], d["lns"], d["lnb"]).bfloat16().float()
     ref = (y @ d["wqkv"].float() + d["bqkv"].float()[:, None]).bfloat16()
     torch.testing.assert_close(got, ref, rtol=0, atol=0)

@@ -29,6 +29,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import prcv2025reid_tpu_torch.models.reid_model, prcv2025reid_tpu_torch.models.mer\n"
         "import prcv2025reid_tpu_torch.ops.fused_block, prcv2025reid_tpu_torch.ops.attention\n"
         "import prcv2025reid_tpu_torch.ops.fused_attention, prcv2025reid_tpu_torch.params\n"
+        "import prcv2025reid_tpu_torch.ops.fused_mlp, prcv2025reid_tpu_torch.ops.fused_resln\n"
+        "import prcv2025reid_tpu_torch.models.vit\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'prcv2025reid_tpu')]\n"
         "print(repr(bad))\n"
     )
@@ -64,13 +66,37 @@ def test_build_model_raises_without_cuda(monkeypatch):
     {"attn_backend": "onesaug"},
     {"gelu_impl": "tanh"},
     {"gelu_impl": "poly"},
-    {"use_fused_mlp": True},
-    {"use_fused_resln": True},
     {"token_keep": 4, "token_reduce_layer": 1},
 ])
 def test_unported_values_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP.md|interpret"):
         TrainingConfig(**{**TINY, **override})
+
+
+@pytest.mark.parametrize("override", [
+    {"block_impl": "fused"},
+    {"block_impl": "fused_int8"},
+    {"token_keep": 4, "token_reduce_layer": 1},
+])
+def test_fused_resln_rejects_what_the_jax_trunk_bypasses(override):
+    """The JAX fused-stream trunk accepts these and silently skips the block
+    kernels or the token reduction; the port refuses them."""
+    with pytest.raises(ValueError, match="use_fused_resln=True conflicts"):
+        TrainingConfig(**{**TINY, "use_fused_resln": True, **override})
+
+
+@pytest.mark.parametrize("override", [
+    {"use_fused_mlp": True},
+    {"use_fused_resln": True},
+    {"use_fused_resln": True, "use_fused_mlp": True, "use_pallas_attention": True},
+    {"use_fused_mlp": True, "block_impl": "fused"},
+])
+def test_fused_stream_flags_build(override):
+    model = build_model(TrainingConfig(**{**TINY, **override}), num_classes=3, device="cpu")
+    vit = model.encoder.vision
+    assert vit.resln_impl == ("auto" if override.get("use_fused_resln") else "xla")
+    assert {b.mlp.impl for b in vit.blocks} == {
+        "auto" if override.get("use_fused_mlp") else "xla"}
 
 
 @pytest.mark.parametrize("override", [

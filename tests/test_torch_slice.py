@@ -6,9 +6,12 @@ them to zero / one, which would hide folding, bias and BN bugs), the tree is
 flattened the way ``params_to_npz`` writes it and loaded into the port
 through ``params.py``.  ``encode_subset`` is compared on one seeded uint8
 batch in which one sample has every image masked (the all-masked rescue),
-under the plain block path, the fused block path (JAX: ``fused_interpret``)
-and ``use_pallas_attention=True`` (JAX resolves it to its plain core on the
-CPU; the port's dispatch does the same for CPU tensors).
+under the plain block path, the fused block path (JAX: ``fused_interpret``),
+``use_pallas_attention=True``, ``use_fused_mlp=True`` and the fused-stream
+trunk (``use_fused_resln=True`` with both).  JAX resolves the last three to
+its plain path on the CPU; the port's wrappers run their plain versions for
+CPU tensors, and its fused-stream trunk keeps its own structure (every block
+in full, the residual adds fused into the LayerNorms), the same math.
 """
 import dataclasses
 import sys
@@ -33,10 +36,13 @@ NUM_CLASSES = 7
 B, MV, S = 3, 4, 32
 TOL = 2e-4  # abs, on the x8-scaled bn_features (f32; summation order only)
 
+FUSED_TRUNK = {"use_fused_resln": True, "use_fused_mlp": True, "use_pallas_attention": True}
 CONFIGS = {
     "xla": ({}, {}),
     "fused": ({"block_impl": "fused_interpret"}, {"block_impl": "fused"}),
     "pallas_attention": ({"use_pallas_attention": True}, {"use_pallas_attention": True}),
+    "fused_mlp": ({"use_fused_mlp": True}, {"use_fused_mlp": True}),
+    "fused_trunk": (FUSED_TRUNK, FUSED_TRUNK),
 }
 
 
@@ -112,6 +118,20 @@ def test_embed_step_is_normalized_encode_subset(batch, flat_params):
                                   None, None, ("vis",))
     torch.testing.assert_close(emb, raw / raw.norm(dim=1, keepdim=True))
     assert emb.device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", ["fused_mlp", "fused_trunk"])
+def test_loader_takes_the_same_npz_under_the_fused_flags(name, flat_params, tmp_path):
+    """The fused paths add no parameter: one params_to_npz file loads into
+    every configuration, tensor for tensor."""
+    path = tmp_path / "params.npz"
+    np.savez(path, **flat_params)
+    plain = build_model(port_config(JaxConfig(**TINY_BASE)), str(path), device="cpu")
+    fused = build_model(port_config(JaxConfig(**TINY_BASE), **CONFIGS[name][1]), str(path),
+                        device="cpu")
+    want, got = plain.state_dict(), fused.state_dict()
+    assert list(got) == list(want)
+    assert all(torch.equal(got[k], want[k]) for k in want)
 
 
 def test_loader_rejects_unknown_and_missing_keys(flat_params):
