@@ -19,10 +19,14 @@
 //     twice, 1.5x the minimum work, which keeps the f32 output accumulator
 //     at 32 x 96 per warp, 96 registers);
 //   - its x tile [64, D] is loaded once into shared memory;
-//   - for each chunk of FC = 64 hidden units: h = x @ W1[:, chunk] with W1
-//     k-tiles in a 4-stage cp.async ring, then + b1, GELU in f32, bf16 into
-//     shared memory, then out += h @ W2[chunk, cols] with the W2 chunk
-//     copied in pieces alongside the first fc1 k-tiles of the same chunk;
+//   - for each chunk of FC = 64 hidden units: h = x @ W1[:, chunk] with
+//     128-deep W1 k-tiles in a 3-stage cp.async ring, then + b1, GELU in
+//     f32, bf16 into shared memory, then out += h @ W2[chunk, cols] with the
+//     W2 chunk copied in pieces alongside the first fc1 k-tiles of the chunk;
+//   - fc1 gives each warp a 32 x 32 tile of h over half of every k-tile
+//     (two k-groups of four warps, summed once per chunk through shared
+//     memory): 8 independent accumulators per step and half an ldmatrix per
+//     mma, where 16 x 32 tiles over whole k-tiles gave 4 and three quarters;
 //   - mma.sync m16n8k16 (bf16 in, f32 accumulators) with ldmatrix operand
 //     loads from padded rows.
 // Rows past N are zero-filled on load and never stored (no padding copies).
@@ -36,21 +40,23 @@ namespace {
 constexpr int R = 64;          // rows per block
 constexpr int DN = 384;        // output columns per block
 constexpr int FC = 64;         // hidden units per chunk
-constexpr int BK = 64;         // fc1 k-tile depth
-constexpr int STAGES = 4;      // fc1 W1 k-tile ring
+constexpr int BK = 128;        // fc1 k-tile depth
+constexpr int STAGES = 3;      // fc1 W1 k-tile ring
 constexpr int THREADS = 256;
-constexpr int MAX_D = 1024;
+constexpr int MAX_D = 768;     // the x tile, the ring and the buffers fill 227 KB
 constexpr int LDW1 = FC + 8;   // 144 B rows: conflict-free ldmatrix
 constexpr int LDH = FC + 8;
 constexpr int LDW2 = DN + 8;   // 784 B rows
+constexpr int LDRED = FC + 4;  // f32 partial sums of the second fc1 k-half
 constexpr int W2_PIECES = FC * DN / 8;  // 16-byte pieces of one W2 chunk
 constexpr int W1_BYTES = STAGES * BK * LDW1 * 2;
 constexpr int W2_BYTES = FC * LDW2 * 2;
 constexpr int H_BYTES = R * LDH * 2;
+constexpr int RED_BYTES = R * LDRED * 4;
 constexpr int W1_PER_THREAD = BK * FC / 8 / THREADS;  // 16-byte W1 pieces per k-tile
 static_assert(BK * FC / 8 % THREADS == 0, "whole W1 pieces per thread");
 
-int smem_bytes(int D) { return R * (D + 8) * 2 + W1_BYTES + W2_BYTES + H_BYTES; }
+int smem_bytes(int D) { return R * (D + 8) * 2 + W1_BYTES + W2_BYTES + H_BYTES + RED_BYTES; }
 
 struct MlpArgs {
   const bf16* x;    // [G, N, D]
@@ -70,6 +76,7 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_kernel(MlpArgs p) {
   bf16* sW1 = sX + R * LDX;
   bf16* sW2 = sW1 + STAGES * BK * LDW1;
   bf16* sH = sW2 + FC * LDW2;
+  float* sRed = reinterpret_cast<float*>(sH + R * LDH);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -83,16 +90,21 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_kernel(MlpArgs p) {
 
   const int nk = D / BK;                  // fc1 k-tiles per chunk
   const int nchunks = (F + FC - 1) / FC;
-  const int total = nk * nchunks;         // fc1 k-tiles in all
   // the W2 chunk rides with the fc1 k-tiles of iterations [0, w2_iters), so
   // the last STAGES-1 groups of a chunk (the next chunk's W1 prefetch) need
   // not land before its fc2
   const int w2_iters = max(1, nk - (STAGES - 1));
+  const int w2_step = (W2_PIECES + w2_iters - 1) / w2_iters;
 
-  // start the copies of fc1 k-tile `tile` (chunk tile / nk) into ring stage st
-  auto load_w1 = [&](int tile, int st) {
-    if (tile >= total) return;
-    const int k0 = (tile % nk) * BK, f0 = (tile / nk) * FC;
+  // start the copies of the next fc1 k-tile (ld_kt of chunk ld_j) into stage st
+  int ld_kt = 0, ld_j = 0;
+  auto load_w1 = [&](int st) {
+    if (ld_j == nchunks) return;
+    const int k0 = ld_kt * BK, f0 = ld_j * FC;
+    if (++ld_kt == nk) {
+      ld_kt = 0;
+      ++ld_j;
+    }
 #pragma unroll
     for (int i = 0; i < W1_PER_THREAD; ++i) {
       const int c = tid + i * THREADS;
@@ -104,7 +116,7 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_kernel(MlpArgs p) {
   };
   // pieces [lo, hi) of W2 chunk j (rows f0.., this block's columns c0..)
   auto load_w2_part = [&](int j, int it) {
-    const int lo = it * W2_PIECES / w2_iters, hi = (it + 1) * W2_PIECES / w2_iters;
+    const int lo = it * w2_step, hi = min(lo + w2_step, W2_PIECES);
     const int f0 = j * FC;
     for (int c = lo + tid; c < hi; c += THREADS) {
       const int r = c / (DN / 8), col = (c % (DN / 8)) * 8;
@@ -123,11 +135,12 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_kernel(MlpArgs p) {
   }
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    load_w1(s, s);
+    load_w1(s);
     cp_async_commit();
   }
 
-  const int wm1 = warp / 2, wn1 = warp % 2;  // fc1: 4 x 2 warps of 16 x 32
+  // fc1: 2 x 2 warps of 32 x 32 for each half of every k-tile (k-group kg)
+  const int kg = warp / 4, wm1 = (warp / 2) % 2, wn1 = warp % 2;
   const int wm2 = warp / 4, wn2 = warp % 4;  // fc2: 2 x 4 warps of 32 x 96
   float acc[2][12][4];
 #pragma unroll
@@ -135,48 +148,75 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_kernel(MlpArgs p) {
 #pragma unroll
     for (int n = 0; n < 12; ++n) acc[i][n][0] = acc[i][n][1] = acc[i][n][2] = acc[i][n][3] = 0.f;
 
-  int tile = 0;
+  int stage = 0;  // ring stage of the k-tile being consumed
   for (int j = 0; j < nchunks; ++j) {
-    float hacc[4][4];
+    float hacc[2][4][4];
 #pragma unroll
-    for (int n = 0; n < 4; ++n) hacc[n][0] = hacc[n][1] = hacc[n][2] = hacc[n][3] = 0.f;
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) hacc[i][n][0] = hacc[i][n][1] = hacc[i][n][2] = hacc[i][n][3] = 0.f;
 
-    // fc1: h[64, FC] = x[64, D] @ W1[:, chunk]
-    for (int kt = 0; kt < nk; ++kt, ++tile) {
-      cp_async_wait<STAGES - 2>();  // k-tile `tile` has landed
+    // fc1: h[64, FC] = x[64, D] @ W1[:, chunk], each k-group over half of every k-tile
+    for (int kt = 0; kt < nk; ++kt) {
+      cp_async_wait<STAGES - 2>();  // this k-tile has landed
       __syncthreads();  // everyone's copies visible; the previous stage (and,
                         // at kt = 0, the W2 buffer of the last fc2) is free
-      load_w1(tile + STAGES - 1, (tile + STAGES - 1) % STAGES);
+      load_w1(stage == 0 ? STAGES - 1 : stage - 1);
       if (kt < w2_iters) load_w2_part(j, kt);
       cp_async_commit();  // one group per iteration, empty past the end
-      const bf16* wt = sW1 + (tile % STAGES) * BK * LDW1;
+      const bf16* wt = sW1 + stage * BK * LDW1;
+      stage = stage + 1 == STAGES ? 0 : stage + 1;
 #pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        uint32_t af[4], bfr[2][4];
-        ldmatrix_x4(af, sX + (wm1 * 16 + lane % 16) * LDX + kt * BK + kk + (lane / 16) * 8);
+      for (int kk = kg * 16; kk < BK; kk += 32) {
+        uint32_t af[2][4], bfr[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          ldmatrix_x4(af[i], sX + (wm1 * 32 + i * 16 + lane % 16) * LDX + kt * BK + kk +
+                                 (lane / 16) * 8);
 #pragma unroll
         for (int jp = 0; jp < 2; ++jp)
           ldmatrix_x4_trans(bfr[jp], wt + (kk + lane % 8 + ((lane / 8) % 2) * 8) * LDW1 +
                                          wn1 * 32 + jp * 16 + (lane / 16) * 8);
 #pragma unroll
-        for (int n = 0; n < 4; ++n)
-          mma_bf16(hacc[n], af, bfr[n / 2][(n % 2) * 2], bfr[n / 2][(n % 2) * 2 + 1]);
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            mma_bf16(hacc[i][n], af[i], bfr[n / 2][(n % 2) * 2], bfr[n / 2][(n % 2) * 2 + 1]);
       }
     }
 
-    // h = bf16(GELU(h + b1)) into shared memory; units past F are zero
+    // the two k-halves meet in shared memory; then h = bf16(GELU(h + b1))
+    // (units past F are zero)
     const int f0 = j * FC;
+    if (kg == 1) {
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const int col = wn1 * 32 + n * 8 + 2 * t;
-      const bool in = f0 + col < F;  // F % 8 == 0: col + 1 is in when col is
-      const float bb0 = in ? B1[f0 + col] : 0.f, bb1 = in ? B1[f0 + col + 1] : 0.f;
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int r = wm1 * 16 + g + hr * 8;
-        *reinterpret_cast<uint32_t*>(sH + r * LDH + col) =
-            in ? pack_bf16(gelu_as(hacc[n][2 * hr] + bb0), gelu_as(hacc[n][2 * hr + 1] + bb1))
-               : 0u;
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr)
+            *reinterpret_cast<float2*>(sRed + (wm1 * 32 + i * 16 + g + hr * 8) * LDRED +
+                                       wn1 * 32 + n * 8 + 2 * t) =
+                make_float2(hacc[i][n][2 * hr], hacc[i][n][2 * hr + 1]);
+    }
+    __syncthreads();
+    if (kg == 0) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int col = wn1 * 32 + n * 8 + 2 * t;
+        const bool in = f0 + col < F;  // F % 8 == 0: col + 1 is in when col is
+        const float bb0 = in ? B1[f0 + col] : 0.f, bb1 = in ? B1[f0 + col + 1] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int r = wm1 * 32 + i * 16 + g + hr * 8;
+            const float2 other = *reinterpret_cast<const float2*>(sRed + r * LDRED + col);
+            *reinterpret_cast<uint32_t*>(sH + r * LDH + col) =
+                in ? pack_bf16(gelu_as(hacc[i][n][2 * hr] + other.x + bb0),
+                               gelu_as(hacc[i][n][2 * hr + 1] + other.y + bb1))
+                   : 0u;
+          }
       }
     }
     // the W2 chunk has landed (only the next chunk's W1 prefetch may still fly)
@@ -228,7 +268,7 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_kernel(MlpArgs p) {
 
 // out[g] = bf16(bf16(GELU(x[g] @ w1[g] + b1[g])) @ w2[g] + b2[g]):
 // x, out [G,N,D] bf16; w1 [G,D,F], w2 [G,F,D] bf16; b1 [G,F], b2 [G,D] f32.
-// D % 64 == 0 and D <= 1024; F % 8 == 0.  One launch.
+// D % 128 == 0 and D <= 768; F % 8 == 0.  One launch.
 extern "C" int mlp(const void* x, const void* w1, const void* b1, const void* w2,
                    const void* b2, void* out, int G, int N, int D, int F, void* stream) {
   if (D % BK != 0 || D > MAX_D || F % 8 != 0 || F <= 0 || N <= 0 || G <= 0)

@@ -20,8 +20,8 @@ import torch
 from prcv2025reid_tpu_torch.ops import _kernels
 from prcv2025reid_tpu_torch.ops.kernel_math import gelu_exact
 
-MAX_WIDTH = 1024  # the kernel keeps a [64, D] row tile in shared memory
-WIDTH_STEP = 64   # its fc1 k-tile depth
+MAX_WIDTH = 768  # the kernel keeps a [64, D] row tile in shared memory
+WIDTH_STEP = 128  # its fc1 k-tile depth
 
 
 def mlp_plain(x, w1, b1, w2, b2):

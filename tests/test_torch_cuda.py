@@ -62,7 +62,7 @@ def test_block_kernels(cuda):
     assert _rel(out, fb.out_mlp_plain(attn, x, wo, bo, lns, lnb, w1, b1, w2, b2)) < 1e-2
 
 
-@pytest.mark.parametrize("N,D,F", [(77, 128, 200), (131, 64, 64), (300, 768, 3072)])
+@pytest.mark.parametrize("N,D,F", [(77, 128, 200), (131, 256, 64), (300, 768, 3072)])
 def test_fused_mlp_kernel(cuda, N, D, F):
     """G = 2; N not a multiple of the 64-row tile, F not one of the 64-unit
     hidden chunk, D below the 384-column block."""
@@ -95,26 +95,23 @@ def test_fused_resln_kernel(cuda, N, D):
 
 
 def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
-    x = torch.zeros(2, 8, 64, device=cuda)  # f32
-    w1, w2 = torch.zeros(2, 64, 64, device=cuda), torch.zeros(2, 64, 64, device=cuda)
-    b = torch.zeros(2, 64, device=cuda)
+    def z(*shape, dt=torch.bfloat16):
+        return torch.zeros(*shape, device=cuda, dtype=dt)
+
+    w1, b1, w2, b2 = z(2, 128, 64), z(2, 64), z(2, 64, 128), z(2, 128)
     with pytest.raises(ValueError, match="bfloat16"):
-        fused_mlp(x, w1, b, w2, b)
-    bf = [t.bfloat16() for t in (x, w1, w2)]
+        fused_mlp(z(2, 8, 128, dt=torch.float32), w1, b1, w2, b2)
     with pytest.raises(ValueError, match="aligned"):  # contiguous, 2 bytes off 16
-        fused_mlp(torch.zeros(2 * 8 * 64 + 1, device=cuda, dtype=torch.bfloat16)[1:]
-                  .view(2, 8, 64), bf[1], b, bf[2], b)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        z = torch.zeros(2, 8, 40, device=cuda, dtype=torch.bfloat16)
-        fused_mlp(z, torch.zeros(2, 40, 64, device=cuda, dtype=torch.bfloat16), b,
-                  torch.zeros(2, 64, 40, device=cuda, dtype=torch.bfloat16), b[:, :40])
+        fused_mlp(z(2 * 8 * 128 + 1)[1:].view(2, 8, 128), w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fused_mlp(z(2, 8, 40), z(2, 40, 64), b1, z(2, 64, 40), z(2, 40))
     s = torch.ones(64, device=cuda)
     with pytest.raises(ValueError, match="bfloat16"):
-        fused_residual_ln(x[0], x[0], s, s)
+        fused_residual_ln(z(8, 64, dt=torch.float32), z(8, 64, dt=torch.float32), s, s)
+    with pytest.raises(ValueError, match="aligned"):  # not contiguous
+        fused_residual_ln(z(8, 64), z(64, 8).t(), s, s)
     with pytest.raises(ValueError, match="aligned"):
-        fused_residual_ln(bf[0][0], bf[0][0].t().contiguous().t(), s, s)
-    with pytest.raises(ValueError, match="aligned"):
-        off = torch.zeros(8 * 64 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(8, 64)
+        off = z(8 * 64 + 1)[1:].view(8, 64)
         fused_residual_ln(off, off, s, s)
 
 
