@@ -25,8 +25,12 @@
 //     W2 chunk copied in pieces alongside the first fc1 k-tiles of the chunk;
 //   - fc1 gives each warp a 32 x 32 tile of h over half of every k-tile
 //     (two k-groups of four warps, summed once per chunk through shared
-//     memory): 8 independent accumulators per step and half an ldmatrix per
-//     mma, where 16 x 32 tiles over whole k-tiles gave 4 and three quarters;
+//     memory, each group finishing half the rows): 8 independent
+//     accumulators per step and half an ldmatrix per mma, where 16 x 32
+//     tiles over whole k-tiles gave 4 and three quarters;
+//   - the GELU uses the hardware's approximate reciprocal and exponential
+//     (gelu_as_fast): the epilogue runs between two barriers, so its
+//     latency is paid in full;
 //   - mma.sync m16n8k16 (bf16 in, f32 accumulators) with ldmatrix operand
 //     loads from padded rows.
 // Rows past N are zero-filled on load and never stored (no padding copies).
@@ -185,38 +189,30 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_kernel(MlpArgs p) {
       }
     }
 
-    // the two k-halves meet in shared memory; then h = bf16(GELU(h + b1))
-    // (units past F are zero)
+    // the two k-halves meet in shared memory: k-group kg finishes the rows
+    // i = kg of every warp tile, h = bf16(GELU(h + b1)) (units past F are 0)
     const int f0 = j * FC;
-    if (kg == 1) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+    for (int n = 0; n < 4; ++n)
 #pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-          for (int hr = 0; hr < 2; ++hr)
-            *reinterpret_cast<float2*>(sRed + (wm1 * 32 + i * 16 + g + hr * 8) * LDRED +
-                                       wn1 * 32 + n * 8 + 2 * t) =
-                make_float2(hacc[i][n][2 * hr], hacc[i][n][2 * hr + 1]);
-    }
+      for (int hr = 0; hr < 2; ++hr)
+        *reinterpret_cast<float2*>(sRed + (wm1 * 32 + (1 - kg) * 16 + g + hr * 8) * LDRED +
+                                   wn1 * 32 + n * 8 + 2 * t) =
+            make_float2(hacc[1 - kg][n][2 * hr], hacc[1 - kg][n][2 * hr + 1]);
     __syncthreads();
-    if (kg == 0) {
 #pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        const int col = wn1 * 32 + n * 8 + 2 * t;
-        const bool in = f0 + col < F;  // F % 8 == 0: col + 1 is in when col is
-        const float bb0 = in ? B1[f0 + col] : 0.f, bb1 = in ? B1[f0 + col + 1] : 0.f;
+    for (int n = 0; n < 4; ++n) {
+      const int col = wn1 * 32 + n * 8 + 2 * t;
+      const bool in = f0 + col < F;  // F % 8 == 0: col + 1 is in when col is
+      const float bb0 = in ? B1[f0 + col] : 0.f, bb1 = in ? B1[f0 + col + 1] : 0.f;
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int hr = 0; hr < 2; ++hr) {
-            const int r = wm1 * 32 + i * 16 + g + hr * 8;
-            const float2 other = *reinterpret_cast<const float2*>(sRed + r * LDRED + col);
-            *reinterpret_cast<uint32_t*>(sH + r * LDH + col) =
-                in ? pack_bf16(gelu_as(hacc[i][n][2 * hr] + other.x + bb0),
-                               gelu_as(hacc[i][n][2 * hr + 1] + other.y + bb1))
-                   : 0u;
-          }
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = wm1 * 32 + kg * 16 + g + hr * 8;
+        const float2 other = *reinterpret_cast<const float2*>(sRed + r * LDRED + col);
+        *reinterpret_cast<uint32_t*>(sH + r * LDH + col) =
+            in ? pack_bf16(gelu_as_fast(hacc[kg][n][2 * hr] + other.x + bb0),
+                           gelu_as_fast(hacc[kg][n][2 * hr + 1] + other.y + bb1))
+               : 0u;
       }
     }
     // the W2 chunk has landed (only the next chunk's W1 prefetch may still fly)
