@@ -154,6 +154,14 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_kernel(MlpArgs p) {
 
   int stage = 0;  // ring stage of the k-tile being consumed
   for (int j = 0; j < nchunks; ++j) {
+    const int f0 = j * FC;
+    // this chunk's b1 pairs, loaded now so that the epilogue does not wait
+    float2 bias1[4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int col = f0 + wn1 * 32 + n * 8 + 2 * t;
+      bias1[n] = col < F ? make_float2(B1[col], B1[col + 1]) : make_float2(0.f, 0.f);
+    }
     float hacc[2][4][4];
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -170,48 +178,56 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_kernel(MlpArgs p) {
       cp_async_commit();  // one group per iteration, empty past the end
       const bf16* wt = sW1 + stage * BK * LDW1;
       stage = stage + 1 == STAGES ? 0 : stage + 1;
-#pragma unroll
-      for (int kk = kg * 16; kk < BK; kk += 32) {
-        uint32_t af[2][4], bfr[2][4];
+      // fragments double-buffered: step s + 1's loads issue before step s's products
+      uint32_t af[2][2][4], bfr[2][2][4];
+      auto load_frags = [&](int buf, int kk) {
 #pragma unroll
         for (int i = 0; i < 2; ++i)
-          ldmatrix_x4(af[i], sX + (wm1 * 32 + i * 16 + lane % 16) * LDX + kt * BK + kk +
-                                 (lane / 16) * 8);
+          ldmatrix_x4(af[buf][i], sX + (wm1 * 32 + i * 16 + lane % 16) * LDX + kt * BK + kk +
+                                      (lane / 16) * 8);
 #pragma unroll
         for (int jp = 0; jp < 2; ++jp)
-          ldmatrix_x4_trans(bfr[jp], wt + (kk + lane % 8 + ((lane / 8) % 2) * 8) * LDW1 +
-                                         wn1 * 32 + jp * 16 + (lane / 16) * 8);
+          ldmatrix_x4_trans(bfr[buf][jp], wt + (kk + lane % 8 + ((lane / 8) % 2) * 8) * LDW1 +
+                                              wn1 * 32 + jp * 16 + (lane / 16) * 8);
+      };
+      load_frags(0, kg * 16);
+#pragma unroll
+      for (int s = 0; s < BK / 32; ++s) {
+        if (s + 1 < BK / 32) load_frags((s + 1) % 2, kg * 16 + (s + 1) * 32);
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
           for (int n = 0; n < 4; ++n)
-            mma_bf16(hacc[i][n], af[i], bfr[n / 2][(n % 2) * 2], bfr[n / 2][(n % 2) * 2 + 1]);
+            mma_bf16(hacc[i][n], af[s % 2][i], bfr[s % 2][n / 2][(n % 2) * 2],
+                     bfr[s % 2][n / 2][(n % 2) * 2 + 1]);
       }
     }
 
     // the two k-halves meet in shared memory: k-group kg finishes the rows
-    // i = kg of every warp tile, h = bf16(GELU(h + b1)) (units past F are 0)
-    const int f0 = j * FC;
+    // i = kg of every warp tile, h = bf16(GELU(h + b1)) (units past F are 0);
+    // selects, not hacc[kg], keep hacc in registers
 #pragma unroll
     for (int n = 0; n < 4; ++n)
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr)
         *reinterpret_cast<float2*>(sRed + (wm1 * 32 + (1 - kg) * 16 + g + hr * 8) * LDRED +
                                    wn1 * 32 + n * 8 + 2 * t) =
-            make_float2(hacc[1 - kg][n][2 * hr], hacc[1 - kg][n][2 * hr + 1]);
+            kg ? make_float2(hacc[0][n][2 * hr], hacc[0][n][2 * hr + 1])
+               : make_float2(hacc[1][n][2 * hr], hacc[1][n][2 * hr + 1]);
     __syncthreads();
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
       const int col = wn1 * 32 + n * 8 + 2 * t;
       const bool in = f0 + col < F;  // F % 8 == 0: col + 1 is in when col is
-      const float bb0 = in ? B1[f0 + col] : 0.f, bb1 = in ? B1[f0 + col + 1] : 0.f;
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
         const int r = wm1 * 32 + kg * 16 + g + hr * 8;
         const float2 other = *reinterpret_cast<const float2*>(sRed + r * LDRED + col);
+        const float v0 = kg ? hacc[1][n][2 * hr] : hacc[0][n][2 * hr];
+        const float v1 = kg ? hacc[1][n][2 * hr + 1] : hacc[0][n][2 * hr + 1];
         *reinterpret_cast<uint32_t*>(sH + r * LDH + col) =
-            in ? pack_bf16(gelu_as_fast(hacc[kg][n][2 * hr] + other.x + bb0),
-                           gelu_as_fast(hacc[kg][n][2 * hr + 1] + other.y + bb1))
+            in ? pack_bf16(gelu_as_fast(v0 + other.x + bias1[n].x),
+                           gelu_as_fast(v1 + other.y + bias1[n].y))
                : 0u;
       }
     }
