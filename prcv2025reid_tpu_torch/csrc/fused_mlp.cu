@@ -235,29 +235,24 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_kernel(MlpArgs p) {
     if (nk - w2_iters >= STAGES - 1) cp_async_wait<STAGES - 1>(); else cp_async_wait<0>();
     __syncthreads();
 
-    // fc2: out[64, DN] += h[64, FC] @ W2[chunk, c0 : c0 + DN], fragments
-    // double-buffered across the k16 steps (fc1's registers are free here)
-    uint32_t ha[2][2][4], wb[2][6][4];
-    auto load_fc2_frags = [&](int buf, int kk) {
+    // fc2: out[64, DN] += h[64, FC] @ W2[chunk, c0 : c0 + DN]
+#pragma unroll
+    for (int kk = 0; kk < FC; kk += 16) {
+      uint32_t af[2][4];
 #pragma unroll
       for (int i = 0; i < 2; ++i)
-        ldmatrix_x4(ha[buf][i], sH + (wm2 * 32 + i * 16 + lane % 16) * LDH + kk + (lane / 16) * 8);
+        ldmatrix_x4(af[i], sH + (wm2 * 32 + i * 16 + lane % 16) * LDH + kk + (lane / 16) * 8);
 #pragma unroll
-      for (int jp = 0; jp < 6; ++jp)
-        ldmatrix_x4_trans(wb[buf][jp], sW2 + (kk + lane % 8 + ((lane / 8) % 2) * 8) * LDW2 +
-                                           wn2 * 96 + jp * 16 + (lane / 16) * 8);
-    };
-    load_fc2_frags(0, 0);
-#pragma unroll
-    for (int s = 0; s < FC / 16; ++s) {
-      if (s + 1 < FC / 16) load_fc2_frags((s + 1) % 2, (s + 1) * 16);
-#pragma unroll
-      for (int jp = 0; jp < 6; ++jp)
+      for (int jp = 0; jp < 6; ++jp) {
+        uint32_t bfr[4];
+        ldmatrix_x4_trans(bfr, sW2 + (kk + lane % 8 + ((lane / 8) % 2) * 8) * LDW2 +
+                                   wn2 * 96 + jp * 16 + (lane / 16) * 8);
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          mma_bf16(acc[i][2 * jp], ha[s % 2][i], wb[s % 2][jp][0], wb[s % 2][jp][1]);
-          mma_bf16(acc[i][2 * jp + 1], ha[s % 2][i], wb[s % 2][jp][2], wb[s % 2][jp][3]);
+          mma_bf16(acc[i][2 * jp], af[i], bfr[0], bfr[1]);
+          mma_bf16(acc[i][2 * jp + 1], af[i], bfr[2], bfr[3]);
         }
+      }
     }
   }
   cp_async_wait<0>();
