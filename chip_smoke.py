@@ -28,7 +28,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      computed by the port on the CPU;
   5. time every kernel, its plain version and (where one PyTorch call
      computes the same function) that call with CUDA events, median of
-     TIMED_RUNS after warm-up, beside the least time the card could take;
+     TIMED_RUNS after warm-up queued behind a spin kernel (device time
+     only), beside the least time the card could take;
      time end-to-end embeds/s per configuration (in turns, median of
      E2E_ROUNDS rounds) and print torch.profiler's device time per kernel
      for one embed step of each.
@@ -53,6 +54,7 @@ MIN_COSINE = 0.999
 F32_MIN_COSINE = 0.99
 TIMED_RUNS = 25
 WARMUP_RUNS = 3
+SPIN_CYCLES = 20_000_000  # ~10 ms at the H100's clock: the host enqueues the runs meanwhile
 E2E_ITERS = 10
 E2E_ROUNDS = 3
 TOP_KERNELS = 8
@@ -75,9 +77,14 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
 
 
 def time_ms(torch, fn, runs=TIMED_RUNS):
-    """Median device time of ``fn()`` over ``runs`` launches (CUDA events)."""
+    """Median device time of ``fn()`` over ``runs`` launches (CUDA events
+    around each).  A spin kernel queued first keeps the card busy while the
+    host enqueues the runs, so the host's time between launches (longer
+    than a 60 us kernel) is not timed."""
     for _ in range(WARMUP_RUNS):
         fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
     pairs = []
     for _ in range(runs):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
