@@ -15,12 +15,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   4. build the full-width ViT-B/16 model (fusion_dim 512, 400 classes, bf16
      compute) from init_params(seed=0, perturb=True) and embed one seeded
      uint8 batch through the entry points (build_model,
-     make_combo_embed_step) under five paths: block_impl="xla" (plain),
-     block_impl="fused", use_pallas_attention=True, use_fused_mlp=True and
-     the fused-stream trunk (use_fused_resln=True with use_fused_mlp and
-     use_pallas_attention).  Each kernel path must reach min-cosine >= 0.999
-     against the plain path, and the launch counters, zeroed just before each
-     run, must read exactly EXPECTED (one launch per block 0..L-2 where the
+     make_combo_embed_step) under six paths: block_impl="xla" (plain),
+     block_impl="fused", use_pallas_attention=True, use_fused_mlp=True, the
+     fused-stream trunk (use_fused_resln=True with use_fused_mlp and
+     use_pallas_attention) and the same trunk with the plain MLP
+     (use_fused_resln and use_pallas_attention).  Each kernel path must reach
+     min-cosine >= 0.999 against the plain path, and the launch counters,
+     zeroed just before each run, must read exactly EXPECTED (one launch per
+     block 0..L-2 where the
      last block is CLS-only; the fused-stream trunk runs all L blocks with two
      residual+LN launches each).  The fused-stream trunk is also held against
      the plain path on the MM-3 query combo (nir, sk, cp: three groups).
@@ -224,6 +226,8 @@ def main() -> int:
         "fused_mlp": cfg.replace(use_fused_mlp=True),
         "fused_trunk": cfg.replace(use_fused_resln=True, use_fused_mlp=True,
                                    use_pallas_attention=True),
+        # the fused-stream trunk with the plain MLP: what the MLP kernel costs it
+        "fused_resln": cfg.replace(use_fused_resln=True, use_pallas_attention=True),
     }
     counters = {"fused_mha": fused_mha, "fused_ln_qkv": fb.fused_ln_qkv,
                 "fused_out_mlp": fb.fused_out_mlp, "fused_mlp": fused_mlp,
@@ -234,6 +238,7 @@ def main() -> int:
         "pallas_attention": {"fused_mha": L - 1},
         "fused_mlp": {"fused_mlp": L - 1},
         "fused_trunk": {"fused_mha": L, "fused_mlp": L, "fused_residual_ln": 2 * L},
+        "fused_resln": {"fused_mha": L, "fused_residual_ln": 2 * L},
     }
     Mv = len(cfg.vision_modalities)
     images = torch.randint(0, 256, (BATCH, Mv, cfg.image_size, cfg.image_size, 3),

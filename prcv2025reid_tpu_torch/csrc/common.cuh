@@ -1,5 +1,5 @@
-// Warp-level tensor-core helpers shared by the port's Hopper kernels:
-// mma.sync m16n8k16 (bf16 inputs, f32 accumulators) and ldmatrix loads.
+// Helpers shared by the port's Hopper kernels: mma.sync m16n8k16 (bf16
+// inputs, f32 accumulators), ldmatrix and cp.async, bf16 packing, the GELU.
 //
 // Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16"), with
 // g = lane / 4 and t = lane % 4:
@@ -68,23 +68,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // 0.5 x (1 + erf(x / sqrt 2)) with the Abramowitz-Stegun 7.1.26 erf
-// (|err| <= 1.5e-7) that the TPU kernels use (kernel_math.gelu_exact)
-__device__ __forceinline__ float gelu_as(float x) {
-  const float u = x * 0.7071067811865476f;
-  const float a = fabsf(u);
-  const float tt = 1.0f / (1.0f + 0.3275911f * a);
-  const float poly =
-      tt * (0.254829592f +
-            tt * (-0.284496736f + tt * (1.421413741f + tt * (-1.453152027f + tt * 1.061405429f))));
-  const float sgn = (u > 0.f) ? 1.f : ((u < 0.f) ? -1.f : 0.f);
-  const float erf_u = sgn * (1.0f - poly * expf(-a * a));
-  return 0.5f * x * (1.0f + erf_u);
-}
-
-// gelu_as with the hardware's approximate reciprocal and exponential (a few
-// f32 ulps, far below the bf16 rounding that follows it): a handful of
+// (|err| <= 1.5e-7) that the TPU kernels use (kernel_math.gelu_exact), its
+// reciprocal and exponential from the hardware's approximate units: a few f32
+// ulps, far below the bf16 rounding that follows, in a handful of
 // instructions where the IEEE division and expf take tens
-__device__ __forceinline__ float gelu_as_fast(float x) {
+__device__ __forceinline__ float gelu_as(float x) {
   const float u = x * 0.7071067811865476f;
   const float a = fabsf(u);
   const float tt = __fdividef(1.0f, 1.0f + 0.3275911f * a);

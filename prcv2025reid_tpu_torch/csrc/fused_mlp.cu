@@ -27,13 +27,18 @@
 //     (two k-groups of four warps, summed once per chunk through shared
 //     memory, each group finishing half the rows): 8 independent
 //     accumulators per step and half an ldmatrix per mma, where 16 x 32
-//     tiles over whole k-tiles gave 4 and three quarters;
-//   - the GELU uses the hardware's approximate reciprocal and exponential
-//     (gelu_as_fast): the epilogue runs between two barriers, so its
-//     latency is paid in full;
+//     tiles over whole k-tiles gave 4 and three quarters; its fragments are
+//     double-buffered, so each ldmatrix lands a step before its mma;
+//   - the GELU (gelu_as) uses the hardware's approximate reciprocal and
+//     exponential: the epilogue runs between two barriers, so its latency
+//     is paid in full;
 //   - mma.sync m16n8k16 (bf16 in, f32 accumulators) with ldmatrix operand
 //     loads from padded rows.
 // Rows past N are zero-filled on load and never stored (no padding copies).
+// On an H100 80GB HBM3 at 700 W this takes ~1.95 ms at the shape above
+// (PERF.md): without any weight traffic it still takes 1.60 ms and without
+// either product's mma 1.87, so what holds it is shared-memory operand
+// traffic and the latency between barriers, not L2 or the tensor cores.
 #include "common.cuh"
 
 using namespace port;
@@ -226,8 +231,8 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_kernel(MlpArgs p) {
         const float v0 = kg ? hacc[1][n][2 * hr] : hacc[0][n][2 * hr];
         const float v1 = kg ? hacc[1][n][2 * hr + 1] : hacc[0][n][2 * hr + 1];
         *reinterpret_cast<uint32_t*>(sH + r * LDH + col) =
-            in ? pack_bf16(gelu_as_fast(v0 + other.x + bias1[n].x),
-                           gelu_as_fast(v1 + other.y + bias1[n].y))
+            in ? pack_bf16(gelu_as(v0 + other.x + bias1[n].x),
+                           gelu_as(v1 + other.y + bias1[n].y))
                : 0u;
       }
     }

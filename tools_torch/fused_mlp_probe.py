@@ -39,8 +39,8 @@ DIAGNOSTICS = {
         ("const bool in = f0 + r < F && c0 + col + 8 <= D;", "const bool in = false;"),
     ],
     "no_gelu": [
-        ("in ? pack_bf16(gelu_as_fast(v0 + other.x + bias1[n].x),\n"
-         "                           gelu_as_fast(v1 + other.y + bias1[n].y))",
+        ("in ? pack_bf16(gelu_as(v0 + other.x + bias1[n].x),\n"
+         "                           gelu_as(v1 + other.y + bias1[n].y))",
          "in ? pack_bf16(v0 + other.x + bias1[n].x,\n"
          "                           v1 + other.y + bias1[n].y)"),
     ],
