@@ -27,6 +27,7 @@ from prcv2025reid_tpu_torch.ops.attention import (
 )
 from prcv2025reid_tpu_torch.ops.fused_block import fused_ln_qkv, fused_out_mlp
 from prcv2025reid_tpu_torch.ops.fused_mlp import fused_mlp
+from prcv2025reid_tpu_torch.ops.kernel_math import LN_EPS, ln_f32
 
 
 def _param(*shape, device=None) -> nn.Parameter:
@@ -45,13 +46,9 @@ def effective_weights(kernel, lora_a, lora_b, expert_ids: Sequence[int],
 
 
 def ln_apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-             eps: float = 1e-5) -> torch.Tensor:
+             eps: float = LN_EPS) -> torch.Tensor:
     """Plain layer norm over the last axis, f32 statistics, output in x.dtype."""
-    xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mu).square().mean(dim=-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * scale.float() + bias.float()).to(x.dtype)
+    return ln_f32(x, scale, bias, eps).to(x.dtype)
 
 
 def gelu_erf(h: torch.Tensor) -> torch.Tensor:

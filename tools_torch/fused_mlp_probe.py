@@ -5,7 +5,8 @@ on one NVIDIA GPU, to find where its time goes.
     python3 tools_torch/fused_mlp_probe.py [--source NAME=PATH ...] [--rounds N]
 
 The variants are the committed source, each --source file (an older version
-of the kernel, e.g. extracted with ``git show REV:prcv2025reid_tpu_torch/csrc/fused_mlp.cu``),
+of the kernel: ``git show REV:prcv2025reid_tpu_torch/csrc/fused_mlp.cu`` into a
+directory that also holds that revision's ``common.cuh``, which it includes),
 and diagnostics: the committed source with one part of the work removed by a
 text substitution.  A diagnostic's output is wrong; only its time is read:
 
@@ -78,26 +79,26 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60)
     print(f"card: {smi.stdout.strip()}")
 
+    # name -> (source text, directory of its common.cuh, is a diagnostic)
     committed = SOURCE.read_text()
-    sources = {"committed": (committed, False)}
+    sources = {"committed": (committed, SOURCE.parent, False)}
     for spec in args.source:
         name, path = spec.split("=", 1)
-        sources[name] = (Path(path).read_text(), False)
+        sources[name] = (Path(path).read_text(), Path(path).resolve().parent, False)
     for name, subs in DIAGNOSTICS.items():
         text = committed
         for old, new in subs:
             if old not in text:
                 raise SystemExit(f"diagnostic {name}: the committed source no longer has {old!r}")
             text = text.replace(old, new)
-        sources[name] = (text, True)
+        sources[name] = (text, SOURCE.parent, True)
 
     BUILD.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, (text, _) in sources.items():
+    for name, (text, include, _) in sources.items():
         cu, so = BUILD / f"{name}.cu", BUILD / f"lib{name}.so"
         cu.write_text(text)
-        cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-I", str(_kernels.CSRC), "-o", str(so),
-               str(cu)]
+        cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-I", str(include), "-o", str(so), str(cu)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                         text=True), so)
     libs = {}
@@ -149,7 +150,7 @@ def main() -> int:
         for name in names:
             launch(libs[name])
             torch.cuda.synchronize()
-            diag = sources[name][1]
+            diag = sources[name][2]
             rel = ((out.float() - want).norm() / want.norm()).item()
             note = "diagnostic" if diag else f"rel {rel:.3e}"
             print(f"round {rnd} {name}: {time_ms(libs[name]):.4f} ms ({note})")
