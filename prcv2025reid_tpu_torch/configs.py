@@ -156,7 +156,7 @@ class TrainingConfig:
         if self.attn_backend != "xla":
             raise NotImplementedError(
                 f"attn_backend={self.attn_backend!r} is not ported yet: "
-                "ROADMAP.md §1 item 2 ('onesaug' core) and §2 item 1 ('splash' "
+                "ROADMAP.md §1 item 2 ('onesaug' core) and §2 item 10 ('splash' "
                 "through the Hopper attention kernel)"
             )
         if self.gelu_impl != "erf":

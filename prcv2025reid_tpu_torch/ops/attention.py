@@ -53,7 +53,7 @@ def bshd_core(impl: str):
     if impl not in BSHD_CORES:
         raise NotImplementedError(
             f"attention core {impl!r} is not ported yet: ROADMAP.md §1 item 2 "
-            "('onesaug') and §2 item 1 ('splash')"
+            "('onesaug') and §2 item 10 ('splash')"
         )
     return BSHD_CORES[impl]
 
