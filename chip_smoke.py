@@ -9,18 +9,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      (one nvcc per source, in parallel) and print ptxas' resource report;
   3. hold each kernel against its plain PyTorch version at the gallery-embed
      shapes (B=128 images of 197 tokens, ViT-B/16 widths) on the same bf16
-     inputs: relative Frobenius error <= REL_TOL and max-abs error <= ABS_TOL;
+     inputs: relative Frobenius error <= REL_TOL and max-abs error <= ABS_TOL
+     (the int8 kernels: INT8_REL_TOL, INT8_ABS_TOL, for rounding flips);
      attention also with causal=True and kernel_version=1, the fused MLP also
      with G=3 groups of 32 images (6,304 rows, not a multiple of its tile);
+     the three int8 block kernels on weights quantized as the model does
+     (quantize_weight) and the splash core on [B, S, H, Dh] views of one QKV
+     projection;
   4. build the full-width ViT-B/16 model (fusion_dim 512, 400 classes, bf16
      compute) from init_params(seed=0, perturb=True) and embed one seeded
      uint8 batch through the entry points (build_model,
-     make_combo_embed_step) under six paths: block_impl="xla" (plain),
+     make_combo_embed_step) under ten paths: block_impl="xla" (plain),
      block_impl="fused", use_pallas_attention=True, use_fused_mlp=True, the
      fused-stream trunk (use_fused_resln=True with use_fused_mlp and
-     use_pallas_attention) and the same trunk with the plain MLP
-     (use_fused_resln and use_pallas_attention).  Each kernel path must reach
-     min-cosine >= 0.999 against the plain path, and the launch counters,
+     use_pallas_attention), the same trunk with the plain MLP
+     (use_fused_resln and use_pallas_attention), block_impl="fused_qkv",
+     attn_backend="splash", block_impl="fused_int8" and
+     block_impl="fused_int8_mlp".  Each exact kernel path must reach
+     min-cosine >= 0.999 against the plain path, each int8 plan >= 0.99 (JAX's
+     own bar through the trunk; its reading against the 0.999 promotion gate
+     is printed, not required), and the launch counters,
      zeroed just before each run, must read exactly EXPECTED (one launch per
      block 0..L-2 where the
      last block is CLS-only; the fused-stream trunk runs all L blocks with two
@@ -52,6 +60,13 @@ from pathlib import Path
 
 REL_TOL = 2e-3  # measured <= 3.5e-4 on an H100 (PERF.md)
 ABS_TOL = 5e-2
+# the int8 kernels against their plain versions: an f32 ulp of difference in an
+# LN statistic flips one int8 rounding of a row's LN2 output, which moves h by a
+# fraction of its quantization step in every column, re-rounds a share of that
+# row's int8 h and moves its outputs by ~0.01-0.02 before the bf16 rounding
+# (measured max-abs 0.047, rel <= 9.6e-4 on an H100, PERF.md)
+INT8_REL_TOL = 5e-3
+INT8_ABS_TOL = 0.125  # two bf16 ulps at |out| in [4, 8)
 MIN_COSINE = 0.999
 F32_MIN_COSINE = 0.99
 TIMED_RUNS = 25
@@ -62,7 +77,9 @@ E2E_ROUNDS = 3
 TOP_KERNELS = 8
 BATCH = 128
 NUM_CLASSES = 400
+INT8_MIN_COSINE = 0.99  # the int8 plans quantize: JAX's bar through the trunk
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 MM3_QUERY = ("nir", "sk", "cp")
@@ -73,8 +90,10 @@ def fail(msg: str) -> "NoReturn":  # noqa: F821
     sys.exit(1)
 
 
-def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
-    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
+def bound_ms(work, nbytes: float):
+    """The least time for ``work``, [(operations, peak rate of their type),
+    ...], and ``nbytes`` of traffic: the larger of the two times."""
+    t_ops, t_bytes = sum(n / peak for n, peak in work), nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -104,11 +123,11 @@ def device_time(event) -> float:
     return t if t is not None else event.self_cuda_time_total
 
 
-def errors(torch, got, want):
+def errors(torch, got, want, rel_tol=REL_TOL, abs_tol=ABS_TOL):
     d = got.float() - want.float()
     rel = (d.norm() / want.float().norm()).item()
     mx = d.abs().max().item()
-    if not (torch.isfinite(got.float()).all() and rel <= REL_TOL and mx <= ABS_TOL):
+    if not (torch.isfinite(got.float()).all() and rel <= rel_tol and mx <= abs_tol):
         return mx, rel, False
     return mx, rel, True
 
@@ -136,6 +155,7 @@ def main() -> int:
 
     from prcv2025reid_tpu_torch import TrainingConfig, build_model, make_combo_embed_step
     from prcv2025reid_tpu_torch.ops import _kernels
+    from prcv2025reid_tpu_torch.ops import attention as att
     from prcv2025reid_tpu_torch.ops import fused_block as fb
     from prcv2025reid_tpu_torch.ops.fused_attention import fused_mha, mha_plain
     from prcv2025reid_tpu_torch.ops.fused_mlp import fused_mlp, mlp_plain
@@ -193,6 +213,12 @@ def main() -> int:
                   (0.1 * randn(G3, F)).bfloat16(), randn(G3, F, D, scale=F**-0.5).bfloat16(),
                   (0.1 * randn(G3, D)).bfloat16())
     resln_args = (x[0], attn[0], lns, lnb)
+    # the int8 plans: the weights quantized as MERBlock does, on the card
+    q_wqkv, q_wo, q_w1, q_w2 = (fb.quantize_weight(w) for w in (wqkv, wo, w1, w2))
+    qkv8_args = (x, lns, lnb, *q_wqkv, bqkv)
+    mlp8_args = (attn, x, *q_wo, bo, lns, lnb, *q_w1, b1, *q_w2, b2)
+    mlp8m_args = (attn, x, wo, bo, lns, lnb, *q_w1, b1, *q_w2, b2)
+    splash_args = tuple(qkv[:, :, i] for i in range(3))  # [B, S, H, Dh] views
     block_checks = {}
     for name, kern, plain, args in (
         ("fused_ln_qkv", fb.fused_ln_qkv, fb.ln_qkv_plain, qkv_args),
@@ -203,10 +229,16 @@ def main() -> int:
          lambda *a: resln_plain(*a)[0], resln_args),
         ("fused_residual_ln y", lambda *a: fused_residual_ln(*a)[1],
          lambda *a: resln_plain(*a)[1], resln_args),
+        ("fused_ln_qkv_int8", fb.fused_ln_qkv_int8, fb.ln_qkv_int8_plain, qkv8_args),
+        ("fused_out_mlp_int8", fb.fused_out_mlp_int8, fb.out_mlp_int8_plain, mlp8_args),
+        ("fused_out_mlp_int8mlp", fb.fused_out_mlp_int8mlp, fb.out_mlp_int8mlp_plain,
+         mlp8m_args),
+        ("splash_attention_bshd", att.splash_attention_bshd, att.splash_plain, splash_args),
     ):
         got = kern(*args)
         torch.cuda.synchronize()
-        mx, rel, ok = errors(torch, got, plain(*args))
+        tols = (INT8_REL_TOL, INT8_ABS_TOL) if "int8" in name else (REL_TOL, ABS_TOL)
+        mx, rel, ok = errors(torch, got, plain(*args), *tols)
         block_checks[name] = (mx, rel)
         print(f"check {name}: max_abs {mx:.3e} rel {rel:.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -228,10 +260,19 @@ def main() -> int:
                                    use_pallas_attention=True),
         # the fused-stream trunk with the plain MLP: what the MLP kernel costs it
         "fused_resln": cfg.replace(use_fused_resln=True, use_pallas_attention=True),
+        "fused_qkv": cfg.replace(block_impl="fused_qkv"),
+        "splash": cfg.replace(attn_backend="splash"),
+        "fused_int8": cfg.replace(block_impl="fused_int8"),
+        "fused_int8_mlp": cfg.replace(block_impl="fused_int8_mlp"),
     }
+    int8_paths = ("fused_int8", "fused_int8_mlp")
     counters = {"fused_mha": fused_mha, "fused_ln_qkv": fb.fused_ln_qkv,
                 "fused_out_mlp": fb.fused_out_mlp, "fused_mlp": fused_mlp,
-                "fused_residual_ln": fused_residual_ln}
+                "fused_residual_ln": fused_residual_ln,
+                "fused_ln_qkv_int8": fb.fused_ln_qkv_int8,
+                "fused_out_mlp_int8": fb.fused_out_mlp_int8,
+                "fused_out_mlp_int8mlp": fb.fused_out_mlp_int8mlp,
+                "splash_attention_bshd": att.splash_attention_bshd}
     expected = {  # launches per forward
         "xla": {},
         "fused": {"fused_ln_qkv": L - 1, "fused_out_mlp": L - 1},
@@ -239,6 +280,11 @@ def main() -> int:
         "fused_mlp": {"fused_mlp": L - 1},
         "fused_trunk": {"fused_mha": L, "fused_mlp": L, "fused_residual_ln": 2 * L},
         "fused_resln": {"fused_mha": L, "fused_residual_ln": 2 * L},
+        "fused_qkv": {"fused_ln_qkv": L - 1},
+        # the splash core launches the attention kernel once per call
+        "splash": {"splash_attention_bshd": L - 1, "fused_mha": L - 1},
+        "fused_int8": {"fused_ln_qkv_int8": L - 1, "fused_out_mlp_int8": L - 1},
+        "fused_int8_mlp": {"fused_ln_qkv": L - 1, "fused_out_mlp_int8mlp": L - 1},
     }
     Mv = len(cfg.vision_modalities)
     images = torch.randint(0, 256, (BATCH, Mv, cfg.image_size, cfg.image_size, 3),
@@ -274,9 +320,15 @@ def main() -> int:
         if name == "xla":
             continue
         gate[name] = (embeds[name] * embeds["xla"]).sum(dim=1).min().item()
-        print(f"gate {name} vs xla: min-cosine {gate[name]:.6f} (>= {MIN_COSINE})")
-        if gate[name] < MIN_COSINE:
-            fail(f"{name}: min-cosine {gate[name]} < {MIN_COSINE}")
+        bar = INT8_MIN_COSINE if name in int8_paths else MIN_COSINE
+        promo = (f"; promotion gate {MIN_COSINE}: "
+                 f"{'met' if gate[name] >= MIN_COSINE else 'missed'}") if name in int8_paths else ""
+        print(f"gate {name} vs xla: min-cosine {gate[name]:.6f} (>= {bar}){promo}")
+        if gate[name] < bar:
+            fail(f"{name}: min-cosine {gate[name]} < {bar}")
+    print(f"gate fused_int8_mlp >= fused_int8 (JAX tests/test_fused_block.py:273): "
+          f"{gate['fused_int8_mlp'] >= gate['fused_int8']} "
+          f"({gate['fused_int8_mlp']:.6f} vs {gate['fused_int8']:.6f})")
     # the MM-3 query combo: three vision groups in one trunk call
     mm3 = {name: run_counted(name, make_combo_embed_step(models[name], MM3_QUERY), MM3_QUERY)[0]
            for name in ("xla", "fused_trunk")}
@@ -304,7 +356,8 @@ def main() -> int:
     rows = []
     att_bytes = 4 * BATCH * H * S * Dh * 2
     att_flops = 4 * BATCH * H * S * S * Dh
-    b_ms, b_by = bound_ms(att_flops, att_bytes)
+    b_ms, b_by = bound_ms([(att_flops, PEAK_BF16_FLOPS)], att_bytes)
+    sdpa_ms = time_ms(torch, lambda: Fn.scaled_dot_product_attention(q, k, v))
     rows.append(dict(
         name="fused_mha", route="cuda", source="prcv2025reid_tpu_torch/csrc/attention.cu",
         replaces="prcv2025reid_tpu/ops/pallas_attention.py:115",
@@ -313,11 +366,11 @@ def main() -> int:
         ms=time_ms(torch, lambda: fused_mha(q, k, v)),
         plain_ms=time_ms(torch, lambda: mha_plain(q, k, v)),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(torch, lambda: Fn.scaled_dot_product_attention(q, k, v)),
+        library_ms=sdpa_ms,
     ))
     O = 3 * D
     qkv_bytes = T * D * 2 + D * O * 2 + O * 4 + 2 * D * 4 + T * O * 2
-    b_ms, b_by = bound_ms(2 * T * D * O, qkv_bytes)
+    b_ms, b_by = bound_ms([(2 * T * D * O, PEAK_BF16_FLOPS)], qkv_bytes)
     rows.append(dict(
         name="fused_ln_qkv", route="cuda", source="prcv2025reid_tpu_torch/csrc/fused_block.cu",
         replaces="prcv2025reid_tpu/ops/fused_block.py:97",
@@ -328,7 +381,7 @@ def main() -> int:
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     ))
     mlp_bytes = 3 * T * D * 2 + (D * D + 2 * D * F) * 2 + (2 * D + F) * 4 + 2 * D * 4
-    b_ms, b_by = bound_ms(2 * T * D * (D + 2 * F), mlp_bytes)
+    b_ms, b_by = bound_ms([(2 * T * D * (D + 2 * F), PEAK_BF16_FLOPS)], mlp_bytes)
     rows.append(dict(
         name="fused_out_mlp", route="cuda", source="prcv2025reid_tpu_torch/csrc/fused_block.cu",
         replaces="prcv2025reid_tpu/ops/fused_block.py:233",
@@ -339,7 +392,7 @@ def main() -> int:
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     ))
     fmlp_bytes = 2 * T * D * 2 + 2 * D * F * 2 + (F + D) * 2
-    b_ms, b_by = bound_ms(4 * T * D * F, fmlp_bytes)
+    b_ms, b_by = bound_ms([(4 * T * D * F, PEAK_BF16_FLOPS)], fmlp_bytes)
     rows.append(dict(
         name="fused_mlp", route="cuda", source="prcv2025reid_tpu_torch/csrc/fused_mlp.cu",
         replaces="prcv2025reid_tpu/ops/fused_mlp.py:43",
@@ -349,7 +402,7 @@ def main() -> int:
         plain_ms=time_ms(torch, lambda: mlp_plain(*fmlp_args), runs=20),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     ))
-    b_ms, b_by = bound_ms(8 * T * D, 4 * T * D * 2 + 2 * D * 4, PEAK_F32_FLOPS)
+    b_ms, b_by = bound_ms([(8 * T * D, PEAK_F32_FLOPS)], 4 * T * D * 2 + 2 * D * 4)
     rows.append(dict(
         name="fused_residual_ln", route="cuda",
         source="prcv2025reid_tpu_torch/csrc/fused_resln.cu",
@@ -361,14 +414,74 @@ def main() -> int:
         plain_ms=time_ms(torch, lambda: resln_plain(*resln_args)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     ))
+    # the int8 block kernels: int8 operations at the int8 rate, the bf16
+    # out-projection of the mixed plan at the bf16 rate; each input read once
+    # (int8 weights and their f32 column scales), each output written once
+    i8_qkv_bytes = T * D * 2 + D * O + O * 4 * 2 + 2 * D * 4 + T * O * 2
+    b_ms, b_by = bound_ms([(2 * T * D * O, PEAK_INT8_OPS)], i8_qkv_bytes)
+    rows.append(dict(
+        name="fused_ln_qkv_int8", route="cuda",
+        source="prcv2025reid_tpu_torch/csrc/fused_block_int8.cu",
+        replaces="prcv2025reid_tpu/ops/fused_block.py:103",
+        launches=launches["fused_int8"]["fused_ln_qkv_int8"],
+        max_abs_err=block_checks["fused_ln_qkv_int8"][0],
+        ms=time_ms(torch, lambda: fb.fused_ln_qkv_int8(*qkv8_args)),
+        plain_ms=time_ms(torch, lambda: fb.ln_qkv_int8_plain(*qkv8_args), runs=20),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    ))
+    i8_mlp_bytes = 3 * T * D * 2 + (2 * D + F) * 4 * 2 + 2 * D * 4
+    b_ms, b_by = bound_ms([(2 * T * D * (D + 2 * F), PEAK_INT8_OPS)],
+                          i8_mlp_bytes + D * D + 2 * D * F)
+    rows.append(dict(
+        name="fused_out_mlp_int8", route="cuda",
+        source="prcv2025reid_tpu_torch/csrc/fused_block_int8.cu",
+        replaces="prcv2025reid_tpu/ops/fused_block.py:247",
+        launches=launches["fused_int8"]["fused_out_mlp_int8"],
+        max_abs_err=block_checks["fused_out_mlp_int8"][0],
+        ms=time_ms(torch, lambda: fb.fused_out_mlp_int8(*mlp8_args)),
+        plain_ms=time_ms(torch, lambda: fb.out_mlp_int8_plain(*mlp8_args), runs=20),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    ))
+    b_ms, b_by = bound_ms([(2 * T * D * D, PEAK_BF16_FLOPS), (4 * T * D * F, PEAK_INT8_OPS)],
+                          i8_mlp_bytes + D * D * 2 + 2 * D * F - D * 4)
+    rows.append(dict(
+        name="fused_out_mlp_int8mlp", route="cuda",
+        source="prcv2025reid_tpu_torch/csrc/fused_block_int8.cu",
+        replaces="prcv2025reid_tpu/ops/fused_block.py:263",
+        launches=launches["fused_int8_mlp"]["fused_out_mlp_int8mlp"],
+        max_abs_err=block_checks["fused_out_mlp_int8mlp"][0],
+        ms=time_ms(torch, lambda: fb.fused_out_mlp_int8mlp(*mlp8m_args)),
+        plain_ms=time_ms(torch, lambda: fb.out_mlp_int8mlp_plain(*mlp8m_args), runs=20),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    ))
+    b_ms, b_by = bound_ms([(att_flops, PEAK_BF16_FLOPS)], att_bytes)
+    rows.append(dict(
+        name="splash_attention_bshd", route="cuda",
+        source="prcv2025reid_tpu_torch/csrc/attention.cu",
+        replaces="prcv2025reid_tpu/ops/attention.py:119",
+        launches=launches["splash"]["splash_attention_bshd"],
+        max_abs_err=block_checks["splash_attention_bshd"][0],
+        ms=time_ms(torch, lambda: att.splash_attention_bshd(*splash_args)),
+        plain_ms=time_ms(torch, lambda: att.splash_plain(*splash_args)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=sdpa_ms,
+    ))
     # yardsticks outside the contract: cuBLAS on the bare products of the MLP and
-    # block kernels, PyTorch's add + layer_norm beside the residual+LN pass
+    # block kernels (torch._int_mm on the int8 ones), PyTorch's add + layer_norm
+    # beside the residual+LN pass
     x2d, a2d = x[0], attn[0]
     h2d = torch.empty(T, F, device=dev, dtype=torch.bfloat16).normal_(generator=gen)
     fc1_ms, fc2_ms = time_ms(torch, lambda: x2d @ w1[0]), time_ms(torch, lambda: h2d @ w2[0])
+    xq, hq = fb.quant_rows(x2d.float())[0], fb.quant_rows(h2d.float())[0]
+    i8 = {n: time_ms(torch, lambda w=w, a=a: torch._int_mm(a, w[0][0]))
+          for n, a, w in (("qkv", xq, q_wqkv), ("out", xq, q_wo), ("fc1", xq, q_w1),
+                          ("fc2", hq, q_w2))}
+    out_ms = time_ms(torch, lambda: a2d @ wo[0])
     yard = {
         "cublas_qkv_gemm_ms": time_ms(torch, lambda: x2d @ wqkv[0]),
-        "cublas_out_mlp_gemms_ms": time_ms(torch, lambda: a2d @ wo[0]) + fc1_ms + fc2_ms,
+        "cublas_out_mlp_gemms_ms": out_ms + fc1_ms + fc2_ms,
+        "int_mm_qkv_gemm_ms": i8["qkv"],
+        "int_mm_out_mlp_gemms_ms": i8["out"] + i8["fc1"] + i8["fc2"],
+        "cublas_out_plus_int_mm_mlp_gemms_ms": out_ms + i8["fc1"] + i8["fc2"],
         "cublas_mlp_gemms_ms": fc1_ms + fc2_ms,
         "torch_add_layer_norm_ms": time_ms(torch, lambda: Fn.layer_norm(
             x2d + a2d, (D,), lns.bfloat16(), lnb.bfloat16(), 1e-5)),

@@ -21,11 +21,6 @@ _JAX_BLOCK_IMPLS = {
     "fused_interpret", "fused_int8_interpret", "fused_int8_mlp_interpret",
     "fused_qkv_interpret",
 }
-_BLOCK_IMPL_TODO = {
-    "fused_int8": "ROADMAP.md §2 items 6-7 (int8 LN+QKV and int8 out-proj+MLP kernels)",
-    "fused_int8_mlp": "ROADMAP.md §2 item 8 (mixed int8 out-proj+MLP kernel)",
-    "fused_qkv": "ROADMAP.md §1 item 3 (the remaining MERBlock options)",
-}
 
 
 @dataclass
@@ -149,15 +144,10 @@ class TrainingConfig:
                 "test device; the port runs the plain version for CPU tensors "
                 f"— use block_impl={impl!r}"
             )
-        if impl in _BLOCK_IMPL_TODO:
+        if self.attn_backend == "onesaug":
             raise NotImplementedError(
-                f"block_impl={impl!r} is not ported yet: {_BLOCK_IMPL_TODO[impl]}"
-            )
-        if self.attn_backend != "xla":
-            raise NotImplementedError(
-                f"attn_backend={self.attn_backend!r} is not ported yet: "
-                "ROADMAP.md §1 item 2 ('onesaug' core) and §2 item 10 ('splash' "
-                "through the Hopper attention kernel)"
+                "attn_backend='onesaug' is not ported yet: ROADMAP.md §1 item 2 "
+                "(the zero-reduction-pass einsum core)"
             )
         if self.gelu_impl != "erf":
             raise NotImplementedError(

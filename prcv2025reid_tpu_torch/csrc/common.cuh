@@ -1,5 +1,6 @@
 // Helpers shared by the port's Hopper kernels: mma.sync m16n8k16 (bf16
-// inputs, f32 accumulators), ldmatrix and cp.async, bf16 packing, the GELU.
+// inputs, f32 accumulators) and m16n8k32 (int8 inputs, s32 accumulators),
+// ldmatrix and cp.async, bf16 packing, the GELU.
 //
 // Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16"), with
 // g = lane / 4 and t = lane % 4:
@@ -7,6 +8,13 @@
 //                        a2 = (g, 2t+8..+9)   a3 = (g+8, 2t+8..+9)
 //   B 16x8  (k x n):     b0 = (k 2t..2t+1, n g)   b1 = (k 2t+8..+9, n g)
 //   C 16x8  (f32):       c0,c1 = (g, 2t..2t+1)    c2,c3 = (g+8, 2t..2t+1)
+// and for m16n8k32 with .s8 operands (four int8 per register):
+//   A 16x32 (row-major): a0 = (g, 4t..4t+3)   a1 = (g+8, 4t..4t+3)
+//                        a2 = (g, 4t+16..+19) a3 = (g+8, 4t+16..+19)
+//   B 32x8  (k x n):     b0 = (k 4t..4t+3, n g)   b1 = (k 4t+16..+19, n g)
+//   C 16x8  (s32):       as for m16n8k16
+// so a non-transposed ldmatrix .b16 of an 8-row x 16-byte int8 tile (rows
+// = m for A, = n for a K-major B) hands each lane exactly its four bytes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -41,6 +49,17 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b  (m16n8k32, s8 x s8 -> s32, exact: no saturation is needed
+// while |d| < 2^31, i.e. K < 2^31 / 127^2 = 133,144)
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -24,6 +24,8 @@
 //                       h = bf16(GELU_erf(acc + b1)) with the Abramowitz-Stegun
 //                       erf the TPU kernel uses;
 //                    4. h @ W2, epilogue out = bf16(x2 + (acc + b2)).
+//                  Step 1 alone is also exported as out_proj: the bf16
+//                  out-projection of the mixed int8 plan (fused_block_int8.cu).
 //                  The [T, F] round trip of h through device memory is the cost
 //                  of this version.
 // The GEMM core: 128x128x32 block tiles, 8 warps of 64x32, mma.sync m16n8k16
@@ -345,6 +347,23 @@ extern "C" int ln_qkv(const void* x, const void* ln_s, const void* ln_b,
   return static_cast<int>(run_gemm<bf16, true, EPI_BIAS>(p, G, st));
 }
 
+// x2[g] = x[g] + (attn[g] @ wo[g] + bo[g]) in f32: the out-projection alone,
+// the first step of the mixed int8 plan (csrc/fused_block_int8.cu runs the
+// rest).  attn, x [G,T,D] bf16; wo [G,D,D] bf16; bo [G,D] f32; x2 [G,T,D] f32.
+extern "C" int out_proj(const void* attn, const void* x, const void* wo, const void* bo,
+                        void* x2, int G, int T, int D, void* stream) {
+  const long long TD = static_cast<long long>(T) * D;
+  GemmArgs p{};
+  p.a = attn;  p.a_g = TD;
+  p.w = static_cast<const bf16*>(wo);  p.w_g = static_cast<long long>(D) * D;
+  p.bias = static_cast<const float*>(bo);  p.bias_g = D;
+  p.res = x;  p.res_g = TD;
+  p.out = x2;  p.out_g = TD;
+  p.M = T;  p.N = D;  p.K = D;
+  return static_cast<int>(
+      run_gemm<bf16, false, EPI_RES_F32>(p, G, static_cast<cudaStream_t>(stream)));
+}
+
 // out[g] = bf16(x2 + GELU(LN(x2) @ w1[g] + b1[g]) @ w2[g] + b2[g]) with
 // x2 = x[g] + attn[g] @ wo[g] + bo[g] in f32.  attn, x [G,T,D] bf16; wo
 // [G,D,D], w1 [G,D,F], w2 [G,F,D] bf16; bo, b1, b2 [G,*] f32; ln [D] f32.
@@ -360,14 +379,9 @@ extern "C" int out_mlp(const void* attn, const void* x, const void* wo,
   float2* rs = static_cast<float2*>(stats);
   cudaError_t e;
 
-  GemmArgs p1{};
-  p1.a = attn;  p1.a_g = TD;
-  p1.w = static_cast<const bf16*>(wo);  p1.w_g = static_cast<long long>(D) * D;
-  p1.bias = static_cast<const float*>(bo);  p1.bias_g = D;
-  p1.res = x;  p1.res_g = TD;
-  p1.out = x2;  p1.out_g = TD;
-  p1.M = T;  p1.N = D;  p1.K = D;
-  if ((e = run_gemm<bf16, false, EPI_RES_F32>(p1, G, st)) != cudaSuccess) return e;
+  if ((e = static_cast<cudaError_t>(out_proj(attn, x, wo, bo, x2, G, T, D, stream))) !=
+      cudaSuccess)
+    return e;
   if ((e = run_stats<float>(x2, rs, G * T, D, eps, st)) != cudaSuccess) return e;
 
   GemmArgs p2{};

@@ -1,0 +1,451 @@
+// The three int8 block kernels of the folded (eval/serving) transformer block,
+// built on one hand-written int8 tensor-core GEMM core (mma.sync m16n8k32,
+// s8 x s8 -> exact s32 accumulators) with fused epilogues, and two row passes.
+//
+// Replaces: prcv2025reid_tpu/ops/fused_block.py::_ln_qkv_kernel_int8
+// (fused_ln_qkv, quant="int8"), ::_out_mlp_kernel_int8 (fused_out_mlp,
+// quant="int8") and ::_out_mlp_kernel_int8mlp (quant="int8_mlp", whose bf16
+// out-projection runs on the bf16 GEMM core of fused_block.cu::out_proj).
+//
+// Bound on an H100 (ViT-B/16, G=1, T=25,216 rows; 1,979 TOP/s dense int8,
+// 3.35 TB/s): LN1+QKV is 89.2 G int8 operations (0.045 ms) against 157 MB of
+// bf16 activations in and out (0.047 ms): bytes.  Out-proj+LN2+MLP is 267.7 G
+// operations (0.135 ms) against 116 MB: operations.  The TPU kernels keep a
+// 256-row tile and every weight in VMEM and quantize each activation row in
+// registers right where it is produced; a Hopper block has 227 KB of shared
+// memory, so the work is split at each point where a whole row is needed:
+//   ln_qkv_int8   = row pass (LN1 in f32, one warp per row held in registers,
+//                   then the row's max |y| and y / s rounded half to even ->
+//                   int8 [T, D] and s [T]), then the int8 GEMM against the
+//                   K-major weights, epilogue bf16(((acc * s_row) * ws_col) + b).
+//   out_mlp_int8  = row pass quantizing the attention rows; out-proj GEMM,
+//                   epilogue x2 = (x + proj) + bo in f32; row pass LN2 +
+//                   quantize; fc1 GEMM, epilogue h = GELU(proj + b1) in f32,
+//                   written to device memory with each row's max |h| (atomicMax
+//                   on the bits of the non-negative float); a pass quantizing h
+//                   (from f32, not bf16, as the TPU kernel does); fc2 GEMM,
+//                   epilogue bf16((x2 + o) + b2).
+//   mlp_int8      = the last four steps, after the bf16 out-projection.
+// The f32 round trip of h through device memory (2 x 310 MB at the slice's
+// shape, ~0.19 ms of bytes) is the cost of this first version.
+//
+// Rounding follows the TPU kernels exactly where it can: scales are
+// max(max|y| / 127, 1e-8) and quantized values y / s, both IEEE divisions
+// (__fdiv_rn), rounded half to even (__float2int_rn); the dequantization and
+// the residual adds are separate f32 roundings in the TPU kernels' order
+// (__fmul_rn / __fadd_rn keep nvcc from contracting them into FMAs).  What can
+// still differ: the LN statistics (summation order, rsqrtf) and the GELU's
+// approximate reciprocal and exponential, by a few f32 ulps, which flips an
+// int8 rounding only where a value lies within those ulps of a half step.
+//
+// The GEMM core: 128x128 block tiles, 64-byte k-tiles (two k32 mma steps),
+// 8 warps of 64x32, a 4-stage cp.async pipeline.  Both operands are K-major
+// (A [M, K] row-major, W [N, K]), so both load with the non-transposed
+// ldmatrix .b16 (there is no 8-bit ldmatrix.trans on sm_90): every lane gets
+// the four consecutive k bytes of the m16n8k32 fragment.
+#include "common.cuh"
+
+using namespace port;
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int BM = 128, BN = 128, BK = 64;  // BK in bytes = int8 values
+constexpr int THREADS = 256, STAGES = 4;
+constexpr int LDS = BK + 16;  // 80-byte rows: conflict-free ldmatrix
+constexpr int SMEM_BYTES = STAGES * (BM + BN) * LDS;  // 81,920
+constexpr int ROW_MAX_K = 32 * 8 * 4;  // a row pass holds a row of <= 1024 in registers
+
+enum Epilogue { EPI_QKV = 0, EPI_RES_F32 = 1, EPI_GELU = 2, EPI_OUT = 3 };
+
+struct IGemmArgs {
+  const int8_t* a;        // [G, M, K] int8, row-major
+  const int8_t* w;        // [G, N, K] int8, K-major
+  const float* s_row;     // [G, M] row scales of a
+  const float* s_col;     // [G, N] column scales of w
+  const float* bias;      // [G, N]
+  const void* res;        // [G, M, N]: bf16 (EPI_RES_F32) or f32 (EPI_OUT)
+  void* out;              // [G, M, N]: bf16 (EPI_QKV, EPI_OUT) or f32 (EPI_RES_F32, EPI_GELU)
+  unsigned int* row_max;  // [G, M] bits of max |h| (EPI_GELU), zeroed by the caller
+  int M, N, K;
+};
+
+template <typename AT>
+__device__ __forceinline__ void load8(const AT* p, float (&v)[8]);
+
+template <>
+__device__ __forceinline__ void load8<bf16>(const bf16* p, float (&v)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+template <>
+__device__ __forceinline__ void load8<float>(const float* p, float (&v)[8]) {
+  const float4 x0 = *reinterpret_cast<const float4*>(p);
+  const float4 x1 = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = x0.x; v[1] = x0.y; v[2] = x0.z; v[3] = x0.w;
+  v[4] = x1.x; v[5] = x1.y; v[6] = x1.z; v[7] = x1.w;
+}
+
+// the per-row scale of the TPU kernels' _quant_rows: max(max|y| / 127, 1e-8)
+__device__ __forceinline__ float row_scale(float maxabs) {
+  return fmaxf(__fdiv_rn(maxabs, 127.0f), 1e-8f);
+}
+
+// four values -> round(v / s) half to even as int8, packed low byte first
+__device__ __forceinline__ uint32_t quant4(float a, float b, float c, float d, float s) {
+  const int qa = __float2int_rn(__fdiv_rn(a, s)), qb = __float2int_rn(__fdiv_rn(b, s));
+  const int qc = __float2int_rn(__fdiv_rn(c, s)), qd = __float2int_rn(__fdiv_rn(d, s));
+  return (static_cast<uint32_t>(qa) & 0xffu) | ((static_cast<uint32_t>(qb) & 0xffu) << 8) |
+         ((static_cast<uint32_t>(qc) & 0xffu) << 16) | (static_cast<uint32_t>(qd) << 24);
+}
+
+// One warp per row: (LN in f32: the mean, then the mean squared deviation,
+// ((v - mu) * rstd) * s + b, as row_stats_kernel and the GEMM prologue of
+// fused_block.cu compute it), then the row's int8 quantization.
+template <typename AT, bool LN>
+__global__ void __launch_bounds__(256) row_quant_kernel(
+    const AT* __restrict__ x, const float* __restrict__ ln_s, const float* __restrict__ ln_b,
+    int8_t* __restrict__ q, float* __restrict__ s, int rows, int K, float eps) {
+  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const AT* xr = x + static_cast<long long>(row) * K;
+  float v[4][8];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int col = (c * 32 + lane) * 8;
+    if (col < K) {
+      load8<AT>(xr + col, v[c]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[c][e] = 0.f;
+    }
+  }
+  if (LN) {
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sum += v[c][e];
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    const float mu = sum / K;
+    float sq = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if ((c * 32 + lane) * 8 < K) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) sq += (v[c][e] - mu) * (v[c][e] - mu);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+    const float rstd = rsqrtf(sq / K + eps);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = (c * 32 + lane) * 8;
+      if (col < K) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          v[c][e] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[c][e], mu), rstd), ln_s[col + e]),
+                              ln_b[col + e]);
+      }
+    }
+  }
+  float m = 0.f;
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(v[c][e]));  // padding lanes hold 0
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  const float sc = row_scale(m);
+  int8_t* qr = q + static_cast<long long>(row) * K;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int col = (c * 32 + lane) * 8;
+    if (col < K)
+      *reinterpret_cast<uint2*>(qr + col) =
+          make_uint2(quant4(v[c][0], v[c][1], v[c][2], v[c][3], sc),
+                     quant4(v[c][4], v[c][5], v[c][6], v[c][7], sc));
+  }
+  if (lane == 0) s[row] = sc;
+}
+
+template <typename AT, bool LN>
+cudaError_t run_row_quant(const void* x, const void* ln_s, const void* ln_b, void* q, void* s,
+                          int rows, int K, float eps, cudaStream_t stream) {
+  if (K > ROW_MAX_K || K % 16 != 0) return cudaErrorInvalidValue;
+  row_quant_kernel<AT, LN><<<(rows + 7) / 8, 256, 0, stream>>>(
+      static_cast<const AT*>(x), static_cast<const float*>(ln_s),
+      static_cast<const float*>(ln_b), static_cast<int8_t*>(q), static_cast<float*>(s), rows,
+      K, eps);
+  return cudaGetLastError();
+}
+
+// h [rows, F] f32 with its row maxima -> int8 [rows, F] and scales [rows];
+// 16 values of one row per thread (F % 16 == 0)
+__global__ void __launch_bounds__(256) quant_h_kernel(
+    const float* __restrict__ h, const unsigned int* __restrict__ row_max,
+    int8_t* __restrict__ q, float* __restrict__ s, long long n, int F) {
+  const long long i = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 16;
+  if (i >= n) return;
+  const long long row = i / F;
+  const float sc = row_scale(__uint_as_float(row_max[row]));
+  const float4* src = reinterpret_cast<const float4*>(h + i);
+  const float4 a = src[0], b = src[1], c = src[2], d = src[3];
+  *reinterpret_cast<uint4*>(q + i) =
+      make_uint4(quant4(a.x, a.y, a.z, a.w, sc), quant4(b.x, b.y, b.z, b.w, sc),
+                 quant4(c.x, c.y, c.z, c.w, sc), quant4(d.x, d.y, d.z, d.w, sc));
+  if (i % F == 0) s[row] = sc;
+}
+
+__device__ __forceinline__ float dequant(int acc, float s_row, float s_col) {
+  return __fmul_rn(__fmul_rn(__int2float_rn(acc), s_row), s_col);
+}
+
+template <int EPI>
+__global__ void __launch_bounds__(THREADS, 2) igemm_kernel(IGemmArgs p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* sA = reinterpret_cast<int8_t*>(smem);
+  int8_t* sB = sA + STAGES * BM * LDS;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / 4, wn = warp % 4;  // 2 x 4 warps of 64 x 32
+  const int g = lane / 4, t = lane % 4;
+  const int bn = blockIdx.x * BN, bm = blockIdx.y * BM, grp = blockIdx.z;
+  const int M = p.M, N = p.N, K = p.K;
+  const int8_t* A = p.a + static_cast<long long>(grp) * M * K;
+  const int8_t* W = p.w + static_cast<long long>(grp) * N * K;
+  const int nk = (K + BK - 1) / BK;
+
+  // start the copies of k-tile kt into pipeline stage st: 128 rows x 4
+  // 16-byte chunks of each operand, two of each per thread
+  auto load_stage = [&](int kt, int st) {
+    if (kt < nk) {
+      const int k0 = kt * BK;
+#pragma unroll
+      for (int i = 0; i < BM * BK / 16 / THREADS; ++i) {
+        const int c = tid + i * THREADS;
+        const int r = c / (BK / 16), col = (c % (BK / 16)) * 16;
+        const bool ka = k0 + col + 16 <= K;
+        const bool ia = ka && bm + r < M, ib = ka && bn + r < N;
+        cp_async16(sA + (st * BM + r) * LDS + col,
+                   ia ? A + static_cast<long long>(bm + r) * K + k0 + col : A, ia);
+        cp_async16(sB + (st * BN + r) * LDS + col,
+                   ib ? W + static_cast<long long>(bn + r) * K + k0 + col : W, ib);
+      }
+    }
+    cp_async_commit();  // an empty group past the end keeps the wait counts uniform
+  };
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) load_stage(s, s);
+
+  int acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt % STAGES;
+    cp_async_wait<STAGES - 2>();  // k-tile kt has landed
+    __syncthreads();              // everyone's copies visible; stage kt-1 free
+    load_stage(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
+    const int8_t* a_tile = sA + st * BM * LDS;
+    const int8_t* b_tile = sB + st * BN * LDS;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 32) {
+      uint32_t af[4][4], bfr[2][4];
+      // A: matrices (rows 0-7 | 8-15) x (bytes 0-15 | 16-31) -> a0..a3
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ldmatrix_x4(af[i], a_tile + (wm * 64 + i * 16 + lane % 16) * LDS + kk + (lane / 16) * 16);
+      // W: matrices (n 0-7: bytes 0-15, 16-31 | n 8-15: ...) -> b0, b1 of two n8 blocks
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp)
+        ldmatrix_x4(bfr[jp], b_tile + (wn * 32 + jp * 16 + (lane / 16) * 8 + lane % 8) * LDS +
+                                 kk + ((lane / 8) % 2) * 16);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_s8(acc[i][j], af[i], bfr[j / 2][(j % 2) * 2], bfr[j / 2][(j % 2) * 2 + 1]);
+    }
+  }
+  cp_async_wait<0>();
+
+  // epilogue: each thread owns pairs of neighbouring columns
+  const long long gM = static_cast<long long>(grp) * M, gN = static_cast<long long>(grp) * N;
+  const float* s_col = p.s_col + gN;
+  const float* bias = p.bias + gN;
+  float rmax[4][2];  // EPI_GELU: this thread's max |h| of each of its rows
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      rmax[i][hr] = 0.f;
+      const int row = bm + wm * 64 + i * 16 + g + hr * 8;
+      if (row >= M) continue;
+      const float sr = p.s_row[gM + row];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = bn + wn * 32 + j * 8 + 2 * t;
+        if (col >= N) continue;
+        const long long off = (gM + row) * N + col;
+        const float v0 = dequant(acc[i][j][2 * hr], sr, s_col[col]);
+        const float v1 = dequant(acc[i][j][2 * hr + 1], sr, s_col[col + 1]);
+        if (EPI == EPI_QKV) {
+          *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p.out) + off) =
+              pack_bf16(__fadd_rn(v0, bias[col]), __fadd_rn(v1, bias[col + 1]));
+        } else if (EPI == EPI_RES_F32) {  // x2 = (x + proj) + bo
+          const float2 x = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(static_cast<const bf16*>(p.res) + off));
+          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + off) =
+              make_float2(__fadd_rn(__fadd_rn(x.x, v0), bias[col]),
+                          __fadd_rn(__fadd_rn(x.y, v1), bias[col + 1]));
+        } else if (EPI == EPI_GELU) {  // h = GELU(proj + b1), kept in f32
+          const float h0 = gelu_as(__fadd_rn(v0, bias[col]));
+          const float h1 = gelu_as(__fadd_rn(v1, bias[col + 1]));
+          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + off) = make_float2(h0, h1);
+          rmax[i][hr] = fmaxf(rmax[i][hr], fmaxf(fabsf(h0), fabsf(h1)));
+        } else {  // EPI_OUT: bf16((x2 + o) + b2)
+          const float2 x2 = *reinterpret_cast<const float2*>(static_cast<const float*>(p.res) + off);
+          *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p.out) + off) =
+              pack_bf16(__fadd_rn(__fadd_rn(x2.x, v0), bias[col]),
+                        __fadd_rn(__fadd_rn(x2.y, v1), bias[col + 1]));
+        }
+      }
+    }
+  }
+  if (EPI == EPI_GELU) {
+    // the four lanes of a quad share each row: one atomic per row and warp
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float m = rmax[i][hr];
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+        const int row = bm + wm * 64 + i * 16 + g + hr * 8;
+        if (t == 0 && row < M) atomicMax(p.row_max + gM + row, __float_as_uint(m));
+      }
+    }
+  }
+}
+
+template <int EPI>
+cudaError_t run_igemm(const IGemmArgs& p, int G, cudaStream_t stream) {
+  if (p.K % 16 != 0 || p.N % 2 != 0) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      igemm_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (e != cudaSuccess) return e;
+  dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, G);
+  igemm_kernel<EPI><<<grid, THREADS, SMEM_BYTES, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// LN2 + quantize, fc1 (GELU, row max), quantize h, fc2 + residual
+cudaError_t mlp_tail(const void* x2, const void* ln_s, const void* ln_b, const void* w1q,
+                     const void* w1s, const void* b1, const void* w2q, const void* w2s,
+                     const void* b2, void* yq, void* ys, void* h, void* hmax, void* hq,
+                     void* hs, void* out, int G, int T, int D, int F, float eps,
+                     cudaStream_t st) {
+  cudaError_t e;
+  if (F % 16 != 0) return cudaErrorInvalidValue;
+  if ((e = run_row_quant<float, true>(x2, ln_s, ln_b, yq, ys, G * T, D, eps, st)) != cudaSuccess)
+    return e;
+  if ((e = cudaMemsetAsync(hmax, 0, sizeof(unsigned int) * G * static_cast<size_t>(T), st)) !=
+      cudaSuccess)
+    return e;
+  IGemmArgs p1{};
+  p1.a = static_cast<const int8_t*>(yq);  p1.w = static_cast<const int8_t*>(w1q);
+  p1.s_row = static_cast<const float*>(ys);  p1.s_col = static_cast<const float*>(w1s);
+  p1.bias = static_cast<const float*>(b1);
+  p1.out = h;  p1.row_max = static_cast<unsigned int*>(hmax);
+  p1.M = T;  p1.N = F;  p1.K = D;
+  if ((e = run_igemm<EPI_GELU>(p1, G, st)) != cudaSuccess) return e;
+  const long long n = static_cast<long long>(G) * T * F;
+  quant_h_kernel<<<static_cast<unsigned int>((n / 16 + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(h), static_cast<const unsigned int*>(hmax),
+      static_cast<int8_t*>(hq), static_cast<float*>(hs), n, F);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  IGemmArgs p2{};
+  p2.a = static_cast<const int8_t*>(hq);  p2.w = static_cast<const int8_t*>(w2q);
+  p2.s_row = static_cast<const float*>(hs);  p2.s_col = static_cast<const float*>(w2s);
+  p2.bias = static_cast<const float*>(b2);
+  p2.res = x2;  p2.out = out;
+  p2.M = T;  p2.N = D;  p2.K = F;
+  return run_igemm<EPI_OUT>(p2, G, st);
+}
+
+}  // namespace
+
+// qkv[g] = bf16(((quant(LN(x[g])) @ wq[g]) * s_row * ws[g]) + b[g]).  x [G,T,D]
+// bf16; ln_s/ln_b [D] f32; wq [G,O,D] int8 (K-major); ws, b [G,O] f32; out
+// [G,T,O] bf16; yq [G,T,D] int8 and ys [G*T] f32 are caller-allocated scratch.
+// Two launches: the LN1 + quantize row pass, then the int8 GEMM.
+extern "C" int ln_qkv_int8(const void* x, const void* ln_s, const void* ln_b, const void* wq,
+                           const void* ws, const void* b, void* yq, void* ys, void* out, int G,
+                           int T, int D, int O, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if ((e = run_row_quant<bf16, true>(x, ln_s, ln_b, yq, ys, G * T, D, eps, st)) != cudaSuccess)
+    return e;
+  IGemmArgs p{};
+  p.a = static_cast<const int8_t*>(yq);  p.w = static_cast<const int8_t*>(wq);
+  p.s_row = static_cast<const float*>(ys);  p.s_col = static_cast<const float*>(ws);
+  p.bias = static_cast<const float*>(b);
+  p.out = out;
+  p.M = T;  p.N = O;  p.K = D;
+  return static_cast<int>(run_igemm<EPI_QKV>(p, G, st));
+}
+
+// The LN2 + MLP half with fc1 and fc2 in int8, on x2 [G,T,D] f32 from the
+// out-projection: out = bf16((x2 + o) + b2).  w1q [G,F,D], w2q [G,D,F] int8
+// (K-major); w1s, b1 [G,F], w2s, b2 [G,D] f32.  Scratch: yq [G,T,D] int8, ys
+// [G*T], h [G,T,F] f32, hmax [G*T] u32, hq [G,T,F] int8, hs [G*T].  Four
+// launches and a memset.
+extern "C" int mlp_int8(const void* x2, const void* ln_s, const void* ln_b, const void* w1q,
+                        const void* w1s, const void* b1, const void* w2q, const void* w2s,
+                        const void* b2, void* yq, void* ys, void* h, void* hmax, void* hq,
+                        void* hs, void* out, int G, int T, int D, int F, float eps,
+                        void* stream) {
+  return static_cast<int>(mlp_tail(x2, ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2, yq, ys, h, hmax,
+                                   hq, hs, out, G, T, D, F, eps,
+                                   static_cast<cudaStream_t>(stream)));
+}
+
+// All three products in int8: aq/as = quant(attn); x2 = (x + (aq @ woq) *
+// as * wos) + bo in f32; then mlp_int8 on x2.  attn, x [G,T,D] bf16; woq
+// [G,D,D] int8 (K-major), wos, bo [G,D] f32; aq [G,T,D] int8, as [G*T] and
+// x2 [G,T,D] f32 are scratch, the rest as for mlp_int8.  Six launches and a
+// memset.
+extern "C" int out_mlp_int8(const void* attn, const void* x, const void* woq, const void* wos,
+                            const void* bo, void* aq, void* as, void* x2, const void* ln_s,
+                            const void* ln_b, const void* w1q, const void* w1s, const void* b1,
+                            const void* w2q, const void* w2s, const void* b2, void* yq,
+                            void* ys, void* h, void* hmax, void* hq, void* hs, void* out,
+                            int G, int T, int D, int F, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if ((e = run_row_quant<bf16, false>(attn, nullptr, nullptr, aq, as, G * T, D, eps, st)) !=
+      cudaSuccess)
+    return e;
+  IGemmArgs p{};
+  p.a = static_cast<const int8_t*>(aq);  p.w = static_cast<const int8_t*>(woq);
+  p.s_row = static_cast<const float*>(as);  p.s_col = static_cast<const float*>(wos);
+  p.bias = static_cast<const float*>(bo);
+  p.res = x;  p.out = x2;
+  p.M = T;  p.N = D;  p.K = D;
+  if ((e = run_igemm<EPI_RES_F32>(p, G, st)) != cudaSuccess) return e;
+  return static_cast<int>(mlp_tail(x2, ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2, yq, ys, h, hmax,
+                                   hq, hs, out, G, T, D, F, eps, st));
+}

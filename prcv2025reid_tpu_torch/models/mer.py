@@ -25,9 +25,12 @@ from prcv2025reid_tpu_torch.ops.attention import (
     dot_product_attention,
     kernel_available,
 )
-from prcv2025reid_tpu_torch.ops.fused_block import fused_ln_qkv, fused_out_mlp
+from prcv2025reid_tpu_torch.ops.fused_block import fused_ln_qkv, fused_out_mlp, quantize_weight
 from prcv2025reid_tpu_torch.ops.fused_mlp import fused_mlp
 from prcv2025reid_tpu_torch.ops.kernel_math import LN_EPS, ln_f32
+
+
+BLOCK_IMPLS = ("xla", "fused", "fused_int8", "fused_int8_mlp", "fused_qkv")
 
 
 def _param(*shape, device=None) -> nn.Parameter:
@@ -137,15 +140,16 @@ class MERDense(nn.Module):
 class MERAttention(nn.Module):
     """MHA with MER-routed Q/K/V/out projections.  Q/K/V effective kernels
     concatenate into one [G, D, 3D] grouped matmul.  ``attn_impl``: 'xla'
-    (einsum core) or 'auto' (the fused kernel for CUDA tensors, the einsum
-    core for CPU tensors — JAX's ``use_pallas_attention=True``)."""
+    (einsum core), 'splash' (the splash core, ``attn_backend="splash"``) or
+    'auto' (the fused kernel for CUDA tensors, the einsum core for CPU
+    tensors — JAX's ``use_pallas_attention=True``)."""
 
     def __init__(self, dim: int, num_heads: int, num_experts: int, rank: int = 4,
                  alpha: float = 1.0, dtype=torch.float32, attn_impl: str = "xla",
                  enable: bool = True, device=None):
         super().__init__()
-        if attn_impl not in ("xla", "auto"):
-            raise ValueError(f"attn_impl={attn_impl!r}; valid: ['auto', 'xla']")
+        if attn_impl not in ("xla", "splash", "auto"):
+            raise ValueError(f"attn_impl={attn_impl!r}; valid: ['auto', 'splash', 'xla']")
         self.num_heads, self.dtype, self.attn_impl = num_heads, dtype, attn_impl
         mer = dict(num_experts=num_experts, rank=rank, alpha=alpha, dtype=dtype,
                    enable=enable, device=device)
@@ -174,11 +178,11 @@ class MERAttention(nn.Module):
         impl = self.attn_impl
         if impl == "auto":
             impl = "pallas" if kernel_available(x) else "xla"
-        if impl == "xla":  # the einsum core, on the [B, S, H, Dh] layout
+        if impl in ("xla", "splash"):  # the [B, S, H, Dh] cores
             def merge2(t):
                 return t.reshape(G * B, S, H, Dh)
 
-            out = bshd_core("xla")(merge2(q), merge2(k), merge2(v)).reshape(G, B, S, D)
+            out = bshd_core(impl)(merge2(q), merge2(k), merge2(v)).reshape(G, B, S, D)
         else:
             def split_heads(t):
                 return t.reshape(G * B, S, H, Dh).permute(0, 2, 1, 3)
@@ -226,18 +230,21 @@ class MERBlock(nn.Module):
     """Pre-LN transformer block with MER routing, eval forward.  Grouped
     activations [G, B, S, D] with static per-group expert ids.
 
-    ``block_impl``: 'xla' (plain modules) or 'fused' (the two bf16 block
-    kernels with the einsum attention core between them, which bypasses
-    ``attn_impl`` and ``mlp_impl`` as in the JAX package)."""
+    ``block_impl``: 'xla' (plain modules); 'fused' (the two bf16 block
+    kernels with the einsum attention core between them); 'fused_int8' (both
+    int8 kernels); 'fused_int8_mlp' (the bf16 LN+QKV kernel, then the mixed
+    kernel: bf16 out-projection, int8 fc1 and fc2); 'fused_qkv' (the bf16
+    LN+QKV kernel, then the plain ``folded_block_tail``).  Every fused plan
+    takes the einsum core between its kernels, bypassing ``attn_impl`` and
+    ``mlp_impl`` as in the JAX package."""
 
     def __init__(self, dim: int, num_heads: int, mlp_dim: int, num_experts: int,
                  rank: int = 4, alpha: float = 1.0, dtype=torch.float32,
                  attn_impl: str = "xla", mlp_impl: str = "xla", enable_mer: bool = True,
                  block_impl: str = "xla", device=None):
         super().__init__()
-        if block_impl not in ("xla", "fused"):
-            raise NotImplementedError(
-                f"block_impl={block_impl!r} is not ported; see configs.py")
+        if block_impl not in BLOCK_IMPLS:
+            raise ValueError(f"block_impl={block_impl!r}; valid: {list(BLOCK_IMPLS)}")
         self.num_heads, self.dtype = num_heads, dtype
         self.attn_impl, self.block_impl = attn_impl, block_impl
         mer = dict(num_experts=num_experts, rank=rank, alpha=alpha, dtype=dtype,
@@ -277,20 +284,35 @@ class MERBlock(nn.Module):
 
     def _fused_call(self, x: torch.Tensor, expert_ids: Sequence[int]) -> torch.Tensor:
         """LN1+QKV kernel -> einsum attention core -> out-proj+residual+LN2+
-        MLP+residual kernel (``quant="bf16"``)."""
+        MLP+residual kernel, in the block plan's ``quant``.  The int8 plans
+        quantize the folded compute-dtype weights on every call, as JAX does:
+        'fused_int8' all four projections, 'fused_int8_mlp' fc1 and fc2."""
         G, B, S, D = x.shape
         H = self.num_heads
+        quant = {"fused_int8": "int8", "fused_int8_mlp": "int8_mlp"}.get(self.block_impl, "bf16")
         w_qkv, b_qkv, w_out, b_out = self.attn.folded(expert_ids)
         w1, b1, w2, b2 = self.mlp.folded(expert_ids)
+        w_qkv, w_out, w1, w2 = (w.contiguous() for w in (w_qkv, w_out, w1, w2))
 
         def per_group(b):
             return b[None].expand(G, *b.shape)
 
         xf = x.reshape(G, B * S, D)
-        qkv = fused_ln_qkv(xf, *self.ln1.params(), w_qkv.contiguous(), per_group(b_qkv))
+        if quant == "int8":
+            qkv = fused_ln_qkv(xf, *self.ln1.params(), quantize_weight(w_qkv),
+                               per_group(b_qkv), quant="int8")
+        else:
+            qkv = fused_ln_qkv(xf, *self.ln1.params(), w_qkv, per_group(b_qkv))
         qkv5 = qkv.reshape(G * B, S, 3, H, D // H)
         q, k, v = qkv5[:, :, 0], qkv5[:, :, 1], qkv5[:, :, 2]
         attn = bshd_core("xla")(q, k, v).reshape(G, B * S, D).contiguous()
-        y = fused_out_mlp(attn, xf, w_out.contiguous(), per_group(b_out), *self.ln2.params(),
-                          w1.contiguous(), per_group(b1), w2.contiguous(), per_group(b2))
+        if self.block_impl == "fused_qkv":  # the LN+QKV kernel only; the tail stays plain
+            y = folded_block_tail(attn, xf, w_out, b_out, *self.ln2.params(), w1, b1, w2, b2)
+            return y.reshape(G, B, S, D)
+        if quant == "int8":
+            w_out = quantize_weight(w_out)
+        if quant != "bf16":
+            w1, w2 = quantize_weight(w1), quantize_weight(w2)
+        y = fused_out_mlp(attn, xf, w_out, per_group(b_out), *self.ln2.params(),
+                          w1, per_group(b1), w2, per_group(b2), quant=quant)
         return y.reshape(G, B, S, D)

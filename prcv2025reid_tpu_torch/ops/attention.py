@@ -1,10 +1,13 @@
 """Multi-head attention cores (counterpart of the JAX package's
-``ops/attention.py``): the plain einsum cores and the backend dispatch.
+``ops/attention.py``): the plain einsum cores, the splash core and the
+backend dispatch.
 
 ``xla_attention`` takes q/k/v [B, H, S, Dh]; ``xla_attention_bshd`` takes the
 natural post-projection layout [B, S, H, Dh].  Both compute the logits in the
 input dtype and only then cast them to f32, like the JAX cores, so the bf16
-rounding points agree.
+rounding points agree.  ``splash_attention_bshd`` (``attn_backend="splash"``)
+replaces the JAX package's upstream Mosaic splash kernel with the port's
+Hopper attention kernel (``fused_mha``).
 """
 from __future__ import annotations
 
@@ -12,7 +15,8 @@ from typing import Optional
 
 import torch
 
-from prcv2025reid_tpu_torch.ops.fused_attention import fused_mha
+from prcv2025reid_tpu_torch.ops import _kernels
+from prcv2025reid_tpu_torch.ops.fused_attention import HEAD_DIM, fused_mha
 
 
 def _causal_fill(logits: torch.Tensor, S: int) -> torch.Tensor:
@@ -45,15 +49,46 @@ def xla_attention_bshd(q, k, v, *, causal: bool = False) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
 
 
-BSHD_CORES = {"xla": xla_attention_bshd}
+def splash_plain(q, k, v) -> torch.Tensor:
+    """What the splash kernel computes: q scaled by Dh**-0.5 first and
+    rounded to its dtype (JAX ``attention.py:148``), f32 logits, the exact
+    softmax, the weights cast to v's dtype, f32-accumulated PV.  q/k/v
+    [B, S, H, Dh] -> [B, S, H, Dh] in q.dtype."""
+    Dh = q.shape[-1]
+    qs = (q * Dh**-0.5).to(q.dtype)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
+    weights = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", weights.float(), v.float()).to(q.dtype)
+
+
+def splash_attention_bshd(q, k, v) -> torch.Tensor:
+    """The splash core on the [B, S, H, Dh] layout.  For CUDA tensors it
+    launches the Hopper attention kernel (``fused_mha``), which masks keys
+    >= S by index, so S needs no padding to a multiple of 128 (JAX pads
+    197 -> 256 under a key mask).  The kernel scales the logits by
+    Dh**-0.5 = 0.125 after the product; for its one head width, Dh = 64, that
+    is a power of two, so it equals splash's pre-scaled bf16 q exactly.  CPU
+    tensors run :func:`splash_plain`."""
+    if not q.is_cuda:
+        return splash_plain(q, k, v)
+    Dh = q.shape[-1]
+    _kernels.require(Dh == HEAD_DIM, f"splash_attention_bshd: the kernel takes Dh={HEAD_DIM} "
+                     f"(a power-of-two scale), got {Dh}")
+    out = fused_mha(*(t.permute(0, 2, 1, 3) for t in (q, k, v)))
+    splash_attention_bshd.launches += 1
+    return out.permute(0, 2, 1, 3)
+
+
+splash_attention_bshd.launches = 0
+
+BSHD_CORES = {"xla": xla_attention_bshd, "splash": splash_attention_bshd}
 
 
 def bshd_core(impl: str):
     """Resolve an attention-core name to its [B, S, H, Dh] function."""
     if impl not in BSHD_CORES:
         raise NotImplementedError(
-            f"attention core {impl!r} is not ported yet: ROADMAP.md §1 item 2 "
-            "('onesaug') and §2 item 10 ('splash')"
+            f"attention core {impl!r} is not ported yet: ROADMAP.md §1 item 2 ('onesaug')"
         )
     return BSHD_CORES[impl]
 

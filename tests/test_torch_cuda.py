@@ -5,13 +5,17 @@ CPU mode; the CPU tests hold the plain versions against JAX).  On a machine
 with an H100 and no JAX (tests/conftest.py imports jax) run
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 Tolerances: bf16 outputs of the same f32-accumulated arithmetic summed in
-another order, so a few bf16 ulps of the output scale.
+another order, so a few bf16 ulps of the output scale; the int8 kernels'
+products are exact, and an f32 ulp of difference in an LN statistic or the
+GELU can flip one int8 rounding, which moves an output by one quantization
+step of one input (well inside the same bound).
 """
 import numpy as np
 import pytest
 import torch
 
 from prcv2025reid_tpu_torch import TrainingConfig, build_model, make_combo_embed_step
+from prcv2025reid_tpu_torch.ops import attention as att
 from prcv2025reid_tpu_torch.ops import fused_block as fb
 from prcv2025reid_tpu_torch.ops.fused_attention import fused_mha, mha_plain
 from prcv2025reid_tpu_torch.ops.fused_mlp import fused_mlp, mlp_plain
@@ -60,6 +64,84 @@ def test_block_kernels(cuda):
     torch.cuda.synchronize()
     assert _rel(qkv, fb.ln_qkv_plain(x, lns, lnb, wqkv, bqkv)) < 1e-2
     assert _rel(out, fb.out_mlp_plain(attn, x, wo, bo, lns, lnb, w1, b1, w2, b2)) < 1e-2
+
+
+def _block_operands(cuda, G, T, D, F):
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def r(*shape, s=1.0):
+        return torch.randn(*shape, generator=g, device=cuda) * s
+
+    return dict(
+        x=r(G, T, D).bfloat16(), attn=r(G, T, D).bfloat16(),
+        lns=1 + 0.1 * r(D), lnb=0.1 * r(D),
+        wqkv=r(G, D, 3 * D, s=D**-0.5).bfloat16(), bqkv=0.1 * r(G, 3 * D),
+        wo=r(G, D, D, s=D**-0.5).bfloat16(), bo=0.1 * r(G, D),
+        w1=r(G, D, F, s=D**-0.5).bfloat16(), b1=0.1 * r(G, F),
+        w2=r(G, F, D, s=F**-0.5).bfloat16(), b2=0.1 * r(G, D),
+    )
+
+
+@pytest.mark.parametrize("G,T,D,F", [(2, 77, 128, 256), (2, 1000, 768, 3072), (1, 300, 96, 208)])
+def test_int8_block_kernels(cuda, G, T, D, F):
+    """T not a multiple of the 128-row tile; D = 96 and F = 208 not multiples
+    of the 128-column tile or the 64-byte k-tile."""
+    d = _block_operands(cuda, G, T, D, F)
+    q = {k: fb.quantize_weight(d[k]) for k in ("wqkv", "wo", "w1", "w2")}
+    common = (d["lns"], d["lnb"], *q["w1"], d["b1"], *q["w2"], d["b2"])
+    runs = {
+        "ln_qkv": (fb.fused_ln_qkv_int8(d["x"], d["lns"], d["lnb"], *q["wqkv"], d["bqkv"]),
+                   fb.ln_qkv_int8_plain(d["x"], d["lns"], d["lnb"], *q["wqkv"], d["bqkv"])),
+        "int8": (fb.fused_out_mlp_int8(d["attn"], d["x"], *q["wo"], d["bo"], *common),
+                 fb.out_mlp_int8_plain(d["attn"], d["x"], *q["wo"], d["bo"], *common)),
+        "int8mlp": (fb.fused_out_mlp_int8mlp(d["attn"], d["x"], d["wo"], d["bo"], *common),
+                    fb.out_mlp_int8mlp_plain(d["attn"], d["x"], d["wo"], d["bo"], *common)),
+    }
+    torch.cuda.synchronize()
+    for name, (got, want) in runs.items():
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape, name
+        assert _rel(got, want) < 1e-2, name
+        assert (got.float() - want.float()).abs().max().item() < 0.1, name
+
+
+def test_int8_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    d = _block_operands(cuda, 1, 40, 64, 128)
+    wq, ws = fb.quantize_weight(d["wqkv"])
+    args = (d["x"], d["lns"], d["lnb"])
+    with pytest.raises(ValueError, match="K-major"):  # row-major int8 weights
+        fb.fused_ln_qkv_int8(*args, wq.contiguous(), ws, d["bqkv"])
+    with pytest.raises(ValueError, match="int8"):
+        fb.fused_ln_qkv_int8(*args, d["wqkv"], ws, d["bqkv"])
+    with pytest.raises(ValueError, match="bfloat16"):
+        fb.fused_ln_qkv_int8(d["x"].float(), d["lns"], d["lnb"], wq, ws, d["bqkv"])
+    with pytest.raises(ValueError, match="shape"):
+        fb.fused_ln_qkv_int8(*args, wq, ws[..., :8], d["bqkv"])
+    q1, q2 = fb.quantize_weight(d["w1"]), fb.quantize_weight(d["w2"])
+    with pytest.raises(ValueError, match="K-major"):
+        fb.fused_out_mlp_int8mlp(d["attn"], d["x"], d["wo"], d["bo"], d["lns"], d["lnb"],
+                                 q1[0].contiguous(), q1[1], d["b1"], *q2, d["b2"])
+    with pytest.raises(ValueError, match="multiple of 16"):
+        z = torch.zeros(1, 8, 40, device=cuda, dtype=torch.bfloat16)
+        zq = fb.quantize_weight(torch.zeros(1, 40, 40, device=cuda))
+        fb.fused_ln_qkv_int8(z, torch.ones(40, device=cuda), torch.zeros(40, device=cuda),
+                             *zq, torch.zeros(1, 40, device=cuda))
+    with pytest.raises(NotImplementedError, match="serve only"):
+        fb.fused_ln_qkv_int8(d["x"], d["lns"].requires_grad_(), d["lnb"], wq, ws, d["bqkv"])
+
+
+@pytest.mark.parametrize("S", [197, 50])
+def test_splash_core(cuda, S):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    qkv = torch.randn(3, S, 3, 4, 64, generator=g, device=cuda).bfloat16()
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    before = att.splash_attention_bshd.launches
+    out = att.splash_attention_bshd(q, k, v)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and att.splash_attention_bshd.launches == before + 1
+    assert _rel(out, att.splash_plain(q, k, v)) < 1e-2
+    with pytest.raises(ValueError, match="Dh=64"):
+        z = torch.zeros(1, 8, 2, 32, device=cuda, dtype=torch.bfloat16)
+        att.splash_attention_bshd(z, z, z)
 
 
 @pytest.mark.parametrize("N,D,F", [(77, 128, 200), (131, 256, 64), (300, 768, 3072)])
@@ -126,7 +208,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 COUNTERS = {"fused_mha": fused_mha, "fused_ln_qkv": fb.fused_ln_qkv,
             "fused_out_mlp": fb.fused_out_mlp, "fused_mlp": fused_mlp,
-            "fused_residual_ln": fused_residual_ln}
+            "fused_residual_ln": fused_residual_ln,
+            "fused_ln_qkv_int8": fb.fused_ln_qkv_int8,
+            "fused_out_mlp_int8": fb.fused_out_mlp_int8,
+            "fused_out_mlp_int8mlp": fb.fused_out_mlp_int8mlp,
+            "splash_attention_bshd": att.splash_attention_bshd}
 L = 3  # vision_layers: blocks 0..L-2 in full, then the CLS-only block (plain)
 
 
@@ -137,6 +223,11 @@ L = 3  # vision_layers: blocks 0..L-2 in full, then the CLS-only block (plain)
     # the fused-stream trunk runs every block in full
     ({"use_fused_resln": True, "use_fused_mlp": True, "use_pallas_attention": True},
      {"fused_mha": L, "fused_mlp": L, "fused_residual_ln": 2 * L}),
+    ({"block_impl": "fused_qkv"}, {"fused_ln_qkv": L - 1}),
+    ({"attn_backend": "splash"}, {"splash_attention_bshd": L - 1, "fused_mha": L - 1}),
+    ({"block_impl": "fused_int8"}, {"fused_ln_qkv_int8": L - 1, "fused_out_mlp_int8": L - 1}),
+    ({"block_impl": "fused_int8_mlp"},
+     {"fused_ln_qkv": L - 1, "fused_out_mlp_int8mlp": L - 1}),
 ])
 def test_model_paths_launch_kernels(cuda, over, expected):
     base = dict(vision_hidden_dim=128, vision_layers=L, vision_heads=2, vision_mlp_dim=256,
@@ -152,4 +243,6 @@ def test_model_paths_launch_kernels(cuda, over, expected):
     counts = {n: c.launches for n, c in COUNTERS.items()}
     want = make_combo_embed_step(plain, ("vis",))(imgs, mask)
     assert counts == {n: expected.get(n, 0) for n in COUNTERS}, counts
-    assert (got * want).sum(dim=1).min().item() > 0.999
+    # the int8 plans quantize: JAX's own bar through the trunk is 0.99
+    bar = 0.99 if over.get("block_impl", "").startswith("fused_int8") else 0.999
+    assert (got * want).sum(dim=1).min().item() > bar

@@ -59,11 +59,8 @@ def test_build_model_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("override", [
-    {"block_impl": "fused_int8"},
-    {"block_impl": "fused_int8_mlp"},
-    {"block_impl": "fused_qkv"},
     {"block_impl": "fused_interpret"},
-    {"attn_backend": "splash"},
+    {"block_impl": "fused_int8_interpret"},
     {"attn_backend": "onesaug"},
     {"gelu_impl": "tanh"},
     {"gelu_impl": "poly"},
@@ -72,6 +69,21 @@ def test_build_model_raises_without_cuda(monkeypatch):
 def test_unported_values_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP.md|interpret"):
         TrainingConfig(**{**TINY, **override})
+
+
+@pytest.mark.parametrize("override", [
+    {"block_impl": "fused_int8"},
+    {"block_impl": "fused_int8_mlp"},
+    {"block_impl": "fused_qkv"},
+    {"attn_backend": "splash"},
+    # valid in JAX too (tests/test_fused_block.py::test_config_rejects_typoed_paths)
+    {"block_impl": "fused_int8", "attn_backend": "splash"},
+])
+def test_ported_block_plans_and_splash_build(override):
+    model = build_model(TrainingConfig(**{**TINY, **override}), num_classes=3, device="cpu")
+    blocks = model.encoder.vision.blocks
+    assert {b.block_impl for b in blocks} == {override.get("block_impl", "xla")}
+    assert {b.attn.attn_impl for b in blocks} == {override.get("attn_backend", "xla")}
 
 
 @pytest.mark.parametrize("override", [

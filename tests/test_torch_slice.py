@@ -6,12 +6,22 @@ them to zero / one, which would hide folding, bias and BN bugs), the tree is
 flattened the way ``params_to_npz`` writes it and loaded into the port
 through ``params.py``.  ``encode_subset`` is compared on one seeded uint8
 batch in which one sample has every image masked (the all-masked rescue),
-under the plain block path, the fused block path (JAX: ``fused_interpret``),
-``use_pallas_attention=True``, ``use_fused_mlp=True`` and the fused-stream
-trunk (``use_fused_resln=True`` with both).  JAX resolves the last three to
-its plain path on the CPU; the port's wrappers run their plain versions for
-CPU tensors, and its fused-stream trunk keeps its own structure (every block
-in full, the residual adds fused into the LayerNorms), the same math.
+under the plain block path, the fused block plans (JAX: ``fused_interpret``,
+``fused_qkv_interpret``, ``fused_int8_interpret``,
+``fused_int8_mlp_interpret``), ``use_pallas_attention=True``,
+``use_fused_mlp=True``, the fused-stream trunk (``use_fused_resln=True``
+with both) and ``attn_backend="splash"`` (held against JAX's plain path:
+Mosaic splash cannot run on a CPU, and it computes the einsum core's exact
+softmax).  JAX resolves the flags to its plain path on the CPU; the port's
+wrappers run their plain versions for CPU tensors, and its fused-stream trunk
+keeps its own structure (every block in full, the residual adds fused into
+the LayerNorms), the same math.
+
+The int8 plans quantize, so their distance from the plain path is
+quantization noise, not summation order: the port must sit within a tenth of
+that distance (JAX-int8 against JAX-xla on the same batch) of JAX-int8, which
+tells a port bug (an error of the noise's own size) from f32 ulps that flip
+an int8 rounding.
 """
 import dataclasses
 import sys
@@ -43,7 +53,14 @@ CONFIGS = {
     "pallas_attention": ({"use_pallas_attention": True}, {"use_pallas_attention": True}),
     "fused_mlp": ({"use_fused_mlp": True}, {"use_fused_mlp": True}),
     "fused_trunk": (FUSED_TRUNK, FUSED_TRUNK),
+    "fused_qkv": ({"block_impl": "fused_qkv_interpret"}, {"block_impl": "fused_qkv"}),
+    "splash": ({}, {"attn_backend": "splash"}),
+    "fused_int8": ({"block_impl": "fused_int8_interpret"}, {"block_impl": "fused_int8"}),
+    "fused_int8_mlp": ({"block_impl": "fused_int8_mlp_interpret"},
+                       {"block_impl": "fused_int8_mlp"}),
 }
+INT8 = ("fused_int8", "fused_int8_mlp")
+INT8_SHARE = 0.1  # of JAX-int8's own distance from JAX-xla
 
 
 def port_config(jcfg: JaxConfig, **over) -> TrainingConfig:
@@ -93,20 +110,28 @@ def jax_variables(flat_params):
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_encode_subset_matches_jax(name, active, batch, flat_params, jax_variables):
     jax_over, port_over = CONFIGS[name]
-    jcfg = JaxConfig(**{**TINY_BASE, **jax_over})
     images, image_mask, tokens, text_mask = batch
-    jmodel = JaxModel(config=jcfg, num_classes=NUM_CLASSES)
-    want = jmodel.apply(
-        jax_variables, jnp.asarray(images), jnp.asarray(image_mask), jnp.asarray(tokens),
-        jnp.asarray(text_mask), active, method=jmodel.encode_subset,
-    )
+
+    def jax_encode(over):
+        jmodel = JaxModel(config=JaxConfig(**{**TINY_BASE, **over}), num_classes=NUM_CLASSES)
+        return np.asarray(jmodel.apply(
+            jax_variables, jnp.asarray(images), jnp.asarray(image_mask), jnp.asarray(tokens),
+            jnp.asarray(text_mask), active, method=jmodel.encode_subset,
+        ))
+
+    want = jax_encode(jax_over)
     model = build_model(port_config(JaxConfig(**TINY_BASE), **port_over),
                         flat_params, device="cpu")
     with torch.inference_mode():
         got = model.encode_subset(torch.from_numpy(images), torch.from_numpy(image_mask),
                                   None, None, active)
     assert got.dtype == torch.float32 and got.shape == (B, TINY_BASE["fusion_dim"])
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL)
+    tol = TOL
+    if name in INT8:
+        noise = np.abs(want - jax_encode({})).max()
+        assert noise > 10 * TOL, noise  # the int8 plan really quantized
+        tol = INT8_SHARE * noise
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
 
 
 def test_embed_step_is_normalized_encode_subset(batch, flat_params):
@@ -120,7 +145,8 @@ def test_embed_step_is_normalized_encode_subset(batch, flat_params):
     assert emb.device.type == "cpu"
 
 
-@pytest.mark.parametrize("name", ["fused_mlp", "fused_trunk"])
+@pytest.mark.parametrize("name", ["fused_mlp", "fused_trunk", "fused_qkv", "splash",
+                                  "fused_int8", "fused_int8_mlp"])
 def test_loader_takes_the_same_npz_under_the_fused_flags(name, flat_params, tmp_path):
     """The fused paths add no parameter: one params_to_npz file loads into
     every configuration, tensor for tensor."""
