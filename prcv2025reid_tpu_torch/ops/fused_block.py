@@ -32,7 +32,6 @@ from prcv2025reid_tpu_torch.ops import _kernels
 from prcv2025reid_tpu_torch.ops.kernel_math import LN_EPS, gelu_exact, ln_f32
 
 MAX_LN_WIDTH = 1024  # the row-statistics kernel holds a row in registers
-QUANTS = ("bf16", "int8", "int8_mlp")
 
 
 def quant_rows(y: torch.Tensor):
@@ -124,22 +123,17 @@ def out_mlp_int8mlp_plain(attn, x, wo, bo, ln_scale, ln_bias, w1q, w1s, b1,
     return _mlp_int8_tail(x2, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2, x.dtype)
 
 
-def _check_quant(quant: str) -> None:
-    if quant not in QUANTS:
-        raise ValueError(f"quant={quant!r}; valid: {list(QUANTS)}")
-
-
 def fused_ln_qkv(x, ln_scale, ln_bias, w, b, quant: str = "bf16"):
     """LN(x) @ w + b.  x [G,T,D] bf16; ln_* [D]; w [G,D,O] bf16; b [G,O]
     -> [G,T,O] bf16.  LN statistics, the GEMM accumulation and the bias add
     are f32; the normalised rows are cast to bf16 before the GEMM.
     ``quant="int8"``: w is ``(wq, ws)`` from :func:`quantize_weight`, see
     :func:`fused_ln_qkv_int8`."""
-    _check_quant(quant)
     if quant == "int8":
         return fused_ln_qkv_int8(x, ln_scale, ln_bias, *w, b)
     if quant != "bf16":
-        raise ValueError("fused_ln_qkv: quant='int8_mlp' applies to fused_out_mlp only")
+        raise ValueError(f"fused_ln_qkv: quant={quant!r}; valid: ['bf16', 'int8'] "
+                         "('int8_mlp' is a plan of fused_out_mlp)")
     if not x.is_cuda:
         return ln_qkv_plain(x, ln_scale, ln_bias, w, b)
     fn = "fused_ln_qkv"
@@ -173,11 +167,12 @@ def fused_out_mlp(attn, x, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2,
     GEMM); it counts as one launch of the fused kernel.  ``quant="int8"``:
     wo, w1 and w2 are ``(wq, ws)`` pairs (:func:`fused_out_mlp_int8`);
     ``"int8_mlp"``: w1 and w2 are (:func:`fused_out_mlp_int8mlp`)."""
-    _check_quant(quant)
     if quant == "int8":
         return fused_out_mlp_int8(attn, x, *wo, bo, ln_scale, ln_bias, *w1, b1, *w2, b2)
     if quant == "int8_mlp":
         return fused_out_mlp_int8mlp(attn, x, wo, bo, ln_scale, ln_bias, *w1, b1, *w2, b2)
+    if quant != "bf16":
+        raise ValueError(f"fused_out_mlp: quant={quant!r}; valid: ['bf16', 'int8', 'int8_mlp']")
     if not x.is_cuda:
         return out_mlp_plain(attn, x, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2)
     fn = "fused_out_mlp"

@@ -189,10 +189,13 @@ def test_int8_wrappers_raise_under_autograd(which, data):
 
 def test_quant_values_are_checked(data):
     d = {k: _t(v) for k, v in data.items()}
-    with pytest.raises(ValueError, match="quant="):
+    with pytest.raises(ValueError, match="quant='fp8'"):
         tfb.fused_ln_qkv(d["x"], d["lns"], d["lnb"], d["wqkv"], d["bqkv"], quant="fp8")
-    with pytest.raises(ValueError, match="fused_out_mlp only"):
+    with pytest.raises(ValueError, match="plan of fused_out_mlp"):
         tfb.fused_ln_qkv(d["x"], d["lns"], d["lnb"], d["wqkv"], d["bqkv"], quant="int8_mlp")
+    with pytest.raises(ValueError, match="quant='fp8'"):
+        tfb.fused_out_mlp(d["attn"], d["x"], d["wo"], d["bo"], d["lns"], d["lnb"], d["w1"],
+                          d["b1"], d["w2"], d["b2"], quant="fp8")
 
 
 @pytest.mark.parametrize("S,Dh", [(21, 16), (197, 64)])
