@@ -96,12 +96,13 @@ def test_quant_rows_is_bit_exact():
     rng = np.random.default_rng(2)
     y = (rng.normal(size=(6, 300)) * 3.0).astype(np.float32)
     y[1] = 0.0  # scale clamped to 1e-8
-    y[2, :4] = [127.0, 63.5, -0.5, 1.5]  # half steps: rounding half to even
+    y[2] = 0.0  # max 127: scale 1, so these are half steps, rounded half to even
+    y[2, :5] = [127.0, 62.5, -1.5, 1.5, 2.5]
     jq, js = jfb._quant_rows(jnp.asarray(y))
     tq, ts = tfb.quant_rows(torch.from_numpy(y))
     np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
-    assert tq[2, :4].tolist() == [127, 64, 0, 2]
+    assert ts[2].item() == 1.0 and tq[2, :5].tolist() == [127, 62, -2, 2, 2]
 
 
 def test_ln_qkv_int8_plain_matches_pallas(data, quantized):
