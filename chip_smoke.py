@@ -15,20 +15,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      with G=3 groups of 32 images (6,304 rows, not a multiple of its tile);
      the three int8 block kernels on weights quantized as the model does
      (quantize_weight) and the splash core on [B, S, H, Dh] views of one QKV
-     projection;
+     projection; the microbenchmark's tiled matmul in both modes at its
+     M = 25,344 rows and at a ragged 6,304, for every row tile (block_rows),
+     bf16 within REL_TOL / ABS_TOL and int8 bit for bit;
   4. build the full-width ViT-B/16 model (fusion_dim 512, 400 classes, bf16
      compute) from init_params(seed=0, perturb=True) and embed one seeded
      uint8 batch through the entry points (build_model,
-     make_combo_embed_step) under ten paths: block_impl="xla" (plain),
+     make_combo_embed_step) under thirteen paths: block_impl="xla" (plain),
      block_impl="fused", use_pallas_attention=True, use_fused_mlp=True, the
      fused-stream trunk (use_fused_resln=True with use_fused_mlp and
      use_pallas_attention), the same trunk with the plain MLP
      (use_fused_resln and use_pallas_attention), block_impl="fused_qkv",
-     attn_backend="splash", block_impl="fused_int8" and
-     block_impl="fused_int8_mlp".  Each exact kernel path must reach
-     min-cosine >= 0.999 against the plain path, each int8 plan >= 0.99 (JAX's
-     own bar through the trunk; its reading against the 0.999 promotion gate
-     is printed, not required), and the launch counters,
+     attn_backend="splash", block_impl="fused_int8",
+     block_impl="fused_int8_mlp", and the serving formulations
+     attn_backend="onesaug", gelu_impl="tanh" and gelu_impl="poly" (plain
+     PyTorch: no kernel launch).  Each exact kernel path must reach
+     min-cosine >= 0.999 against the plain path, each int8 plan and serving
+     formulation >= 0.99 (JAX's own bar for the int8 plans through the trunk;
+     the reading against the 0.999 promotion gate is printed, not required),
+     and the launch counters,
      zeroed just before each run, must read exactly EXPECTED (one launch per
      block 0..L-2 where the
      last block is CLS-only; the fused-stream trunk runs all L blocks with two
@@ -42,7 +47,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      only), beside the least time the card could take;
      time end-to-end embeds/s per configuration (in turns, median of
      E2E_ROUNDS rounds) and print torch.profiler's device time per kernel
-     for one embed step of each.
+     for one embed step of each;
+  6. run the roofline probes of tools_torch/perf_microbench.py that measure
+     the card's own rates at the model's matmul shape: xla_bf16 (cuBLAS),
+     xla_int8 (torch._int_mm), pallas_bf16, pallas_int8 and pallas_sweep (the
+     port's tiled matmul), bw (copy bandwidth) and floor (the per-launch
+     floor); a probe that raises fails the run.
 
 Results go to standard output; the line before the last is the JSON
 ``{"kernels": [...]}``, the last line ``{"ok": true, "device": {...}}``.
@@ -77,12 +87,15 @@ E2E_ROUNDS = 3
 TOP_KERNELS = 8
 BATCH = 128
 NUM_CLASSES = 400
-INT8_MIN_COSINE = 0.99  # the int8 plans quantize: JAX's bar through the trunk
+APPROX_MIN_COSINE = 0.99  # int8 plans, serving formulations: JAX's int8 bar through the trunk
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 MM3_QUERY = ("nir", "sk", "cp")
+MATMUL_ROWS = (25344, 6304)  # the microbenchmark's M, and a multiple of no row tile
+MICROBENCH = ("xla_bf16", "xla_int8", "pallas_bf16", "pallas_int8", "pallas_sweep", "bw",
+              "floor")
 
 
 def fail(msg: str) -> "NoReturn":  # noqa: F821
@@ -160,6 +173,7 @@ def main() -> int:
     from prcv2025reid_tpu_torch.ops.fused_attention import fused_mha, mha_plain
     from prcv2025reid_tpu_torch.ops.fused_mlp import fused_mlp, mlp_plain
     from prcv2025reid_tpu_torch.ops.fused_resln import fused_residual_ln, resln_plain
+    from prcv2025reid_tpu_torch.ops.matmul import BLOCK_ROWS, matmul_plain, tiled_matmul
     from prcv2025reid_tpu_torch.params import init_params
 
     # ---- 2. build
@@ -243,6 +257,31 @@ def main() -> int:
         print(f"check {name}: max_abs {mx:.3e} rel {rel:.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(name)
+    # the microbenchmark's tiled matmul: x [M, 768] @ w [768, 3072]; the bf16
+    # weight scaled as the model's (outputs of order 1, where ABS_TOL is a few
+    # bf16 ulps), the int8 weight K-major, as the kernel takes it
+    mm_args, mm_err = {}, {"bf16": 0.0, "int8": 0}
+    for rows in MATMUL_ROWS:
+        wq = torch.randint(-127, 127, (F, D), generator=gen, device=dev, dtype=torch.int8).t()
+        xq = torch.randint(-127, 127, (rows, D), generator=gen, device=dev, dtype=torch.int8)
+        bf16_args = (randn(rows, D).bfloat16(), randn(D, F, scale=D**-0.5).bfloat16())
+        for mode, args in (("bf16", bf16_args), ("int8", (xq, wq))):
+            want = matmul_plain(*args)
+            for block_rows in BLOCK_ROWS:
+                got = tiled_matmul(*args, block_rows)
+                torch.cuda.synchronize()
+                if mode == "int8":  # exact s32 sums: bit for bit
+                    ok = got.dtype == torch.int32 and torch.equal(got, want)
+                    mx, rel = (got.double() - want.double()).abs().max().item(), 0.0
+                else:
+                    mx, rel, ok = errors(torch, got, want)
+                mm_err[mode] = max(mm_err[mode], mx)
+                name = f"tiled_matmul {mode} M={rows} block_rows={block_rows}"
+                print(f"check {name}: max_abs {mx:.3e} rel {rel:.3e} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(name)
+            if rows == MATMUL_ROWS[0]:
+                mm_args[mode] = args
     if failures:
         fail(f"kernel disagrees with its plain version: {failures}")
 
@@ -264,15 +303,20 @@ def main() -> int:
         "splash": cfg.replace(attn_backend="splash"),
         "fused_int8": cfg.replace(block_impl="fused_int8"),
         "fused_int8_mlp": cfg.replace(block_impl="fused_int8_mlp"),
+        "onesaug": cfg.replace(attn_backend="onesaug"),
+        "gelu_tanh": cfg.replace(gelu_impl="tanh"),
+        "gelu_poly": cfg.replace(gelu_impl="poly"),
     }
-    int8_paths = ("fused_int8", "fused_int8_mlp")
+    # held at APPROX_MIN_COSINE, their 0.999 reading printed
+    approx_paths = ("fused_int8", "fused_int8_mlp", "onesaug", "gelu_tanh", "gelu_poly")
     counters = {"fused_mha": fused_mha, "fused_ln_qkv": fb.fused_ln_qkv,
                 "fused_out_mlp": fb.fused_out_mlp, "fused_mlp": fused_mlp,
                 "fused_residual_ln": fused_residual_ln,
                 "fused_ln_qkv_int8": fb.fused_ln_qkv_int8,
                 "fused_out_mlp_int8": fb.fused_out_mlp_int8,
                 "fused_out_mlp_int8mlp": fb.fused_out_mlp_int8mlp,
-                "splash_attention_bshd": att.splash_attention_bshd}
+                "splash_attention_bshd": att.splash_attention_bshd,
+                "tiled_matmul": tiled_matmul}
     expected = {  # launches per forward
         "xla": {},
         "fused": {"fused_ln_qkv": L - 1, "fused_out_mlp": L - 1},
@@ -285,6 +329,10 @@ def main() -> int:
         "splash": {"splash_attention_bshd": L - 1, "fused_mha": L - 1},
         "fused_int8": {"fused_ln_qkv_int8": L - 1, "fused_out_mlp_int8": L - 1},
         "fused_int8_mlp": {"fused_ln_qkv": L - 1, "fused_out_mlp_int8mlp": L - 1},
+        # the serving formulations are plain PyTorch
+        "onesaug": {},
+        "gelu_tanh": {},
+        "gelu_poly": {},
     }
     Mv = len(cfg.vision_modalities)
     images = torch.randint(0, 256, (BATCH, Mv, cfg.image_size, cfg.image_size, 3),
@@ -320,9 +368,9 @@ def main() -> int:
         if name == "xla":
             continue
         gate[name] = (embeds[name] * embeds["xla"]).sum(dim=1).min().item()
-        bar = INT8_MIN_COSINE if name in int8_paths else MIN_COSINE
+        bar = APPROX_MIN_COSINE if name in approx_paths else MIN_COSINE
         promo = (f"; promotion gate {MIN_COSINE}: "
-                 f"{'met' if gate[name] >= MIN_COSINE else 'missed'}") if name in int8_paths else ""
+                 f"{'met' if gate[name] >= MIN_COSINE else 'missed'}") if name in approx_paths else ""
         print(f"gate {name} vs xla: min-cosine {gate[name]:.6f} (>= {bar}){promo}")
         if gate[name] < bar:
             fail(f"{name}: min-cosine {gate[name]} < {bar}")
@@ -465,6 +513,25 @@ def main() -> int:
         plain_ms=time_ms(torch, lambda: att.splash_plain(*splash_args)),
         bound_ms=b_ms, bound_by=b_by, library_ms=sdpa_ms,
     ))
+    # the microbenchmark's tiled matmul at M = 25,344, K = 768, N = 3072: each
+    # input read once, the output written once; no model path launches it
+    Mm = MATMUL_ROWS[0]
+    mm_launches = sum(n["tiled_matmul"] for n in launches.values())
+    for mode, peak, out_bytes, library in (
+            ("bf16", PEAK_BF16_FLOPS, 2, torch.matmul), ("int8", PEAK_INT8_OPS, 4, torch._int_mm)):
+        a, w = mm_args[mode]
+        b_ms, b_by = bound_ms([(2 * Mm * D * F, peak)],
+                              (Mm * D + D * F) * a.element_size() + Mm * F * out_bytes)
+        rows.append(dict(
+            name=f"tiled_matmul_{mode}", route="cuda",
+            source="prcv2025reid_tpu_torch/csrc/matmul.cu",
+            replaces="tools/perf_microbench.py:98",
+            launches=mm_launches, max_abs_err=mm_err[mode],
+            ms=time_ms(torch, lambda a=a, w=w: tiled_matmul(a, w)),
+            plain_ms=time_ms(torch, lambda a=a, w=w: matmul_plain(a, w), runs=20),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(torch, lambda a=a, w=w, f=library: f(a, w)),
+        ))
     # yardsticks outside the contract: cuBLAS on the bare products of the MLP and
     # block kernels (torch._int_mm on the int8 ones), PyTorch's add + layer_norm
     # beside the residual+LN pass
@@ -526,6 +593,21 @@ def main() -> int:
         print(f"profile {name}: device {total / 1e3:.3f} ms of {wall_ms:.3f} ms per step "
               f"(idle share {1 - total / 1e3 / wall_ms:.3f}) in {len(events)} kernels; top: "
               + json.dumps([[e.key[:60], e.count, round(device_time(e) / 1e3, 4)] for e in top]))
+
+    # ---- 6. the microbenchmark's entry point: the card's own rates
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "perf_microbench", root / "tools_torch" / "perf_microbench.py")
+    pmb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pmb)
+    bench = pmb.Bench("cuda")
+    probe_rates = {}
+    t0 = time.perf_counter()
+    for name in MICROBENCH:
+        probe_rates.update(pmb.PROBES[name](bench))
+    print(f"microbench ({time.perf_counter() - t0:.1f} s, rates / 1e12): " + json.dumps(
+        {label: rate / 1e12 for label, rate in probe_rates.items()}))
 
     print("end_to_end: " + json.dumps({
         "card": card, "batch": BATCH, "embeds_per_sec": e2e, "device_ms_per_step": device_ms,

@@ -144,16 +144,6 @@ class TrainingConfig:
                 "test device; the port runs the plain version for CPU tensors "
                 f"— use block_impl={impl!r}"
             )
-        if self.attn_backend == "onesaug":
-            raise NotImplementedError(
-                "attn_backend='onesaug' is not ported yet: ROADMAP.md §1 item 2 "
-                "(the zero-reduction-pass einsum core)"
-            )
-        if self.gelu_impl != "erf":
-            raise NotImplementedError(
-                f"gelu_impl={self.gelu_impl!r} is not ported yet: ROADMAP.md "
-                "§1 item 2 (tanh and poly GELU)"
-            )
         if self.token_keep > 0:
             raise NotImplementedError(
                 f"token_keep={self.token_keep} is not ported yet: ROADMAP.md "

@@ -38,6 +38,7 @@ class UnifiedEncoder(nn.Module):
             mlp_impl="auto" if config.use_fused_mlp else "xla",
             resln_impl="auto" if config.use_fused_resln else "xla",
             block_impl=config.block_impl,
+            gelu_impl=config.gelu_impl,
             device=device,
         ))
 

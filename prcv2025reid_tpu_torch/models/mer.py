@@ -27,10 +27,11 @@ from prcv2025reid_tpu_torch.ops.attention import (
 )
 from prcv2025reid_tpu_torch.ops.fused_block import fused_ln_qkv, fused_out_mlp, quantize_weight
 from prcv2025reid_tpu_torch.ops.fused_mlp import fused_mlp
-from prcv2025reid_tpu_torch.ops.kernel_math import LN_EPS, ln_f32
+from prcv2025reid_tpu_torch.ops.kernel_math import LN_EPS, gelu_poly_bf16, ln_f32
 
 
 BLOCK_IMPLS = ("xla", "fused", "fused_int8", "fused_int8_mlp", "fused_qkv")
+GELU_IMPLS = ("erf", "tanh", "poly")
 
 
 def _param(*shape, device=None) -> nn.Parameter:
@@ -59,6 +60,17 @@ def gelu_erf(h: torch.Tensor) -> torch.Tensor:
     return F.gelu(h, approximate="none")
 
 
+def apply_gelu(h: torch.Tensor, impl: str = "erf") -> torch.Tensor:
+    """GELU by formulation name (``TrainingConfig.gelu_impl``): "erf" is
+    reference-exact; "tanh" (the tanh approximation) and "poly"
+    (:func:`gelu_poly_bf16`) are bf16-accuracy serving formulations."""
+    if impl == "tanh":
+        return F.gelu(h, approximate="tanh")
+    if impl == "poly":
+        return gelu_poly_bf16(h)
+    return gelu_erf(h)
+
+
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [G, ..., in] @ w [G, in, out] -> [G, ..., out]."""
     G = x.shape[0]
@@ -66,13 +78,14 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
-def folded_block_tail(attn, x_res, w_out, b_out, ln2_s, ln2_b, w1, b1, w2, b2):
+def folded_block_tail(attn, x_res, w_out, b_out, ln2_s, ln2_b, w1, b1, w2, b2,
+                      gelu_impl: str = "erf"):
     """The folded post-attention half of a pre-LN block, plain form:
     out-proj + residual + LN2 + MLP + residual; grouped leading dim."""
     proj = grouped_matmul(attn, w_out) + b_out
     x2 = x_res.to(proj.dtype) + proj
     y = ln_apply(x2, ln2_s, ln2_b)
-    h = gelu_erf(grouped_matmul(y, w1) + b1)
+    h = apply_gelu(grouped_matmul(y, w1) + b1, gelu_impl)
     return x2 + (grouped_matmul(h, w2) + b2)
 
 
@@ -140,16 +153,18 @@ class MERDense(nn.Module):
 class MERAttention(nn.Module):
     """MHA with MER-routed Q/K/V/out projections.  Q/K/V effective kernels
     concatenate into one [G, D, 3D] grouped matmul.  ``attn_impl``: 'xla'
-    (einsum core), 'splash' (the splash core, ``attn_backend="splash"``) or
-    'auto' (the fused kernel for CUDA tensors, the einsum core for CPU
-    tensors — JAX's ``use_pallas_attention=True``)."""
+    (einsum core), 'onesaug' (the ones-augmented core,
+    ``attn_backend="onesaug"``), 'splash' (the splash core,
+    ``attn_backend="splash"``) or 'auto' (the fused kernel for CUDA tensors,
+    the einsum core for CPU tensors — JAX's ``use_pallas_attention=True``)."""
 
     def __init__(self, dim: int, num_heads: int, num_experts: int, rank: int = 4,
                  alpha: float = 1.0, dtype=torch.float32, attn_impl: str = "xla",
                  enable: bool = True, device=None):
         super().__init__()
-        if attn_impl not in ("xla", "splash", "auto"):
-            raise ValueError(f"attn_impl={attn_impl!r}; valid: ['auto', 'splash', 'xla']")
+        if attn_impl not in ("xla", "onesaug", "splash", "auto"):
+            raise ValueError(
+                f"attn_impl={attn_impl!r}; valid: ['auto', 'onesaug', 'splash', 'xla']")
         self.num_heads, self.dtype, self.attn_impl = num_heads, dtype, attn_impl
         mer = dict(num_experts=num_experts, rank=rank, alpha=alpha, dtype=dtype,
                    enable=enable, device=device)
@@ -178,7 +193,7 @@ class MERAttention(nn.Module):
         impl = self.attn_impl
         if impl == "auto":
             impl = "pallas" if kernel_available(x) else "xla"
-        if impl in ("xla", "splash"):  # the [B, S, H, Dh] cores
+        if impl in ("xla", "onesaug", "splash"):  # the [B, S, H, Dh] cores
             def merge2(t):
                 return t.reshape(G * B, S, H, Dh)
 
@@ -194,19 +209,23 @@ class MERAttention(nn.Module):
 
 
 class MERMlp(nn.Module):
-    """fc1 -> exact (erf) GELU -> fc2, both MER-routed.  ``impl``: 'xla'
-    (two grouped matmuls) or 'auto' (JAX's ``impl="auto"``: the folded
-    weights through ``fused_mlp``, which launches the fused kernel for CUDA
-    tensors and runs its plain version for CPU tensors).  ``enable=False``
-    keeps the plain MLP: the kernel takes folded, routed weights."""
+    """fc1 -> GELU -> fc2, both MER-routed.  ``impl``: 'xla' (two grouped
+    matmuls around the ``gelu_impl`` formulation, see :func:`apply_gelu`) or
+    'auto' (JAX's ``impl="auto"``: the folded weights through ``fused_mlp``,
+    which launches the fused kernel for CUDA tensors and runs its plain
+    version for CPU tensors; both keep the kernel's own exact erf, as the JAX
+    Pallas route does).  ``enable=False`` keeps the plain MLP: the kernel
+    takes folded, routed weights."""
 
     def __init__(self, dim: int, mlp_dim: int, num_experts: int, rank: int = 4,
                  alpha: float = 1.0, dtype=torch.float32, impl: str = "xla",
-                 enable: bool = True, device=None):
+                 enable: bool = True, gelu_impl: str = "erf", device=None):
         super().__init__()
         if impl not in ("xla", "auto"):
             raise ValueError(f"impl={impl!r}; valid: ['auto', 'xla']")
-        self.dtype, self.impl, self.enable = dtype, impl, enable
+        if gelu_impl not in GELU_IMPLS:
+            raise ValueError(f"gelu_impl={gelu_impl!r}; valid: {list(GELU_IMPLS)}")
+        self.dtype, self.impl, self.enable, self.gelu_impl = dtype, impl, enable, gelu_impl
         mer = dict(num_experts=num_experts, rank=rank, alpha=alpha, dtype=dtype,
                    enable=enable, device=device)
         self.fc1 = MERDense(dim, mlp_dim, **mer)
@@ -218,7 +237,7 @@ class MERMlp(nn.Module):
 
     def forward(self, x: torch.Tensor, expert_ids: Sequence[int]) -> torch.Tensor:
         if self.impl == "xla" or not self.enable:
-            return self.fc2(gelu_erf(self.fc1(x, expert_ids)), expert_ids)
+            return self.fc2(apply_gelu(self.fc1(x, expert_ids), self.gelu_impl), expert_ids)
         G, B, S, D = x.shape
         w1, b1, w2, b2 = self.folded(expert_ids)
         out = fused_mlp(x.to(self.dtype).reshape(G, B * S, D), w1.contiguous(),
@@ -235,13 +254,15 @@ class MERBlock(nn.Module):
     int8 kernels); 'fused_int8_mlp' (the bf16 LN+QKV kernel, then the mixed
     kernel: bf16 out-projection, int8 fc1 and fc2); 'fused_qkv' (the bf16
     LN+QKV kernel, then the plain ``folded_block_tail``).  Every fused plan
-    takes the einsum core between its kernels, bypassing ``attn_impl`` and
-    ``mlp_impl`` as in the JAX package."""
+    takes the einsum core between its kernels (the ones-augmented one under
+    ``attn_impl="onesaug"``), bypassing ``mlp_impl`` and any other
+    ``attn_impl`` as in the JAX package.  ``gelu_impl`` reaches every plain
+    GELU of the block; the kernels keep their own exact erf."""
 
     def __init__(self, dim: int, num_heads: int, mlp_dim: int, num_experts: int,
                  rank: int = 4, alpha: float = 1.0, dtype=torch.float32,
                  attn_impl: str = "xla", mlp_impl: str = "xla", enable_mer: bool = True,
-                 block_impl: str = "xla", device=None):
+                 block_impl: str = "xla", gelu_impl: str = "erf", device=None):
         super().__init__()
         if block_impl not in BLOCK_IMPLS:
             raise ValueError(f"block_impl={block_impl!r}; valid: {list(BLOCK_IMPLS)}")
@@ -252,7 +273,8 @@ class MERBlock(nn.Module):
         self.ln1 = LNParams(dim, device=device)
         self.ln2 = LNParams(dim, device=device)
         self.attn = MERAttention(dim, num_heads, attn_impl=attn_impl, enable=enable_mer, **mer)
-        self.mlp = MERMlp(dim, mlp_dim, impl=mlp_impl, enable=enable_mer, **mer)
+        self.mlp = MERMlp(dim, mlp_dim, impl=mlp_impl, enable=enable_mer,
+                          gelu_impl=gelu_impl, **mer)
 
     def forward(self, x: torch.Tensor, expert_ids: Sequence[int]) -> torch.Tensor:
         if self.block_impl != "xla":
@@ -263,8 +285,8 @@ class MERBlock(nn.Module):
     def cls_only_call(self, x: torch.Tensor, expert_ids: Sequence[int]) -> torch.Tensor:
         """Exact CLS-row output of the forward: [G,B,S,D] -> [G,B,D].  q, the
         out-projection and the MLP run for the CLS token only; k/v span all
-        tokens.  The core is the einsum core under every attn_impl, as in
-        the JAX package."""
+        tokens.  The core is the ones-augmented one under 'onesaug' and the
+        einsum core under every other attn_impl, as in the JAX package."""
         G, B, S, D = x.shape
         H = self.num_heads
         Dh = D // H
@@ -274,13 +296,19 @@ class MERBlock(nn.Module):
         kv = grouped_matmul(h, w_qkv[:, :, D:]) + b_qkv[D:]
         q = grouped_matmul(h[:, :, 0], w_qkv[:, :, :D]) + b_qkv[:D]
         k, v = kv[..., :D], kv[..., D:]
-        attn = bshd_core("xla")(
+        attn = bshd_core(self._core())(
             q.reshape(G * B, 1, H, Dh),
             k.reshape(G * B, S, H, Dh),
             v.reshape(G * B, S, H, Dh),
         ).reshape(G, B, D)
         return folded_block_tail(attn, x[:, :, 0], w_out, b_out, *self.ln2.params(),
-                                 w1, b1, w2, b2)
+                                 w1, b1, w2, b2, self.mlp.gelu_impl)
+
+    def _core(self) -> str:
+        """The [B, S, H, Dh] core of ``cls_only_call`` and ``_fused_call``:
+        'onesaug' where asked for, else the einsum core (JAX mer.py:668-672,
+        :757-759)."""
+        return "onesaug" if self.attn_impl == "onesaug" else "xla"
 
     def _fused_call(self, x: torch.Tensor, expert_ids: Sequence[int]) -> torch.Tensor:
         """LN1+QKV kernel -> einsum attention core -> out-proj+residual+LN2+
@@ -305,9 +333,10 @@ class MERBlock(nn.Module):
             qkv = fused_ln_qkv(xf, *self.ln1.params(), w_qkv, per_group(b_qkv))
         qkv5 = qkv.reshape(G * B, S, 3, H, D // H)
         q, k, v = qkv5[:, :, 0], qkv5[:, :, 1], qkv5[:, :, 2]
-        attn = bshd_core("xla")(q, k, v).reshape(G, B * S, D).contiguous()
+        attn = bshd_core(self._core())(q, k, v).reshape(G, B * S, D).contiguous()
         if self.block_impl == "fused_qkv":  # the LN+QKV kernel only; the tail stays plain
-            y = folded_block_tail(attn, xf, w_out, b_out, *self.ln2.params(), w1, b1, w2, b2)
+            y = folded_block_tail(attn, xf, w_out, b_out, *self.ln2.params(), w1, b1, w2, b2,
+                                  self.mlp.gelu_impl)
             return y.reshape(G, B, S, D)
         if quant == "int8":
             w_out = quantize_weight(w_out)

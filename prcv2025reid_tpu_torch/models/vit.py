@@ -53,10 +53,10 @@ class PatchEmbed(nn.Module):
 
 
 class MERVisionTransformer(nn.Module):
-    """The MER-routed ViT trunk, eval forward.  ``mlp_impl`` goes to every
-    block's MLP (see ``MERMlp``); ``resln_impl`` 'auto' selects the
-    fused-stream trunk on every device (its residual+LN wrapper runs the
-    plain version for CPU tensors), 'xla' the plain one."""
+    """The MER-routed ViT trunk, eval forward.  ``mlp_impl`` and
+    ``gelu_impl`` go to every block's MLP (see ``MERMlp``); ``resln_impl``
+    'auto' selects the fused-stream trunk on every device (its residual+LN
+    wrapper runs the plain version for CPU tensors), 'xla' the plain one."""
 
     def __init__(self, embed_dim: int = 768, num_layers: int = 12, num_heads: int = 12,
                  mlp_dim: int = 3072, patch_size: int = 16, image_size: int = 224,
@@ -64,7 +64,7 @@ class MERVisionTransformer(nn.Module):
                  enable_mer: bool = True,
                  modalities: Tuple[str, ...] = VISION_MODALITIES, dtype=torch.float32,
                  attn_impl: str = "xla", mlp_impl: str = "xla", resln_impl: str = "xla",
-                 block_impl: str = "xla", device=None):
+                 block_impl: str = "xla", gelu_impl: str = "erf", device=None):
         super().__init__()
         if resln_impl not in ("xla", "auto"):
             raise ValueError(f"resln_impl={resln_impl!r}; valid: ['auto', 'xla']")
@@ -81,7 +81,8 @@ class MERVisionTransformer(nn.Module):
             self.add_module(f"block_{i}", MERBlock(
                 embed_dim, num_heads, mlp_dim, len(self.modalities), rank=lora_rank,
                 alpha=lora_alpha, dtype=dtype, attn_impl=attn_impl, mlp_impl=mlp_impl,
-                enable_mer=enable_mer, block_impl=block_impl, device=device))
+                enable_mer=enable_mer, block_impl=block_impl, gelu_impl=gelu_impl,
+                device=device))
         self.ln_final = LNParams(embed_dim, device=device)
         self.proj = Dense(embed_dim, fusion_dim, use_bias=False, device=device)
 

@@ -23,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("attention", "fused_block", "fused_block_int8", "fused_mlp", "fused_resln")
+SOURCES = ("attention", "fused_block", "fused_block_int8", "fused_mlp", "fused_resln", "matmul")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -5,7 +5,9 @@ backend dispatch.
 ``xla_attention`` takes q/k/v [B, H, S, Dh]; ``xla_attention_bshd`` takes the
 natural post-projection layout [B, S, H, Dh].  Both compute the logits in the
 input dtype and only then cast them to f32, like the JAX cores, so the bf16
-rounding points agree.  ``splash_attention_bshd`` (``attn_backend="splash"``)
+rounding points agree.  ``xla_attention_bshd_onesaug``
+(``attn_backend="onesaug"``) is the serving formulation with no reduction
+pass over the scores.  ``splash_attention_bshd`` (``attn_backend="splash"``)
 replaces the JAX package's upstream Mosaic splash kernel with the port's
 Hopper attention kernel (``fused_mha``).
 """
@@ -49,6 +51,22 @@ def xla_attention_bshd(q, k, v, *, causal: bool = False) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
 
 
+def xla_attention_bshd_onesaug(q, k, v) -> torch.Tensor:
+    """q/k/v [B, S, H, Dh] -> [B, S, H, Dh] with no reduction pass over the
+    [S, S] scores: they stay in the input dtype, exp runs without the max
+    subtraction (safe while |logits| * Dh**-0.5 < 88 in f32), and the softmax
+    denominator rides the PV product as a ones column of V.  The division
+    floors the denominator at 1e-9 for an f32 output, 1e-8 otherwise.  Not
+    bit-identical to :func:`xla_attention_bshd`; a serving formulation."""
+    Dh = q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    p = torch.exp(s.float() * Dh**-0.5).to(q.dtype)
+    v_aug = torch.cat([v, torch.ones(*v.shape[:-1], 1, dtype=v.dtype, device=v.device)], dim=-1)
+    o = torch.einsum("bhqk,bkhe->bqhe", p, v_aug)
+    denom = torch.clamp(o[..., Dh:], min=1e-9 if o.dtype == torch.float32 else 1e-8)
+    return o[..., :Dh] / denom
+
+
 def splash_plain(q, k, v) -> torch.Tensor:
     """What the splash kernel computes: q scaled by Dh**-0.5 first and
     rounded to its dtype (JAX ``attention.py:148``), f32 logits, the exact
@@ -81,15 +99,14 @@ def splash_attention_bshd(q, k, v) -> torch.Tensor:
 
 splash_attention_bshd.launches = 0
 
-BSHD_CORES = {"xla": xla_attention_bshd, "splash": splash_attention_bshd}
+BSHD_CORES = {"xla": xla_attention_bshd, "onesaug": xla_attention_bshd_onesaug,
+              "splash": splash_attention_bshd}
 
 
 def bshd_core(impl: str):
     """Resolve an attention-core name to its [B, S, H, Dh] function."""
     if impl not in BSHD_CORES:
-        raise NotImplementedError(
-            f"attention core {impl!r} is not ported yet: ROADMAP.md §1 item 2 ('onesaug')"
-        )
+        raise ValueError(f"attention core {impl!r}; valid: {sorted(BSHD_CORES)}")
     return BSHD_CORES[impl]
 
 

@@ -20,6 +20,7 @@ from prcv2025reid_tpu_torch.ops import fused_block as fb
 from prcv2025reid_tpu_torch.ops.fused_attention import fused_mha, mha_plain
 from prcv2025reid_tpu_torch.ops.fused_mlp import fused_mlp, mlp_plain
 from prcv2025reid_tpu_torch.ops.fused_resln import fused_residual_ln, resln_plain
+from prcv2025reid_tpu_torch.ops.matmul import BLOCK_ROWS, matmul_plain, tiled_matmul
 
 pytestmark = pytest.mark.cuda
 
@@ -206,13 +207,51 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fused_mha(z, z, z)
 
 
+@pytest.mark.parametrize("M", [25344, 6304, 77])
+@pytest.mark.parametrize("block_rows", BLOCK_ROWS)
+def test_tiled_matmul(cuda, M, block_rows):
+    """Both modes at the probe's K = 768, N = 3072, M a multiple of every row
+    tile (25,344) and of none (6,304, 77): int8 bit-exact (exact s32 sums),
+    bf16 within the f32 summation order's bf16 roundings."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(M, 768, generator=g, device=cuda).bfloat16()
+    w = torch.randn(768, 3072, generator=g, device=cuda).bfloat16()
+    xq = torch.randint(-127, 127, (M, 768), generator=g, device=cuda, dtype=torch.int8)
+    wq = torch.randint(-127, 127, (3072, 768), generator=g, device=cuda, dtype=torch.int8).t()
+    before = tiled_matmul.launches
+    got, got8 = tiled_matmul(x, w, block_rows), tiled_matmul(xq, wq, block_rows)
+    torch.cuda.synchronize()
+    assert tiled_matmul.launches == before + 2
+    assert got.dtype == torch.bfloat16 and got8.dtype == torch.int32
+    assert got.shape == got8.shape == (M, 3072)
+    assert _rel(got, matmul_plain(x, w)) < 2e-3
+    assert torch.equal(got8, matmul_plain(xq, wq))
+
+
+def test_tiled_matmul_rejects_what_the_kernel_does_not_take(cuda):
+    xq = torch.zeros(64, 768, device=cuda, dtype=torch.int8)
+    with pytest.raises(ValueError, match=r"K-major.*w\.t\(\)\.contiguous\(\)\.t\(\)"):
+        tiled_matmul(xq, torch.zeros(768, 256, device=cuda, dtype=torch.int8))
+    x = torch.zeros(64, 768, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="N=200 of 128"):
+        tiled_matmul(x, torch.zeros(768, 200, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="K=40 a multiple of 32"):
+        tiled_matmul(x[:, :40], torch.zeros(40, 256, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="block_rows"):
+        tiled_matmul(x, torch.zeros(768, 256, device=cuda, dtype=torch.bfloat16), 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        tiled_matmul(x.t().contiguous().t(), torch.zeros(768, 256, device=cuda,
+                                                       dtype=torch.bfloat16))
+
+
 COUNTERS = {"fused_mha": fused_mha, "fused_ln_qkv": fb.fused_ln_qkv,
             "fused_out_mlp": fb.fused_out_mlp, "fused_mlp": fused_mlp,
             "fused_residual_ln": fused_residual_ln,
             "fused_ln_qkv_int8": fb.fused_ln_qkv_int8,
             "fused_out_mlp_int8": fb.fused_out_mlp_int8,
             "fused_out_mlp_int8mlp": fb.fused_out_mlp_int8mlp,
-            "splash_attention_bshd": att.splash_attention_bshd}
+            "splash_attention_bshd": att.splash_attention_bshd,
+            "tiled_matmul": tiled_matmul}
 L = 3  # vision_layers: blocks 0..L-2 in full, then the CLS-only block (plain)
 
 
@@ -228,6 +267,10 @@ L = 3  # vision_layers: blocks 0..L-2 in full, then the CLS-only block (plain)
     ({"block_impl": "fused_int8"}, {"fused_ln_qkv_int8": L - 1, "fused_out_mlp_int8": L - 1}),
     ({"block_impl": "fused_int8_mlp"},
      {"fused_ln_qkv": L - 1, "fused_out_mlp_int8mlp": L - 1}),
+    # the serving formulations are plain PyTorch: no kernel
+    ({"attn_backend": "onesaug"}, {}),
+    ({"gelu_impl": "tanh"}, {}),
+    ({"gelu_impl": "poly"}, {}),
 ])
 def test_model_paths_launch_kernels(cuda, over, expected):
     base = dict(vision_hidden_dim=128, vision_layers=L, vision_heads=2, vision_mlp_dim=256,
@@ -243,6 +286,8 @@ def test_model_paths_launch_kernels(cuda, over, expected):
     counts = {n: c.launches for n, c in COUNTERS.items()}
     want = make_combo_embed_step(plain, ("vis",))(imgs, mask)
     assert counts == {n: expected.get(n, 0) for n in COUNTERS}, counts
-    # the int8 plans quantize: JAX's own bar through the trunk is 0.99
-    bar = 0.99 if over.get("block_impl", "").startswith("fused_int8") else 0.999
+    # the int8 plans quantize and the serving formulations approximate: 0.99
+    # (JAX's own bar for the int8 plans through the trunk)
+    inexact = over.get("block_impl", "").startswith("fused_int8") or not expected
+    bar = 0.99 if inexact else 0.999
     assert (got * want).sum(dim=1).min().item() > bar

@@ -6,6 +6,7 @@ take for CPU tensors.  f32 throughout, so the tolerances are the JAX
 package's own kernel-vs-oracle ones (tests/test_pallas_attention.py,
 tests/test_fused_block.py): only summation order differs.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,12 +14,16 @@ import torch
 
 from prcv2025reid_tpu.ops import fused_block as jfb
 from prcv2025reid_tpu.ops.attention import xla_attention as jax_xla_attention
+from prcv2025reid_tpu.ops.attention import xla_attention_bshd_onesaug as jax_onesaug
 from prcv2025reid_tpu.ops.kernel_math import gelu_exact as jax_gelu_exact
+from prcv2025reid_tpu.ops.kernel_math import gelu_poly_bf16 as jax_gelu_poly
+from prcv2025reid_tpu.ops.kernel_math import gelu_stored as jax_gelu_stored
 from prcv2025reid_tpu.ops.pallas_attention import pallas_mha
 from prcv2025reid_tpu_torch.ops import attention as tatt
 from prcv2025reid_tpu_torch.ops import fused_block as tfb
 from prcv2025reid_tpu_torch.ops.fused_attention import fused_mha
-from prcv2025reid_tpu_torch.ops.kernel_math import gelu_exact, ln_f32
+from prcv2025reid_tpu_torch.models.mer import apply_gelu
+from prcv2025reid_tpu_torch.ops.kernel_math import gelu_exact, gelu_poly_bf16, gelu_stored, ln_f32
 
 G, T, D, F = 2, 70, 64, 128
 
@@ -109,3 +114,72 @@ def test_bf16_plain_versions_round_like_the_kernels(block_data):
     y = ln_f32(d["x"], d["lns"], d["lnb"]).bfloat16().float()
     ref = (y @ d["wqkv"].float() + d["bqkv"].float()[:, None]).bfloat16()
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+# bf16 tolerance of the serving formulations: both sides take the same bf16
+# inputs, but round at other points: JAX evaluates the tanh GELU op by op in
+# bf16 where PyTorch rounds once from f32, and the poly GELU's bf16 x / sqrt 2
+# may round on either side of a half step.  Measured: at most 0.0156 apart
+# (one bf16 ulp at |y| in [2, 4)) over x in [-6, 6], the onesaug core equal.
+BF16_TOL = 2e-2
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 2e-5), ("bfloat16", BF16_TOL)])
+def test_onesaug_core_matches_jax(dtype, tol):
+    """The ones-augmented core on [B, S, H, Dh], also with one query row (the
+    CLS-only block's q)."""
+    rng = np.random.default_rng(4)
+    q, k, v = (rng.normal(size=(2, 21, 3, 16)).astype(np.float32) for _ in range(3))
+    jdt, tdt = (jnp.float32, torch.float32) if dtype is np.float32 else (jnp.bfloat16,
+                                                                         torch.bfloat16)
+    for qq in (q, q[:, :1]):
+        want = jax_onesaug(*(jnp.asarray(a, jdt) for a in (qq, k, v)))
+        got = tatt.xla_attention_bshd_onesaug(*(_t(a).to(tdt) for a in (qq, k, v)))
+        assert got.dtype == tdt and got.shape == qq.shape
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   rtol=tol, atol=tol)
+    # the same attention as the exact core, up to bf16 score storage in f32
+    exact = tatt.xla_attention_bshd(*(_t(a) for a in (q, k, v)))
+    torch.testing.assert_close(tatt.xla_attention_bshd_onesaug(*(_t(a) for a in (q, k, v))),
+                               exact, rtol=1e-5, atol=1e-5)
+    assert tatt.bshd_core("onesaug") is tatt.xla_attention_bshd_onesaug
+
+
+@pytest.mark.parametrize("impl", ["poly", "tanh"])
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-6), ("bfloat16", BF16_TOL)])
+def test_serving_gelus_match_jax(impl, dtype, tol):
+    """gelu_poly_bf16 and the tanh GELU (``apply_gelu``) against JAX's
+    ``gelu_poly_bf16`` and ``jax.nn.gelu(approximate=True)``."""
+    x = np.linspace(-6, 6, 2001).astype(np.float32)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype is np.float32 else (jnp.bfloat16,
+                                                                         torch.bfloat16)
+    jf = jax_gelu_poly if impl == "poly" else (lambda h: jax.nn.gelu(h, approximate=True))
+    want = np.asarray(jf(jnp.asarray(x, jdt)), np.float32)
+    got = apply_gelu(_t(x).to(tdt), impl)
+    assert got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+    if impl == "poly":
+        torch.testing.assert_close(gelu_poly_bf16(_t(x).to(tdt)), got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-6), ("bfloat16", BF16_TOL)])
+def test_gelu_stored_forward_and_gradient_match_jax(dtype, tol):
+    """Forward and VJP against ``jax.vjp(gelu_stored)`` on the same
+    cotangent; in f32 the forward also equals the exact GELU."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(7, 33)).astype(np.float32) * 3
+    g = rng.normal(size=(7, 33)).astype(np.float32)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype is np.float32 else (jnp.bfloat16,
+                                                                         torch.bfloat16)
+    y_j, vjp = jax.vjp(jax_gelu_stored, jnp.asarray(x, jdt))
+    (dx_j,) = vjp(jnp.asarray(g, jdt))
+    xt = _t(x).to(tdt).requires_grad_()
+    y = gelu_stored(xt)
+    (dx,) = torch.autograd.grad(y, xt, _t(g).to(tdt))
+    assert y.dtype == tdt and dx.dtype == tdt
+    np.testing.assert_allclose(y.detach().float().numpy(), np.asarray(y_j, np.float32),
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(dx.float().numpy(), np.asarray(dx_j, np.float32),
+                               rtol=tol, atol=tol)
+    if dtype is np.float32:
+        torch.testing.assert_close(y.detach(), torch.nn.functional.gelu(_t(x)))

@@ -30,7 +30,7 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import prcv2025reid_tpu_torch.ops.fused_block, prcv2025reid_tpu_torch.ops.attention\n"
         "import prcv2025reid_tpu_torch.ops.fused_attention, prcv2025reid_tpu_torch.params\n"
         "import prcv2025reid_tpu_torch.ops.fused_mlp, prcv2025reid_tpu_torch.ops.fused_resln\n"
-        "import prcv2025reid_tpu_torch.models.vit\n"
+        "import prcv2025reid_tpu_torch.models.vit, prcv2025reid_tpu_torch.ops.matmul\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'prcv2025reid_tpu')]\n"
         "print(repr(bad))\n"
     )
@@ -61,9 +61,6 @@ def test_build_model_raises_without_cuda(monkeypatch):
 @pytest.mark.parametrize("override", [
     {"block_impl": "fused_interpret"},
     {"block_impl": "fused_int8_interpret"},
-    {"attn_backend": "onesaug"},
-    {"gelu_impl": "tanh"},
-    {"gelu_impl": "poly"},
     {"token_keep": 4, "token_reduce_layer": 1},
 ])
 def test_unported_values_raise(override):
@@ -78,12 +75,16 @@ def test_unported_values_raise(override):
     {"attn_backend": "splash"},
     # valid in JAX too (tests/test_fused_block.py::test_config_rejects_typoed_paths)
     {"block_impl": "fused_int8", "attn_backend": "splash"},
+    {"attn_backend": "onesaug"},
+    {"gelu_impl": "tanh"},
+    {"gelu_impl": "poly"},
 ])
 def test_ported_block_plans_and_splash_build(override):
     model = build_model(TrainingConfig(**{**TINY, **override}), num_classes=3, device="cpu")
     blocks = model.encoder.vision.blocks
     assert {b.block_impl for b in blocks} == {override.get("block_impl", "xla")}
     assert {b.attn.attn_impl for b in blocks} == {override.get("attn_backend", "xla")}
+    assert {b.mlp.gelu_impl for b in blocks} == {override.get("gelu_impl", "erf")}
 
 
 @pytest.mark.parametrize("override", [

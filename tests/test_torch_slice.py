@@ -10,7 +10,9 @@ under the plain block path, the fused block plans (JAX: ``fused_interpret``,
 ``fused_qkv_interpret``, ``fused_int8_interpret``,
 ``fused_int8_mlp_interpret``), ``use_pallas_attention=True``,
 ``use_fused_mlp=True``, the fused-stream trunk (``use_fused_resln=True``
-with both) and ``attn_backend="splash"`` (held against JAX's plain path:
+with both), the serving formulations ``attn_backend="onesaug"`` and
+``gelu_impl="poly"``/``"tanh"`` (also onesaug with ``fused_qkv``), and
+``attn_backend="splash"`` (held against JAX's plain path:
 Mosaic splash cannot run on a CPU, and it computes the einsum core's exact
 softmax).  JAX resolves the flags to its plain path on the CPU; the port's
 wrappers run their plain versions for CPU tensors, and its fused-stream trunk
@@ -58,8 +60,18 @@ CONFIGS = {
     "fused_int8": ({"block_impl": "fused_int8_interpret"}, {"block_impl": "fused_int8"}),
     "fused_int8_mlp": ({"block_impl": "fused_int8_mlp_interpret"},
                        {"block_impl": "fused_int8_mlp"}),
+    # the serving formulations: plain PyTorch on every device, run by JAX on the CPU
+    "onesaug": ({"attn_backend": "onesaug"}, {"attn_backend": "onesaug"}),
+    "gelu_poly": ({"gelu_impl": "poly"}, {"gelu_impl": "poly"}),
+    "gelu_tanh": ({"gelu_impl": "tanh"}, {"gelu_impl": "tanh"}),
+    # the onesaug core between the kernels (_fused_call) and in the CLS-only
+    # block, and a serving GELU in the plain folded_block_tail of fused_qkv
+    "onesaug_fused_qkv": (
+        {"attn_backend": "onesaug", "block_impl": "fused_qkv_interpret", "gelu_impl": "tanh"},
+        {"attn_backend": "onesaug", "block_impl": "fused_qkv", "gelu_impl": "tanh"}),
 }
 INT8 = ("fused_int8", "fused_int8_mlp")
+SERVING_GELU = ("gelu_poly", "gelu_tanh", "onesaug_fused_qkv")
 INT8_SHARE = 0.1  # of JAX-int8's own distance from JAX-xla
 
 
@@ -127,6 +139,8 @@ def test_encode_subset_matches_jax(name, active, batch, flat_params, jax_variabl
                                   None, None, active)
     assert got.dtype == torch.float32 and got.shape == (B, TINY_BASE["fusion_dim"])
     tol = TOL
+    if name in SERVING_GELU:  # the formulation moves JAX's embedding by more than TOL
+        assert np.abs(want - jax_encode({})).max() > 2 * TOL
     if name in INT8:
         noise = np.abs(want - jax_encode({})).max()
         assert noise > 10 * TOL, noise  # the int8 plan really quantized
