@@ -38,13 +38,28 @@ def _rel(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-@pytest.mark.parametrize("S,causal", [(197, False), (33, True), (256, False)])
-def test_attention_kernel(cuda, S, causal):
+# the last case is the text tower's causal attention: S = 77, H = 8
+@pytest.mark.parametrize("S,H,causal", [(197, 3, False), (33, 3, True), (256, 3, False),
+                                        (77, 8, True)])
+def test_attention_kernel(cuda, S, H, causal):
     g = torch.Generator(device=cuda).manual_seed(0)
-    q, k, v = (torch.randn(2, 3, S, 64, generator=g, device=cuda).bfloat16() for _ in range(3))
+    q, k, v = (torch.randn(2, H, S, 64, generator=g, device=cuda).bfloat16() for _ in range(3))
     out = fused_mha(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert _rel(out, mha_plain(q, k, v, causal)) < 1e-2
+
+
+@pytest.mark.parametrize("S", [197, 64])
+def test_attention_kernel_strided_views_wrap(cuda, S):
+    """q/k/v as views of one [B, S, 3, H, Dh] projection (rows 4,608 bytes
+    apart), with 40 x 12 = 480 (batch, head) pairs: more than the resident
+    blocks, so each block's walk over the pairs wraps both stages."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    qkv = torch.randn(40, S, 3, 12, 64, generator=g, device=cuda).bfloat16()
+    q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    out = fused_mha(q, k, v)
+    torch.cuda.synchronize()
+    assert _rel(out, mha_plain(q, k, v)) < 1e-2
 
 
 def test_block_kernels(cuda):
@@ -226,6 +241,38 @@ def test_tiled_matmul(cuda, M, block_rows):
     assert got.shape == got8.shape == (M, 3072)
     assert _rel(got, matmul_plain(x, w)) < 2e-3
     assert torch.equal(got8, matmul_plain(xq, wq))
+
+
+@pytest.mark.parametrize("M", [1, 77, 6304, 25344])
+@pytest.mark.parametrize("block_rows", BLOCK_ROWS)
+def test_tiled_matmul_bf16_edges(cuda, M, block_rows):
+    """bf16 at N = 128 (one column tile, half of the 256-wide wgmma tiles)
+    and K = 96 (not a multiple of the 64-value k-tile: TMA zero-fills the
+    tail), for M from one row to the probe's 25,344."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(M, 96, generator=g, device=cuda).bfloat16()
+    w = torch.randn(96, 128, generator=g, device=cuda).bfloat16()
+    got = tiled_matmul(x, w, block_rows)
+    torch.cuda.synchronize()
+    assert got.shape == (M, 128) and got.dtype == torch.bfloat16
+    assert _rel(got, matmul_plain(x, w)) < 2e-3
+
+
+@pytest.mark.parametrize("block_rows", BLOCK_ROWS)
+def test_tiled_matmul_bf16_known_values(cuda, block_rows):
+    """A layout check with an exact answer: w is a permutation matrix, so
+    out[:, perm[k]] = x[:, k] bit for bit (one nonzero product per output);
+    a transposed or wrongly swizzled tile of either operand moves values."""
+    M, K, N = 300, 256, 256
+    x = (torch.arange(M * K, device=cuda) % 251).float().div(8).view(M, K).bfloat16()
+    perm = torch.randperm(N, generator=torch.Generator().manual_seed(4)).to(cuda)
+    w = torch.zeros(K, N, device=cuda, dtype=torch.bfloat16)
+    w[torch.arange(K, device=cuda), perm] = 1
+    got = tiled_matmul(x, w, block_rows)
+    torch.cuda.synchronize()
+    want = torch.empty_like(x)
+    want[:, perm] = x
+    assert torch.equal(got, want)
 
 
 def test_tiled_matmul_rejects_what_the_kernel_does_not_take(cuda):

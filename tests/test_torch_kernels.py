@@ -33,7 +33,9 @@ def _t(a):
 
 
 @pytest.mark.parametrize("version", [1, 2])
-@pytest.mark.parametrize("shape,causal", [((2, 4, 197, 64), False), ((1, 2, 33, 16), True)])
+# the vision shape, a small causal one, and the text tower's causal shape (S = 77, H = 8)
+@pytest.mark.parametrize("shape,causal", [((2, 4, 197, 64), False), ((1, 2, 33, 16), True),
+                                          ((2, 8, 77, 64), True)])
 def test_fused_mha_matches_pallas(shape, causal, version):
     rng = np.random.default_rng(1)
     q, k, v = (rng.normal(size=shape).astype(np.float32) for _ in range(3))
