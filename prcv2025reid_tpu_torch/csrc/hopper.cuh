@@ -228,7 +228,7 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// the driver's cuTensorMapEncodeTiled, or null where the driver lacks it
+// libcuda's cuTensorMapEncodeTiled, or null where it is missing
 inline EncodeTiledFn encode_tiled() {
   static const EncodeTiledFn fn = [] {
     void* p = nullptr;
@@ -250,7 +250,7 @@ inline EncodeTiledFn encode_tiled() {
 // A bf16 tensor map of `rank` dims (dim 0 contiguous; strides in bytes for
 // dims 1..rank-1), boxes of `box`, 128-byte swizzle, zero fill out of bounds
 // (the TMA transaction still counts the whole box).  Returns a CUDA error
-// code: cudaErrorInvalidValue if the driver refuses the map.
+// code: cudaErrorInvalidValue if cuTensorMapEncodeTiled refuses the map.
 inline cudaError_t make_map_bf16(CUtensorMap* map, const void* base, int rank,
                                  const cuuint64_t* dims, const cuuint64_t* strides,
                                  const cuuint32_t* box) {
