@@ -7,8 +7,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   1. print the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the port from prcv2025reid_tpu_torch/csrc
      (one nvcc per source, in parallel), print ptxas' resource report and
-     count the Hopper instructions in the tiled matmul's SASS (cuobjdump:
-     HGMMA, wgmma; UTMALDG, TMA loads), failing if either is missing;
+     count the Hopper instructions in the SASS of each kernel on the GEMM
+     core (cuobjdump): the tiled matmul's bf16 and int8 kernels and the
+     fused MLP's two, failing unless each has warpgroup MMAs (HGMMA for
+     bf16; the integer wgmma's mnemonic is read from the int8 kernels' dump
+     and printed), TMA loads (UTMALDG) and TMA stores (UTMASTG);
   3. hold each kernel against its plain PyTorch version at the gallery-embed
      shapes (B=128 images of 197 tokens, ViT-B/16 widths) on the same bf16
      inputs: relative Frobenius error <= REL_TOL and max-abs error <= ABS_TOL
@@ -21,6 +24,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      projection; the microbenchmark's tiled matmul in both modes at its
      M = 25,344 rows and at a ragged 6,304, for every row tile (block_rows),
      bf16 within REL_TOL / ABS_TOL and int8 bit for bit;
+     then the gradients: each bf16 wrapper (fused_mha also causal, the
+     splash core, fused_ln_qkv, fused_out_mlp, fused_mlp at G=1,
+     fused_residual_ln) at the same shapes with every input requiring grad,
+     its kernel forward and its autograd.Function's backward, against
+     autograd through its plain version on the same values: every input
+     must get a finite gradient within GRAD_REL_TOL;
   4. build the full-width ViT-B/16 model (fusion_dim 512, 400 classes, bf16
      compute) from init_params(seed=0, perturb=True) and embed one seeded
      uint8 batch through the entry points (build_model,
@@ -65,6 +74,7 @@ checkout of the repository.
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -81,6 +91,11 @@ ABS_TOL = 5e-2
 # (measured max-abs 0.047, rel <= 9.6e-4 on an H100, PERF.md)
 INT8_REL_TOL = 5e-3
 INT8_ABS_TOL = 0.125  # two bf16 ulps at |out| in [4, 8)
+# the gradients against autograd through the plain versions: both f32
+# backwards, but the plain versions' bf16 casts round the gradient flowing
+# back through them (and the JAX backwards keep h and P in f32 with the
+# exact erf): a few 1e-3 of relative Frobenius error
+GRAD_REL_TOL = 1e-2
 MIN_COSINE = 0.999
 F32_MIN_COSINE = 0.99
 TIMED_RUNS = 25
@@ -188,18 +203,27 @@ def main() -> int:
         for line in log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"  ptxas[{name}] {line.strip()}")
-    # the bf16 tiled matmul is wgmma fed by TMA: both must be in its SASS
+    # the kernels on the GEMM core are wgmma fed by TMA and drained by TMA
+    # stores: all three must be in each one's SASS
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if Path(cuobjdump).exists():
-        so = _kernels.lib("matmul")._name
+    if not Path(cuobjdump).exists():
+        fail("cuobjdump not found: the SASS check of the GEMM core's kernels needs it")
+    for lib_name, kinds in (("matmul", ("Bf16Op", "S8Op")), ("fused_mlp", ("Bf16Op",))):
+        so = _kernels.lib(lib_name)._name
         sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True,
                               timeout=120).stdout
-        counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
-        print(f"sass {Path(so).name}: {counts}")
-        if not all(counts.values()):
-            fail(f"the tiled matmul's SASS lacks wgmma or TMA loads: {counts}")
-    else:
-        print("sass: cuobjdump not found; the HGMMA / UTMALDG check is skipped")
+        for section in sass.split("Function : ")[1:]:
+            fname = section.split(None, 1)[0]
+            kind = next((k for k in kinds if k in fname), None)
+            if kind is None:
+                continue
+            mma = {op: section.count(op) for op in sorted(set(re.findall(r"\b[A-Z]*GMMA\b", section)))}
+            counts = {**mma, "UTMALDG": section.count("UTMALDG"), "UTMASTG": section.count("UTMASTG")}
+            print(f"sass {lib_name} {kind} {fname[:90]}: {counts}")
+            if not mma or not counts["UTMALDG"] or not counts["UTMASTG"] or (
+                    kind == "Bf16Op" and "HGMMA" not in mma):
+                fail(f"{lib_name} {fname}: no warpgroup MMA, TMA load or TMA store in its SASS: "
+                     f"{counts}")
 
     # ---- 3. kernels against their plain versions at the slice's shapes
     cfg = TrainingConfig()
@@ -311,6 +335,49 @@ def main() -> int:
         failures.append("fused_mha text S=77 H=8 causal")
     if failures:
         fail(f"kernel disagrees with its plain version: {failures}")
+
+    # the gradients: the kernel forward + the Function's backward against
+    # autograd through the plain version, every input requiring grad
+    def grads(fn, inputs, cot):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        out = fn(*leaves)
+        outs = out if isinstance(out, tuple) else (out,)
+        if any(o.grad_fn is None for o in outs):
+            return None
+        torch.autograd.backward(outs, list(cot) if isinstance(cot, tuple) else [cot])
+        return [t.grad for t in leaves]
+
+    def cotangent(like):
+        return randn(*like.shape).to(like.dtype)
+
+    resln_cot = (cotangent(x[0]), cotangent(x[0]))
+    grad_err = {}
+    for name, kern, plain, args, cot in (
+        ("fused_mha", fused_mha, mha_plain, (q, k, v), cotangent(q)),
+        ("fused_mha causal", lambda *a: fused_mha(*a, causal=True),
+         lambda *a: mha_plain(*a, True), (q, k, v), cotangent(q)),
+        ("splash_attention_bshd", att.splash_attention_bshd, att.splash_plain, splash_args,
+         cotangent(splash_args[0])),
+        ("fused_ln_qkv", fb.fused_ln_qkv, fb.ln_qkv_plain, qkv_args,
+         randn(1, T, 3 * D).bfloat16()),
+        ("fused_out_mlp", fb.fused_out_mlp, fb.out_mlp_plain, mlp_args, cotangent(x)),
+        ("fused_mlp", fused_mlp, mlp_plain, fmlp_args, cotangent(x)),
+        ("fused_residual_ln", fused_residual_ln, resln_plain, resln_args, resln_cot),
+    ):
+        got, want = grads(kern, args, cot), grads(plain, args, cot)
+        if got is None or any(gr is None for gr in got):
+            fail(f"{name}: an input got no gradient through the kernel wrapper")
+        rels = [((a.float() - b.float()).norm() / b.float().norm()).item()
+                for a, b in zip(got, want)]
+        ok = all(torch.isfinite(a.float()).all() for a in got) and max(rels) <= GRAD_REL_TOL
+        grad_err[name] = max(rels)
+        print(f"grad {name}: {len(got)} inputs, max rel {max(rels):.3e} vs plain autograd "
+              f"(<= {GRAD_REL_TOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"grad {name}")
+    del got, want
+    if failures:
+        fail(f"gradients disagree with the plain versions' autograd: {failures}")
 
     # ---- 4. the main path at full ViT-B/16 width
     t0 = time.perf_counter()
@@ -580,6 +647,7 @@ def main() -> int:
         "torch_add_layer_norm_ms": time_ms(torch, lambda: Fn.layer_norm(
             x2d + a2d, (D,), lns.bfloat16(), lnb.bfloat16(), 1e-5)),
         "fused_mlp_g3_rel_err": block_checks["fused_mlp G=3"][1],
+        "grad_rel_err_vs_plain_autograd": grad_err,
         "attention_causal_v2_rel_err": att_checks[(True, 2)][1],
         "attention_v1_rel_err": att_checks[(False, 1)][1],
         "attention_text_causal_rel_err": att_checks["text"][1],

@@ -271,7 +271,7 @@ cudaError_t head_map(CUtensorMap* map, const void* base, int B, int H, int S, St
     if (which == 1) *slots |= d + 1;
     if (which == 2) *slots |= (d + 1) << 2;
   }
-  return make_map_bf16(map, base, 4, dims, strides, box);
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, 4, dims, strides, box);
 }
 
 template <int KCH>

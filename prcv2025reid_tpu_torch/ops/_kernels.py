@@ -109,6 +109,14 @@ def require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def no_autograd(fn: str, why: str, *tensors) -> None:
+    """Raise NotImplementedError under autograd if any tensor requires grad:
+    for the ops that have no backward, so none returns a result without one."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise NotImplementedError(f"{fn}: {why}")
+
+
 def bf16_operand(fn: str, name: str, t: torch.Tensor, shape) -> None:
     """Raise unless ``t`` is a contiguous, 16-byte aligned CUDA bf16 tensor
     of ``shape`` (what the kernels' 16-byte loads take)."""

@@ -4,7 +4,9 @@
 ``fused_mha`` launches the hand-written Hopper kernel (csrc/attention.cu) for
 CUDA tensors and runs :func:`mha_plain`, the same arithmetic in plain
 PyTorch, for CPU tensors.  A CUDA tensor the kernel does not take raises; it
-never falls back.  Forward only: this path serves.
+never falls back.  Both run inside one ``torch.autograd.Function`` whose
+backward, :func:`mha_backward`, is the JAX op's f32 recompute in plain
+PyTorch on every device (the JAX backward is XLA, not a Pallas kernel).
 """
 from __future__ import annotations
 
@@ -18,16 +20,20 @@ HEAD_DIM = 64
 MAX_SEQ = 256
 
 
+def _causal_fill(logits: torch.Tensor) -> torch.Tensor:
+    S = logits.shape[-1]
+    keep = torch.ones(S, S, dtype=torch.bool, device=logits.device).tril()
+    return torch.where(keep, logits, torch.full_like(logits, -1e9))
+
+
 def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = False) -> torch.Tensor:
     """The TPU kernel's arithmetic: f32 logits from the input-dtype q/k,
     scale, -1e9 mask, f32 max-subtracted softmax, P cast to the input dtype,
     f32-accumulated PV.  q/k/v [B, H, S, Dh] -> [B, H, S, Dh]."""
-    S, Dh = q.shape[-2], q.shape[-1]
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * Dh**-0.5
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1]**-0.5
     if causal:
-        keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-        logits = torch.where(keep, logits, torch.full_like(logits, -1e9))
+        logits = _causal_fill(logits)
     logits = logits - logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits)
     p = p / p.sum(dim=-1, keepdim=True)
@@ -46,16 +52,26 @@ def _check_operand(name: str, t: torch.Tensor, shape) -> None:
     )
 
 
-def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool = False, kernel_version: int = 2) -> torch.Tensor:
-    """softmax(mask(Q K^T / sqrt(Dh))) V;  q/k/v [B, H, S, Dh] -> [B, H, S, Dh].
+def mha_backward(q, k, v, g, causal: bool = False):
+    """The JAX backward (``pallas_attention.py::_bwd``): a flash-style f32
+    recompute.  dV = P^T g; dP = g V^T; dS = P (dP - rowsum(P dP));
+    dQ = dS K scale; dK = dS^T Q scale.  Returns (dq, dk, dv) in the primal
+    dtypes."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if causal:
+        logits = _causal_fill(logits)
+    p = torch.softmax(logits, dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
-    ``kernel_version`` (1 or 2) names the TPU kernel's grid split; both map
-    to the one Hopper kernel.  q/k/v may be strided views (e.g. of a fused
-    QKV projection) as long as the head dim is contiguous.  The result is a
-    [B, H, S, Dh] view of a [B, S, H, Dh] buffer."""
-    if kernel_version not in (1, 2):
-        raise ValueError(f"kernel_version={kernel_version}; valid: [1, 2]")
+
+def _mha_forward(q, k, v, causal):
     if not q.is_cuda:
         return mha_plain(q, k, v, causal)
     B, H, S, Dh = q.shape
@@ -74,6 +90,34 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _kernels.check(rc, "fused_mha")
     fused_mha.launches += 1
     return out
+
+
+class FusedMhaFn(torch.autograd.Function):
+    """The kernel (CUDA) or :func:`mha_plain` (CPU) forward, the JAX backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return _mha_forward(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*mha_backward(*ctx.saved_tensors, g, ctx.causal), None)
+
+
+def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = False, kernel_version: int = 2) -> torch.Tensor:
+    """softmax(mask(Q K^T / sqrt(Dh))) V;  q/k/v [B, H, S, Dh] -> [B, H, S, Dh].
+
+    ``kernel_version`` (1 or 2) names the TPU kernel's grid split; both map
+    to the one Hopper kernel.  q/k/v may be strided views (e.g. of a fused
+    QKV projection) as long as the head dim is contiguous.  On the card the
+    result is a [B, H, S, Dh] view of a [B, S, H, Dh] buffer.
+    Differentiable through :class:`FusedMhaFn`."""
+    if kernel_version not in (1, 2):
+        raise ValueError(f"kernel_version={kernel_version}; valid: [1, 2]")
+    return FusedMhaFn.apply(q, k, v, causal)
 
 
 fused_mha.launches = 0

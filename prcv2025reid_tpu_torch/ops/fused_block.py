@@ -13,7 +13,9 @@ quantized per output column (:func:`quantize_weight`) as ``(wq, ws)`` pairs;
 the products are int8 x int8 -> int32 (csrc/fused_block_int8.cu).
 ``"int8_mlp"`` (``fused_out_mlp`` only) keeps the out-projection in bf16 and
 quantizes fc1 and fc2.  The int8 plans serve only: they raise under
-autograd, as the JAX backward does.
+autograd, as the JAX backward does.  The bf16 plans differentiate: each runs
+inside a ``torch.autograd.Function`` whose backward is the JAX op's f32
+recompute (the vjp of its f32 reference) in plain PyTorch on every device.
 
 For CUDA tensors the wrappers launch the hand-written Hopper kernels; for
 CPU tensors they run the plain versions below, which compute in f32 with the
@@ -29,7 +31,7 @@ import ctypes
 import torch
 
 from prcv2025reid_tpu_torch.ops import _kernels
-from prcv2025reid_tpu_torch.ops.kernel_math import LN_EPS, gelu_exact, ln_f32
+from prcv2025reid_tpu_torch.ops.kernel_math import LN_EPS, SQRT_HALF, gelu_exact, ln_f32
 
 MAX_LN_WIDTH = 1024  # the row-statistics kernel holds a row in registers
 
@@ -61,12 +63,10 @@ def _int8_dot(q: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
 
 
 def _no_autograd(fn: str, *tensors) -> None:
-    if torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{fn}: gradients through int8-quantized weights are unsupported: the "
-            "int8 block plans serve only; use block_impl='xla' or 'fused' for any "
-            "differentiated forward")
+    _kernels.no_autograd(
+        fn, "gradients through int8-quantized weights are unsupported: the int8 block "
+        "plans serve only; use block_impl='xla' or 'fused' for any differentiated forward",
+        *tensors)
 
 
 def ln_qkv_plain(x, ln_scale, ln_bias, w, b):
@@ -123,17 +123,47 @@ def out_mlp_int8mlp_plain(attn, x, wo, bo, ln_scale, ln_bias, w1q, w1s, b1,
     return _mlp_int8_tail(x2, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2, x.dtype)
 
 
-def fused_ln_qkv(x, ln_scale, ln_bias, w, b, quant: str = "bf16"):
-    """LN(x) @ w + b.  x [G,T,D] bf16; ln_* [D]; w [G,D,O] bf16; b [G,O]
-    -> [G,T,O] bf16.  LN statistics, the GEMM accumulation and the bias add
-    are f32; the normalised rows are cast to bf16 before the GEMM.
-    ``quant="int8"``: w is ``(wq, ws)`` from :func:`quantize_weight`, see
-    :func:`fused_ln_qkv_int8`."""
-    if quant == "int8":
-        return fused_ln_qkv_int8(x, ln_scale, ln_bias, *w, b)
-    if quant != "bf16":
-        raise ValueError(f"fused_ln_qkv: quant={quant!r}; valid: ['bf16', 'int8'] "
-                         "('int8_mlp' is a plan of fused_out_mlp)")
+def _ln_qkv_ref_f32(x, ln_scale, ln_bias, w, b):
+    """The f32 reference of the JAX backward (``fused_block.py::_ln_qkv_bwd``)."""
+    return torch.matmul(ln_f32(x, ln_scale, ln_bias), w.float()) + b.float()[:, None, :]
+
+
+def _out_mlp_ref_f32(attn, x, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2):
+    """JAX ``_out_mlp_ref_f32``: the exact erf, no bf16 rounding of y or h."""
+    x2 = x + (torch.matmul(attn, wo) + bo[:, None, :])
+    h = torch.matmul(ln_f32(x2, ln_scale, ln_bias), w1) + b1[:, None, :]
+    h = 0.5 * h * (1.0 + torch.erf(h * SQRT_HALF))
+    return x2 + torch.matmul(h, w2) + b2[:, None, :]
+
+
+def _ref_vjp(ref, primals, leaves, g):
+    """Gradients of ``ref(*leaves)`` against cotangent ``g`` (as f32), each
+    cast to its primal's dtype: what ``jax.vjp`` of the reference returns in
+    the JAX backwards.  ``leaves`` are detached copies of the primals (some
+    cast to f32, as the JAX backward passes them)."""
+    leaves = [t.detach().requires_grad_() for t in leaves]
+    with torch.enable_grad():
+        out = ref(*leaves)
+    grads = torch.autograd.grad(out, leaves, g.float())
+    return tuple(d.to(p.dtype) for d, p in zip(grads, primals))
+
+
+def ln_qkv_backward(x, ln_scale, ln_bias, w, b, g):
+    """The vjp of the f32 reference LN(x) @ w + b at (f32 x, ln_scale,
+    ln_bias, w, b): (dx, d_ln_scale, d_ln_bias, dw, db)."""
+    primals = (x, ln_scale, ln_bias, w, b)
+    return _ref_vjp(_ln_qkv_ref_f32, primals, (x.float(), ln_scale, ln_bias, w, b), g)
+
+
+def out_mlp_backward(attn, x, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2, g):
+    """The vjp of :func:`_out_mlp_ref_f32` at the f32 operands (ln_scale and
+    ln_bias as given), one gradient per operand."""
+    primals = (attn, x, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2)
+    leaves = tuple(t if i in (4, 5) else t.float() for i, t in enumerate(primals))
+    return _ref_vjp(_out_mlp_ref_f32, primals, leaves, g)
+
+
+def _ln_qkv_forward(x, ln_scale, ln_bias, w, b):
     if not x.is_cuda:
         return ln_qkv_plain(x, ln_scale, ln_bias, w, b)
     fn = "fused_ln_qkv"
@@ -158,21 +188,7 @@ def fused_ln_qkv(x, ln_scale, ln_bias, w, b, quant: str = "bf16"):
     return out
 
 
-def fused_out_mlp(attn, x, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2,
-                  quant: str = "bf16"):
-    """x + attn@wo + bo, then + MLP(LN2(.)) with exact (A-S erf) GELU.
-    attn, x [G,T,D] bf16; wo [G,D,D], w1 [G,D,F], w2 [G,F,D] bf16; biases
-    [G,*]; ln_* [D] -> [G,T,D] bf16.  On the card this is four launches
-    (out-proj GEMM, LN2 row statistics, LN2+fc1+GELU GEMM, fc2+residual
-    GEMM); it counts as one launch of the fused kernel.  ``quant="int8"``:
-    wo, w1 and w2 are ``(wq, ws)`` pairs (:func:`fused_out_mlp_int8`);
-    ``"int8_mlp"``: w1 and w2 are (:func:`fused_out_mlp_int8mlp`)."""
-    if quant == "int8":
-        return fused_out_mlp_int8(attn, x, *wo, bo, ln_scale, ln_bias, *w1, b1, *w2, b2)
-    if quant == "int8_mlp":
-        return fused_out_mlp_int8mlp(attn, x, wo, bo, ln_scale, ln_bias, *w1, b1, *w2, b2)
-    if quant != "bf16":
-        raise ValueError(f"fused_out_mlp: quant={quant!r}; valid: ['bf16', 'int8', 'int8_mlp']")
+def _out_mlp_forward(attn, x, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2):
     if not x.is_cuda:
         return out_mlp_plain(attn, x, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2)
     fn = "fused_out_mlp"
@@ -204,6 +220,67 @@ def fused_out_mlp(attn, x, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2,
     _kernels.check(rc, fn)
     fused_out_mlp.launches += 1
     return out
+
+
+class FusedLnQkvFn(torch.autograd.Function):
+    """The bf16 kernel (CUDA) or :func:`ln_qkv_plain` (CPU) forward, the JAX
+    backward (:func:`ln_qkv_backward`)."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w, b):
+        ctx.save_for_backward(x, ln_scale, ln_bias, w, b)
+        return _ln_qkv_forward(x, ln_scale, ln_bias, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ln_qkv_backward(*ctx.saved_tensors, g)
+
+
+class FusedOutMlpFn(torch.autograd.Function):
+    """The bf16 kernels (CUDA) or :func:`out_mlp_plain` (CPU) forward, the
+    JAX backward (:func:`out_mlp_backward`)."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        return _out_mlp_forward(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        return out_mlp_backward(*ctx.saved_tensors, g)
+
+
+def fused_ln_qkv(x, ln_scale, ln_bias, w, b, quant: str = "bf16"):
+    """LN(x) @ w + b.  x [G,T,D] bf16; ln_* [D]; w [G,D,O] bf16; b [G,O]
+    -> [G,T,O] bf16.  LN statistics, the GEMM accumulation and the bias add
+    are f32; the normalised rows are cast to bf16 before the GEMM.
+    Differentiable through :class:`FusedLnQkvFn`.  ``quant="int8"``: w is
+    ``(wq, ws)`` from :func:`quantize_weight`, see :func:`fused_ln_qkv_int8`."""
+    if quant == "int8":
+        return fused_ln_qkv_int8(x, ln_scale, ln_bias, *w, b)
+    if quant != "bf16":
+        raise ValueError(f"fused_ln_qkv: quant={quant!r}; valid: ['bf16', 'int8'] "
+                         "('int8_mlp' is a plan of fused_out_mlp)")
+    return FusedLnQkvFn.apply(x, ln_scale, ln_bias, w, b)
+
+
+def fused_out_mlp(attn, x, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2,
+                  quant: str = "bf16"):
+    """x + attn@wo + bo, then + MLP(LN2(.)) with exact (A-S erf) GELU.
+    attn, x [G,T,D] bf16; wo [G,D,D], w1 [G,D,F], w2 [G,F,D] bf16; biases
+    [G,*]; ln_* [D] -> [G,T,D] bf16.  On the card this is four launches
+    (out-proj GEMM, LN2 row statistics, LN2+fc1+GELU GEMM, fc2+residual
+    GEMM); it counts as one launch of the fused kernel.  Differentiable
+    through :class:`FusedOutMlpFn`.  ``quant="int8"``: wo, w1 and w2 are
+    ``(wq, ws)`` pairs (:func:`fused_out_mlp_int8`); ``"int8_mlp"``: w1 and
+    w2 are (:func:`fused_out_mlp_int8mlp`)."""
+    if quant == "int8":
+        return fused_out_mlp_int8(attn, x, *wo, bo, ln_scale, ln_bias, *w1, b1, *w2, b2)
+    if quant == "int8_mlp":
+        return fused_out_mlp_int8mlp(attn, x, wo, bo, ln_scale, ln_bias, *w1, b1, *w2, b2)
+    if quant != "bf16":
+        raise ValueError(f"fused_out_mlp: quant={quant!r}; valid: ['bf16', 'int8', 'int8_mlp']")
+    return FusedOutMlpFn.apply(attn, x, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2)
 
 
 def _int8_weight(fn, name, wq, ws, shape, device):

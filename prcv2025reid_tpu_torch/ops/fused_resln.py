@@ -8,6 +8,8 @@ in one memory pass: read x and branch, write xn and y.  For CUDA tensors the
 wrapper launches the hand-written Hopper kernel (csrc/fused_resln.cu); for
 CPU tensors it runs :func:`resln_plain`, the same arithmetic in plain
 PyTorch.  A CUDA tensor the kernel does not take raises; it never falls back.
+Both run inside one ``torch.autograd.Function`` whose backward,
+:func:`resln_backward`, is the JAX op's f32 recompute on every device.
 """
 from __future__ import annotations
 
@@ -27,9 +29,25 @@ def resln_plain(x, branch, scale, bias, eps: float = LN_EPS):
     return xn, ln_f32(xn, scale, bias, eps).to(x.dtype)
 
 
-def fused_residual_ln(x, branch, scale, bias, eps: float = LN_EPS):
-    """(x + branch, LN(x + branch) * scale + bias).  x, branch [N, D] bf16;
-    scale, bias [D] -> (xn, y) [N, D] bf16."""
+def resln_backward(xn, scale, g_xn, g_y, eps: float = LN_EPS):
+    """The JAX backward (``fused_resln.py::_bwd``) from the saved xn: the
+    LayerNorm backward in f32 plus g_xn.  Returns (dx, d_scale, d_bias); dx
+    is the gradient of both x and branch."""
+    xf = xn.float()
+    mu = xf.mean(dim=1, keepdim=True)
+    xc = xf - mu
+    inv = torch.rsqrt(xc.square().mean(dim=1, keepdim=True) + eps)
+    norm = xc * inv
+    gy = g_y.float()
+    d_scale = (gy * norm).sum(dim=0)
+    d_bias = gy.sum(dim=0)
+    gh = gy * scale.float()
+    dx_ln = inv * (gh - gh.mean(dim=1, keepdim=True)
+                   - norm * (gh * norm).mean(dim=1, keepdim=True))
+    return g_xn.float() + dx_ln, d_scale, d_bias
+
+
+def _resln_forward(x, branch, scale, bias, eps):
     if not x.is_cuda:
         return resln_plain(x, branch, scale, bias, eps)
     fn = "fused_residual_ln"
@@ -51,6 +69,31 @@ def fused_residual_ln(x, branch, scale, bias, eps: float = LN_EPS):
     _kernels.check(rc, fn)
     fused_residual_ln.launches += 1
     return xn, y
+
+
+class FusedResLnFn(torch.autograd.Function):
+    """The kernel (CUDA) or :func:`resln_plain` (CPU) forward, the JAX backward."""
+
+    @staticmethod
+    def forward(ctx, x, branch, scale, bias, eps):
+        xn, y = _resln_forward(x, branch, scale, bias, eps)
+        ctx.eps, ctx.dtypes = eps, (x.dtype, branch.dtype, bias.dtype)
+        ctx.save_for_backward(xn, scale)
+        return xn, y
+
+    @staticmethod
+    def backward(ctx, g_xn, g_y):
+        xn, scale = ctx.saved_tensors
+        dx, d_scale, d_bias = resln_backward(xn, scale, g_xn, g_y, ctx.eps)
+        x_dt, branch_dt, bias_dt = ctx.dtypes
+        return dx.to(x_dt), dx.to(branch_dt), d_scale.to(scale.dtype), d_bias.to(bias_dt), None
+
+
+def fused_residual_ln(x, branch, scale, bias, eps: float = LN_EPS):
+    """(x + branch, LN(x + branch) * scale + bias).  x, branch [N, D] bf16;
+    scale, bias [D] -> (xn, y) [N, D] bf16.  Differentiable through
+    :class:`FusedResLnFn`."""
+    return FusedResLnFn.apply(x, branch, scale, bias, eps)
 
 
 fused_residual_ln.launches = 0

@@ -11,8 +11,9 @@ or 256) is the kernel's row tile, the counterpart of the TPU probe's row-block
 sweep: it never changes the result.  Unlike the TPU kernel, whose grid of
 ``M // block_rows`` steps leaves a ragged tail of rows unwritten, every row is
 computed.  The int8 weight must be stored K-major (an [K, N] view of [N, K]
-storage, as ``fused_block.quantize_weight`` writes it): sm_90 has no 8-bit
-transposing ldmatrix.
+storage, as ``fused_block.quantize_weight`` writes it): 8-bit ``wgmma``
+reads both operands K-major only.  Like the JAX tool's kernel it has no
+backward: it raises under autograd rather than return a result without one.
 """
 from __future__ import annotations
 
@@ -50,6 +51,8 @@ def tiled_matmul(x: torch.Tensor, w: torch.Tensor, block_rows: int = 128) -> tor
     docstring).  On the card K must be a multiple of the k-tile (32 bf16, 64
     int8 values) and N of 128."""
     fn = "tiled_matmul"
+    _kernels.no_autograd(fn, "the microbenchmark's matmul has no backward (nor has the JAX "
+                         "tool's Pallas kernel)", x, w)
     mode = _mode(x, w)
     _kernels.require(block_rows in BLOCK_ROWS,
                      f"{fn}: block_rows={block_rows}; valid: {list(BLOCK_ROWS)}")

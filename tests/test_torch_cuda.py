@@ -160,12 +160,15 @@ def test_splash_core(cuda, S):
         att.splash_attention_bshd(z, z, z)
 
 
-@pytest.mark.parametrize("N,D,F", [(77, 128, 200), (131, 256, 64), (300, 768, 3072)])
-def test_fused_mlp_kernel(cuda, N, D, F):
-    """G = 2; N not a multiple of the 64-row tile, F not one of the 64-unit
-    hidden chunk, D below the 384-column block."""
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("N,D,F", [(77, 128, 200), (131, 256, 64), (300, 768, 3072),
+                                   (6304, 768, 3072), (1, 96, 40)])
+def test_fused_mlp_kernel(cuda, G, N, D, F):
+    """N a multiple of no 128-row tile (so each group's last tile is ragged
+    and must not touch the next group's rows), F a multiple of 8 but not of
+    the 256-column fc1 tile or the 64-value k-tile of fc2, D below or not a
+    multiple of the 192-column fc2 tile."""
     g = torch.Generator(device=cuda).manual_seed(0)
-    G = 2
 
     def r(*shape, s=1.0):
         return torch.randn(*shape, generator=g, device=cuda) * s
@@ -201,8 +204,8 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fused_mlp(z(2, 8, 128, dt=torch.float32), w1, b1, w2, b2)
     with pytest.raises(ValueError, match="aligned"):  # contiguous, 2 bytes off 16
         fused_mlp(z(2 * 8 * 128 + 1)[1:].view(2, 8, 128), w1, b1, w2, b2)
-    with pytest.raises(ValueError, match="multiple of 128"):
-        fused_mlp(z(2, 8, 40), z(2, 40, 64), b1, z(2, 64, 40), z(2, 40))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fused_mlp(z(2, 8, 36), z(2, 36, 64), b1, z(2, 64, 36), z(2, 36))
     s = torch.ones(64, device=cuda)
     with pytest.raises(ValueError, match="bfloat16"):
         fused_residual_ln(z(8, 64, dt=torch.float32), z(8, 64, dt=torch.float32), s, s)
@@ -222,12 +225,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fused_mha(z, z, z)
 
 
-@pytest.mark.parametrize("M", [25344, 6304, 77])
+@pytest.mark.parametrize("M", [25344, 6304, 77, 1])
 @pytest.mark.parametrize("block_rows", BLOCK_ROWS)
 def test_tiled_matmul(cuda, M, block_rows):
     """Both modes at the probe's K = 768, N = 3072, M a multiple of every row
-    tile (25,344) and of none (6,304, 77): int8 bit-exact (exact s32 sums),
-    bf16 within the f32 summation order's bf16 roundings."""
+    tile (25,344) and of none (6,304, 77, 1): int8 bit-exact (exact s32
+    sums), bf16 within the f32 summation order's bf16 roundings."""
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(M, 768, generator=g, device=cuda).bfloat16()
     w = torch.randn(768, 3072, generator=g, device=cuda).bfloat16()
@@ -275,6 +278,38 @@ def test_tiled_matmul_bf16_known_values(cuda, block_rows):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("M", [1, 77, 6304, 25344])
+@pytest.mark.parametrize("block_rows", BLOCK_ROWS)
+def test_tiled_matmul_int8_edges(cuda, M, block_rows):
+    """int8 bit for bit at K = 832 (a 64-value tail past the 128-value
+    k-tile: TMA zero-fills it) and N = 128 (half of the 256-wide tiles: the
+    store clips it), with the full int8 range, -128 included."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    xq = torch.randint(-128, 128, (M, 832), generator=g, device=cuda, dtype=torch.int8)
+    wq = torch.randint(-128, 128, (128, 832), generator=g, device=cuda, dtype=torch.int8).t()
+    got = tiled_matmul(xq, wq, block_rows)
+    torch.cuda.synchronize()
+    assert got.shape == (M, 128) and got.dtype == torch.int32
+    assert torch.equal(got, matmul_plain(xq, wq))
+
+
+@pytest.mark.parametrize("block_rows", BLOCK_ROWS)
+def test_tiled_matmul_int8_known_values(cuda, block_rows):
+    """The int8 layout check with an exact answer: w (stored K-major) is a
+    permutation matrix, so out[:, perm[k]] = x[:, k]; a transposed or wrongly
+    swizzled tile of either operand, or of the int32 store, moves values."""
+    M, K, N = 300, 256, 256
+    x = ((torch.arange(M * K, device=cuda) % 255) - 127).to(torch.int8).view(M, K)
+    perm = torch.randperm(N, generator=torch.Generator().manual_seed(4)).to(cuda)
+    w = torch.zeros(N, K, device=cuda, dtype=torch.int8)
+    w[perm, torch.arange(K, device=cuda)] = 1
+    got = tiled_matmul(x, w.t(), block_rows)
+    torch.cuda.synchronize()
+    want = torch.empty(M, N, device=cuda, dtype=torch.int32)
+    want[:, perm] = x.int()
+    assert torch.equal(got, want)
+
+
 def test_tiled_matmul_rejects_what_the_kernel_does_not_take(cuda):
     xq = torch.zeros(64, 768, device=cuda, dtype=torch.int8)
     with pytest.raises(ValueError, match=r"K-major.*w\.t\(\)\.contiguous\(\)\.t\(\)"):
@@ -289,6 +324,63 @@ def test_tiled_matmul_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         tiled_matmul(x.t().contiguous().t(), torch.zeros(768, 256, device=cuda,
                                                        dtype=torch.bfloat16))
+
+
+def _grads(fn, inputs, cot):
+    """fn's output and every input's gradient for cotangent ``cot``."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    outs = out if isinstance(out, tuple) else (out,)
+    cots = cot if isinstance(cot, tuple) else (cot,)
+    torch.autograd.backward(outs, list(cots))
+    return outs, [t.grad for t in leaves]
+
+
+def _grad_cases(cuda):
+    """(name, wrapper, Function, inputs, cotangent) for each bf16 wrapper at
+    small widths; bf16 activations and weights, f32 LayerNorm parameters."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    G, T, D, F = 2, 150, 128, 512
+
+    def r(*shape, s=1.0, dt=torch.bfloat16):
+        return (torch.randn(*shape, generator=g, device=cuda) * s).to(dt)
+
+    qkv = r(3, 2, 3, 197, 64)
+    lns, lnb = 1 + r(D, s=0.1, dt=torch.float32), r(D, s=0.1, dt=torch.float32)
+    x, attn = r(G, T, D), r(G, T, D)
+    w1, b1, w2, b2 = r(G, D, F, s=D**-0.5), r(G, F, s=0.1), r(G, F, D, s=F**-0.5), r(G, D, s=0.1)
+    return [
+        ("fused_mha", fused_mha, (*qkv,), r(2, 3, 197, 64)),
+        ("fused_mha causal", lambda q, k, v: fused_mha(q, k, v, causal=True), (*qkv,),
+         r(2, 3, 197, 64)),
+        ("splash_attention_bshd", att.splash_attention_bshd,
+         tuple(t.permute(0, 2, 1, 3).contiguous() for t in qkv), r(2, 197, 3, 64)),
+        ("fused_ln_qkv", fb.fused_ln_qkv,
+         (x, lns, lnb, r(G, D, 3 * D, s=D**-0.5), r(G, 3 * D, s=0.1)), r(G, T, 3 * D)),
+        ("fused_out_mlp", fb.fused_out_mlp,
+         (attn, x, r(G, D, D, s=D**-0.5), r(G, D, s=0.1), lns, lnb, w1, b1, w2, b2),
+         r(G, T, D)),
+        ("fused_mlp", fused_mlp, (x, w1, b1, w2, b2), r(G, T, D)),
+        ("fused_residual_ln", fused_residual_ln, (x[0], attn[0], lns, lnb),
+         (r(T, D), r(T, D))),
+    ]
+
+
+def test_bf16_wrappers_differentiate_on_the_card(cuda):
+    """Every input of each bf16 wrapper gets a gradient on the card (the
+    kernel's forward, the Function's plain backward), equal within bf16
+    rounding to the same Function's backward run on the CPU on the same
+    values (its CPU forward is the plain version; the backward is f32 on
+    both, so only summation order and the final bf16 rounding differ)."""
+    for name, fn, inputs, cot in _grad_cases(cuda):
+        outs, got = _grads(fn, inputs, cot)
+        assert all(o.grad_fn is not None for o in outs), name
+        cpu = tuple(c.cpu() for c in cot) if isinstance(cot, tuple) else cot.cpu()
+        _, want = _grads(fn, [t.cpu() for t in inputs], cpu)
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert a is not None and a.is_cuda and a.dtype == inputs[i].dtype, (name, i)
+            assert torch.isfinite(a.float()).all(), (name, i)
+            assert _rel(a.cpu(), b) < 1e-2, (name, i, _rel(a.cpu(), b))
 
 
 COUNTERS = {"fused_mha": fused_mha, "fused_ln_qkv": fb.fused_ln_qkv,

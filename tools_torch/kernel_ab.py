@@ -1,28 +1,32 @@
 #!/usr/bin/env python3
-"""Time two versions of the port's attention and bf16 matmul kernels on one
-card, in turns, on the same inputs; and diagnostic variants of the attention
-kernel.
+"""Time two versions of the port's attention, tiled matmul (bf16 and int8)
+and fused MLP kernels on one card, in turns, on the same inputs; and
+diagnostic variants of the attention kernel.
 
     python3 tools_torch/kernel_ab.py --other DIR [--runs 25]
     python3 tools_torch/kernel_ab.py --diagnostics [--runs 25]
 
 DIR is another checkout of the repository, e.g. a parent commit unpacked
 into the git-ignored ``_cmp/`` (``git archive REV | tar -x -C _cmp/parent``).
-Its ``csrc/attention.cu`` and ``csrc/matmul.cu`` are built with this tree's
-nvcc flags into ``DIR/prcv2025reid_tpu_torch/_build/`` and called through
-their C entry points ``attn_fwd`` and ``matmul_bf16`` (the same signatures
-in both trees) beside this tree's kernels:
+Its ``csrc/attention.cu``, ``csrc/matmul.cu`` and ``csrc/fused_mlp.cu`` are
+built with this tree's nvcc flags into ``DIR/prcv2025reid_tpu_torch/_build/``
+and called through their C entry points ``attn_fwd``, ``matmul_bf16``,
+``matmul_int8`` and ``mlp`` beside this tree's kernels (``mlp`` takes the
+hidden buffer h where the source's entry names it, as this tree's does):
 
   - attention (``fused_mha``) at the gallery embed's shape, B = 128 images,
     H = 12, S = 197, Dh = 64, on views of one [B, S, 3, H, Dh] projection,
     and at the text tower's causal shape, B = 128, H = 8, S = 77;
-  - the microbenchmark's tiled matmul in bf16, x [25,344, 768] @ w [768,
-    3072], for every block_rows.
+  - the microbenchmark's tiled matmul, x [25,344, 768] @ w [768, 3072], in
+    bf16 and in int8 (w stored K-major), for every block_rows;
+  - the fused MLP (``fused_mlp``) at the gallery embed's G = 1, N = 25,216
+    and the MM-3 query's G = 3, N = 6,304 (D = 768, F = 3072).
 
 Each kernel runs in the order other, this, this, other; each reading is the
 median device time of --runs launches (CUDA events, queued behind a spin
-kernel so that the host's dispatch is not timed).  SDPA and cuBLAS are timed
-beside them as yardsticks.  Prints one JSON line per kernel (both versions'
+kernel so that the host's dispatch is not timed).  SDPA, cuBLAS (for the
+MLP: its two bare products) and ``torch._int_mm`` are timed beside them as
+yardsticks.  Prints one JSON line per kernel (both versions'
 two readings, the max-abs difference of their outputs) and the card's name
 and power limit.  Exits 1 without a CUDA device.
 
@@ -59,13 +63,22 @@ SPIN_CYCLES = 20_000_000  # ~10 ms at the H100's clock: the host enqueues the ru
 WARMUP_RUNS = 3
 
 
+AB_SOURCES = ("attention", "matmul", "fused_mlp")
+
+
+def takes_h(csrc: Path) -> bool:
+    """Whether the tree's ``mlp`` C entry takes the hidden buffer h."""
+    src = (csrc / "fused_mlp.cu").read_text()
+    return "void* h" in src[src.index('extern "C" int mlp('):]
+
+
 def build_other(other: Path) -> dict:
-    """Build DIR's attention and matmul sources with this tree's flags."""
+    """Build DIR's attention, matmul and fused MLP sources with this tree's flags."""
     csrc = other / "prcv2025reid_tpu_torch" / "csrc"
     out_dir = other / "prcv2025reid_tpu_torch" / "_build"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in ("attention", "matmul"):
+    for name in AB_SOURCES:
         target = out_dir / f"ab_{name}.so"
         cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", str(target), str(csrc / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -76,6 +89,7 @@ def build_other(other: Path) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {csrc / name}.cu:\n{err}")
         libs[name] = ctypes.CDLL(str(target))
+    libs["mlp_takes_h"] = takes_h(csrc)
     return libs
 
 
@@ -145,13 +159,29 @@ def attn_call(lib, q, k, v, causal=False):
 
 def matmul_call(lib, x, w, block_rows):
     (M, K), N = x.shape, w.shape[1]
-    out = torch.empty(M, N, dtype=torch.bfloat16, device=x.device)
-    fn = lib.matmul_bf16
+    int8 = x.dtype == torch.int8
+    out = torch.empty(M, N, dtype=torch.int32 if int8 else torch.bfloat16, device=x.device)
+    fn = lib.matmul_int8 if int8 else lib.matmul_bf16
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K, block_rows,
             _kernels.stream_ptr(x))
-    _kernels.check(rc, "matmul_bf16")
+    _kernels.check(rc, "matmul_int8" if int8 else "matmul_bf16")
+    return out
+
+
+def mlp_call(libs, x, w1, b1, w2, b2):
+    """fused_mlp's launch through ``libs["fused_mlp"].mlp``: b1, b2 f32."""
+    G, N, D = x.shape
+    F = w1.shape[-1]
+    out = torch.empty_like(x)
+    bufs = [torch.empty(G, N, F, dtype=x.dtype, device=x.device)] if libs["mlp_takes_h"] else []
+    fn = libs["fused_mlp"].mlp
+    fn.argtypes = [ctypes.c_void_p] * (6 + len(bufs)) + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            *(t.data_ptr() for t in bufs), out.data_ptr(), G, N, D, F, _kernels.stream_ptr(x))
+    _kernels.check(rc, "mlp")
     return out
 
 
@@ -186,7 +216,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
-    this = {"attention": _kernels.lib("attention"), "matmul": _kernels.lib("matmul")}
+    this = {name: _kernels.lib(name) for name in AB_SOURCES}
+    this["mlp_takes_h"] = takes_h(_kernels.CSRC)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -216,10 +247,29 @@ def main() -> int:
         return 0
     other = build_other(args.other.resolve())
     x, w = randn(25344, 768), randn(768, 3072, scale=768**-0.5)
+    xq = torch.randint(-128, 128, (25344, 768), generator=gen, device=dev, dtype=torch.int8)
+    wq = torch.randint(-128, 128, (3072, 768), generator=gen, device=dev, dtype=torch.int8).t()
     for br in BLOCK_ROWS:
         cases.append((f"tiled_matmul bf16 M=25344 K=768 N=3072 block_rows={br}",
                       lambda lib, br=br: matmul_call(lib["matmul"], x, w, br),
                       lambda: x @ w, "cuBLAS"))
+    for br in BLOCK_ROWS:
+        cases.append((f"tiled_matmul int8 M=25344 K=768 N=3072 block_rows={br}",
+                      lambda lib, br=br: matmul_call(lib["matmul"], xq, wq, br),
+                      lambda: torch._int_mm(xq, wq), "int_mm"))
+    for G, N in ((1, 128 * 197), (3, 32 * 197)):
+        mx = randn(G, N, 768)
+        w1, w2 = randn(G, 768, 3072, scale=768**-0.5), randn(G, 3072, 768, scale=3072**-0.5)
+        b1, b2 = randn(G, 3072, scale=0.1).float(), randn(G, 768, scale=0.1).float()
+        h = torch.empty(G, N, 3072, dtype=torch.bfloat16, device=dev)
+
+        def cublas(mx=mx, w1=w1, w2=w2, h=h):
+            torch.bmm(mx, w1, out=h)
+            return torch.bmm(h, w2)
+
+        cases.append((f"fused_mlp G={G} N={N} D=768 F=3072",
+                      lambda lib, a=(mx, w1, b1, w2, b2): mlp_call(lib, *a), cublas,
+                      "cuBLAS_fc1_fc2"))
     for label, run, library, library_name in cases:
         diff = (run(other).float() - run(this).float()).abs().max().item()
         ms = {"other": [], "this": []}
