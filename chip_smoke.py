@@ -8,17 +8,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   2. build every CUDA kernel of the port from prcv2025reid_tpu_torch/csrc
      (one nvcc per source, in parallel), print ptxas' resource report and
      count the Hopper instructions in the SASS of each kernel on the GEMM
-     core (cuobjdump): the tiled matmul's bf16 and int8 kernels and the
-     fused MLP's two, failing unless each has warpgroup MMAs (HGMMA for
-     bf16; the integer wgmma's mnemonic is read from the int8 kernels' dump
-     and printed), TMA loads (UTMALDG) and TMA stores (UTMASTG);
+     core (cuobjdump): the tiled matmul's bf16 and int8 kernels, the fused
+     MLP's two, the three of the bf16 out-projection + MLP block kernel
+     (out-projection with the f32 residual, fc1, fc2 with the residual) and
+     the int8 MLP tail's two (fc1 with the GELU and row max, fc2 with the
+     residual), failing unless each library holds its expected number of
+     them and each has warpgroup MMAs (HGMMA for bf16; the integer wgmma's
+     mnemonic is read from the int8 kernels' dump and printed), TMA loads
+     (UTMALDG) and TMA stores (UTMASTG);
   3. hold each kernel against its plain PyTorch version at the gallery-embed
      shapes (B=128 images of 197 tokens, ViT-B/16 widths) on the same bf16
      inputs: relative Frobenius error <= REL_TOL and max-abs error <= ABS_TOL
      (the int8 kernels: INT8_REL_TOL, INT8_ABS_TOL, for rounding flips);
      attention also with causal=True, with kernel_version=1 and at the text
-     tower's causal shape (128 captions, S = 77, H = 8), the fused MLP also
-     with G=3 groups of 32 images (6,304 rows, not a multiple of its tile);
+     tower's causal shape (128 captions, S = 77, H = 8), the fused MLP and
+     the three out-projection + MLP block kernels (bf16, int8, mixed) also
+     with G=3 groups of 32 images (the MM-3 query: 6,304 rows a group, not a
+     multiple of any tile);
      the three int8 block kernels on weights quantized as the model does
      (quantize_weight) and the splash core on [B, S, H, Dh] views of one QKV
      projection; the microbenchmark's tiled matmul in both modes at its
@@ -208,15 +214,21 @@ def main() -> int:
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(cuobjdump).exists():
         fail("cuobjdump not found: the SASS check of the GEMM core's kernels needs it")
-    for lib_name, kinds in (("matmul", ("Bf16Op", "S8Op")), ("fused_mlp", ("Bf16Op",))):
+    for lib_name, kinds, n_core in (("matmul", ("Bf16Op", "S8Op"), 6),
+                                    ("fused_mlp", ("Bf16Op",), 2),
+                                    ("fused_block", ("Bf16Op",), 3),
+                                    ("fused_block_int8", ("S8Op",), 2)):
         so = _kernels.lib(lib_name)._name
         sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True,
                               timeout=120).stdout
-        for section in sass.split("Function : ")[1:]:
+        on_core = [sec for sec in sass.split("Function : ")[1:]
+                   if any(k in sec.split(None, 1)[0] for k in kinds)]
+        if len(on_core) != n_core:
+            fail(f"lib{lib_name}: {len(on_core)} kernels on the GEMM core in its SASS, "
+                 f"expected {n_core}")
+        for section in on_core:
             fname = section.split(None, 1)[0]
-            kind = next((k for k in kinds if k in fname), None)
-            if kind is None:
-                continue
+            kind = next(k for k in kinds if k in fname)
             mma = {op: section.count(op) for op in sorted(set(re.findall(r"\b[A-Z]*GMMA\b", section)))}
             counts = {**mma, "UTMALDG": section.count("UTMALDG"), "UTMASTG": section.count("UTMASTG")}
             print(f"sass {lib_name} {kind} {fname[:90]}: {counts}")
@@ -272,11 +284,22 @@ def main() -> int:
     qkv8_args = (x, lns, lnb, *q_wqkv, bqkv)
     mlp8_args = (attn, x, *q_wo, bo, lns, lnb, *q_w1, b1, *q_w2, b2)
     mlp8m_args = (attn, x, wo, bo, lns, lnb, *q_w1, b1, *q_w2, b2)
+    # the out-projection + MLP block kernels on the MM-3 query's three groups
+    g3 = dict(attn=randn(G3, N3, D).bfloat16(), x=randn(G3, N3, D).bfloat16(),
+              wo=randn(G3, D, D, scale=D**-0.5).bfloat16(), bo=0.1 * randn(G3, D),
+              w1=fmlp3_args[1], b1=0.1 * randn(G3, F), w2=fmlp3_args[3], b2=0.1 * randn(G3, D))
+    q3 = {k: fb.quantize_weight(g3[k]) for k in ("wo", "w1", "w2")}
+    mlp3_args = (g3["attn"], g3["x"], g3["wo"], g3["bo"], lns, lnb, g3["w1"], g3["b1"],
+                 g3["w2"], g3["b2"])
+    tail3 = (lns, lnb, *q3["w1"], g3["b1"], *q3["w2"], g3["b2"])
+    mlp8_3_args = (g3["attn"], g3["x"], *q3["wo"], g3["bo"], *tail3)
+    mlp8m_3_args = (g3["attn"], g3["x"], g3["wo"], g3["bo"], *tail3)
     splash_args = tuple(qkv[:, :, i] for i in range(3))  # [B, S, H, Dh] views
     block_checks = {}
     for name, kern, plain, args in (
         ("fused_ln_qkv", fb.fused_ln_qkv, fb.ln_qkv_plain, qkv_args),
         ("fused_out_mlp", fb.fused_out_mlp, fb.out_mlp_plain, mlp_args),
+        ("fused_out_mlp G=3", fb.fused_out_mlp, fb.out_mlp_plain, mlp3_args),
         ("fused_mlp", fused_mlp, mlp_plain, fmlp_args),
         ("fused_mlp G=3", fused_mlp, mlp_plain, fmlp3_args),
         ("fused_residual_ln xn", lambda *a: fused_residual_ln(*a)[0],
@@ -287,6 +310,9 @@ def main() -> int:
         ("fused_out_mlp_int8", fb.fused_out_mlp_int8, fb.out_mlp_int8_plain, mlp8_args),
         ("fused_out_mlp_int8mlp", fb.fused_out_mlp_int8mlp, fb.out_mlp_int8mlp_plain,
          mlp8m_args),
+        ("fused_out_mlp_int8 G=3", fb.fused_out_mlp_int8, fb.out_mlp_int8_plain, mlp8_3_args),
+        ("fused_out_mlp_int8mlp G=3", fb.fused_out_mlp_int8mlp, fb.out_mlp_int8mlp_plain,
+         mlp8m_3_args),
         ("splash_attention_bshd", att.splash_attention_bshd, att.splash_plain, splash_args),
     ):
         got = kern(*args)
@@ -528,7 +554,7 @@ def main() -> int:
         name="fused_out_mlp", route="cuda", source="prcv2025reid_tpu_torch/csrc/fused_block.cu",
         replaces="prcv2025reid_tpu/ops/fused_block.py:233",
         launches=launches["fused"]["fused_out_mlp"],
-        max_abs_err=block_checks["fused_out_mlp"][0],
+        max_abs_err=max(block_checks["fused_out_mlp"][0], block_checks["fused_out_mlp G=3"][0]),
         ms=time_ms(torch, lambda: fb.fused_out_mlp(*mlp_args)),
         plain_ms=time_ms(torch, lambda: fb.out_mlp_plain(*mlp_args), runs=20),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -579,7 +605,7 @@ def main() -> int:
         source="prcv2025reid_tpu_torch/csrc/fused_block_int8.cu",
         replaces="prcv2025reid_tpu/ops/fused_block.py:247",
         launches=launches["fused_int8"]["fused_out_mlp_int8"],
-        max_abs_err=block_checks["fused_out_mlp_int8"][0],
+        max_abs_err=max(block_checks["fused_out_mlp_int8"][0], block_checks["fused_out_mlp_int8 G=3"][0]),
         ms=time_ms(torch, lambda: fb.fused_out_mlp_int8(*mlp8_args)),
         plain_ms=time_ms(torch, lambda: fb.out_mlp_int8_plain(*mlp8_args), runs=20),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -591,7 +617,7 @@ def main() -> int:
         source="prcv2025reid_tpu_torch/csrc/fused_block_int8.cu",
         replaces="prcv2025reid_tpu/ops/fused_block.py:263",
         launches=launches["fused_int8_mlp"]["fused_out_mlp_int8mlp"],
-        max_abs_err=block_checks["fused_out_mlp_int8mlp"][0],
+        max_abs_err=max(block_checks["fused_out_mlp_int8mlp"][0], block_checks["fused_out_mlp_int8mlp G=3"][0]),
         ms=time_ms(torch, lambda: fb.fused_out_mlp_int8mlp(*mlp8m_args)),
         plain_ms=time_ms(torch, lambda: fb.out_mlp_int8mlp_plain(*mlp8m_args), runs=20),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,

@@ -147,5 +147,5 @@ class TrainingConfig:
         if self.token_keep > 0:
             raise NotImplementedError(
                 f"token_keep={self.token_keep} is not ported yet: ROADMAP.md "
-                "§1 item 4 (token reduction in the trunk)"
+                "§1, the item '`token_keep`' (token reduction in the trunk)"
             )

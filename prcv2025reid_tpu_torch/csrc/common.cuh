@@ -1,6 +1,6 @@
 // Helpers shared by the port's Hopper kernels: mma.sync m16n8k16 (bf16
 // inputs, f32 accumulators) and m16n8k32 (int8 inputs, s32 accumulators),
-// ldmatrix and cp.async, bf16 packing, the GELU.
+// ldmatrix and cp.async, bf16 packing and 8-value row loads, the GELU.
 //
 // Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16"), with
 // g = lane / 4 and t = lane % 4:
@@ -84,6 +84,30 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// eight consecutive values (16-byte aligned) of a row as f32
+template <typename AT>
+__device__ __forceinline__ void load8(const AT* p, float (&v)[8]);
+
+template <>
+__device__ __forceinline__ void load8<__nv_bfloat16>(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+template <>
+__device__ __forceinline__ void load8<float>(const float* p, float (&v)[8]) {
+  const float4 x0 = *reinterpret_cast<const float4*>(p);
+  const float4 x1 = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = x0.x; v[1] = x0.y; v[2] = x0.z; v[3] = x0.w;
+  v[4] = x1.x; v[5] = x1.y; v[6] = x1.z; v[7] = x1.w;
 }
 
 // 0.5 x (1 + erf(x / sqrt 2)) with the Abramowitz-Stegun 7.1.26 erf

@@ -1,33 +1,41 @@
-// The three int8 block kernels of the folded (eval/serving) transformer block,
-// built on one hand-written int8 tensor-core GEMM core (mma.sync m16n8k32,
-// s8 x s8 -> exact s32 accumulators) with fused epilogues, and two row passes.
+// The three int8 block kernels of the folded (eval/serving) transformer block:
+// row passes, int8 tensor-core GEMMs (s8 x s8 -> exact s32 accumulators) with
+// fused epilogues, on two cores: the persistent s8 wgmma + TMA core of
+// hopper_gemm.cuh for the MLP tail, and an mma.sync m16n8k32 core for the
+// LN1+QKV GEMM and the all-int8 out-projection.
 //
 // Replaces: prcv2025reid_tpu/ops/fused_block.py::_ln_qkv_kernel_int8
 // (fused_ln_qkv, quant="int8"), ::_out_mlp_kernel_int8 (fused_out_mlp,
 // quant="int8") and ::_out_mlp_kernel_int8mlp (quant="int8_mlp", whose bf16
-// out-projection runs on the bf16 GEMM core of fused_block.cu::out_proj).
+// out-projection runs on the bf16 core through fused_block.cu::out_proj).
 //
 // Bound on an H100 (ViT-B/16, G=1, T=25,216 rows; 1,979 TOP/s dense int8,
-// 3.35 TB/s): LN1+QKV is 89.2 G int8 operations (0.045 ms) against 157 MB of
-// bf16 activations in and out (0.047 ms): bytes.  Out-proj+LN2+MLP is 267.7 G
-// operations (0.135 ms) against 116 MB: operations.  The TPU kernels keep a
+// 989 TFLOP/s bf16, 3.35 TB/s): LN1+QKV is 89.2 G int8 operations (0.045 ms)
+// against 157 MB of bf16 activations in and out (0.047 ms): bytes.
+// Out-proj+LN2+MLP is 267.7 G operations: 0.135 ms all int8, 0.150 ms with the
+// bf16 out-projection, against 116 MB: operations.  The TPU kernels keep a
 // 256-row tile and every weight in VMEM and quantize each activation row in
 // registers right where it is produced; a Hopper block has 227 KB of shared
 // memory, so the work is split at each point where a whole row is needed:
 //   ln_qkv_int8   = row pass (LN1 in f32, one warp per row held in registers,
 //                   then the row's max |y| and y / s rounded half to even ->
-//                   int8 [T, D] and s [T]), then the int8 GEMM against the
-//                   K-major weights, epilogue bf16(((acc * s_row) * ws_col) + b).
-//   out_mlp_int8  = row pass quantizing the attention rows; out-proj GEMM,
-//                   epilogue x2 = (x + proj) + bo in f32; row pass LN2 +
-//                   quantize; fc1 GEMM, epilogue h = GELU(proj + b1) in f32,
-//                   written to device memory with each row's max |h| (atomicMax
-//                   on the bits of the non-negative float); a pass quantizing h
-//                   (from f32, not bf16, as the TPU kernel does); fc2 GEMM,
-//                   epilogue bf16((x2 + o) + b2).
-//   mlp_int8      = the last four steps, after the bf16 out-projection.
-// The f32 round trip of h through device memory (2 x 310 MB at the slice's
-// shape, ~0.19 ms of bytes) is the cost of this first version.
+//                   int8 [T, D] and s [T]), then the mma.sync int8 GEMM
+//                   against the K-major weights, epilogue
+//                   bf16(((acc * s_row) * ws_col) + b).
+//   mlp_int8      = the int8 MLP tail on x2 [T, D] f32, four launches and a
+//                   memset: row pass LN2 + quantize; fc1 on the s8 wgmma core
+//                   (128 x 256 tiles), epilogue h = GELU(dq(acc) + b1) in f32
+//                   stored by TMA in [64][64] sub-tiles, with each row's max
+//                   |h| (atomicMax on the bits of the non-negative float); a
+//                   pass quantizing h (from f32, not bf16, as the TPU kernel
+//                   does); fc2 on the same core (128 x 192 tiles: 6 even waves
+//                   on 132 SMs at D = 768), epilogue bf16((x2 + dq(acc)) + b2).
+//                   h goes through device memory as f32 (2 x 310 MB at the
+//                   slice's shape): the row max has to be complete before any
+//                   of h is quantized.
+//   out_mlp_int8  = a row pass quantizing the attention rows, the mma.sync
+//                   out-projection, epilogue x2 = (x + proj) + bo in f32, then
+//                   mlp_int8.
 //
 // Rounding follows the TPU kernels exactly where it can: scales are
 // max(max|y| / 127, 1e-8) and quantized values y / s, both IEEE divisions
@@ -38,14 +46,15 @@
 // approximate reciprocal and exponential, by a few f32 ulps, which flips an
 // int8 rounding only where a value lies within those ulps of a half step.
 //
-// The GEMM core: 128x128 block tiles, 64-byte k-tiles (two k32 mma steps),
-// 8 warps of 64x32, a 4-stage cp.async pipeline.  Both operands are K-major
-// (A [M, K] row-major, W [N, K]), so both load with the non-transposed
+// The mma.sync core: 128x128 block tiles, 64-byte k-tiles (two k32 mma
+// steps), 8 warps of 64x32, a 4-stage cp.async pipeline.  Both operands are
+// K-major (A [M, K] row-major, W [N, K]), so both load with the non-transposed
 // ldmatrix .b16 (there is no 8-bit ldmatrix.trans on sm_90): every lane gets
 // the four consecutive k bytes of the m16n8k32 fragment.
-#include "common.cuh"
+#include "hopper_gemm.cuh"
 
 using namespace port;
+using hgemm::dequant;
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -56,7 +65,7 @@ constexpr int LDS = BK + 16;  // 80-byte rows: conflict-free ldmatrix
 constexpr int SMEM_BYTES = STAGES * (BM + BN) * LDS;  // 81,920
 constexpr int ROW_MAX_K = 32 * 8 * 4;  // a row pass holds a row of <= 1024 in registers
 
-enum Epilogue { EPI_QKV = 0, EPI_RES_F32 = 1, EPI_GELU = 2, EPI_OUT = 3 };
+enum Epilogue { EPI_QKV = 0, EPI_RES_F32 = 1 };
 
 struct IGemmArgs {
   const int8_t* a;        // [G, M, K] int8, row-major
@@ -64,34 +73,10 @@ struct IGemmArgs {
   const float* s_row;     // [G, M] row scales of a
   const float* s_col;     // [G, N] column scales of w
   const float* bias;      // [G, N]
-  const void* res;        // [G, M, N]: bf16 (EPI_RES_F32) or f32 (EPI_OUT)
-  void* out;              // [G, M, N]: bf16 (EPI_QKV, EPI_OUT) or f32 (EPI_RES_F32, EPI_GELU)
-  unsigned int* row_max;  // [G, M] bits of max |h| (EPI_GELU), zeroed by the caller
+  const bf16* res;        // [G, M, N] residual x (EPI_RES_F32)
+  void* out;              // [G, M, N]: bf16 (EPI_QKV) or f32 (EPI_RES_F32)
   int M, N, K;
 };
-
-template <typename AT>
-__device__ __forceinline__ void load8(const AT* p, float (&v)[8]);
-
-template <>
-__device__ __forceinline__ void load8<bf16>(const bf16* p, float (&v)[8]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-template <>
-__device__ __forceinline__ void load8<float>(const float* p, float (&v)[8]) {
-  const float4 x0 = *reinterpret_cast<const float4*>(p);
-  const float4 x1 = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = x0.x; v[1] = x0.y; v[2] = x0.z; v[3] = x0.w;
-  v[4] = x1.x; v[5] = x1.y; v[6] = x1.z; v[7] = x1.w;
-}
 
 // the per-row scale of the TPU kernels' _quant_rows: max(max|y| / 127, 1e-8)
 __device__ __forceinline__ float row_scale(float maxabs) {
@@ -206,10 +191,6 @@ __global__ void __launch_bounds__(256) quant_h_kernel(
   if (i % F == 0) s[row] = sc;
 }
 
-__device__ __forceinline__ float dequant(int acc, float s_row, float s_col) {
-  return __fmul_rn(__fmul_rn(__int2float_rn(acc), s_row), s_col);
-}
-
 template <int EPI>
 __global__ void __launch_bounds__(THREADS, 2) igemm_kernel(IGemmArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -286,12 +267,10 @@ __global__ void __launch_bounds__(THREADS, 2) igemm_kernel(IGemmArgs p) {
   const long long gM = static_cast<long long>(grp) * M, gN = static_cast<long long>(grp) * N;
   const float* s_col = p.s_col + gN;
   const float* bias = p.bias + gN;
-  float rmax[4][2];  // EPI_GELU: this thread's max |h| of each of its rows
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      rmax[i][hr] = 0.f;
       const int row = bm + wm * 64 + i * 16 + g + hr * 8;
       if (row >= M) continue;
       const float sr = p.s_row[gM + row];
@@ -305,37 +284,12 @@ __global__ void __launch_bounds__(THREADS, 2) igemm_kernel(IGemmArgs p) {
         if (EPI == EPI_QKV) {
           *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p.out) + off) =
               pack_bf16(__fadd_rn(v0, bias[col]), __fadd_rn(v1, bias[col + 1]));
-        } else if (EPI == EPI_RES_F32) {  // x2 = (x + proj) + bo
-          const float2 x = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(static_cast<const bf16*>(p.res) + off));
+        } else {  // EPI_RES_F32: x2 = (x + proj) + bo
+          const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.res + off));
           *reinterpret_cast<float2*>(static_cast<float*>(p.out) + off) =
               make_float2(__fadd_rn(__fadd_rn(x.x, v0), bias[col]),
                           __fadd_rn(__fadd_rn(x.y, v1), bias[col + 1]));
-        } else if (EPI == EPI_GELU) {  // h = GELU(proj + b1), kept in f32
-          const float h0 = gelu_as(__fadd_rn(v0, bias[col]));
-          const float h1 = gelu_as(__fadd_rn(v1, bias[col + 1]));
-          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + off) = make_float2(h0, h1);
-          rmax[i][hr] = fmaxf(rmax[i][hr], fmaxf(fabsf(h0), fabsf(h1)));
-        } else {  // EPI_OUT: bf16((x2 + o) + b2)
-          const float2 x2 = *reinterpret_cast<const float2*>(static_cast<const float*>(p.res) + off);
-          *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p.out) + off) =
-              pack_bf16(__fadd_rn(__fadd_rn(x2.x, v0), bias[col]),
-                        __fadd_rn(__fadd_rn(x2.y, v1), bias[col + 1]));
         }
-      }
-    }
-  }
-  if (EPI == EPI_GELU) {
-    // the four lanes of a quad share each row: one atomic per row and warp
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        float m = rmax[i][hr];
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-        const int row = bm + wm * 64 + i * 16 + g + hr * 8;
-        if (t == 0 && row < M) atomicMax(p.row_max + gM + row, __float_as_uint(m));
       }
     }
   }
@@ -359,31 +313,27 @@ cudaError_t mlp_tail(const void* x2, const void* ln_s, const void* ln_b, const v
                      void* hs, void* out, int G, int T, int D, int F, float eps,
                      cudaStream_t st) {
   cudaError_t e;
-  if (F % 16 != 0) return cudaErrorInvalidValue;
+  if (F <= 0 || F % 16 != 0) return cudaErrorInvalidValue;
   if ((e = run_row_quant<float, true>(x2, ln_s, ln_b, yq, ys, G * T, D, eps, st)) != cudaSuccess)
     return e;
   if ((e = cudaMemsetAsync(hmax, 0, sizeof(unsigned int) * G * static_cast<size_t>(T), st)) !=
       cudaSuccess)
     return e;
-  IGemmArgs p1{};
-  p1.a = static_cast<const int8_t*>(yq);  p1.w = static_cast<const int8_t*>(w1q);
-  p1.s_row = static_cast<const float*>(ys);  p1.s_col = static_cast<const float*>(w1s);
-  p1.bias = static_cast<const float*>(b1);
-  p1.out = h;  p1.row_max = static_cast<unsigned int*>(hmax);
-  p1.M = T;  p1.N = F;  p1.K = D;
-  if ((e = run_igemm<EPI_GELU>(p1, G, st)) != cudaSuccess) return e;
+  const hgemm::Params fc1{T, F, D, G, static_cast<const float*>(b1), nullptr,
+                          static_cast<const float*>(ys), static_cast<const float*>(w1s),
+                          static_cast<unsigned int*>(hmax)};
+  if ((e = hgemm::gemm<hgemm::S8Op, hgemm::F32Out<hgemm::DQ_GELU>, 128, 256, 2, 3>(
+           yq, w1q, h, fc1, st)) != cudaSuccess)
+    return e;
   const long long n = static_cast<long long>(G) * T * F;
   quant_h_kernel<<<static_cast<unsigned int>((n / 16 + 255) / 256), 256, 0, st>>>(
       static_cast<const float*>(h), static_cast<const unsigned int*>(hmax),
       static_cast<int8_t*>(hq), static_cast<float*>(hs), n, F);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  IGemmArgs p2{};
-  p2.a = static_cast<const int8_t*>(hq);  p2.w = static_cast<const int8_t*>(w2q);
-  p2.s_row = static_cast<const float*>(hs);  p2.s_col = static_cast<const float*>(w2s);
-  p2.bias = static_cast<const float*>(b2);
-  p2.res = x2;  p2.out = out;
-  p2.M = T;  p2.N = D;  p2.K = F;
-  return run_igemm<EPI_OUT>(p2, G, st);
+  const hgemm::Params fc2{T, D, F, G, static_cast<const float*>(b2), x2,
+                          static_cast<const float*>(hs), static_cast<const float*>(w2s)};
+  return hgemm::gemm<hgemm::S8Op, hgemm::Bf16Out<hgemm::DQ_RES_X2>, 128, 192, 2, 4>(hq, w2q, out,
+                                                                                    fc2, st);
 }
 
 }  // namespace
@@ -443,7 +393,7 @@ extern "C" int out_mlp_int8(const void* attn, const void* x, const void* woq, co
   p.a = static_cast<const int8_t*>(aq);  p.w = static_cast<const int8_t*>(woq);
   p.s_row = static_cast<const float*>(as);  p.s_col = static_cast<const float*>(wos);
   p.bias = static_cast<const float*>(bo);
-  p.res = x;  p.out = x2;
+  p.res = static_cast<const bf16*>(x);  p.out = x2;
   p.M = T;  p.N = D;  p.K = D;
   if ((e = run_igemm<EPI_RES_F32>(p, G, st)) != cudaSuccess) return e;
   return static_cast<int>(mlp_tail(x2, ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2, yq, ys, h, hmax,

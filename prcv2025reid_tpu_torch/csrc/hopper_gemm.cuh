@@ -1,7 +1,8 @@
 // The port's Hopper GEMM core: a persistent, warp-specialised wgmma + TMA
-// mainloop with an epilogue parameter, shared by the tiled matmul
-// (matmul.cu: bf16 -> bf16, int8 -> int32) and the fused MLP (fused_mlp.cu:
-// fc1 with bias + GELU, fc2 with bias).
+// mainloop with an epilogue parameter, shared by every GEMM of the port's
+// Hopper kernels but the LN-prologue QKV GEMMs (fused_block.cu::ln_qkv,
+// fused_block_int8.cu::ln_qkv_int8) and the int8 out-projection of
+// out_mlp_int8, which stay on mma.sync.
 //
 //   out[g] = epilogue(A[g] [M, K] @ B[g] [K, N])   for g < G
 //
@@ -26,8 +27,22 @@
 //     the warpgroup starts the next tile's products.
 //
 // The operand policy (Bf16Op, S8Op) says how a stage's B tile is loaded and
-// which wgmma consumes it; the epilogue policy (Bf16Out, S32Out) how the
-// accumulators leave.
+// which wgmma consumes it.  The epilogue policy is an output layout with a
+// value function (Act) applied to each accumulator pair:
+//   Bf16Out<NONE>       the tiled matmul, bf16 (matmul.cu)
+//   Bf16Out<BIAS>       the fused MLP's fc2 (fused_mlp.cu)
+//   Bf16Out<BIAS_GELU>  fc1 of the fused MLP and of fused_out_mlp (fused_mlp.cu,
+//                       fused_block.cu)
+//   Bf16Out<RES_X2>     fused_out_mlp's fc2: + b2 and the f32 residual x2
+//   Bf16Out<DQ_RES_X2>  the int8 fc2 of the int8 MLP tail (fused_block_int8.cu)
+//   S32Out              the tiled matmul, int8 -> int32 (matmul.cu)
+//   F32Out<RES_X>       the bf16 out-projection x2 = x + (acc + bo) in f32
+//                       (fused_block.cu::out_proj, used by fused_out_mlp and
+//                       the mixed int8 plan)
+//   F32Out<DQ_GELU>     the int8 fc1 of the int8 MLP tail: f32 h and each
+//                       row's max |h| for its quantization
+// Residuals are read straight from device memory in the epilogue; scales and
+// biases once per row or column pair.
 #pragma once
 
 #include "common.cuh"
@@ -113,6 +128,8 @@ struct S8Op {
         const uint64_t da = desc_sw128(a + mi * BOX + kk * 32, 16, 1024);
         if constexpr (TN == 256)
           wgmma_m64n256k32_s8(acc[mi], da, db, !first || kk > 0);
+        else if constexpr (TN == 192)
+          wgmma_m64n192k32_s8(acc[mi], da, db, !first || kk > 0);
         else
           wgmma_m64n128k32_s8(acc[mi], da, db, !first || kk > 0);
       }
@@ -123,60 +140,134 @@ struct S8Op {
 // ---- epilogue policies.  A consumer warpgroup holds rows m0 .. m0 + MI * 64
 // of the tile and columns n0 .. n0 + TN; thread (warp, lane) holds, of each
 // 64-row piece, rows 16 warp + lane / 4 (+ 8) and column pairs 8 j + 2 (lane % 4).
+// An epilogue is an output layout (Bf16Out: 2-byte, S32Out / F32Out: 4-byte)
+// with a value function (Act) applied to each accumulator pair before it is
+// staged; dq(acc) = (acc * s_row) * s_col dequantizes an s32 accumulator.
 
-enum Act { NONE = 0, BIAS = 1, BIAS_GELU = 2 };
+enum Act {
+  NONE = 0,       // acc                                      bf16 out
+  BIAS = 1,       // acc + b                                  bf16 out
+  BIAS_GELU = 2,  // GELU(acc + b)                            bf16 out
+  RES_X = 3,      // x + (acc + b), x bf16 [G, M, N]           f32 out
+  RES_X2 = 4,     // x2 + (acc + b), x2 f32 [G, M, N]          bf16 out
+  DQ_GELU = 5,    // GELU(dq(acc) + b), and each row's max     f32 out
+  DQ_RES_X2 = 6,  // (x2 + dq(acc)) + b, x2 f32 [G, M, N]      bf16 out
+  IDENT = 7,      // acc                                      int32 out
+};
 
 struct Params {
   int M, N, K, G;
-  const float* bias;  // [G, N] f32 (BIAS, BIAS_GELU)
+  const float* bias;      // [G, N] f32 (every Act but NONE and IDENT)
+  const void* res;        // [G, M, N] residual: bf16 (RES_X) or f32 (RES_X2, DQ_RES_X2)
+  const float* s_row;     // [G, M] row scales of A (DQ_*)
+  const float* s_col;     // [G, N] column scales of B (DQ_*)
+  unsigned int* row_max;  // [G, M] bits of each row's max |out| (DQ_GELU), zeroed by the caller
 };
 
-// bf16 out: bf16(act(acc + bias)) into TN / 64 swizzled boxes of
-// [MI x 64 rows][64 columns] (row r's chunk c at c ^ (r % 8): conflict-free),
-// then one TMA store per box.  The stores of the previous tile must have read
-// the boxes first.
+__host__ __device__ constexpr bool dequantizes(int act) { return act == DQ_GELU || act == DQ_RES_X2; }
+
+// the f32 roundings of the TPU kernels' order, kept apart (no FMA contraction)
+__device__ __forceinline__ float dequant(int acc, float s_row, float s_col) {
+  return __fmul_rn(__fmul_rn(__int2float_rn(acc), s_row), s_col);
+}
+
+// what a column pair reads once per tile: its bias and column scales (0 past N)
+struct ColPair {
+  float2 b, s;
+};
+
+template <int ACT>
+__device__ __forceinline__ ColPair col_pair(const Params& p, int g, int col) {
+  ColPair c{make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
+  if constexpr (ACT != NONE && ACT != IDENT) {
+    if (col < p.N) {  // N % 8 == 0: col + 1 < N when col < N
+      const long long off = static_cast<long long>(g) * p.N + col;
+      c.b = __ldg(reinterpret_cast<const float2*>(p.bias + off));
+      if constexpr (dequantizes(ACT)) c.s = __ldg(reinterpret_cast<const float2*>(p.s_col + off));
+    }
+  }
+  return c;
+}
+
+// a row's scale of A (DQ_*; 0 past the group's last row, which is not stored)
+template <int ACT>
+__device__ __forceinline__ float row_scale_of(const Params& p, int g, int row) {
+  if constexpr (dequantizes(ACT))
+    return row < p.M ? __ldg(p.s_row + static_cast<long long>(g) * p.M + row) : 0.f;
+  return 0.f;
+}
+
+// the output pair (row, col .. col + 1) from its accumulators (ACT != IDENT)
+template <int ACT, class Acc>
+__device__ __forceinline__ float2 value(Acc a0, Acc a1, const ColPair& c, float s_row,
+                                        const Params& p, int g, int row, int col) {
+  if constexpr (ACT == NONE) {
+    return make_float2(a0, a1);
+  } else if constexpr (ACT == BIAS) {
+    return make_float2(a0 + c.b.x, a1 + c.b.y);
+  } else if constexpr (ACT == BIAS_GELU) {
+    return make_float2(port::gelu_as(a0 + c.b.x), port::gelu_as(a1 + c.b.y));
+  } else if constexpr (ACT == DQ_GELU) {
+    return make_float2(port::gelu_as(__fadd_rn(dequant(a0, s_row, c.s.x), c.b.x)),
+                       port::gelu_as(__fadd_rn(dequant(a1, s_row, c.s.y), c.b.y)));
+  } else {  // a residual, read straight from device memory (a quad reads 16 or 32 bytes)
+    float2 r = make_float2(0.f, 0.f);
+    if (row < p.M && col < p.N) {
+      const long long off = (static_cast<long long>(g) * p.M + row) * p.N + col;
+      if constexpr (ACT == RES_X)
+        r = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(static_cast<const __nv_bfloat16*>(p.res) + off));
+      else
+        r = __ldg(reinterpret_cast<const float2*>(static_cast<const float*>(p.res) + off));
+    }
+    if constexpr (ACT == DQ_RES_X2)
+      return make_float2(__fadd_rn(__fadd_rn(r.x, dequant(a0, s_row, c.s.x)), c.b.x),
+                         __fadd_rn(__fadd_rn(r.y, dequant(a1, s_row, c.s.y)), c.b.y));
+    else  // RES_X, RES_X2
+      return make_float2(r.x + (a0 + c.b.x), r.y + (a1 + c.b.y));
+  }
+}
+
+// bf16 out: bf16(value) into TN / 64 swizzled boxes of [MI x 64 rows][64
+// columns] (row r's chunk c at c ^ (r % 8): conflict-free), then one TMA
+// store per box.  The stores of the previous tile must have read the boxes
+// first.
 template <int ACT>
 struct Bf16Out {
   static constexpr CUtensorMapDataType TYPE = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  static constexpr int BOX0 = 64;  // columns of a store box
+  static constexpr int ESIZE = 2, BOX0 = 64;  // columns of a store box
 
   template <int MI, int TN>
   static constexpr int bytes() { return MI * 64 * TN * 2; }
   template <int MI>
   static constexpr int box_rows() { return MI * 64; }
 
-  template <int MI, int TN>
-  __device__ static void store(float (&acc)[MI][TN / 2], unsigned char* c, const CUtensorMap* map,
-                               int m0, int n0, int g, const float* bias, int N, int wg,
-                               int tid) {
+  template <int MI, int TN, class Acc>
+  __device__ static void store(Acc (&acc)[MI][TN / 2], unsigned char* c, const CUtensorMap* map,
+                               int m0, int n0, int g, const Params& p, int, int wg, int tid) {
     const int warp = tid / 32, lane = tid % 32;
+    float s_row[MI][2];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        s_row[mi][hr] = row_scale_of<ACT>(p, g, m0 + mi * 64 + warp * 16 + lane / 4 + hr * 8);
     if (tid == 0) bulk_wait_read<0>();
     named_barrier(1 + wg, WG);
 #pragma unroll
     for (int j = 0; j < TN / 8; ++j) {
-      float2 bb = make_float2(0.f, 0.f);
-      if constexpr (ACT != NONE) {
-        const int col = n0 + 8 * j + 2 * (lane % 4);  // N % 8 == 0: col + 1 < N when col < N
-        if (col < N)
-          bb = __ldg(reinterpret_cast<const float2*>(bias + static_cast<long long>(g) * N + col));
-      }
+      const int col = n0 + 8 * j + 2 * (lane % 4);
+      const ColPair cp = col_pair<ACT>(p, g, col);
 #pragma unroll
       for (int mi = 0; mi < MI; ++mi) {
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
           const int r = mi * 64 + warp * 16 + lane / 4 + hr * 8;
-          float v0 = acc[mi][4 * j + 2 * hr], v1 = acc[mi][4 * j + 2 * hr + 1];
-          if constexpr (ACT != NONE) {
-            v0 += bb.x;
-            v1 += bb.y;
-          }
-          if constexpr (ACT == BIAS_GELU) {
-            v0 = port::gelu_as(v0);
-            v1 = port::gelu_as(v1);
-          }
+          const float2 v = value<ACT>(acc[mi][4 * j + 2 * hr], acc[mi][4 * j + 2 * hr + 1], cp,
+                                      s_row[mi][hr], p, g, m0 + r, col);
           *reinterpret_cast<uint32_t*>(c + (j / 8) * MI * BOX + r * 128 +
                                        (((j % 8) ^ (r % 8)) << 4) + 4 * (lane % 4)) =
-              port::pack_bf16(v0, v1);
+              port::pack_bf16(v.x, v.y);
         }
       }
     }
@@ -190,41 +281,61 @@ struct Bf16Out {
   }
 };
 
-// int32 out: a consumer's tile is MI x 64 rows by TN columns of 4 bytes (64
-// KB at 64 x 256), more than shared memory spares, so it leaves in sub-tiles
-// of [64 rows][64 columns] through two 16 KB buffers: each sub-tile waits
-// until the store of the sub-tile two back has read its buffer, is written as
-// two swizzled [64][32] boxes (8-byte pairs, two wavefronts a warp: the
-// least for 256 bytes) and stored by TMA while the next is written.
-struct S32Out {
-  static constexpr CUtensorMapDataType TYPE = CU_TENSOR_MAP_DATA_TYPE_INT32;
-  static constexpr int BOX0 = 32;  // columns of a store box (128 bytes)
+// 4-byte out (int32 for IDENT, else f32 value): a consumer's tile is MI x 64
+// rows by TN columns of 4 bytes (64 KB at 64 x 256), more than shared memory
+// spares, so it leaves in sub-tiles of [64 rows][64 columns] through two 16 KB
+// buffers, used in turn across the block's tiles: each sub-tile waits until
+// the store of the sub-tile two back has read its buffer, is written as two
+// swizzled [64][32] boxes (8-byte pairs, two wavefronts a warp: the least for
+// 256 bytes) and stored by TMA while the next is written.  DQ_GELU also
+// takes each row's max |value| over the tile's columns < N: a quad shuffle,
+// then one atomicMax on the float's bits per row and warp.
+template <int ACT>
+struct Word32Out {
+  static constexpr CUtensorMapDataType TYPE =
+      ACT == IDENT ? CU_TENSOR_MAP_DATA_TYPE_INT32 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  static constexpr int ESIZE = 4, BOX0 = 32;  // columns of a store box (128 bytes)
 
   template <int MI, int TN>
   static constexpr int bytes() { return 2 * 2 * BOX; }
   template <int MI>
   static constexpr int box_rows() { return 64; }
 
-  template <int MI, int TN>
-  __device__ static void store(int (&acc)[MI][TN / 2], unsigned char* c, const CUtensorMap* map,
-                               int m0, int n0, int g, const float*, int, int wg, int tid) {
+  // `it`: the tiles this block stored before, so the buffers alternate across tiles
+  template <int MI, int TN, class Acc>
+  __device__ static void store(Acc (&acc)[MI][TN / 2], unsigned char* c, const CUtensorMap* map,
+                               int m0, int n0, int g, const Params& p, int it, int wg, int tid) {
     const int warp = tid / 32, lane = tid % 32, t = lane % 4;
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi) {
+      float s_row[2], row_max[2] = {0.f, 0.f};
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        s_row[hr] = row_scale_of<ACT>(p, g, m0 + mi * 64 + warp * 16 + lane / 4 + hr * 8);
 #pragma unroll
       for (int s = 0; s < TN / 64; ++s) {
-        unsigned char* buf = c + ((mi * (TN / 64) + s) % 2) * 2 * BOX;
+        unsigned char* buf = c + ((it * MI * (TN / 64) + mi * (TN / 64) + s) % 2) * 2 * BOX;
         if (tid == 0) bulk_wait_read<1>();  // the store two sub-tiles back has read buf
         named_barrier(1 + wg, WG);
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) {
-          const int j = s * 8 + jj;
+          const int j = s * 8 + jj, col = n0 + 8 * j + 2 * t;
+          const ColPair cp = col_pair<ACT>(p, g, col);
 #pragma unroll
           for (int hr = 0; hr < 2; ++hr) {
             const int r = warp * 16 + lane / 4 + hr * 8;
+            int2 bits;
+            if constexpr (ACT == IDENT) {
+              bits = make_int2(acc[mi][4 * j + 2 * hr], acc[mi][4 * j + 2 * hr + 1]);
+            } else {
+              const float2 v = value<ACT>(acc[mi][4 * j + 2 * hr], acc[mi][4 * j + 2 * hr + 1],
+                                          cp, s_row[hr], p, g, m0 + mi * 64 + r, col);
+              if constexpr (ACT == DQ_GELU)
+                if (col < p.N) row_max[hr] = fmaxf(row_max[hr], fmaxf(fabsf(v.x), fabsf(v.y)));
+              bits = make_int2(__float_as_int(v.x), __float_as_int(v.y));
+            }
             *reinterpret_cast<int2*>(buf + (jj / 4) * BOX + r * 128 +
-                                     (((2 * (jj % 4) + t / 2) ^ (r % 8)) << 4) + 8 * (t % 2)) =
-                make_int2(acc[mi][4 * j + 2 * hr], acc[mi][4 * j + 2 * hr + 1]);
+                                     (((2 * (jj % 4) + t / 2) ^ (r % 8)) << 4) + 8 * (t % 2)) = bits;
           }
         }
         fence_proxy_async();
@@ -235,9 +346,24 @@ struct S32Out {
           bulk_commit();
         }
       }
+      if constexpr (ACT == DQ_GELU) {  // the quad's four lanes share each row
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          float m = row_max[hr];
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+          const int row = m0 + mi * 64 + warp * 16 + lane / 4 + hr * 8;
+          if (t == 0 && row < p.M)
+            atomicMax(p.row_max + static_cast<long long>(g) * p.M + row, __float_as_uint(m));
+        }
+      }
     }
   }
 };
+
+using S32Out = Word32Out<IDENT>;
+template <int ACT>
+using F32Out = Word32Out<ACT>;
 
 // ---- the kernel
 
@@ -310,8 +436,8 @@ __global__ void __launch_bounds__(C::THREADS, 1)
     for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
       for (int i = 0; i < TN / 2; ++i) acc[mi][i] = 0;
-    int st = 0, ph = 0;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    int st = 0, ph = 0, it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++it) {
       const int g = tile / tiles_mn, mn = tile % tiles_mn;
       const int m0 = (mn / tiles_n) * BM, n0 = (mn % tiles_n) * TN;
       int prev = 0;
@@ -333,8 +459,8 @@ __global__ void __launch_bounds__(C::THREADS, 1)
       if (tid == 0) mbar_arrive(&empty[prev]);
 #pragma unroll
       for (int mi = 0; mi < MI; ++mi) fence_regs(acc[mi]);
-      Out::template store<MI, TN>(acc, sC + wg * C::C_BYTES, &map_c, m0 + wg * MI * 64, n0, g,
-                                  p.bias, p.N, wg, tid);
+      Out::template store<MI, TN>(acc, sC + wg * C::C_BYTES, &map_c, m0 + wg * MI * 64, n0, g, p,
+                                  it, wg, tid);
     }
     if (threadIdx.x % WG == 0) bulk_wait<0>();  // the last stores are done before the block exits
   }
@@ -367,8 +493,8 @@ cudaError_t gemm(const void* a, const void* b, void* out, const Params& p, cudaS
   else
     e = map_3d(&map_b, Op::TYPE, 1, b, p.G, p.N, p.K, Op::BK, TN);
   if (e != cudaSuccess) return e;
-  e = map_3d(&map_c, Out::TYPE, Out::TYPE == CU_TENSOR_MAP_DATA_TYPE_INT32 ? 4 : 2, out, p.G, p.M,
-             p.N, Out::BOX0, Out::template box_rows<C::MI>());
+  e = map_3d(&map_c, Out::TYPE, Out::ESIZE, out, p.G, p.M, p.N, Out::BOX0,
+             Out::template box_rows<C::MI>());
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0;
   e = cudaGetDevice(&dev);

@@ -59,7 +59,8 @@ def make_combo_embed_step(model: MultiModalReIDModel,
     active = tuple(active)
     if "text" in active:
         raise NotImplementedError(
-            "'text' in the active set is not ported yet: ROADMAP.md §1 item 5 (text tower)"
+            "'text' in the active set is not ported yet: ROADMAP.md §1, the item "
+            "'Text tower and encoder' (text tower)"
         )
     device = model.null_tokens.device
 

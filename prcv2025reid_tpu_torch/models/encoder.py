@@ -1,6 +1,6 @@
 """Unified encoder, vision half (counterpart of the JAX package's
 ``models/encoder.py::UnifiedEncoder``).  The text tower and ``text_proj``
-are not ported yet (ROADMAP.md §1 item 5)."""
+are not ported yet (ROADMAP.md §1, the item 'Text tower and encoder')."""
 from __future__ import annotations
 
 import torch

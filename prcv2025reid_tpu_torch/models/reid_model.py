@@ -5,7 +5,8 @@ Missing modalities are handled by masked blending with learnable null
 tokens: feat = mask * enc + (1 - mask) * null.  ``encode_subset`` computes
 only the active vision towers (one trunk call over all of them), fuses the
 modality tokens and returns BNNeck features (L2 x 8).  The SDM module and
-the text tower are not ported yet (ROADMAP.md §1 items 5-6).
+the text tower are not ported yet (ROADMAP.md §1, the items 'The training
+trunk' and 'Text tower and encoder').
 """
 from __future__ import annotations
 
@@ -147,8 +148,8 @@ class MultiModalReIDModel(nn.Module):
         bn_features [B, fusion_dim] (L2 x 8, f32)."""
         if "text" in active:
             raise NotImplementedError(
-                "'text' in the active set is not ported yet: ROADMAP.md §1 "
-                "item 5 (text tower)"
+                "'text' in the active set is not ported yet: ROADMAP.md §1, "
+                "the item 'Text tower and encoder' (text tower)"
             )
         vis_mods = self.config.vision_modalities
         unknown = [m for m in active if m not in vis_mods]

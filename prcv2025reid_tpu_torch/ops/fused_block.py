@@ -33,7 +33,7 @@ import torch
 from prcv2025reid_tpu_torch.ops import _kernels
 from prcv2025reid_tpu_torch.ops.kernel_math import LN_EPS, SQRT_HALF, gelu_exact, ln_f32
 
-MAX_LN_WIDTH = 1024  # the row-statistics kernel holds a row in registers
+MAX_LN_WIDTH = 1024  # the row passes hold a row in registers
 
 
 def quant_rows(y: torch.Tensor):
@@ -207,7 +207,7 @@ def _out_mlp_forward(attn, x, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2):
     lns = _kernels.f32_vector(fn, "ln_scale", ln_scale, (D,), x.device)
     lnb = _kernels.f32_vector(fn, "ln_bias", ln_bias, (D,), x.device)
     x2 = torch.empty(G, T, D, dtype=torch.float32, device=x.device)
-    stats = torch.empty(G * T, 2, dtype=torch.float32, device=x.device)
+    y = torch.empty(G, T, D, dtype=x.dtype, device=x.device)  # bf16(LN2(x2)), fc1's operand
     h = torch.empty(G, T, F, dtype=x.dtype, device=x.device)
     out = torch.empty(G, T, D, dtype=x.dtype, device=x.device)
     c = _kernels.lib("fused_block").out_mlp
@@ -215,7 +215,7 @@ def _out_mlp_forward(attn, x, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2):
     c.restype = ctypes.c_int
     rc = c(attn.data_ptr(), x.data_ptr(), wo.data_ptr(), bof.data_ptr(), lns.data_ptr(),
            lnb.data_ptr(), w1.data_ptr(), b1f.data_ptr(), w2.data_ptr(), b2f.data_ptr(),
-           x2.data_ptr(), stats.data_ptr(), h.data_ptr(), out.data_ptr(), G, T, D, F, LN_EPS,
+           x2.data_ptr(), y.data_ptr(), h.data_ptr(), out.data_ptr(), G, T, D, F, LN_EPS,
            _kernels.stream_ptr(x))
     _kernels.check(rc, fn)
     fused_out_mlp.launches += 1
@@ -269,8 +269,8 @@ def fused_out_mlp(attn, x, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2,
     """x + attn@wo + bo, then + MLP(LN2(.)) with exact (A-S erf) GELU.
     attn, x [G,T,D] bf16; wo [G,D,D], w1 [G,D,F], w2 [G,F,D] bf16; biases
     [G,*]; ln_* [D] -> [G,T,D] bf16.  On the card this is four launches
-    (out-proj GEMM, LN2 row statistics, LN2+fc1+GELU GEMM, fc2+residual
-    GEMM); it counts as one launch of the fused kernel.  Differentiable
+    (out-proj GEMM with the f32 residual, the LN2 row pass, fc1+GELU GEMM,
+    fc2+residual GEMM); it counts as one launch of the fused kernel.  Differentiable
     through :class:`FusedOutMlpFn`.  ``quant="int8"``: wo, w1 and w2 are
     ``(wq, ws)`` pairs (:func:`fused_out_mlp_int8`); ``"int8_mlp"``: w1 and
     w2 are (:func:`fused_out_mlp_int8mlp`)."""
@@ -401,8 +401,8 @@ def fused_out_mlp_int8(attn, x, woq, wos, bo, ln_scale, ln_bias, w1q, w1s, b1,
 
 def fused_out_mlp_int8mlp(attn, x, wo, bo, ln_scale, ln_bias, w1q, w1s, b1,
                           w2q, w2s, b2):
-    """The mixed plan: the out-projection in bf16 (x2 = x + (acc + bo), the
-    bf16 GEMM core of csrc/fused_block.cu), fc1 and fc2 int8 as in
+    """The mixed plan: the out-projection in bf16 (x2 = x + (acc + bo),
+    csrc/fused_block.cu::out_proj), fc1 and fc2 int8 as in
     :func:`fused_out_mlp_int8`.  wo [G,D,D] bf16; w1q/w2q int8 pairs; one
     launch of the fused kernel."""
     fn = "fused_out_mlp_int8mlp"

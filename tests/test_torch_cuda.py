@@ -62,26 +62,6 @@ def test_attention_kernel_strided_views_wrap(cuda, S):
     assert _rel(out, mha_plain(q, k, v)) < 1e-2
 
 
-def test_block_kernels(cuda):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    G, T, D, F = 2, 300, 128, 512
-
-    def r(*shape, s=1.0):
-        return torch.randn(*shape, generator=g, device=cuda) * s
-
-    x, attn = r(G, T, D).bfloat16(), r(G, T, D).bfloat16()
-    lns, lnb = 1 + 0.1 * r(D), 0.1 * r(D)
-    wqkv, bqkv = r(G, D, 3 * D, s=0.1).bfloat16(), 0.1 * r(G, 3 * D)
-    wo, bo = r(G, D, D, s=0.1).bfloat16(), 0.1 * r(G, D)
-    w1, b1 = r(G, D, F, s=0.1).bfloat16(), 0.1 * r(G, F)
-    w2, b2 = r(G, F, D, s=0.1).bfloat16(), 0.1 * r(G, D)
-    qkv = fb.fused_ln_qkv(x, lns, lnb, wqkv, bqkv)
-    out = fb.fused_out_mlp(attn, x, wo, bo, lns, lnb, w1, b1, w2, b2)
-    torch.cuda.synchronize()
-    assert _rel(qkv, fb.ln_qkv_plain(x, lns, lnb, wqkv, bqkv)) < 1e-2
-    assert _rel(out, fb.out_mlp_plain(attn, x, wo, bo, lns, lnb, w1, b1, w2, b2)) < 1e-2
-
-
 def _block_operands(cuda, G, T, D, F):
     g = torch.Generator(device=cuda).manual_seed(0)
 
@@ -98,10 +78,33 @@ def _block_operands(cuda, G, T, D, F):
     )
 
 
-@pytest.mark.parametrize("G,T,D,F", [(2, 77, 128, 256), (2, 1000, 768, 3072), (1, 300, 96, 208)])
+# G in {1, 3} (the MM-3 query's groups); T = 1, 77, 300 and 6,304 rows (a
+# multiple of no tile); D = 96 and F = 208 are multiples of none of the 192-
+# and 256-column tiles or the 64-value (bf16) and 128-value (int8) k-tiles
+BLOCK_SHAPES = [(300, 128, 512), (1, 128, 512), (77, 96, 208), (6304, 768, 3072)]
+
+
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("T,D,F", BLOCK_SHAPES)
+def test_block_kernels(cuda, G, T, D, F):
+    """The bf16 kernels #3 (fused_ln_qkv) and #5 (fused_out_mlp)."""
+    d = _block_operands(cuda, G, T, D, F)
+    qkv = fb.fused_ln_qkv(d["x"], d["lns"], d["lnb"], d["wqkv"], d["bqkv"])
+    args = (d["attn"], d["x"], d["wo"], d["bo"], d["lns"], d["lnb"], d["w1"], d["b1"], d["w2"],
+            d["b2"])
+    out = fb.fused_out_mlp(*args)
+    torch.cuda.synchronize()
+    assert qkv.shape == (G, T, 3 * D) and out.shape == (G, T, D) and out.dtype == torch.bfloat16
+    assert _rel(qkv, fb.ln_qkv_plain(d["x"], d["lns"], d["lnb"], d["wqkv"], d["bqkv"])) < 1e-2
+    assert _rel(out, fb.out_mlp_plain(*args)) < 1e-2
+
+
+@pytest.mark.parametrize("G,T,D,F", [(2, 77, 128, 256), (2, 1000, 768, 3072), (1, 300, 96, 208),
+                                     (3, 1, 96, 208), (3, 77, 96, 208), (1, 6304, 768, 3072),
+                                     (3, 6304, 768, 3072)])
 def test_int8_block_kernels(cuda, G, T, D, F):
-    """T not a multiple of the 128-row tile; D = 96 and F = 208 not multiples
-    of the 128-column tile or the 64-byte k-tile."""
+    """#4, #6 and #7.  T not a multiple of the 128-row tile; D = 96 and F =
+    208 not multiples of the column tiles or the k-tiles."""
     d = _block_operands(cuda, G, T, D, F)
     q = {k: fb.quantize_weight(d[k]) for k in ("wqkv", "wo", "w1", "w2")}
     common = (d["lns"], d["lnb"], *q["w1"], d["b1"], *q["w2"], d["b2"])
@@ -118,6 +121,115 @@ def test_int8_block_kernels(cuda, G, T, D, F):
         assert got.dtype == torch.bfloat16 and got.shape == want.shape, name
         assert _rel(got, want) < 1e-2, name
         assert (got.float() - want.float()).abs().max().item() < 0.1, name
+
+
+def _ptrs(*tensors):
+    return [t.data_ptr() for t in tensors]
+
+
+def _injection(rows, cols, seed):
+    """rows distinct columns out of cols (rows <= cols), one per row."""
+    return torch.randperm(cols, generator=torch.Generator().manual_seed(seed))[:rows]
+
+
+@pytest.mark.parametrize("G,T,D", [(1, 300, 256), (3, 77, 96)])
+def test_out_proj_known_values(cuda, G, T, D):
+    """The f32 residual epilogue's layout with an exact answer: wo is a
+    permutation matrix, so attn @ wo moves each value to one column and
+    x2 = x + (attn[..., inv] + bo) in f32 bit for bit; a wrongly swizzled
+    sub-tile or residual read moves values."""
+    import ctypes
+
+    from prcv2025reid_tpu_torch.ops import _kernels
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    attn = (torch.randn(G, T, D, generator=g, device=cuda) * 4).bfloat16()
+    x = torch.randn(G, T, D, generator=g, device=cuda).bfloat16()
+    bo = torch.randn(G, D, generator=g, device=cuda)
+    perm = _injection(D, D, 9).to(cuda)
+    wo = torch.zeros(G, D, D, device=cuda, dtype=torch.bfloat16)
+    wo[:, torch.arange(D, device=cuda), perm] = 1
+    x2 = torch.full((G, T, D), float("nan"), device=cuda)
+    c = _kernels.lib("fused_block").out_proj
+    c.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    c.restype = ctypes.c_int
+    _kernels.check(c(*_ptrs(attn, x, wo, bo, x2), G, T, D, _kernels.stream_ptr(x)), "out_proj")
+    torch.cuda.synchronize()
+    moved = torch.empty_like(attn)
+    moved[..., perm] = attn
+    assert torch.equal(x2, x.float() + (moved.float() + bo[:, None]))
+
+
+@pytest.mark.parametrize("G,T,D,F", [(1, 300, 128, 512), (3, 77, 96, 208)])
+def test_fused_out_mlp_known_values(cuda, G, T, D, F):
+    """#5 with wo a permutation and w1 = b1 = 0 (so h = GELU(0) = 0 and the
+    MLP adds b2): out = bf16(x2 + b2) with x2 = x + (attn P + bo), exactly
+    the plain version's bits; checks x2's sub-tiles and fc2's residual read."""
+    d = _block_operands(cuda, G, T, D, F)
+    perm = _injection(D, D, 10).to(cuda)
+    wo = torch.zeros(G, D, D, device=cuda, dtype=torch.bfloat16)
+    wo[:, torch.arange(D, device=cuda), perm] = 1
+    args = (d["attn"], d["x"], wo, d["bo"], d["lns"], d["lnb"], torch.zeros_like(d["w1"]),
+            torch.zeros_like(d["b1"]), d["w2"], d["b2"])
+    out = fb.fused_out_mlp(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, fb.out_mlp_plain(*args))
+
+
+@pytest.mark.parametrize("G,T,D,F", [(1, 300, 128, 512), (3, 77, 96, 208)])
+def test_int8_mlp_tail_known_values(cuda, G, T, D, F):
+    """The int8 tail's two epilogues with exact answers.  w1q and w2q map
+    each input column to one output column (weight 1), so every int32
+    accumulator is one int8 value: from the kernel's own yq, ys, hq and hs,
+    h = GELU(dq + b1) (the GELU's approximate units aside), each row's max
+    |h| bit for bit, hq / hs = quant_rows(h) and out = bf16((x2 + dq) + b2)
+    bit for bit.  A wrongly swizzled f32 sub-tile, bf16 tile or residual
+    read moves values."""
+    import ctypes
+
+    from prcv2025reid_tpu_torch.ops import _kernels
+    from prcv2025reid_tpu_torch.ops.kernel_math import gelu_exact
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=cuda)
+
+    x2 = r(G, T, D) * 2
+    lns, lnb = 1 + 0.1 * r(D), 0.1 * r(D)
+    sel1, sel2 = _injection(D, F, 12).to(cuda), _injection(D, F, 13).to(cuda)
+    w1q = torch.zeros(G, F, D, device=cuda, dtype=torch.int8)  # [N, K] storage
+    w1q[:, sel1, torch.arange(D, device=cuda)] = 1
+    w2q = torch.zeros(G, D, F, device=cuda, dtype=torch.int8)
+    w2q[:, torch.arange(D, device=cuda), sel2] = 1
+    w1s, w2s = 0.5 + torch.rand(G, F, generator=g, device=cuda), 0.5 + torch.rand(
+        G, D, generator=g, device=cuda)
+    b1, b2 = 0.1 * r(G, F), 0.1 * r(G, D)
+    yq = torch.empty(G, T, D, dtype=torch.int8, device=cuda)
+    ys = torch.empty(G, T, device=cuda)
+    h = torch.full((G, T, F), float("nan"), device=cuda)
+    hmax = torch.empty(G, T, dtype=torch.int32, device=cuda)
+    hq = torch.empty(G, T, F, dtype=torch.int8, device=cuda)
+    hs = torch.empty(G, T, device=cuda)
+    out = torch.empty(G, T, D, dtype=torch.bfloat16, device=cuda)
+    c = _kernels.lib("fused_block_int8").mlp_int8
+    c.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    c.restype = ctypes.c_int
+    rc = c(*_ptrs(x2, lns, lnb, w1q, w1s, b1, w2q, w2s, b2, yq, ys, h, hmax, hq, hs, out),
+           G, T, D, F, fb.LN_EPS, _kernels.stream_ptr(x2))
+    _kernels.check(rc, "mlp_int8")
+    torch.cuda.synchronize()
+    acc1 = torch.zeros(G, T, F, dtype=torch.int32, device=cuda)
+    acc1[..., sel1] = yq.int()
+    want_h = gelu_exact((acc1.float() * ys[..., None]) * w1s[:, None] + b1[:, None])
+    torch.testing.assert_close(h, want_h, rtol=1e-5, atol=1e-6)
+    assert torch.equal(hmax.view(torch.float32), h.abs().amax(dim=-1))
+    # on the CPU: PyTorch's CUDA division by a scalar multiplies by its
+    # reciprocal, one ulp off the kernel's (and JAX's) IEEE division
+    want_hq, want_hs = fb.quant_rows(h.cpu())
+    assert torch.equal(hq.cpu(), want_hq) and torch.equal(hs.cpu(), want_hs[..., 0])
+    o = (hq[..., sel2].float() * hs[..., None]) * w2s[:, None]
+    assert torch.equal(out, ((x2 + o) + b2[:, None]).bfloat16())
 
 
 def test_int8_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -41,31 +41,39 @@ def assert_int8_close(got, want):
     np.testing.assert_allclose(got, want, rtol=0, atol=FLIP_ATOL)
 
 
-@pytest.fixture(scope="module")
-def data():
-    rng = np.random.default_rng(0)
+def _make_data(g, t, seed=0):
+    rng = np.random.default_rng(seed)
 
     def r(shape, scale=1.0):
         return (rng.normal(size=shape) * scale).astype(np.float32)
 
     return dict(
-        x=r((G, T, D)), attn=r((G, T, D)),
+        x=r((g, t, D)), attn=r((g, t, D)),
         lns=1.0 + 0.1 * r((D,)), lnb=0.1 * r((D,)),
-        wqkv=r((G, D, 3 * D), 0.1), bqkv=0.1 * r((G, 3 * D)),
-        wo=r((G, D, D), 0.1), bo=0.1 * r((G, D)),
-        w1=r((G, D, F), 0.1), b1=0.1 * r((G, F)),
-        w2=r((G, F, D), 0.1), b2=0.1 * r((G, D)),
+        wqkv=r((g, D, 3 * D), 0.1), bqkv=0.1 * r((g, 3 * D)),
+        wo=r((g, D, D), 0.1), bo=0.1 * r((g, D)),
+        w1=r((g, D, F), 0.1), b1=0.1 * r((g, F)),
+        w2=r((g, F, D), 0.1), b2=0.1 * r((g, D)),
     )
 
 
-@pytest.fixture(scope="module")
-def quantized(data):
+def _quantize(data):
     """JAX's quantize_weight of each weight, as (JAX pair, port pair)."""
     out = {}
     for k in ("wqkv", "wo", "w1", "w2"):
         q, s = jfb.quantize_weight(jnp.asarray(data[k]))
         out[k] = ((q, s), (torch.from_numpy(np.array(q)), _t(s)))
     return out
+
+
+@pytest.fixture(scope="module")
+def data():
+    return _make_data(G, T)
+
+
+@pytest.fixture(scope="module")
+def quantized(data):
+    return _quantize(data)
 
 
 @pytest.mark.parametrize("shape", [(64, 192), (3, 128, 64), (2, 768, 40)])
@@ -118,8 +126,17 @@ def test_ln_qkv_int8_plain_matches_pallas(data, quantized):
     torch.testing.assert_close(via, got, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("quant", ["int8", "int8_mlp"])
-def test_out_mlp_int8_plain_matches_pallas(quant, data, quantized):
+@pytest.mark.parametrize("quant,groups", [
+    pytest.param("int8", None, id="int8"),
+    pytest.param("int8_mlp", None, id="int8_mlp"),
+    # three groups (the MM-3 query combo) of 37 rows: a multiple of neither
+    # the JAX kernel's 32-row block nor the card kernels' tiles
+    pytest.param("int8_mlp", (3, 37), id="int8_mlp-G3-T37"),
+])
+def test_out_mlp_int8_plain_matches_pallas(quant, groups, data, quantized):
+    if groups is not None:
+        data = _make_data(*groups, seed=7)
+        quantized = _quantize(data)
     d = {k: jnp.asarray(v) for k, v in data.items()}
     wo_j = quantized["wo"][0] if quant == "int8" else d["wo"]
     want = jfb.fused_out_mlp(d["attn"], d["x"], wo_j, d["bo"], d["lns"], d["lnb"],

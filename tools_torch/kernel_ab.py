@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
-"""Time two versions of the port's attention, tiled matmul (bf16 and int8)
-and fused MLP kernels on one card, in turns, on the same inputs; and
-diagnostic variants of the attention kernel.
+"""Time two versions of the port's attention, tiled matmul (bf16 and int8),
+fused MLP and out-projection + MLP block kernels on one card, in turns, on
+the same inputs; and diagnostic variants of the attention kernel.
 
     python3 tools_torch/kernel_ab.py --other DIR [--runs 25]
     python3 tools_torch/kernel_ab.py --diagnostics [--runs 25]
 
 DIR is another checkout of the repository, e.g. a parent commit unpacked
 into the git-ignored ``_cmp/`` (``git archive REV | tar -x -C _cmp/parent``).
-Its ``csrc/attention.cu``, ``csrc/matmul.cu`` and ``csrc/fused_mlp.cu`` are
-built with this tree's nvcc flags into ``DIR/prcv2025reid_tpu_torch/_build/``
-and called through their C entry points ``attn_fwd``, ``matmul_bf16``,
-``matmul_int8`` and ``mlp`` beside this tree's kernels (``mlp`` takes the
-hidden buffer h where the source's entry names it, as this tree's does):
+Its ``csrc/{attention,matmul,fused_mlp,fused_block,fused_block_int8}.cu``
+are built with this tree's nvcc flags into
+``DIR/prcv2025reid_tpu_torch/_build/`` and called through their C entry
+points beside this tree's kernels (``mlp`` takes the hidden buffer h where
+the source's entry names it, as this tree's does; ``out_mlp``'s LN scratch,
+row statistics or the normalised rows, gets a buffer large enough for
+either):
 
   - attention (``fused_mha``) at the gallery embed's shape, B = 128 images,
     H = 12, S = 197, Dh = 64, on views of one [B, S, 3, H, Dh] projection,
@@ -20,14 +22,22 @@ hidden buffer h where the source's entry names it, as this tree's does):
   - the microbenchmark's tiled matmul, x [25,344, 768] @ w [768, 3072], in
     bf16 and in int8 (w stored K-major), for every block_rows;
   - the fused MLP (``fused_mlp``) at the gallery embed's G = 1, N = 25,216
-    and the MM-3 query's G = 3, N = 6,304 (D = 768, F = 3072).
+    and the MM-3 query's G = 3, N = 6,304 (D = 768, F = 3072);
+  - at the same two shapes, the out-projection + MLP block kernels: #5
+    ``out_mlp`` (bf16), #7 ``out_proj`` + ``mlp_int8`` (bf16 out-projection,
+    int8 MLP) and #6 ``out_mlp_int8`` (all int8, weights quantized as the
+    model does), and ``mlp_int8`` alone on one x2 computed by this tree (its
+    max-abs difference says whether the int8 tail gives the other tree's
+    bits on the same x2).
 
 Each kernel runs in the order other, this, this, other; each reading is the
 median device time of --runs launches (CUDA events, queued behind a spin
 kernel so that the host's dispatch is not timed).  SDPA, cuBLAS (for the
-MLP: its two bare products) and ``torch._int_mm`` are timed beside them as
-yardsticks.  Prints one JSON line per kernel (both versions'
-two readings, the max-abs difference of their outputs) and the card's name
+MLP: its two bare products; for the block kernels their three) and
+``torch._int_mm`` are timed beside them as yardsticks.  Prints one JSON line
+per kernel (both versions' two readings, the max-abs difference of their
+outputs), then for each block kernel this tree's launches from
+torch.profiler (device time per launch, by kernel name), and the card's name
 and power limit.  Exits 1 without a CUDA device.
 
 --diagnostics builds variants of this tree's csrc/attention.cu, each with
@@ -57,13 +67,14 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from prcv2025reid_tpu_torch.ops import _kernels  # noqa: E402
+from prcv2025reid_tpu_torch.ops import fused_block as fb  # noqa: E402
 from prcv2025reid_tpu_torch.ops.matmul import BLOCK_ROWS  # noqa: E402
 
 SPIN_CYCLES = 20_000_000  # ~10 ms at the H100's clock: the host enqueues the runs meanwhile
 WARMUP_RUNS = 3
 
 
-AB_SOURCES = ("attention", "matmul", "fused_mlp")
+AB_SOURCES = ("attention", "matmul", "fused_mlp", "fused_block", "fused_block_int8")
 
 
 def takes_h(csrc: Path) -> bool:
@@ -73,7 +84,7 @@ def takes_h(csrc: Path) -> bool:
 
 
 def build_other(other: Path) -> dict:
-    """Build DIR's attention, matmul and fused MLP sources with this tree's flags."""
+    """Build DIR's sources in AB_SOURCES with this tree's flags."""
     csrc = other / "prcv2025reid_tpu_torch" / "csrc"
     out_dir = other / "prcv2025reid_tpu_torch" / "_build"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -185,6 +196,128 @@ def mlp_call(libs, x, w1, b1, w2, b2):
     return out
 
 
+def _c(fn, n_ptr, n_int):
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_float,
+                                                                         ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _ptrs(*tensors):
+    return [t.data_ptr() for t in tensors]
+
+
+class Block:
+    """Operands and scratch of the out-projection + MLP block kernels at
+    G groups of T rows (D = 768, F = 3072), with each C entry's call."""
+
+    D, F = 768, 3072
+
+    def __init__(self, G, T, randn):
+        D, F, dev = self.D, self.F, torch.device("cuda")
+        self.dims = (G, T, D, F)
+        self.attn, self.x = randn(G, T, D), randn(G, T, D)
+        self.wo, self.w1 = randn(G, D, D, scale=D**-0.5), randn(G, D, F, scale=D**-0.5)
+        self.w2 = randn(G, F, D, scale=F**-0.5)
+        self.bo, self.b1, self.b2 = (randn(G, n, scale=0.1).float() for n in (D, F, D))
+        self.lns, self.lnb = 1 + randn(D, scale=0.1).float(), randn(D, scale=0.1).float()
+        self.woq, self.w1q, self.w2q = (fb.quantize_weight(w) for w in (self.wo, self.w1, self.w2))
+
+        def empty(*shape, dt=torch.float32):
+            return torch.empty(*shape, dtype=dt, device=dev)
+
+        self.x2, self.ln_scratch, self.h16 = empty(G, T, D), empty(G, T, D, dt=torch.bfloat16), \
+            empty(G, T, F, dt=torch.bfloat16)
+        self.aq, self.as_ = empty(G, T, D, dt=torch.int8), empty(G, T)
+        self.tail = [empty(G, T, D, dt=torch.int8), empty(G, T), empty(G, T, F),
+                     empty(G, T, dt=torch.int32), empty(G, T, F, dt=torch.int8), empty(G, T)]
+
+    def stream(self):
+        return _kernels.stream_ptr(self.x)
+
+    def out_mlp(self, libs):
+        """#5: attn, x -> bf16 out through ``out_mlp``."""
+        out = torch.empty_like(self.x)
+        rc = _c(libs["fused_block"].out_mlp, 14, 4)(
+            *_ptrs(self.attn, self.x, self.wo, self.bo, self.lns, self.lnb, self.w1, self.b1,
+                   self.w2, self.b2, self.x2, self.ln_scratch, self.h16, out), *self.dims,
+            fb.LN_EPS, self.stream())
+        _kernels.check(rc, "out_mlp")
+        return out
+
+    def out_proj(self, libs, x2):
+        G, T, D, _ = self.dims
+        fn = libs["fused_block"].out_proj
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _kernels.check(fn(*_ptrs(self.attn, self.x, self.wo, self.bo, x2), G, T, D,
+                          self.stream()), "out_proj")
+
+    def mlp_int8(self, libs, x2):
+        """The int8 tail on a given x2."""
+        out = torch.empty_like(self.x)
+        rc = _c(libs["fused_block_int8"].mlp_int8, 16, 4)(
+            *_ptrs(x2, self.lns, self.lnb, *self.w1q, self.b1, *self.w2q, self.b2, *self.tail,
+                   out), *self.dims, fb.LN_EPS, self.stream())
+        _kernels.check(rc, "mlp_int8")
+        return out
+
+    def out_mlp_int8mlp(self, libs):
+        """#7: the bf16 out-projection, then the int8 tail."""
+        self.out_proj(libs, self.x2)
+        return self.mlp_int8(libs, self.x2)
+
+    def out_mlp_int8(self, libs):
+        """#6: all three products int8 through ``out_mlp_int8``."""
+        out = torch.empty_like(self.x)
+        rc = _c(libs["fused_block_int8"].out_mlp_int8, 23, 4)(
+            *_ptrs(self.attn, self.x, *self.woq, self.bo, self.aq, self.as_, self.x2, self.lns,
+                   self.lnb, *self.w1q, self.b1, *self.w2q, self.b2, *self.tail, out),
+            *self.dims, fb.LN_EPS, self.stream())
+        _kernels.check(rc, "out_mlp_int8")
+        return out
+
+    def cublas(self):
+        """The three bare bf16 products."""
+        torch.bmm(self.attn, self.wo, out=self.ln_scratch)
+        torch.bmm(self.ln_scratch, self.w1, out=self.h16)
+        return torch.bmm(self.h16, self.w2)
+
+    def int_mm(self, bf16_out_proj):
+        """The bare int8 products (per group), after cuBLAS's bf16
+        out-projection where ``bf16_out_proj``."""
+        if bf16_out_proj:
+            torch.bmm(self.attn, self.wo, out=self.ln_scratch)
+        yq, hq = self.aq, self.tail[4]
+        for g in range(self.dims[0]):
+            if not bf16_out_proj:
+                torch._int_mm(yq[g], self.woq[0][g])
+            torch._int_mm(yq[g], self.w1q[0][g])
+            torch._int_mm(hq[g], self.w2q[0][g])
+
+
+def profile_launches(fn, calls=5):
+    """This tree's kernel launches of ``fn`` by name: [name, launches per
+    call, device microseconds per launch]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        t = e.self_cuda_time_total if t is None else t
+        if t > 0:
+            rows.append([e.key[:120], e.count / calls, round(t / e.count, 2)])
+    return rows
+
+
 def time_ms(fn, runs):
     for _ in range(WARMUP_RUNS):
         fn()
@@ -270,15 +403,36 @@ def main() -> int:
         cases.append((f"fused_mlp G={G} N={N} D=768 F=3072",
                       lambda lib, a=(mx, w1, b1, w2, b2): mlp_call(lib, *a), cublas,
                       "cuBLAS_fc1_fc2"))
+    profiled = []
+    for G, N in ((1, 128 * 197), (3, 32 * 197)):
+        blk = Block(G, N, randn)
+        blk.out_proj(this, blk.x2)
+        x2 = blk.x2.clone()  # one x2 for both trees' int8 tail
+        shape = f"G={G} T={N} D=768 F=3072"
+        for label, run, library, library_name in (
+                (f"#5 out_mlp {shape}", blk.out_mlp, blk.cublas, "cuBLAS_3_products"),
+                (f"#7 out_proj+mlp_int8 {shape}", blk.out_mlp_int8mlp,
+                 lambda b=blk: b.int_mm(True), "cuBLAS_out_int_mm_fc1_fc2"),
+                (f"#6 out_mlp_int8 {shape}", blk.out_mlp_int8, lambda b=blk: b.int_mm(False),
+                 "int_mm_3_products"),
+                (f"mlp_int8 (#7's tail, one x2) {shape}",
+                 lambda lib, b=blk, x2=x2: b.mlp_int8(lib, x2), None, None)):
+            cases.append((label, run, library, library_name))
+            profiled.append((label, run))
     for label, run, library, library_name in cases:
         diff = (run(other).float() - run(this).float()).abs().max().item()
         ms = {"other": [], "this": []}
         for who in ("other", "this", "this", "other"):
             ms[who].append(time_ms(lambda who=who: run(other if who == "other" else this),
                                    args.runs))
-        print(json.dumps({"kernel": label, "other_ms": ms["other"], "this_ms": ms["this"],
-                          library_name + "_ms": time_ms(library, args.runs),
-                          "max_abs_diff": diff, "card": card}))
+        line = {"kernel": label, "other_ms": ms["other"], "this_ms": ms["this"],
+                "max_abs_diff": diff, "card": card}
+        if library is not None:
+            line[library_name + "_ms"] = time_ms(library, args.runs)
+        print(json.dumps(line))
+    for label, run in profiled:
+        print(json.dumps({"kernel": label, "this_launches": profile_launches(
+            lambda run=run: run(this)), "card": card}))
     print(f"card: {card}")
     return 0
 
