@@ -9,22 +9,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      (one nvcc per source, in parallel), print ptxas' resource report and
      count the Hopper instructions in the SASS of each kernel on the GEMM
      core (cuobjdump): the tiled matmul's bf16 and int8 kernels, the fused
-     MLP's two, the three of the bf16 out-projection + MLP block kernel
-     (out-projection with the f32 residual, fc1, fc2 with the residual) and
-     the int8 MLP tail's two (fc1 with the GELU and row max, fc2 with the
-     residual), failing unless each library holds its expected number of
-     them and each has warpgroup MMAs (HGMMA for bf16; the integer wgmma's
-     mnemonic is read from the int8 kernels' dump and printed), TMA loads
-     (UTMALDG) and TMA stores (UTMASTG);
+     MLP's two, the bf16 block kernels' four (the LN1 + QKV GEMM with its
+     bias; the out-projection with the f32 residual, fc1, fc2 with the
+     residual) and the int8 block kernels' three (the QKV GEMM with its
+     dequantizing bias epilogue; the MLP tail's fc1 with the GELU and row
+     max, fc2 with the residual), failing unless each library holds its
+     expected number of them and each has warpgroup MMAs (HGMMA for bf16;
+     the integer wgmma's mnemonic is read from the int8 kernels' dump and
+     printed), TMA loads (UTMALDG) and TMA stores (UTMASTG), and if the bf16
+     block kernels' library holds any mma.sync (HMMA);
   3. hold each kernel against its plain PyTorch version at the gallery-embed
      shapes (B=128 images of 197 tokens, ViT-B/16 widths) on the same bf16
      inputs: relative Frobenius error <= REL_TOL and max-abs error <= ABS_TOL
      (the int8 kernels: INT8_REL_TOL, INT8_ABS_TOL, for rounding flips);
      attention also with causal=True, with kernel_version=1 and at the text
-     tower's causal shape (128 captions, S = 77, H = 8), the fused MLP and
-     the three out-projection + MLP block kernels (bf16, int8, mixed) also
-     with G=3 groups of 32 images (the MM-3 query: 6,304 rows a group, not a
-     multiple of any tile);
+     tower's causal shape (128 captions, S = 77, H = 8), the fused MLP, the
+     two LN1 + QKV block kernels (bf16, int8) and the three out-projection +
+     MLP block kernels (bf16, int8, mixed) also with G=3 groups of 32 images
+     (the MM-3 query: 6,304 rows a group, not a multiple of any tile);
      the three int8 block kernels on weights quantized as the model does
      (quantize_weight) and the splash core on [B, S, H, Dh] views of one QKV
      projection; the microbenchmark's tiled matmul in both modes at its
@@ -216,11 +218,17 @@ def main() -> int:
         fail("cuobjdump not found: the SASS check of the GEMM core's kernels needs it")
     for lib_name, kinds, n_core in (("matmul", ("Bf16Op", "S8Op"), 6),
                                     ("fused_mlp", ("Bf16Op",), 2),
-                                    ("fused_block", ("Bf16Op",), 3),
-                                    ("fused_block_int8", ("S8Op",), 2)):
+                                    ("fused_block", ("Bf16Op",), 4),
+                                    ("fused_block_int8", ("S8Op",), 3)):
         so = _kernels.lib(lib_name)._name
         sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True,
                               timeout=120).stdout
+        # the bf16 block kernels run every product on the wgmma core: no mma.sync
+        hmma = len(re.findall(r"\bHMMA\b", sass))
+        if lib_name == "fused_block":
+            print(f"sass {lib_name}: {hmma} HMMA (mma.sync) instructions")
+            if hmma:
+                fail(f"lib{lib_name}: {hmma} HMMA (mma.sync) instructions in its SASS, expected 0")
         on_core = [sec for sec in sass.split("Function : ")[1:]
                    if any(k in sec.split(None, 1)[0] for k in kinds)]
         if len(on_core) != n_core:
@@ -265,16 +273,22 @@ def main() -> int:
 
     x = randn(1, T, D).bfloat16()
     attn = randn(1, T, D).bfloat16()
+    G3, N3 = len(MM3_QUERY), 32 * S  # the MM-3 query batch: 6,304 rows per group
     lns, lnb = 1 + 0.1 * randn(D), 0.1 * randn(D)
     wqkv, bqkv = randn(1, D, 3 * D, scale=D**-0.5).bfloat16(), 0.1 * randn(1, 3 * D)
     wo, bo = randn(1, D, D, scale=D**-0.5).bfloat16(), 0.1 * randn(1, D)
     w1, b1 = randn(1, D, F, scale=D**-0.5).bfloat16(), 0.1 * randn(1, F)
     w2, b2 = randn(1, F, D, scale=F**-0.5).bfloat16(), 0.1 * randn(1, D)
     qkv_args = (x, lns, lnb, wqkv, bqkv)
+    # the LN1 + QKV block kernels on the MM-3 query's three groups, from a
+    # generator of their own (the other inputs stay as they were)
+    gen3 = torch.Generator(device=dev).manual_seed(3)
+    wqkv3 = (torch.randn(G3, D, 3 * D, generator=gen3, device=dev) * D**-0.5).bfloat16()
+    qkv3_args = (torch.randn(G3, N3, D, generator=gen3, device=dev).bfloat16(), lns, lnb, wqkv3,
+                 0.1 * torch.randn(G3, 3 * D, generator=gen3, device=dev))
     mlp_args = (attn, x, wo, bo, lns, lnb, w1, b1, w2, b2)
     # the fused MLP takes bf16 biases (the model casts them to the compute dtype)
     fmlp_args = (x, w1, b1.bfloat16(), w2, b2.bfloat16())
-    G3, N3 = len(MM3_QUERY), 32 * S  # the MM-3 query batch: 6,304 rows per group
     fmlp3_args = (randn(G3, N3, D).bfloat16(), randn(G3, D, F, scale=D**-0.5).bfloat16(),
                   (0.1 * randn(G3, F)).bfloat16(), randn(G3, F, D, scale=F**-0.5).bfloat16(),
                   (0.1 * randn(G3, D)).bfloat16())
@@ -282,6 +296,7 @@ def main() -> int:
     # the int8 plans: the weights quantized as MERBlock does, on the card
     q_wqkv, q_wo, q_w1, q_w2 = (fb.quantize_weight(w) for w in (wqkv, wo, w1, w2))
     qkv8_args = (x, lns, lnb, *q_wqkv, bqkv)
+    qkv8_3_args = (*qkv3_args[:3], *fb.quantize_weight(wqkv3), qkv3_args[4])
     mlp8_args = (attn, x, *q_wo, bo, lns, lnb, *q_w1, b1, *q_w2, b2)
     mlp8m_args = (attn, x, wo, bo, lns, lnb, *q_w1, b1, *q_w2, b2)
     # the out-projection + MLP block kernels on the MM-3 query's three groups
@@ -298,6 +313,7 @@ def main() -> int:
     block_checks = {}
     for name, kern, plain, args in (
         ("fused_ln_qkv", fb.fused_ln_qkv, fb.ln_qkv_plain, qkv_args),
+        ("fused_ln_qkv G=3", fb.fused_ln_qkv, fb.ln_qkv_plain, qkv3_args),
         ("fused_out_mlp", fb.fused_out_mlp, fb.out_mlp_plain, mlp_args),
         ("fused_out_mlp G=3", fb.fused_out_mlp, fb.out_mlp_plain, mlp3_args),
         ("fused_mlp", fused_mlp, mlp_plain, fmlp_args),
@@ -307,6 +323,7 @@ def main() -> int:
         ("fused_residual_ln y", lambda *a: fused_residual_ln(*a)[1],
          lambda *a: resln_plain(*a)[1], resln_args),
         ("fused_ln_qkv_int8", fb.fused_ln_qkv_int8, fb.ln_qkv_int8_plain, qkv8_args),
+        ("fused_ln_qkv_int8 G=3", fb.fused_ln_qkv_int8, fb.ln_qkv_int8_plain, qkv8_3_args),
         ("fused_out_mlp_int8", fb.fused_out_mlp_int8, fb.out_mlp_int8_plain, mlp8_args),
         ("fused_out_mlp_int8mlp", fb.fused_out_mlp_int8mlp, fb.out_mlp_int8mlp_plain,
          mlp8m_args),
@@ -543,7 +560,7 @@ def main() -> int:
         name="fused_ln_qkv", route="cuda", source="prcv2025reid_tpu_torch/csrc/fused_block.cu",
         replaces="prcv2025reid_tpu/ops/fused_block.py:97",
         launches=launches["fused"]["fused_ln_qkv"],
-        max_abs_err=block_checks["fused_ln_qkv"][0],
+        max_abs_err=max(block_checks["fused_ln_qkv"][0], block_checks["fused_ln_qkv G=3"][0]),
         ms=time_ms(torch, lambda: fb.fused_ln_qkv(*qkv_args)),
         plain_ms=time_ms(torch, lambda: fb.ln_qkv_plain(*qkv_args)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -592,7 +609,8 @@ def main() -> int:
         source="prcv2025reid_tpu_torch/csrc/fused_block_int8.cu",
         replaces="prcv2025reid_tpu/ops/fused_block.py:103",
         launches=launches["fused_int8"]["fused_ln_qkv_int8"],
-        max_abs_err=block_checks["fused_ln_qkv_int8"][0],
+        max_abs_err=max(block_checks["fused_ln_qkv_int8"][0],
+                        block_checks["fused_ln_qkv_int8 G=3"][0]),
         ms=time_ms(torch, lambda: fb.fused_ln_qkv_int8(*qkv8_args)),
         plain_ms=time_ms(torch, lambda: fb.ln_qkv_int8_plain(*qkv8_args), runs=20),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,

@@ -1,8 +1,8 @@
 // The three int8 block kernels of the folded (eval/serving) transformer block:
 // row passes, int8 tensor-core GEMMs (s8 x s8 -> exact s32 accumulators) with
 // fused epilogues, on two cores: the persistent s8 wgmma + TMA core of
-// hopper_gemm.cuh for the MLP tail, and an mma.sync m16n8k32 core for the
-// LN1+QKV GEMM and the all-int8 out-projection.
+// hopper_gemm.cuh for the LN1+QKV GEMM and the MLP tail, and an mma.sync
+// m16n8k32 core for the all-int8 out-projection.
 //
 // Replaces: prcv2025reid_tpu/ops/fused_block.py::_ln_qkv_kernel_int8
 // (fused_ln_qkv, quant="int8"), ::_out_mlp_kernel_int8 (fused_out_mlp,
@@ -19,9 +19,10 @@
 // memory, so the work is split at each point where a whole row is needed:
 //   ln_qkv_int8   = row pass (LN1 in f32, one warp per row held in registers,
 //                   then the row's max |y| and y / s rounded half to even ->
-//                   int8 [T, D] and s [T]), then the mma.sync int8 GEMM
-//                   against the K-major weights, epilogue
-//                   bf16(((acc * s_row) * ws_col) + b).
+//                   int8 [T, D] and s [T]), then the QKV GEMM on the s8
+//                   core against the K-major weights (128 x 192 tiles, 2%
+//                   faster than 128 x 256),
+//                   epilogue bf16((dq(acc) = (acc * s_row) * ws_col) + b).
 //   mlp_int8      = the int8 MLP tail on x2 [T, D] f32, four launches and a
 //                   memset: row pass LN2 + quantize; fc1 on the s8 wgmma core
 //                   (128 x 256 tiles), epilogue h = GELU(dq(acc) + b1) in f32
@@ -46,11 +47,12 @@
 // approximate reciprocal and exponential, by a few f32 ulps, which flips an
 // int8 rounding only where a value lies within those ulps of a half step.
 //
-// The mma.sync core: 128x128 block tiles, 64-byte k-tiles (two k32 mma
-// steps), 8 warps of 64x32, a 4-stage cp.async pipeline.  Both operands are
-// K-major (A [M, K] row-major, W [N, K]), so both load with the non-transposed
-// ldmatrix .b16 (there is no 8-bit ldmatrix.trans on sm_90): every lane gets
-// the four consecutive k bytes of the m16n8k32 fragment.
+// The mma.sync core (out_mlp_int8's out-projection only): 128x128 block
+// tiles, 64-byte k-tiles (two k32 mma steps), 8 warps of 64x32, a 4-stage
+// cp.async pipeline.  Both operands are K-major (A [M, K] row-major, W
+// [N, K]), so both load with the non-transposed ldmatrix .b16 (there is no
+// 8-bit ldmatrix.trans on sm_90): every lane gets the four consecutive k
+// bytes of the m16n8k32 fragment.
 #include "hopper_gemm.cuh"
 
 using namespace port;
@@ -65,16 +67,14 @@ constexpr int LDS = BK + 16;  // 80-byte rows: conflict-free ldmatrix
 constexpr int SMEM_BYTES = STAGES * (BM + BN) * LDS;  // 81,920
 constexpr int ROW_MAX_K = 32 * 8 * 4;  // a row pass holds a row of <= 1024 in registers
 
-enum Epilogue { EPI_QKV = 0, EPI_RES_F32 = 1 };
-
 struct IGemmArgs {
   const int8_t* a;        // [G, M, K] int8, row-major
   const int8_t* w;        // [G, N, K] int8, K-major
   const float* s_row;     // [G, M] row scales of a
   const float* s_col;     // [G, N] column scales of w
   const float* bias;      // [G, N]
-  const bf16* res;        // [G, M, N] residual x (EPI_RES_F32)
-  void* out;              // [G, M, N]: bf16 (EPI_QKV) or f32 (EPI_RES_F32)
+  const bf16* res;        // [G, M, N] residual x
+  float* out;             // [G, M, N] f32 x2
   int M, N, K;
 };
 
@@ -92,8 +92,8 @@ __device__ __forceinline__ uint32_t quant4(float a, float b, float c, float d, f
 }
 
 // One warp per row: (LN in f32: the mean, then the mean squared deviation,
-// ((v - mu) * rstd) * s + b, as row_stats_kernel and the GEMM prologue of
-// fused_block.cu compute it), then the row's int8 quantization.
+// ((v - mu) * rstd) * s + b, as the row passes of fused_block.cu compute
+// it), then the row's int8 quantization.
 template <typename AT, bool LN>
 __global__ void __launch_bounds__(256) row_quant_kernel(
     const AT* __restrict__ x, const float* __restrict__ ln_s, const float* __restrict__ ln_b,
@@ -191,7 +191,7 @@ __global__ void __launch_bounds__(256) quant_h_kernel(
   if (i % F == 0) s[row] = sc;
 }
 
-template <int EPI>
+// x2 = (x + dq(aq @ woq)) + bo in f32
 __global__ void __launch_bounds__(THREADS, 2) igemm_kernel(IGemmArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
   int8_t* sA = reinterpret_cast<int8_t*>(smem);
@@ -281,28 +281,22 @@ __global__ void __launch_bounds__(THREADS, 2) igemm_kernel(IGemmArgs p) {
         const long long off = (gM + row) * N + col;
         const float v0 = dequant(acc[i][j][2 * hr], sr, s_col[col]);
         const float v1 = dequant(acc[i][j][2 * hr + 1], sr, s_col[col + 1]);
-        if (EPI == EPI_QKV) {
-          *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p.out) + off) =
-              pack_bf16(__fadd_rn(v0, bias[col]), __fadd_rn(v1, bias[col + 1]));
-        } else {  // EPI_RES_F32: x2 = (x + proj) + bo
-          const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.res + off));
-          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + off) =
-              make_float2(__fadd_rn(__fadd_rn(x.x, v0), bias[col]),
-                          __fadd_rn(__fadd_rn(x.y, v1), bias[col + 1]));
-        }
+        const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.res + off));
+        *reinterpret_cast<float2*>(p.out + off) =
+            make_float2(__fadd_rn(__fadd_rn(x.x, v0), bias[col]),
+                        __fadd_rn(__fadd_rn(x.y, v1), bias[col + 1]));
       }
     }
   }
 }
 
-template <int EPI>
 cudaError_t run_igemm(const IGemmArgs& p, int G, cudaStream_t stream) {
   if (p.K % 16 != 0 || p.N % 2 != 0) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      igemm_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  cudaError_t e =
+      cudaFuncSetAttribute(igemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (e != cudaSuccess) return e;
   dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, G);
-  igemm_kernel<EPI><<<grid, THREADS, SMEM_BYTES, stream>>>(p);
+  igemm_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -341,21 +335,21 @@ cudaError_t mlp_tail(const void* x2, const void* ln_s, const void* ln_b, const v
 // qkv[g] = bf16(((quant(LN(x[g])) @ wq[g]) * s_row * ws[g]) + b[g]).  x [G,T,D]
 // bf16; ln_s/ln_b [D] f32; wq [G,O,D] int8 (K-major); ws, b [G,O] f32; out
 // [G,T,O] bf16; yq [G,T,D] int8 and ys [G*T] f32 are caller-allocated scratch.
-// Two launches: the LN1 + quantize row pass, then the int8 GEMM.
+// D % 16 == 0, D <= 1024, O % 8 == 0 (16-byte TMA strides).  Two launches:
+// the LN1 + quantize row pass, then the s8 GEMM.
 extern "C" int ln_qkv_int8(const void* x, const void* ln_s, const void* ln_b, const void* wq,
                            const void* ws, const void* b, void* yq, void* ys, void* out, int G,
                            int T, int D, int O, float eps, void* stream) {
+  if (G <= 0 || T <= 0 || D <= 0 || O <= 0 || O % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if ((e = run_row_quant<bf16, true>(x, ln_s, ln_b, yq, ys, G * T, D, eps, st)) != cudaSuccess)
     return e;
-  IGemmArgs p{};
-  p.a = static_cast<const int8_t*>(yq);  p.w = static_cast<const int8_t*>(wq);
-  p.s_row = static_cast<const float*>(ys);  p.s_col = static_cast<const float*>(ws);
-  p.bias = static_cast<const float*>(b);
-  p.out = out;
-  p.M = T;  p.N = O;  p.K = D;
-  return static_cast<int>(run_igemm<EPI_QKV>(p, G, st));
+  const hgemm::Params p{T, O, D, G, static_cast<const float*>(b), nullptr,
+                        static_cast<const float*>(ys), static_cast<const float*>(ws)};
+  return static_cast<int>(
+      hgemm::gemm<hgemm::S8Op, hgemm::Bf16Out<hgemm::DQ_BIAS>, 128, 192, 2, 4>(yq, wq, out, p, st));
 }
 
 // The LN2 + MLP half with fc1 and fc2 in int8, on x2 [G,T,D] f32 from the
@@ -393,9 +387,9 @@ extern "C" int out_mlp_int8(const void* attn, const void* x, const void* woq, co
   p.a = static_cast<const int8_t*>(aq);  p.w = static_cast<const int8_t*>(woq);
   p.s_row = static_cast<const float*>(as);  p.s_col = static_cast<const float*>(wos);
   p.bias = static_cast<const float*>(bo);
-  p.res = static_cast<const bf16*>(x);  p.out = x2;
+  p.res = static_cast<const bf16*>(x);  p.out = static_cast<float*>(x2);
   p.M = T;  p.N = D;  p.K = D;
-  if ((e = run_igemm<EPI_RES_F32>(p, G, st)) != cudaSuccess) return e;
+  if ((e = run_igemm(p, G, st)) != cudaSuccess) return e;
   return static_cast<int>(mlp_tail(x2, ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2, yq, ys, h, hmax,
                                    hq, hs, out, G, T, D, F, eps, st));
 }

@@ -1,8 +1,7 @@
 // The port's Hopper GEMM core: a persistent, warp-specialised wgmma + TMA
 // mainloop with an epilogue parameter, shared by every GEMM of the port's
-// Hopper kernels but the LN-prologue QKV GEMMs (fused_block.cu::ln_qkv,
-// fused_block_int8.cu::ln_qkv_int8) and the int8 out-projection of
-// out_mlp_int8, which stay on mma.sync.
+// Hopper kernels but the int8 out-projection of out_mlp_int8
+// (fused_block_int8.cu::igemm_kernel), which stays on mma.sync.
 //
 //   out[g] = epilogue(A[g] [M, K] @ B[g] [K, N])   for g < G
 //
@@ -30,11 +29,13 @@
 // which wgmma consumes it.  The epilogue policy is an output layout with a
 // value function (Act) applied to each accumulator pair:
 //   Bf16Out<NONE>       the tiled matmul, bf16 (matmul.cu)
-//   Bf16Out<BIAS>       the fused MLP's fc2 (fused_mlp.cu)
+//   Bf16Out<BIAS>       the fused MLP's fc2 (fused_mlp.cu) and the bf16 QKV
+//                       GEMM (fused_block.cu::ln_qkv)
 //   Bf16Out<BIAS_GELU>  fc1 of the fused MLP and of fused_out_mlp (fused_mlp.cu,
 //                       fused_block.cu)
 //   Bf16Out<RES_X2>     fused_out_mlp's fc2: + b2 and the f32 residual x2
 //   Bf16Out<DQ_RES_X2>  the int8 fc2 of the int8 MLP tail (fused_block_int8.cu)
+//   Bf16Out<DQ_BIAS>    the int8 QKV GEMM (fused_block_int8.cu::ln_qkv_int8)
 //   S32Out              the tiled matmul, int8 -> int32 (matmul.cu)
 //   F32Out<RES_X>       the bf16 out-projection x2 = x + (acc + bo) in f32
 //                       (fused_block.cu::out_proj, used by fused_out_mlp and
@@ -153,6 +154,7 @@ enum Act {
   DQ_GELU = 5,    // GELU(dq(acc) + b), and each row's max     f32 out
   DQ_RES_X2 = 6,  // (x2 + dq(acc)) + b, x2 f32 [G, M, N]      bf16 out
   IDENT = 7,      // acc                                      int32 out
+  DQ_BIAS = 8,    // dq(acc) + b                              bf16 out
 };
 
 struct Params {
@@ -164,7 +166,9 @@ struct Params {
   unsigned int* row_max;  // [G, M] bits of each row's max |out| (DQ_GELU), zeroed by the caller
 };
 
-__host__ __device__ constexpr bool dequantizes(int act) { return act == DQ_GELU || act == DQ_RES_X2; }
+__host__ __device__ constexpr bool dequantizes(int act) {
+  return act == DQ_GELU || act == DQ_RES_X2 || act == DQ_BIAS;
+}
 
 // the f32 roundings of the TPU kernels' order, kept apart (no FMA contraction)
 __device__ __forceinline__ float dequant(int acc, float s_row, float s_col) {
@@ -207,6 +211,9 @@ __device__ __forceinline__ float2 value(Acc a0, Acc a1, const ColPair& c, float 
     return make_float2(a0 + c.b.x, a1 + c.b.y);
   } else if constexpr (ACT == BIAS_GELU) {
     return make_float2(port::gelu_as(a0 + c.b.x), port::gelu_as(a1 + c.b.y));
+  } else if constexpr (ACT == DQ_BIAS) {
+    return make_float2(__fadd_rn(dequant(a0, s_row, c.s.x), c.b.x),
+                       __fadd_rn(dequant(a1, s_row, c.s.y), c.b.y));
   } else if constexpr (ACT == DQ_GELU) {
     return make_float2(port::gelu_as(__fadd_rn(dequant(a0, s_row, c.s.x), c.b.x)),
                        port::gelu_as(__fadd_rn(dequant(a1, s_row, c.s.y), c.b.y)));

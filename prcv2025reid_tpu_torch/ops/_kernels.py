@@ -128,8 +128,10 @@ def bf16_operand(fn: str, name: str, t: torch.Tensor, shape) -> None:
 
 
 def f32_vector(fn: str, name: str, t: torch.Tensor, shape, device) -> torch.Tensor:
-    """``t`` as a contiguous f32 tensor on ``device``; raises on another
-    device or shape."""
+    """``t`` as a contiguous, 16-byte aligned f32 tensor on ``device`` (the
+    kernels read these vectors 8 or 16 bytes at a time; a view at an odd
+    offset is copied); raises on another device or shape."""
     require(t.device == device, f"{fn}: {name} is on {t.device}, x is on {device}")
     require(tuple(t.shape) == tuple(shape), f"{fn}: {name} shape {tuple(t.shape)} != {tuple(shape)}")
-    return t.float().contiguous()
+    t = t.float().contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -69,9 +69,15 @@ def _no_autograd(fn: str, *tensors) -> None:
         *tensors)
 
 
+def ln_rows_plain(x, ln_scale, ln_bias, dtype):
+    """The LN row passes' plain version: y = LN(x) in f32, cast to ``dtype``
+    (the GEMMs' operand type; the TPU kernels' ``y.astype(dt)``)."""
+    return ln_f32(x, ln_scale, ln_bias).to(dtype)
+
+
 def ln_qkv_plain(x, ln_scale, ln_bias, w, b):
     """x [G,T,D]; w [G,D,O]; b [G,O] -> [G,T,O] in x.dtype."""
-    y = ln_f32(x, ln_scale, ln_bias).to(x.dtype).float()
+    y = ln_rows_plain(x, ln_scale, ln_bias, x.dtype).float()
     o = torch.matmul(y, w.float()) + b.float()[:, None, :]
     return o.to(x.dtype)
 
@@ -81,8 +87,8 @@ def out_mlp_plain(attn, x, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2):
     dt = x.dtype
     proj = torch.matmul(attn.float(), wo.float()) + bo.float()[:, None, :]
     x2 = x.float() + proj
-    y = ln_f32(x2, ln_scale, ln_bias)
-    h = torch.matmul(y.to(dt).float(), w1.float()) + b1.float()[:, None, :]
+    y = ln_rows_plain(x2, ln_scale, ln_bias, dt)
+    h = torch.matmul(y.float(), w1.float()) + b1.float()[:, None, :]
     h = gelu_exact(h)
     o = torch.matmul(h.to(dt).float(), w2.float()) + b2.float()[:, None, :]
     return (x2 + o).to(dt)
@@ -176,13 +182,13 @@ def _ln_qkv_forward(x, ln_scale, ln_bias, w, b):
     lns = _kernels.f32_vector(fn, "ln_scale", ln_scale, (D,), x.device)
     lnb = _kernels.f32_vector(fn, "ln_bias", ln_bias, (D,), x.device)
     bf = _kernels.f32_vector(fn, "b", b, (G, O), x.device)
-    stats = torch.empty(G * T, 2, dtype=torch.float32, device=x.device)
+    y = torch.empty(G, T, D, dtype=x.dtype, device=x.device)  # bf16(LN1(x)), the GEMM's operand
     out = torch.empty(G, T, O, dtype=x.dtype, device=x.device)
     c = _kernels.lib("fused_block").ln_qkv
     c.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     c.restype = ctypes.c_int
     rc = c(x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w.data_ptr(), bf.data_ptr(),
-           stats.data_ptr(), out.data_ptr(), G, T, D, O, LN_EPS, _kernels.stream_ptr(x))
+           y.data_ptr(), out.data_ptr(), G, T, D, O, LN_EPS, _kernels.stream_ptr(x))
     _kernels.check(rc, fn)
     fused_ln_qkv.launches += 1
     return out
@@ -253,7 +259,9 @@ class FusedOutMlpFn(torch.autograd.Function):
 def fused_ln_qkv(x, ln_scale, ln_bias, w, b, quant: str = "bf16"):
     """LN(x) @ w + b.  x [G,T,D] bf16; ln_* [D]; w [G,D,O] bf16; b [G,O]
     -> [G,T,O] bf16.  LN statistics, the GEMM accumulation and the bias add
-    are f32; the normalised rows are cast to bf16 before the GEMM.
+    are f32; the normalised rows are cast to bf16 before the GEMM.  On the
+    card: the LN1 row pass (y = bf16(LN(x)) into a [G,T,D] buffer), then the
+    GEMM with the bias in its epilogue; one launch of the fused kernel.
     Differentiable through :class:`FusedLnQkvFn`.  ``quant="int8"``: w is
     ``(wq, ws)`` from :func:`quantize_weight`, see :func:`fused_ln_qkv_int8`."""
     if quant == "int8":

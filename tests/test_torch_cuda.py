@@ -160,6 +160,128 @@ def test_out_proj_known_values(cuda, G, T, D):
     assert torch.equal(x2, x.float() + (moved.float() + bo[:, None]))
 
 
+def _ln_qkv_c(cuda, lib, entry, n_ptr):
+    import ctypes
+
+    from prcv2025reid_tpu_torch.ops import _kernels
+
+    c = getattr(_kernels.lib(lib), entry)
+    c.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_float,
+                                                                   ctypes.c_void_p]
+    c.restype = ctypes.c_int
+    return c, _kernels.stream_ptr(torch.empty(0, device=cuda))
+
+
+# G in {1, 3}; T = 300 and 77 rows (a multiple of no 128-row tile); O = 3D =
+# 768 and 288, a multiple of neither the 192-column tile nor, at 288, 256
+QKV_KNOWN = [(1, 300, 256), (3, 77, 96)]
+
+
+@pytest.mark.parametrize("G,T,D", QKV_KNOWN)
+def test_ln_qkv_known_values(cuda, G, T, D):
+    """#3's row pass and GEMM with an exact answer: w maps each input column
+    to one output column (weight 1), so every accumulator is one value of
+    the row pass's y: out = bf16(y[k] + b) at column sel[k], bf16(b)
+    elsewhere, bit for bit; a wrongly swizzled tile, a ragged group's rows
+    read or stored across groups, or a bias read off its column moves
+    values.  y is bf16(LN(x)), the plain row pass's within one bf16 rounding
+    (f32 statistics summed in another order)."""
+    O = 3 * D
+    g = torch.Generator(device=cuda).manual_seed(14)
+    x = (torch.randn(G, T, D, generator=g, device=cuda) * 2 + 0.5).bfloat16()
+    lns, lnb = 1 + 0.1 * torch.randn(D, generator=g, device=cuda), 0.1 * torch.randn(
+        D, generator=g, device=cuda)
+    b = torch.randn(G, O, generator=g, device=cuda)
+    sel = _injection(D, O, 15).to(cuda)
+    w = torch.zeros(G, D, O, device=cuda, dtype=torch.bfloat16)
+    w[:, torch.arange(D, device=cuda), sel] = 1
+    y = torch.full((G, T, D), float("nan"), device=cuda).bfloat16()
+    out = torch.full((G, T, O), float("nan"), device=cuda).bfloat16()
+    c, stream = _ln_qkv_c(cuda, "fused_block", "ln_qkv", 7)
+    assert c(*_ptrs(x, lns, lnb, w, b, y, out), G, T, D, O, fb.LN_EPS, stream) == 0
+    torch.cuda.synchronize()
+    want = b[:, None, :].expand(G, T, O).clone()
+    want[..., sel] = y.float() + b[:, None, sel]
+    assert torch.equal(out, want.bfloat16())
+    want_y = fb.ln_rows_plain(x, lns, lnb, torch.bfloat16)
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=2**-7, atol=1e-6)
+    assert (y == want_y).float().mean().item() > 0.99
+
+
+@pytest.mark.parametrize("G,T,D", QKV_KNOWN)
+def test_ln_qkv_int8_known_values(cuda, G, T, D):
+    """#4's s8 GEMM and dequantizing epilogue with an exact answer: wq maps
+    each input column to one output column (weight 1), so out =
+    bf16(((yq[k] * ys) * ws) + b) at column sel[k] from the row pass's own
+    yq and ys, bf16(b) elsewhere, bit for bit (a row scale that read 0 would
+    leave the bias alone); the row pass quantizes the plain LN1 rows, each
+    value within one int8 step (an f32 ulp of LN statistic can flip a
+    rounding)."""
+    O = 3 * D
+    g = torch.Generator(device=cuda).manual_seed(16)
+    x = (torch.randn(G, T, D, generator=g, device=cuda) * 2 + 0.5).bfloat16()
+    lns, lnb = 1 + 0.1 * torch.randn(D, generator=g, device=cuda), 0.1 * torch.randn(
+        D, generator=g, device=cuda)
+    ws, b = 0.5 + torch.rand(G, O, generator=g, device=cuda), torch.randn(G, O, generator=g,
+                                                                          device=cuda)
+    sel = _injection(D, O, 17).to(cuda)
+    wq = torch.zeros(G, O, D, device=cuda, dtype=torch.int8)  # [N, K] storage
+    wq[:, sel, torch.arange(D, device=cuda)] = 1
+    yq = torch.empty(G, T, D, dtype=torch.int8, device=cuda)
+    ys = torch.empty(G, T, device=cuda)
+    out = torch.full((G, T, O), float("nan"), device=cuda).bfloat16()
+    c, stream = _ln_qkv_c(cuda, "fused_block_int8", "ln_qkv_int8", 9)
+    assert c(*_ptrs(x, lns, lnb, wq, ws, b, yq, ys, out), G, T, D, O, fb.LN_EPS, stream) == 0
+    torch.cuda.synchronize()
+    acc = torch.zeros(G, T, O, dtype=torch.int32, device=cuda)
+    acc[..., sel] = yq.int()
+    assert torch.equal(out, ((acc.float() * ys[..., None]) * ws[:, None] + b[:, None]).bfloat16())
+    from prcv2025reid_tpu_torch.ops.kernel_math import ln_f32
+
+    want_q, want_s = fb.quant_rows(ln_f32(x.cpu(), lns.cpu(), lnb.cpu()))
+    assert (yq.cpu().int() - want_q.int()).abs().max().item() <= 1
+    torch.testing.assert_close(ys.cpu(), want_s[..., 0], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("G,T,D", [(1, 300, 256), (3, 77, 96), (3, 6304, 768)])
+def test_ln_qkv_int8_gives_the_plain_versions_bits(cuda, G, T, D):
+    """#4 through its wrapper against ln_qkv_int8_plain on the CPU, bit for
+    bit, on rows where no rounding can flip: each row of x is a shuffle of
+    +-8 and +-24 (5 : 3), so its mean (0) and variance (256, which the
+    epsilon does not move) are exact in f32 in any summation order and
+    rsqrt(256) = 1/16 exactly; from there both sides round the same f32
+    operations in the same order, and the int8 products are exact.  The
+    weights are random, quantized as the model does."""
+    O = 3 * D
+    g = torch.Generator(device=cuda).manual_seed(18)
+    vals = torch.tensor([8.0] * (5 * D // 16) + [24.0] * (3 * D // 16), device=cuda)
+    vals = torch.cat([vals, -vals])
+    order = torch.rand(G, T, D, generator=g, device=cuda).argsort(dim=-1)
+    x = vals[order].bfloat16()
+    lns, lnb = 1 + 0.1 * torch.randn(D, generator=g, device=cuda), 0.1 * torch.randn(
+        D, generator=g, device=cuda)
+    w = (torch.randn(G, D, O, generator=g, device=cuda) * D**-0.5).bfloat16()
+    wq, ws = fb.quantize_weight(w)
+    b = 0.1 * torch.randn(G, O, generator=g, device=cuda)
+    got = fb.fused_ln_qkv_int8(x, lns, lnb, wq, ws, b)
+    torch.cuda.synchronize()
+    want = fb.ln_qkv_int8_plain(*(t.cpu() for t in (x, lns, lnb, wq, ws, b)))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_qkv_entries_refuse_what_the_gemm_cannot_map(cuda):
+    """O % 8 != 0 (a 16-byte TMA stride for the bf16 output and weight) and
+    D % 16 != 0 for int8 (the int8 rows' TMA stride) return an error code
+    from the C entries, before any launch."""
+    z = torch.zeros(4096, device=cuda)
+    for lib, entry, n_ptr, D, O in (("fused_block", "ln_qkv", 7, 64, 36),
+                                    ("fused_block_int8", "ln_qkv_int8", 9, 64, 36),
+                                    ("fused_block_int8", "ln_qkv_int8", 9, 40, 120)):
+        c, stream = _ln_qkv_c(cuda, lib, entry, n_ptr)
+        assert c(*[z.data_ptr()] * n_ptr, 1, 8, D, O, fb.LN_EPS, stream) != 0, (entry, D, O)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("G,T,D,F", [(1, 300, 128, 512), (3, 77, 96, 208)])
 def test_fused_out_mlp_known_values(cuda, G, T, D, F):
     """#5 with wo a permutation and w1 = b1 = 0 (so h = GELU(0) = 0 and the
@@ -253,6 +375,17 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(cuda):
         zq = fb.quantize_weight(torch.zeros(1, 40, 40, device=cuda))
         fb.fused_ln_qkv_int8(z, torch.ones(40, device=cuda), torch.zeros(40, device=cuda),
                              *zq, torch.zeros(1, 40, device=cuda))
+    with pytest.raises(ValueError, match="O=36 a multiple of 8"):  # the output's TMA stride
+        zq = fb.quantize_weight(torch.zeros(1, 64, 36, device=cuda))
+        fb.fused_ln_qkv_int8(d["x"], d["lns"], d["lnb"], *zq, torch.zeros(1, 36, device=cuda))
+    with pytest.raises(ValueError, match="<= 1024"):  # a row pass holds a row in registers
+        z = torch.zeros(1, 8, 1040, device=cuda, dtype=torch.bfloat16)
+        zq = fb.quantize_weight(torch.zeros(1, 1040, 64, device=cuda))
+        fb.fused_ln_qkv_int8(z, torch.ones(1040, device=cuda), torch.zeros(1040, device=cuda),
+                             *zq, torch.zeros(1, 64, device=cuda))
+    with pytest.raises(ValueError, match="aligned"):  # contiguous, 2 bytes off 16
+        off = torch.zeros(40 * 64 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(1, 40, 64)
+        fb.fused_ln_qkv_int8(off, d["lns"], d["lnb"], wq, ws, d["bqkv"])
     with pytest.raises(NotImplementedError, match="serve only"):
         fb.fused_ln_qkv_int8(d["x"], d["lns"].requires_grad_(), d["lnb"], wq, ws, d["bqkv"])
 
@@ -335,6 +468,30 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="Dh=64"):
         z = torch.zeros(1, 2, 16, 32, device=cuda, dtype=torch.bfloat16)
         fused_mha(z, z, z)
+    # the bf16 LN1 + QKV kernel: 16-byte TMA strides (D, O multiples of 8), a
+    # row in a warp's registers (D <= 1024), 16-byte aligned operands
+    d = _block_operands(cuda, 1, 40, 64, 128)
+    ln = (d["lns"], d["lnb"])
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fb.fused_ln_qkv(d["x"], *ln, d["wqkv"][..., :36].contiguous(), d["bqkv"][:, :36])
+    with pytest.raises(ValueError, match="multiples of 8"):
+        z = torch.zeros(1, 8, 36, device=cuda, dtype=torch.bfloat16)
+        fb.fused_ln_qkv(z, torch.ones(36, device=cuda), torch.zeros(36, device=cuda),
+                        torch.zeros(1, 36, 64, device=cuda, dtype=torch.bfloat16),
+                        torch.zeros(1, 64, device=cuda))
+    with pytest.raises(ValueError, match="D <= 1024"):
+        z = torch.zeros(1, 8, 1040, device=cuda, dtype=torch.bfloat16)
+        fb.fused_ln_qkv(z, torch.ones(1040, device=cuda), torch.zeros(1040, device=cuda),
+                        torch.zeros(1, 1040, 64, device=cuda, dtype=torch.bfloat16),
+                        torch.zeros(1, 64, device=cuda))
+    with pytest.raises(ValueError, match="aligned"):  # contiguous, 2 bytes off 16
+        off = torch.zeros(40 * 64 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(1, 40, 64)
+        fb.fused_ln_qkv(off, *ln, d["wqkv"], d["bqkv"])
+    with pytest.raises(ValueError, match="aligned"):  # not contiguous
+        fb.fused_ln_qkv(d["x"], *ln, d["wqkv"].transpose(1, 2).contiguous().transpose(1, 2),
+                        d["bqkv"])
+    with pytest.raises(ValueError, match="bfloat16"):
+        fb.fused_ln_qkv(d["x"], *ln, d["wqkv"].float(), d["bqkv"])
 
 
 @pytest.mark.parametrize("M", [25344, 6304, 77, 1])

@@ -126,6 +126,19 @@ def test_ln_qkv_int8_plain_matches_pallas(data, quantized):
     torch.testing.assert_close(via, got, rtol=0, atol=0)
 
 
+def test_ln_qkv_int8_plain_matches_pallas_groups():
+    """Three groups (the MM-3 query combo) of 37 rows: a multiple of neither
+    the JAX kernel's 32-row block nor the card kernels' 128-row tile."""
+    data = _make_data(3, 37, seed=8)
+    jw, tw = _quantize(data)["wqkv"]
+    d = {k: jnp.asarray(v) for k, v in data.items()}
+    want = jfb.fused_ln_qkv(d["x"], d["lns"], d["lnb"], jw, d["bqkv"], "int8", 32, True)
+    got = tfb.fused_ln_qkv(_t(data["x"]), _t(data["lns"]), _t(data["lnb"]), tw,
+                           _t(data["bqkv"]), quant="int8")
+    assert got.shape == (3, 37, 3 * D)
+    assert_int8_close(got.numpy(), want)
+
+
 @pytest.mark.parametrize("quant,groups", [
     pytest.param("int8", None, id="int8"),
     pytest.param("int8_mlp", None, id="int8_mlp"),

@@ -99,6 +99,67 @@ def test_fused_ln_qkv_matches_pallas(block_data):
 BF16_TOL = 2e-2
 
 
+def _qkv_data(g, t, seed):
+    rng = np.random.default_rng(seed)
+
+    def r(shape, scale=1.0):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    return dict(x=r((g, t, D)), lns=1.0 + 0.1 * r((D,)), lnb=0.1 * r((D,)),
+                wqkv=r((g, D, 3 * D), 0.1), bqkv=0.1 * r((g, 3 * D)))
+
+
+# the MM-3 query's three groups, and one group, of a row count that is a
+# multiple of neither the JAX kernel's 32-row block nor the card kernels'
+# 128-row tile
+@pytest.mark.parametrize("g,t", [(3, 37), (1, 5)])
+def test_fused_ln_qkv_matches_pallas_groups(g, t):
+    d = _qkv_data(g, t, seed=g * 100 + t)
+    j = {k: jnp.asarray(v) for k, v in d.items()}
+    want = jfb.fused_ln_qkv(j["x"], j["lns"], j["lnb"], j["wqkv"], j["bqkv"], "bf16", 32, True)
+    got = tfb.fused_ln_qkv(*(_t(d[k]) for k in ("x", "lns", "lnb", "wqkv", "bqkv")))
+    assert got.shape == (g, t, 3 * D)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("g,t", [(2, 70), (3, 37)])
+def test_fused_ln_qkv_matches_pallas_bf16(g, t):
+    """At the card's working type: bf16 x and w (f32 LN parameters and
+    bias, as the model passes them), where the cast of the LN1 rows to bf16
+    before the product is the TPU kernel's."""
+    d = _qkv_data(g, t, seed=g * 100 + t + 1)
+    cast = {"x", "wqkv"}
+    names = ("x", "lns", "lnb", "wqkv", "bqkv")
+    want = jfb.fused_ln_qkv(*(jnp.asarray(d[k], jnp.bfloat16 if k in cast else jnp.float32)
+                              for k in names), "bf16", 32, True)
+    got = tfb.fused_ln_qkv(*(_t(d[k]).bfloat16() if k in cast else _t(d[k]) for k in names))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=BF16_TOL,
+                               atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", np.float32])
+def test_ln_rows_plain_matches_jax(dtype):
+    """The LN row passes' plain version, y = bf16(LN(x)) (LN1 on bf16 x,
+    LN2 on the f32 x2), against JAX ``_ln_f32(x).astype(bf16)``, which is
+    what the TPU kernels feed their products.  Both take f32 statistics in
+    another summation order, so an element may round to the neighbouring
+    bf16 value: equal in all but a few, one bf16 ulp apart at most."""
+    rng = np.random.default_rng(9)
+    x = (rng.normal(size=(3, 37, D)) * 2 + 0.5).astype(np.float32)
+    lns, lnb = (1.0 + 0.1 * rng.normal(size=D)).astype(np.float32), (
+        0.1 * rng.normal(size=D)).astype(np.float32)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16" else (jnp.float32,
+                                                                          torch.float32)
+    want = np.asarray(jfb._ln_f32(jnp.asarray(x, jdt), jnp.asarray(lns), jnp.asarray(lnb))
+                      .astype(jnp.bfloat16), np.float32)
+    got = tfb.ln_rows_plain(_t(x).to(tdt), _t(lns), _t(lnb), torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    got = got.float().numpy()
+    assert (got != want).mean() <= 1e-3
+    np.testing.assert_allclose(got, want, rtol=2**-7, atol=0)
+
+
 def _check_fused_out_mlp(d, cast, tol):
     """The port's fused_out_mlp against JAX's Pallas kernel, with the operands
     named in ``cast`` in bf16 on both sides."""

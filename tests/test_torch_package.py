@@ -148,3 +148,24 @@ def test_fused_mha_rejects_unknown_kernel_version():
     q = torch.zeros(1, 1, 4, 8)
     with pytest.raises(ValueError, match="kernel_version"):
         fused_mha(q, q, q, kernel_version=3)
+
+
+def test_kernel_vectors_are_16_byte_aligned():
+    """The kernels read f32 vectors (LN parameters, biases, scales) 8 or 16
+    bytes at a time: a view at an offset that is not a multiple of 16 bytes
+    is copied, an aligned contiguous f32 tensor is passed as it is, and a
+    wrong shape or device raises."""
+    from prcv2025reid_tpu_torch.ops import _kernels
+
+    base = torch.arange(40, dtype=torch.float32)
+    for off in (1, 2, 3):
+        view = base[off:off + 32]
+        got = _kernels.f32_vector("f", "b", view, (32,), base.device)
+        assert got.data_ptr() % 16 == 0 and torch.equal(got, view)
+    assert _kernels.f32_vector("f", "b", base, (40,), base.device).data_ptr() == base.data_ptr()
+    halves = _kernels.f32_vector("f", "b", base.bfloat16()[1:33], (32,), base.device)
+    assert halves.dtype == torch.float32 and halves.data_ptr() % 16 == 0
+    with pytest.raises(ValueError, match="shape"):
+        _kernels.f32_vector("f", "b", base, (32,), base.device)
+    with pytest.raises(ValueError, match="is on"):
+        _kernels.f32_vector("f", "b", base, (40,), torch.device("meta"))

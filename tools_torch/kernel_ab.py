@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time two versions of the port's attention, tiled matmul (bf16 and int8),
-fused MLP and out-projection + MLP block kernels on one card, in turns, on
-the same inputs; and diagnostic variants of the attention kernel.
+fused MLP, LN1 + QKV and out-projection + MLP block kernels on one card, in
+turns, on the same inputs; and diagnostic variants of the attention kernel.
 
     python3 tools_torch/kernel_ab.py --other DIR [--runs 25]
     python3 tools_torch/kernel_ab.py --diagnostics [--runs 25]
@@ -12,7 +12,9 @@ Its ``csrc/{attention,matmul,fused_mlp,fused_block,fused_block_int8}.cu``
 are built with this tree's nvcc flags into
 ``DIR/prcv2025reid_tpu_torch/_build/`` and called through their C entry
 points beside this tree's kernels (``mlp`` takes the hidden buffer h where
-the source's entry names it, as this tree's does; ``out_mlp``'s LN scratch,
+the source's entry names it, as this tree's does; ``ln_qkv`` takes the
+normalised rows y [G, T, D] bf16 where its entry names y, else the row
+statistics [G * T] float2 of the older kernel; ``out_mlp``'s LN scratch,
 row statistics or the normalised rows, gets a buffer large enough for
 either):
 
@@ -23,6 +25,10 @@ either):
     bf16 and in int8 (w stored K-major), for every block_rows;
   - the fused MLP (``fused_mlp``) at the gallery embed's G = 1, N = 25,216
     and the MM-3 query's G = 3, N = 6,304 (D = 768, F = 3072);
+  - at the same two shapes, the LN1 + QKV block kernels (O = 2304): #3
+    ``ln_qkv`` (bf16) and #4 ``ln_qkv_int8`` (weights quantized as the model
+    does), with cuBLAS on the bare QKV product and ``torch._int_mm`` on the
+    bare int8 one beside them;
   - at the same two shapes, the out-projection + MLP block kernels: #5
     ``out_mlp`` (bf16), #7 ``out_proj`` + ``mlp_int8`` (bf16 out-projection,
     int8 MLP) and #6 ``out_mlp_int8`` (all int8, weights quantized as the
@@ -83,6 +89,14 @@ def takes_h(csrc: Path) -> bool:
     return "void* h" in src[src.index('extern "C" int mlp('):]
 
 
+def ln_qkv_takes_y(csrc: Path) -> bool:
+    """Whether the tree's ``ln_qkv`` C entry takes the normalised rows y
+    (the row pass + GEMM-core kernel) or the row statistics (the LN-prologue
+    ``mma.sync`` kernel)."""
+    src = (csrc / "fused_block.cu").read_text()
+    return "void* y" in src[src.index('extern "C" int ln_qkv('):].split(")", 1)[0]
+
+
 def build_other(other: Path) -> dict:
     """Build DIR's sources in AB_SOURCES with this tree's flags."""
     csrc = other / "prcv2025reid_tpu_torch" / "csrc"
@@ -101,6 +115,7 @@ def build_other(other: Path) -> dict:
             raise RuntimeError(f"nvcc failed for {csrc / name}.cu:\n{err}")
         libs[name] = ctypes.CDLL(str(target))
     libs["mlp_takes_h"] = takes_h(csrc)
+    libs["ln_qkv_takes_y"] = ln_qkv_takes_y(csrc)
     return libs
 
 
@@ -205,6 +220,53 @@ def _c(fn, n_ptr, n_int):
 
 def _ptrs(*tensors):
     return [t.data_ptr() for t in tensors]
+
+
+class Qkv:
+    """Operands of the LN1 + QKV block kernels at G groups of T rows (D =
+    768, O = 2304), with each C entry's call."""
+
+    D, O = 768, 2304
+
+    def __init__(self, G, T, randn):
+        D, O, dev = self.D, self.O, torch.device("cuda")
+        self.dims = (G, T, D, O)
+        self.x = randn(G, T, D)
+        self.w, self.b = randn(G, D, O, scale=D**-0.5), randn(G, O, scale=0.1).float()
+        self.lns, self.lnb = 1 + randn(D, scale=0.1).float(), randn(D, scale=0.1).float()
+        self.wq, self.ws = fb.quantize_weight(self.w)
+        self.y = torch.empty(G, T, D, dtype=torch.bfloat16, device=dev)
+        self.stats = torch.empty(G * T, 2, dtype=torch.float32, device=dev)
+        self.yq = torch.empty(G, T, D, dtype=torch.int8, device=dev)
+        self.ys = torch.empty(G, T, dtype=torch.float32, device=dev)
+
+    def ln_qkv(self, libs):
+        """#3: bf16 through ``ln_qkv``, with the scratch its entry takes."""
+        out = torch.empty(*self.dims[:2], self.O, dtype=torch.bfloat16, device=self.x.device)
+        scratch = self.y if libs["ln_qkv_takes_y"] else self.stats
+        rc = _c(libs["fused_block"].ln_qkv, 7, 4)(
+            *_ptrs(self.x, self.lns, self.lnb, self.w, self.b, scratch, out), *self.dims,
+            fb.LN_EPS, _kernels.stream_ptr(self.x))
+        _kernels.check(rc, "ln_qkv")
+        return out
+
+    def ln_qkv_int8(self, libs):
+        """#4: int8 through ``ln_qkv_int8``."""
+        out = torch.empty(*self.dims[:2], self.O, dtype=torch.bfloat16, device=self.x.device)
+        rc = _c(libs["fused_block_int8"].ln_qkv_int8, 9, 4)(
+            *_ptrs(self.x, self.lns, self.lnb, self.wq, self.ws, self.b, self.yq, self.ys, out),
+            *self.dims, fb.LN_EPS, _kernels.stream_ptr(self.x))
+        _kernels.check(rc, "ln_qkv_int8")
+        return out
+
+    def cublas(self):
+        """The bare bf16 QKV product."""
+        return torch.bmm(self.x, self.w)
+
+    def int_mm(self):
+        """The bare int8 QKV product, per group."""
+        for g in range(self.dims[0]):
+            torch._int_mm(self.yq[g], self.wq[g])
 
 
 class Block:
@@ -351,6 +413,7 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
     this = {name: _kernels.lib(name) for name in AB_SOURCES}
     this["mlp_takes_h"] = takes_h(_kernels.CSRC)
+    this["ln_qkv_takes_y"] = ln_qkv_takes_y(_kernels.CSRC)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -404,6 +467,14 @@ def main() -> int:
                       lambda lib, a=(mx, w1, b1, w2, b2): mlp_call(lib, *a), cublas,
                       "cuBLAS_fc1_fc2"))
     profiled = []
+    for G, N in ((1, 128 * 197), (3, 32 * 197)):
+        qkv = Qkv(G, N, randn)
+        for label, run, library, library_name in (
+                (f"#3 ln_qkv G={G} T={N} D=768 O=2304", qkv.ln_qkv, qkv.cublas, "cuBLAS_qkv"),
+                (f"#4 ln_qkv_int8 G={G} T={N} D=768 O=2304", qkv.ln_qkv_int8, qkv.int_mm,
+                 "int_mm_qkv")):
+            cases.append((label, run, library, library_name))
+            profiled.append((label, run))
     for G, N in ((1, 128 * 197), (3, 32 * 197)):
         blk = Block(G, N, randn)
         blk.out_proj(this, blk.x2)
