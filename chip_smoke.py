@@ -11,13 +11,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      core (cuobjdump): the tiled matmul's bf16 and int8 kernels, the fused
      MLP's two, the bf16 block kernels' four (the LN1 + QKV GEMM with its
      bias; the out-projection with the f32 residual, fc1, fc2 with the
-     residual) and the int8 block kernels' three (the QKV GEMM with its
-     dequantizing bias epilogue; the MLP tail's fc1 with the GELU and row
-     max, fc2 with the residual), failing unless each library holds its
-     expected number of them and each has warpgroup MMAs (HGMMA for bf16;
-     the integer wgmma's mnemonic is read from the int8 kernels' dump and
-     printed), TMA loads (UTMALDG) and TMA stores (UTMASTG), and if the bf16
-     block kernels' library holds any mma.sync (HMMA);
+     residual) and the int8 block kernels' four (the QKV GEMM with its
+     dequantizing bias epilogue; #6's out-projection with the dequantizing
+     residual epilogue; the MLP tail's fc1 with the GELU and row max, fc2
+     with the residual), failing unless each library holds its expected
+     number of them and each has warpgroup MMAs (HGMMA for bf16; the integer
+     wgmma's mnemonic is read from the int8 kernels' dump and printed), TMA
+     loads (UTMALDG) and TMA stores (UTMASTG), and if either block kernels'
+     library holds any mma.sync (HMMA for bf16, IMMA for int8);
   3. hold each kernel against its plain PyTorch version at the gallery-embed
      shapes (B=128 images of 197 tokens, ViT-B/16 widths) on the same bf16
      inputs: relative Frobenius error <= REL_TOL and max-abs error <= ABS_TOL
@@ -60,7 +61,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      residual+LN launches each).  The fused-stream trunk is also held against
      the plain path on the MM-3 query combo (nir, sk, cp: three groups).
      Every path must also agree with an f32 embedding of the same images
-     computed by the port on the CPU;
+     computed by the port on the CPU.
+     Then the ranking gate (bench.py's structured probe set: RANK_IDS ids x
+     RANK_PER_ID f32-normal gallery images, RANK_QUERIES queries, seed 0) for
+     every path against the plain one with the port's ranking_equivalence on
+     the card: top-100 overlap >= RANK_MIN_OVERLAP and |dmAP| <=
+     RANK_MAX_MAP_DELTA, required of the exact kernel paths, read and printed
+     for the int8 plans and the serving formulations.  Then the MM-1..4
+     protocol on a synthetic set (a uint8 vis gallery of MM_IDS ids x
+     MM_GALLERY_PER_ID images; MM_QUERY_PER_ID queries an id, each with nir,
+     sk and cp images and one caption): every one of the 15 query plans
+     embedded through make_combo_embed_step under the plain path, the
+     fused-stream trunk and the int8 plan (launch counts read per query
+     step), ranked on the card by compute_retrieval_metrics (mAP, top-1,
+     CMC@1/5/10 per plan, also held against the same call on the CPU); the
+     fused-stream trunk must reach min-cosine >= 0.999 on every combo and
+     |dmAP| <= RANK_MAX_MAP_DELTA on every plan, the int8 plan's readings are
+     printed; and the device ms and idle share of one text-only query step
+     (BATCH captions of 77 tokens);
   5. time every kernel, its plain version and (where one PyTorch call
      computes the same function) that call with CUDA events, median of
      TIMED_RUNS after warm-up queued behind a spin kernel (device time
@@ -120,6 +138,18 @@ PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 MM3_QUERY = ("nir", "sk", "cp")
+# the ranking gate: bench.py's structured probe set and its promotion bars
+RANK_IDS, RANK_PER_ID, RANK_QUERIES = 64, 18, 128
+RANK_MIN_OVERLAP, RANK_MAX_MAP_DELTA = 0.97, 0.005
+# f32 products of unit 512-vectors summed in another order differ by ~1e-7;
+# TF32 (10-bit mantissas) would move them by ~1e-4
+SIM_TOL = 1e-5
+# the MM-1..4 protocol's synthetic set: uint8 images of one base per id plus
+# seeded noise (MM_NOISE grey levels), captions in the CLIP tokenizer's layout
+MM_IDS, MM_GALLERY_PER_ID, MM_QUERY_PER_ID = 32, 8, 4
+MM_NOISE = 20.0
+MM_PATHS = ("xla", "fused_trunk", "fused_int8")
+BOS, EOT = 49406, 49407  # CLIP's start and end tokens (EOT: the highest id)
 MATMUL_ROWS = (25344, 6304)  # the microbenchmark's M, and a multiple of no row tile
 MICROBENCH = ("xla_bf16", "xla_int8", "pallas_bf16", "pallas_int8", "pallas_sweep", "bw",
               "floor")
@@ -172,6 +202,58 @@ def errors(torch, got, want, rel_tol=REL_TOL, abs_tol=ABS_TOL):
     return mx, rel, True
 
 
+def rank_probe_images(size: int):
+    """bench.py's structured retrieval set, built as bench.py builds it: one
+    f32-normal base image per id plus 0.15-scaled noise per instance (fed
+    as already-normalised images)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    base = rng.normal(0, 1, (RANK_IDS, size, size, 3)).astype(np.float32)
+    g_pids = np.repeat(np.arange(RANK_IDS), RANK_PER_ID)
+    gallery = base[g_pids] + 0.15 * rng.normal(0, 1, (len(g_pids), size, size, 3)).astype(
+        np.float32)
+    q_pids = rng.integers(0, RANK_IDS, RANK_QUERIES)
+    queries = base[q_pids] + 0.15 * rng.normal(0, 1, (RANK_QUERIES, size, size, 3)).astype(
+        np.float32)
+    return gallery, g_pids, queries, q_pids
+
+
+def mm_query_set(torch, cfg, dev):
+    """The MM protocol's synthetic set on the card: a vis gallery [MM_IDS *
+    MM_GALLERY_PER_ID] and MM_IDS * MM_QUERY_PER_ID queries with nir, sk and
+    cp images (vis masked) and one caption each: BOS, a per-id caption with
+    a fifth of its words redrawn per query, EOT, zero padding."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    size, Mv = cfg.image_size, len(cfg.vision_modalities)
+    base = torch.randint(0, 256, (MM_IDS, size, size, 3), generator=gen, device=dev,
+                         dtype=torch.uint8)
+
+    def noisy(pids):
+        n = torch.randn(len(pids), size, size, 3, generator=gen, device=dev) * MM_NOISE
+        return (base[pids].float() + n).round().clamp(0, 255).to(torch.uint8)
+
+    g_pids = torch.arange(MM_IDS, device=dev).repeat_interleave(MM_GALLERY_PER_ID)
+    q_pids = torch.arange(MM_IDS, device=dev).repeat_interleave(MM_QUERY_PER_ID)
+    nq, ctx = len(q_pids), cfg.text_context_length
+    q_images = torch.zeros(nq, Mv, size, size, 3, dtype=torch.uint8, device=dev)
+    for slot in range(1, Mv):  # nir, sk, cp
+        q_images[:, slot] = noisy(q_pids)
+    q_mask = torch.ones(nq, Mv, device=dev)
+    q_mask[:, 0] = 0.0
+    lengths = torch.randint(8, ctx + 1, (MM_IDS,), generator=gen, device=dev)
+    words = torch.randint(1, BOS, (MM_IDS, ctx), generator=gen, device=dev)
+    redraw = torch.rand(nq, ctx, generator=gen, device=dev) < 0.2
+    tokens = torch.where(redraw, torch.randint(1, BOS, (nq, ctx), generator=gen, device=dev),
+                         words[q_pids])
+    pos = torch.arange(ctx, device=dev)[None]
+    length = lengths[q_pids][:, None]
+    tokens = torch.where(pos == 0, BOS, torch.where(pos == length - 1, EOT, tokens))
+    tokens = torch.where(pos >= length, 0, tokens)
+    return dict(g_images=noisy(g_pids), g_pids=g_pids, q_images=q_images, q_mask=q_mask,
+                tokens=tokens, text_mask=torch.ones(nq, device=dev), q_pids=q_pids)
+
+
 def main() -> int:
     import torch
 
@@ -194,6 +276,12 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
     from prcv2025reid_tpu_torch import TrainingConfig, build_model, make_combo_embed_step
+    from prcv2025reid_tpu_torch.evaluation.protocol import (
+        build_query_plans,
+        compute_retrieval_metrics,
+        ranking_equivalence,
+        similarity,
+    )
     from prcv2025reid_tpu_torch.ops import _kernels
     from prcv2025reid_tpu_torch.ops import attention as att
     from prcv2025reid_tpu_torch.ops import fused_block as fb
@@ -219,16 +307,16 @@ def main() -> int:
     for lib_name, kinds, n_core in (("matmul", ("Bf16Op", "S8Op"), 6),
                                     ("fused_mlp", ("Bf16Op",), 2),
                                     ("fused_block", ("Bf16Op",), 4),
-                                    ("fused_block_int8", ("S8Op",), 3)):
+                                    ("fused_block_int8", ("S8Op",), 4)):
         so = _kernels.lib(lib_name)._name
         sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True,
                               timeout=120).stdout
-        # the bf16 block kernels run every product on the wgmma core: no mma.sync
-        hmma = len(re.findall(r"\bHMMA\b", sass))
-        if lib_name == "fused_block":
-            print(f"sass {lib_name}: {hmma} HMMA (mma.sync) instructions")
-            if hmma:
-                fail(f"lib{lib_name}: {hmma} HMMA (mma.sync) instructions in its SASS, expected 0")
+        # the block kernels run every product on the wgmma core: no mma.sync
+        if lib_name in ("fused_block", "fused_block_int8"):
+            mma_sync = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "IMMA")}
+            print(f"sass {lib_name}: mma.sync instructions {mma_sync}")
+            if any(mma_sync.values()):
+                fail(f"lib{lib_name}: mma.sync instructions in its SASS, expected none: {mma_sync}")
         on_core = [sec for sec in sass.split("Function : ")[1:]
                    if any(k in sec.split(None, 1)[0] for k in kinds)]
         if len(on_core) != n_core:
@@ -477,12 +565,14 @@ def main() -> int:
     image_mask = torch.ones(BATCH, Mv, device=dev)
     models, steps, embeds, launches = {}, {}, {}, {}
 
-    def run_counted(name, step, active):
-        """One embed with every counter zeroed just before it; fails unless
-        the counts read EXPECTED and the embedding is finite and unit-norm."""
+    def run_counted(name, step, active, args=None, launches_expected=None):
+        """One embed (of ``args``, default the gallery batch) with every
+        counter zeroed just before it; fails unless the counts read
+        ``launches_expected`` (default EXPECTED for the path) and the
+        embedding is finite and unit-norm."""
         for counter in counters.values():
             counter.launches = 0
-        e = step(images, image_mask)
+        e = step(*(args or (images, image_mask)))
         torch.cuda.synchronize()
         got = {n: f.launches for n, f in counters.items()}
         norms = e.norm(dim=1)
@@ -490,7 +580,9 @@ def main() -> int:
                 (norms - 1).abs().max().item() > 1e-3:
             fail(f"{name} {active}: embedding not finite/unit-norm of shape "
                  f"{(BATCH, cfg.fusion_dim)}")
-        want = {n: expected[name].get(n, 0) for n in counters}
+        if launches_expected is None:
+            launches_expected = expected[name]
+        want = {n: launches_expected.get(n, 0) for n in counters}
         print(f"main path {name} {active}: launches {got} (expected {want})")
         if got != want:
             fail(f"{name} {active}: launch counts {got} != {want}")
@@ -522,7 +614,120 @@ def main() -> int:
     print(f"gate fused_trunk {MM3_QUERY} vs xla: min-cosine {g3:.6f} (>= {MIN_COSINE})")
     if g3 < MIN_COSINE:
         fail(f"fused_trunk {MM3_QUERY}: min-cosine {g3} < {MIN_COSINE}")
-    del models, mm3
+    del mm3
+
+    # the ranking gate: bench.py's probe set through every path, against xla
+    t0 = time.perf_counter()
+    g_img, g_pids, q_img, q_pids = rank_probe_images(cfg.image_size)
+
+    def embed_probe(step, imgs):
+        out = []
+        for start in range(0, len(imgs), BATCH):
+            x = torch.from_numpy(imgs[start:start + BATCH]).to(dev)
+            out.append(step(x[:, None].expand(-1, Mv, -1, -1, -1), image_mask[:len(x)]))
+        return torch.cat(out)
+
+    probe = {name: (embed_probe(steps[name], g_img), embed_probe(steps[name], q_img))
+             for name in configs}
+    del g_img, q_img
+    rank_cache, rank_gate = {}, {}
+    for name in configs:
+        if name == "xla":
+            continue
+        r = ranking_equivalence(probe["xla"][1], probe["xla"][0], probe[name][1],
+                                probe[name][0], q_pids, g_pids, topk=100, ref_cache=rank_cache,
+                                device=dev)
+        ok = r["top_overlap"] >= RANK_MIN_OVERLAP and r["map_delta"] <= RANK_MAX_MAP_DELTA
+        rank_gate[name] = {**r, "pass": ok}
+        print(f"rank gate {name} vs xla: top-100 overlap {r['top_overlap']:.4f} "
+              f"(>= {RANK_MIN_OVERLAP}), |dmAP| {r['map_delta']:.6f} (<= {RANK_MAX_MAP_DELTA}), "
+              f"mAP {r['map_ref']:.6f} -> {r['map_test']:.6f}: {'PASS' if ok else 'FAIL'}"
+              f"{'' if name not in approx_paths else ' (read, not required)'}")
+        if not ok and name not in approx_paths:
+            fail(f"{name}: fails the ranking gate against xla: {r}")
+    del probe
+    print(f"rank gate: {RANK_IDS} ids x {RANK_PER_ID} gallery, {RANK_QUERIES} queries, "
+          f"{len(configs)} paths in {time.perf_counter() - t0:.1f} s")
+
+    # the MM-1..4 protocol: every query plan against a vis gallery, ranked on the card
+    t0 = time.perf_counter()
+    mm = mm_query_set(torch, cfg, dev)
+    plans = build_query_plans()
+    mm_metrics, mm_feats = {}, {}
+    for name in MM_PATHS:
+        gal = torch.cat([steps[name](x[:, None].expand(-1, Mv, -1, -1, -1), image_mask[:len(x)])
+                         for x in mm["g_images"].split(BATCH)])
+        for plan, combo in plans:
+            step = make_combo_embed_step(models[name], combo)
+            has_vision = any(m != "text" for m in combo)
+            mm_feats[name, plan], _ = run_counted(
+                name, step, combo, (mm["q_images"], mm["q_mask"], mm["tokens"], mm["text_mask"]),
+                expected[name] if has_vision else {})
+            mm_metrics[name, plan] = compute_retrieval_metrics(
+                mm_feats[name, plan], mm["q_pids"], gal, mm["g_pids"], device=dev)
+        if name == "xla":  # the ranking on the card against the same call on the CPU
+            plan = plans[-1][0]
+            q_cpu, g_cpu = mm_feats[name, plan].cpu(), gal.cpu()
+            on_cpu = compute_retrieval_metrics(q_cpu, mm["q_pids"].cpu(), g_cpu,
+                                               mm["g_pids"].cpu(), device="cpu")
+            diff = max(abs(on_cpu[k] - mm_metrics[name, plan][k]) for k in on_cpu)
+            # the similarities: full f32 on both (TF32 would be ~1e-4 off); the
+            # metrics may still differ where two lie within that rounding
+            sim_card = similarity(mm_feats[name, plan], gal).cpu()
+            sim_diff = (sim_card - q_cpu @ g_cpu.T).abs().max().item()
+            print(f"mm {plan} on the card vs the CPU: similarities max difference "
+                  f"{sim_diff:.3e} (<= {SIM_TOL}), metrics max difference {diff:.3e}")
+            if sim_diff > SIM_TOL:
+                fail(f"the ranking similarities on the card differ from the CPU's: {sim_diff}")
+    mm_table = {}
+    for plan, _ in plans:
+        ref = mm_metrics["xla", plan]
+        row = {"xla": {k: ref[k] for k in ("mAP", "top1", "cmc1", "cmc5", "cmc10")}}
+        for name in MM_PATHS[1:]:
+            m = mm_metrics[name, plan]
+            cos = (mm_feats[name, plan] * mm_feats["xla", plan]).sum(dim=1).min().item()
+            row[name] = {"mAP": m["mAP"], "top1": m["top1"], "cmc1": m["cmc1"],
+                         "cmc5": m["cmc5"], "cmc10": m["cmc10"], "min_cosine": cos,
+                         "map_delta": abs(m["mAP"] - ref["mAP"])}
+        mm_table[plan] = row
+        t, i8 = row["fused_trunk"], row["fused_int8"]
+        print(f"mm {plan:26s} mAP xla {ref['mAP']:.4f} fused_trunk {t['mAP']:.4f} "
+              f"fused_int8 {i8['mAP']:.4f} | cmc1/5/10 xla {ref['cmc1']:.3f}/{ref['cmc5']:.3f}/"
+              f"{ref['cmc10']:.3f} | min-cosine fused_trunk {t['min_cosine']:.6f} "
+              f"fused_int8 {i8['min_cosine']:.6f} | |dmAP| {t['map_delta']:.6f} {i8['map_delta']:.6f}")
+        if t["min_cosine"] < MIN_COSINE or t["map_delta"] > RANK_MAX_MAP_DELTA:
+            fail(f"fused_trunk {plan}: min-cosine {t['min_cosine']} (>= {MIN_COSINE}) or "
+                 f"|dmAP| {t['map_delta']} (<= {RANK_MAX_MAP_DELTA}) against xla")
+    print(f"mm protocol: {len(plans)} plans x {len(MM_PATHS)} paths, {MM_IDS} ids x "
+          f"{MM_GALLERY_PER_ID} gallery, {len(mm['q_pids'])} queries in "
+          f"{time.perf_counter() - t0:.1f} s")
+    print("mm_protocol: " + json.dumps(mm_table))
+
+    # one text-only query step: its device time against its wall time
+    from torch.profiler import ProfilerActivity, profile
+
+    text_args = (mm["q_images"], mm["q_mask"], mm["tokens"], mm["text_mask"])
+    text_step = make_combo_embed_step(models["xla"], ("text",))
+    for _ in range(WARMUP_RUNS):
+        text_step(*text_args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(E2E_ITERS):
+        text_step(*text_args)
+    torch.cuda.synchronize()
+    text_wall_ms = (time.perf_counter() - t0) / E2E_ITERS * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        text_step(*text_args)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and device_time(e) > 0]
+    text_device_ms = sum(device_time(e) for e in events) / 1e3
+    top = sorted(events, key=device_time, reverse=True)[:TOP_KERNELS]
+    print(f"text query step (B={BATCH}, S={cfg.text_context_length}): device "
+          f"{text_device_ms:.3f} ms of {text_wall_ms:.3f} ms (idle share "
+          f"{1 - text_device_ms / text_wall_ms:.3f}) in {len(events)} kernels; top: "
+          + json.dumps([[e.key[:60], e.count, round(device_time(e) / 1e3, 4)] for e in top]))
+    del models, mm, mm_feats
 
     # reference on a small input: the port in f32 on the CPU, same images
     n_ref = 4
@@ -717,8 +922,6 @@ def main() -> int:
     print("end_to_end_rounds: " + json.dumps(rates))
 
     # where one embed step's device time goes, per configuration
-    from torch.profiler import ProfilerActivity, profile
-
     device_ms = {}
     for name, step in steps.items():
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -751,7 +954,9 @@ def main() -> int:
 
     print("end_to_end: " + json.dumps({
         "card": card, "batch": BATCH, "embeds_per_sec": e2e, "device_ms_per_step": device_ms,
-        "min_cosine_vs_xla": gate,
+        "min_cosine_vs_xla": gate, "rank_gate_vs_xla": rank_gate,
+        "text_query_step": {"device_ms": text_device_ms, "wall_ms": text_wall_ms,
+                            "idle_share": 1 - text_device_ms / text_wall_ms},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     for r in rows:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "

@@ -1,5 +1,5 @@
-"""Typed configuration for the PyTorch port: the fields the vision
-gallery-embed path reads.
+"""Typed configuration for the PyTorch port: the fields the eval embedding
+path reads (the vision towers, the text tower, fusion).
 
 Own copy of the JAX package's ``TrainingConfig`` subset: the same field
 names, defaults (full-width ViT-B/16) and validation.  A value that the JAX
@@ -33,6 +33,13 @@ class TrainingConfig:
     vision_mlp_dim: int = 3072
     patch_size: int = 16
     image_size: int = 224
+    # the CLIP text tower (JAX: no validation of these six beyond their types)
+    text_hidden_dim: int = 512
+    text_layers: int = 12
+    text_heads: int = 8
+    text_mlp_dim: int = 2048
+    text_vocab_size: int = 49408
+    text_context_length: int = 77
 
     # MER LoRA routing
     enable_mer: bool = True

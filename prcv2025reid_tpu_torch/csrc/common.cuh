@@ -1,6 +1,6 @@
 // Helpers shared by the port's Hopper kernels: mma.sync m16n8k16 (bf16
-// inputs, f32 accumulators) and m16n8k32 (int8 inputs, s32 accumulators),
-// ldmatrix and cp.async, bf16 packing and 8-value row loads, the GELU.
+// inputs, f32 accumulators) and ldmatrix for the attention kernel, bf16
+// packing and 8-value row loads, the GELU.
 //
 // Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16"), with
 // g = lane / 4 and t = lane % 4:
@@ -8,13 +8,6 @@
 //                        a2 = (g, 2t+8..+9)   a3 = (g+8, 2t+8..+9)
 //   B 16x8  (k x n):     b0 = (k 2t..2t+1, n g)   b1 = (k 2t+8..+9, n g)
 //   C 16x8  (f32):       c0,c1 = (g, 2t..2t+1)    c2,c3 = (g+8, 2t..2t+1)
-// and for m16n8k32 with .s8 operands (four int8 per register):
-//   A 16x32 (row-major): a0 = (g, 4t..4t+3)   a1 = (g+8, 4t..4t+3)
-//                        a2 = (g, 4t+16..+19) a3 = (g+8, 4t+16..+19)
-//   B 32x8  (k x n):     b0 = (k 4t..4t+3, n g)   b1 = (k 4t+16..+19, n g)
-//   C 16x8  (s32):       as for m16n8k16
-// so a non-transposed ldmatrix .b16 of an 8-row x 16-byte int8 tile (rows
-// = m for A, = n for a K-major B) hands each lane exactly its four bytes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -50,34 +43,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a * b  (m16n8k32, s8 x s8 -> s32, exact: no saturation is needed
-// while |d| < 2^31, i.e. K < 2^31 / 127^2 = 133,144)
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16-byte asynchronous copy global -> shared; when !pred the 16 bytes are
-// zero-filled and nothing is read (gmem must still be a valid address)
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(smem)), "l"(gmem), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
 // two f32 -> one register of two bf16 (round to nearest even), lo first

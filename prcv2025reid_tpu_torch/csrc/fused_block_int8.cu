@@ -1,8 +1,7 @@
 // The three int8 block kernels of the folded (eval/serving) transformer block:
-// row passes, int8 tensor-core GEMMs (s8 x s8 -> exact s32 accumulators) with
-// fused epilogues, on two cores: the persistent s8 wgmma + TMA core of
-// hopper_gemm.cuh for the LN1+QKV GEMM and the MLP tail, and an mma.sync
-// m16n8k32 core for the all-int8 out-projection.
+// row passes and int8 GEMMs (s8 x s8 -> exact s32 accumulators) with fused
+// epilogues, every GEMM on the persistent s8 wgmma + TMA core of
+// hopper_gemm.cuh.
 //
 // Replaces: prcv2025reid_tpu/ops/fused_block.py::_ln_qkv_kernel_int8
 // (fused_ln_qkv, quant="int8"), ::_out_mlp_kernel_int8 (fused_out_mlp,
@@ -19,23 +18,22 @@
 // memory, so the work is split at each point where a whole row is needed:
 //   ln_qkv_int8   = row pass (LN1 in f32, one warp per row held in registers,
 //                   then the row's max |y| and y / s rounded half to even ->
-//                   int8 [T, D] and s [T]), then the QKV GEMM on the s8
-//                   core against the K-major weights (128 x 192 tiles, 2%
-//                   faster than 128 x 256),
-//                   epilogue bf16((dq(acc) = (acc * s_row) * ws_col) + b).
+//                   int8 [T, D] and s [T]), then the QKV GEMM (128 x 192
+//                   tiles, 2% faster than 128 x 256), epilogue
+//                   bf16((dq(acc) = (acc * s_row) * ws_col) + b).
 //   mlp_int8      = the int8 MLP tail on x2 [T, D] f32, four launches and a
-//                   memset: row pass LN2 + quantize; fc1 on the s8 wgmma core
-//                   (128 x 256 tiles), epilogue h = GELU(dq(acc) + b1) in f32
-//                   stored by TMA in [64][64] sub-tiles, with each row's max
-//                   |h| (atomicMax on the bits of the non-negative float); a
-//                   pass quantizing h (from f32, not bf16, as the TPU kernel
-//                   does); fc2 on the same core (128 x 192 tiles: 6 even waves
-//                   on 132 SMs at D = 768), epilogue bf16((x2 + dq(acc)) + b2).
-//                   h goes through device memory as f32 (2 x 310 MB at the
-//                   slice's shape): the row max has to be complete before any
-//                   of h is quantized.
-//   out_mlp_int8  = a row pass quantizing the attention rows, the mma.sync
-//                   out-projection, epilogue x2 = (x + proj) + bo in f32, then
+//                   memset: row pass LN2 + quantize; fc1 (128 x 256 tiles),
+//                   epilogue h = GELU(dq(acc) + b1) in f32 stored by TMA in
+//                   [64][64] sub-tiles, with each row's max |h| (atomicMax on
+//                   the bits of the non-negative float); a pass quantizing h
+//                   (from f32, not bf16, as the TPU kernel does); fc2 (128 x
+//                   192 tiles: 6 even waves on 132 SMs at D = 768), epilogue
+//                   bf16((x2 + dq(acc)) + b2).  h goes through device memory
+//                   as f32 (2 x 310 MB at the slice's shape): the row max has
+//                   to be complete before any of h is quantized.
+//   out_mlp_int8  = a row pass quantizing the attention rows, the
+//                   out-projection (128 x 192 tiles), epilogue x2 = (x +
+//                   dq(acc)) + bo in f32 stored in [64][64] sub-tiles, then
 //                   mlp_int8.
 //
 // Rounding follows the TPU kernels exactly where it can: scales are
@@ -46,37 +44,18 @@
 // still differ: the LN statistics (summation order, rsqrtf) and the GELU's
 // approximate reciprocal and exponential, by a few f32 ulps, which flips an
 // int8 rounding only where a value lies within those ulps of a half step.
-//
-// The mma.sync core (out_mlp_int8's out-projection only): 128x128 block
-// tiles, 64-byte k-tiles (two k32 mma steps), 8 warps of 64x32, a 4-stage
-// cp.async pipeline.  Both operands are K-major (A [M, K] row-major, W
-// [N, K]), so both load with the non-transposed ldmatrix .b16 (there is no
-// 8-bit ldmatrix.trans on sm_90): every lane gets the four consecutive k
-// bytes of the m16n8k32 fragment.
 #include "hopper_gemm.cuh"
 
 using namespace port;
-using hgemm::dequant;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 64;  // BK in bytes = int8 values
-constexpr int THREADS = 256, STAGES = 4;
-constexpr int LDS = BK + 16;  // 80-byte rows: conflict-free ldmatrix
-constexpr int SMEM_BYTES = STAGES * (BM + BN) * LDS;  // 81,920
 constexpr int ROW_MAX_K = 32 * 8 * 4;  // a row pass holds a row of <= 1024 in registers
-
-struct IGemmArgs {
-  const int8_t* a;        // [G, M, K] int8, row-major
-  const int8_t* w;        // [G, N, K] int8, K-major
-  const float* s_row;     // [G, M] row scales of a
-  const float* s_col;     // [G, N] column scales of w
-  const float* bias;      // [G, N]
-  const bf16* res;        // [G, M, N] residual x
-  float* out;             // [G, M, N] f32 x2
-  int M, N, K;
-};
+// the out-projection's column tile: 4 of them at D = 768; on an H100 at T =
+// 25,216 rows 128 x 192 (4 stages) took 82.7 us, 128 x 256 (3 stages, 3 tiles)
+// 86.6 us (PERF.md)
+constexpr int OUT_TN = 192, OUT_STAGES = 4;
 
 // the per-row scale of the TPU kernels' _quant_rows: max(max|y| / 127, 1e-8)
 __device__ __forceinline__ float row_scale(float maxabs) {
@@ -191,115 +170,6 @@ __global__ void __launch_bounds__(256) quant_h_kernel(
   if (i % F == 0) s[row] = sc;
 }
 
-// x2 = (x + dq(aq @ woq)) + bo in f32
-__global__ void __launch_bounds__(THREADS, 2) igemm_kernel(IGemmArgs p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* sA = reinterpret_cast<int8_t*>(smem);
-  int8_t* sB = sA + STAGES * BM * LDS;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4, wn = warp % 4;  // 2 x 4 warps of 64 x 32
-  const int g = lane / 4, t = lane % 4;
-  const int bn = blockIdx.x * BN, bm = blockIdx.y * BM, grp = blockIdx.z;
-  const int M = p.M, N = p.N, K = p.K;
-  const int8_t* A = p.a + static_cast<long long>(grp) * M * K;
-  const int8_t* W = p.w + static_cast<long long>(grp) * N * K;
-  const int nk = (K + BK - 1) / BK;
-
-  // start the copies of k-tile kt into pipeline stage st: 128 rows x 4
-  // 16-byte chunks of each operand, two of each per thread
-  auto load_stage = [&](int kt, int st) {
-    if (kt < nk) {
-      const int k0 = kt * BK;
-#pragma unroll
-      for (int i = 0; i < BM * BK / 16 / THREADS; ++i) {
-        const int c = tid + i * THREADS;
-        const int r = c / (BK / 16), col = (c % (BK / 16)) * 16;
-        const bool ka = k0 + col + 16 <= K;
-        const bool ia = ka && bm + r < M, ib = ka && bn + r < N;
-        cp_async16(sA + (st * BM + r) * LDS + col,
-                   ia ? A + static_cast<long long>(bm + r) * K + k0 + col : A, ia);
-        cp_async16(sB + (st * BN + r) * LDS + col,
-                   ib ? W + static_cast<long long>(bn + r) * K + k0 + col : W, ib);
-      }
-    }
-    cp_async_commit();  // an empty group past the end keeps the wait counts uniform
-  };
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) load_stage(s, s);
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt % STAGES;
-    cp_async_wait<STAGES - 2>();  // k-tile kt has landed
-    __syncthreads();              // everyone's copies visible; stage kt-1 free
-    load_stage(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
-    const int8_t* a_tile = sA + st * BM * LDS;
-    const int8_t* b_tile = sB + st * BN * LDS;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t af[4][4], bfr[2][4];
-      // A: matrices (rows 0-7 | 8-15) x (bytes 0-15 | 16-31) -> a0..a3
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ldmatrix_x4(af[i], a_tile + (wm * 64 + i * 16 + lane % 16) * LDS + kk + (lane / 16) * 16);
-      // W: matrices (n 0-7: bytes 0-15, 16-31 | n 8-15: ...) -> b0, b1 of two n8 blocks
-#pragma unroll
-      for (int jp = 0; jp < 2; ++jp)
-        ldmatrix_x4(bfr[jp], b_tile + (wn * 32 + jp * 16 + (lane / 16) * 8 + lane % 8) * LDS +
-                                 kk + ((lane / 8) % 2) * 16);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mma_s8(acc[i][j], af[i], bfr[j / 2][(j % 2) * 2], bfr[j / 2][(j % 2) * 2 + 1]);
-    }
-  }
-  cp_async_wait<0>();
-
-  // epilogue: each thread owns pairs of neighbouring columns
-  const long long gM = static_cast<long long>(grp) * M, gN = static_cast<long long>(grp) * N;
-  const float* s_col = p.s_col + gN;
-  const float* bias = p.bias + gN;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int row = bm + wm * 64 + i * 16 + g + hr * 8;
-      if (row >= M) continue;
-      const float sr = p.s_row[gM + row];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = bn + wn * 32 + j * 8 + 2 * t;
-        if (col >= N) continue;
-        const long long off = (gM + row) * N + col;
-        const float v0 = dequant(acc[i][j][2 * hr], sr, s_col[col]);
-        const float v1 = dequant(acc[i][j][2 * hr + 1], sr, s_col[col + 1]);
-        const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.res + off));
-        *reinterpret_cast<float2*>(p.out + off) =
-            make_float2(__fadd_rn(__fadd_rn(x.x, v0), bias[col]),
-                        __fadd_rn(__fadd_rn(x.y, v1), bias[col + 1]));
-      }
-    }
-  }
-}
-
-cudaError_t run_igemm(const IGemmArgs& p, int G, cudaStream_t stream) {
-  if (p.K % 16 != 0 || p.N % 2 != 0) return cudaErrorInvalidValue;
-  cudaError_t e =
-      cudaFuncSetAttribute(igemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (e != cudaSuccess) return e;
-  dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, G);
-  igemm_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(p);
-  return cudaGetLastError();
-}
-
 // LN2 + quantize, fc1 (GELU, row max), quantize h, fc2 + residual
 cudaError_t mlp_tail(const void* x2, const void* ln_s, const void* ln_b, const void* w1q,
                      const void* w1s, const void* b1, const void* w2q, const void* w2s,
@@ -378,18 +248,17 @@ extern "C" int out_mlp_int8(const void* attn, const void* x, const void* woq, co
                             const void* w2q, const void* w2s, const void* b2, void* yq,
                             void* ys, void* h, void* hmax, void* hq, void* hs, void* out,
                             int G, int T, int D, int F, float eps, void* stream) {
+  if (G <= 0 || T <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if ((e = run_row_quant<bf16, false>(attn, nullptr, nullptr, aq, as, G * T, D, eps, st)) !=
       cudaSuccess)
     return e;
-  IGemmArgs p{};
-  p.a = static_cast<const int8_t*>(aq);  p.w = static_cast<const int8_t*>(woq);
-  p.s_row = static_cast<const float*>(as);  p.s_col = static_cast<const float*>(wos);
-  p.bias = static_cast<const float*>(bo);
-  p.res = static_cast<const bf16*>(x);  p.out = static_cast<float*>(x2);
-  p.M = T;  p.N = D;  p.K = D;
-  if ((e = run_igemm(p, G, st)) != cudaSuccess) return e;
+  const hgemm::Params proj{T, D, D, G, static_cast<const float*>(bo), x,
+                           static_cast<const float*>(as), static_cast<const float*>(wos)};
+  if ((e = hgemm::gemm<hgemm::S8Op, hgemm::F32Out<hgemm::DQ_RES_X>, 128, OUT_TN, 2, OUT_STAGES>(
+           aq, woq, x2, proj, st)) != cudaSuccess)
+    return e;
   return static_cast<int>(mlp_tail(x2, ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2, yq, ys, h, hmax,
                                    hq, hs, out, G, T, D, F, eps, st));
 }

@@ -1,7 +1,6 @@
 // The port's Hopper GEMM core: a persistent, warp-specialised wgmma + TMA
 // mainloop with an epilogue parameter, shared by every GEMM of the port's
-// Hopper kernels but the int8 out-projection of out_mlp_int8
-// (fused_block_int8.cu::igemm_kernel), which stays on mma.sync.
+// Hopper kernels.
 //
 //   out[g] = epilogue(A[g] [M, K] @ B[g] [K, N])   for g < G
 //
@@ -42,6 +41,8 @@
 //                       the mixed int8 plan)
 //   F32Out<DQ_GELU>     the int8 fc1 of the int8 MLP tail: f32 h and each
 //                       row's max |h| for its quantization
+//   F32Out<DQ_RES_X>    the int8 out-projection x2 = (x + dq(acc)) + bo in f32
+//                       (fused_block_int8.cu::out_mlp_int8)
 // Residuals are read straight from device memory in the epilogue; scales and
 // biases once per row or column pair.
 #pragma once
@@ -155,19 +156,20 @@ enum Act {
   DQ_RES_X2 = 6,  // (x2 + dq(acc)) + b, x2 f32 [G, M, N]      bf16 out
   IDENT = 7,      // acc                                      int32 out
   DQ_BIAS = 8,    // dq(acc) + b                              bf16 out
+  DQ_RES_X = 9,   // (x + dq(acc)) + b, x bf16 [G, M, N]       f32 out
 };
 
 struct Params {
   int M, N, K, G;
   const float* bias;      // [G, N] f32 (every Act but NONE and IDENT)
-  const void* res;        // [G, M, N] residual: bf16 (RES_X) or f32 (RES_X2, DQ_RES_X2)
+  const void* res;        // [G, M, N] residual: bf16 (RES_X, DQ_RES_X) or f32 (RES_X2, DQ_RES_X2)
   const float* s_row;     // [G, M] row scales of A (DQ_*)
   const float* s_col;     // [G, N] column scales of B (DQ_*)
   unsigned int* row_max;  // [G, M] bits of each row's max |out| (DQ_GELU), zeroed by the caller
 };
 
 __host__ __device__ constexpr bool dequantizes(int act) {
-  return act == DQ_GELU || act == DQ_RES_X2 || act == DQ_BIAS;
+  return act == DQ_GELU || act == DQ_RES_X2 || act == DQ_BIAS || act == DQ_RES_X;
 }
 
 // the f32 roundings of the TPU kernels' order, kept apart (no FMA contraction)
@@ -221,13 +223,13 @@ __device__ __forceinline__ float2 value(Acc a0, Acc a1, const ColPair& c, float 
     float2 r = make_float2(0.f, 0.f);
     if (row < p.M && col < p.N) {
       const long long off = (static_cast<long long>(g) * p.M + row) * p.N + col;
-      if constexpr (ACT == RES_X)
+      if constexpr (ACT == RES_X || ACT == DQ_RES_X)
         r = __bfloat1622float2(
             *reinterpret_cast<const __nv_bfloat162*>(static_cast<const __nv_bfloat16*>(p.res) + off));
       else
         r = __ldg(reinterpret_cast<const float2*>(static_cast<const float*>(p.res) + off));
     }
-    if constexpr (ACT == DQ_RES_X2)
+    if constexpr (ACT == DQ_RES_X2 || ACT == DQ_RES_X)
       return make_float2(__fadd_rn(__fadd_rn(r.x, dequant(a0, s_row, c.s.x)), c.b.x),
                          __fadd_rn(__fadd_rn(r.y, dequant(a1, s_row, c.s.y)), c.b.y));
     else  // RES_X, RES_X2

@@ -1,11 +1,12 @@
-"""Entry points: build the model on a device and embed a gallery batch.
+"""Entry points: build the model on a device and embed a batch of any
+modality combo.
 
 ``make_combo_embed_step`` is the counterpart of the JAX package's
 ``training/train_step.py::make_combo_embed_step``: uint8 images
-[B, Mv, H, W, 3] in, L2-normalised f32 [B, fusion_dim] out, on the model's
-device.  Entry points run on the card unless the caller passes
-``device="cpu"``; with no CUDA device they raise rather than carry on on the
-CPU.
+[B, Mv, H, W, 3] (and, for a combo with text, token rows [B, S]) in,
+L2-normalised f32 [B, fusion_dim] out, on the model's device.  Entry points
+run on the card unless the caller passes ``device="cpu"``; with no CUDA
+device they raise rather than carry on on the CPU.
 """
 from __future__ import annotations
 
@@ -55,20 +56,24 @@ def make_combo_embed_step(model: MultiModalReIDModel,
                           active: Sequence[str]) -> Callable[..., torch.Tensor]:
     """Embedding specialised to a static modality combo (gallery 'vis' = one
     ViT pass).  The step takes ``images`` [B, Mv, H, W, 3] (uint8) and
-    ``image_mask`` [B, Mv], as tensors or numpy arrays."""
+    ``image_mask`` [B, Mv], and for a combo with "text" also ``text_tokens``
+    [B, S] (int) and ``text_mask`` [B], as tensors or numpy arrays; a combo
+    without "text" ignores them, as JAX's does."""
     active = tuple(active)
-    if "text" in active:
-        raise NotImplementedError(
-            "'text' in the active set is not ported yet: ROADMAP.md §1, the item "
-            "'Text tower and encoder' (text tower)"
-        )
     device = model.null_tokens.device
 
     @torch.inference_mode()
-    def embed(images, image_mask) -> torch.Tensor:
+    def embed(images, image_mask, text_tokens=None, text_mask=None) -> torch.Tensor:
         images = torch.as_tensor(images, device=device)
         image_mask = torch.as_tensor(image_mask, device=device)
-        feats = model.encode_subset(images, image_mask, None, None, active).float()
+        if "text" in active:
+            if text_tokens is None or text_mask is None:
+                raise ValueError(f"the combo {active} needs text_tokens and text_mask")
+            text_tokens = torch.as_tensor(text_tokens, device=device)
+            text_mask = torch.as_tensor(text_mask, device=device)
+        else:
+            text_tokens = text_mask = None
+        feats = model.encode_subset(images, image_mask, text_tokens, text_mask, active).float()
         norm = torch.clamp(torch.linalg.vector_norm(feats, dim=1, keepdim=True), min=1e-12)
         return feats / norm
 

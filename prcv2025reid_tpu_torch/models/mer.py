@@ -104,6 +104,24 @@ class Dense(nn.Module):
         return y if self.bias is None else y + self.bias.to(dtype)
 
 
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm``: f32 statistics with the fast variance
+    E[x^2] - E[x]^2 (clamped at 0), output in the compute dtype."""
+
+    def __init__(self, features: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = _param(features, device=device)
+        self.bias = _param(features, device=device)
+
+    def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
+        xf = x.float()
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
+        y = (xf - mu) * (torch.rsqrt(var + self.eps) * self.scale)
+        return (y + self.bias).to(dtype)
+
+
 class LNParams(nn.Module):
     """LayerNorm ``scale``/``bias`` applied by the caller (or fused into a kernel)."""
 

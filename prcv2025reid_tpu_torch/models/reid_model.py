@@ -4,9 +4,8 @@ the JAX package's ``models/reid_model.py``).
 Missing modalities are handled by masked blending with learnable null
 tokens: feat = mask * enc + (1 - mask) * null.  ``encode_subset`` computes
 only the active vision towers (one trunk call over all of them), fuses the
-modality tokens and returns BNNeck features (L2 x 8).  The SDM module and
-the text tower are not ported yet (ROADMAP.md §1, the items 'The training
-trunk' and 'Text tower and encoder').
+modality tokens and returns BNNeck features (L2 x 8).  The SDM module is
+not ported yet (ROADMAP.md §1, the item 'The training trunk').
 """
 from __future__ import annotations
 
@@ -17,25 +16,7 @@ from torch import nn
 
 from prcv2025reid_tpu_torch.configs import TrainingConfig
 from prcv2025reid_tpu_torch.models.encoder import DTYPES, UnifiedEncoder
-from prcv2025reid_tpu_torch.models.mer import Dense, _param, gelu_erf
-
-
-class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm``: f32 statistics with the fast variance
-    E[x^2] - E[x]^2 (clamped at 0), output in the compute dtype."""
-
-    def __init__(self, features: int, eps: float = 1e-5, device=None):
-        super().__init__()
-        self.eps = eps
-        self.scale = _param(features, device=device)
-        self.bias = _param(features, device=device)
-
-    def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
-        xf = x.float()
-        mu = xf.mean(dim=-1, keepdim=True)
-        var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
-        y = (xf - mu) * (torch.rsqrt(var + self.eps) * self.scale)
-        return (y + self.bias).to(dtype)
+from prcv2025reid_tpu_torch.models.mer import Dense, LayerNorm, _param, gelu_erf
 
 
 class FeatureFusion(nn.Module):
@@ -124,7 +105,8 @@ class BNNeck(nn.Module):
 
 
 class MultiModalReIDModel(nn.Module):
-    """Vision encoder + fusion + BNNeck + null tokens (eval embedding)."""
+    """Vision and text encoders + fusion + BNNeck + null tokens (eval
+    embedding)."""
 
     def __init__(self, config: TrainingConfig, num_classes: int, device=None):
         super().__init__()
@@ -144,17 +126,15 @@ class MultiModalReIDModel(nn.Module):
         """Eval embedding computing only the active modality towers.
 
         images uint8 (or normalized float) [B, Mv, H, W, 3]; image_mask
-        [B, Mv].  Inactive slots carry null tokens with zero masks.  Returns
-        bn_features [B, fusion_dim] (L2 x 8, f32)."""
-        if "text" in active:
-            raise NotImplementedError(
-                "'text' in the active set is not ported yet: ROADMAP.md §1, "
-                "the item 'Text tower and encoder' (text tower)"
-            )
+        [B, Mv]; text_tokens [B, S] (int) and text_mask [B], read only when
+        "text" is active (the last slot).  Inactive slots carry null tokens
+        with zero masks.  Returns bn_features [B, fusion_dim] (L2 x 8, f32)."""
         vis_mods = self.config.vision_modalities
-        unknown = [m for m in active if m not in vis_mods]
+        unknown = [m for m in active if m not in vis_mods + ("text",)]
         if unknown:
-            raise ValueError(f"active modalities {unknown} not in {vis_mods}")
+            raise ValueError(f"active modalities {unknown} not in {vis_mods + ('text',)}")
+        if "text" in active and (text_tokens is None or text_mask is None):
+            raise ValueError("'text' in the active set needs text_tokens and text_mask")
         B, Mv = images.shape[:2]
         M = Mv + 1
         dt = self.dtype
@@ -172,5 +152,10 @@ class MultiModalReIDModel(nn.Module):
                 m = image_mask[:, mi].float()[:, None]
                 feats[:, mi] = m.to(dt) * all_feats[j] + (1 - m).to(dt) * null[mi]
                 masks[:, mi] = m[:, 0]
+        if "text" in active:
+            f = self.encoder.encode_text(text_tokens)
+            m = text_mask.float()[:, None]
+            feats[:, M - 1] = m.to(dt) * f + (1 - m).to(dt) * null[M - 1]
+            masks[:, M - 1] = m[:, 0]
 
         return self.bn_neck(self.fusion(feats, masks))

@@ -20,11 +20,18 @@ from prcv2025reid_tpu_torch.configs import TrainingConfig
 
 COLLECTIONS = ("params", "batch_stats")
 # keys of the JAX tree that belong to modules this port does not have yet
-NOT_YET_PORTED = (
-    "params/encoder/text/",
-    "params/encoder/text_proj/",
-    "params/sdm_module/",
-)
+NOT_YET_PORTED = ("params/sdm_module/",)
+# init_params draws the keys of each later group after all earlier ones, so
+# that a module added to the port leaves every earlier key's values as they
+# were: the text tower and text_proj came after the vision path
+LATER_GROUPS = (("params/encoder/text/", "params/encoder/text_proj/"),)
+
+
+def _draw_order(key: str):
+    """(group, key): the keys of the first port's modules (group -1), then
+    each LATER_GROUPS entry in turn, each sorted by key."""
+    group = next((i for i, g in enumerate(LATER_GROUPS) if key.startswith(g)), -1)
+    return group, key
 
 
 def _torch_name(key: str) -> str:
@@ -77,13 +84,17 @@ def init_params(config: TrainingConfig, num_classes: int, seed: int = 0,
                 perturb: bool = True) -> Dict[str, np.ndarray]:
     """A flat parameter dict with the JAX tree's keys and shapes, from numpy
     alone, seeded.  Initialisers follow the JAX package's (lecun-normal
-    kernels, uniform lora_A, 0.02-normal tokens).  JAX zero-initialises
+    kernels, uniform lora_A, 0.02-normal tokens, the text tower's
+    0.01-normal positions and fan-in-normal embedding rows; keys drawn in
+    ``_draw_order``).  JAX zero-initialises
     lora_B, biases and the BN running mean and sets LN/BN scales and the
     running variance to 1, which would hide a LoRA-folding, bias or BN bug:
     with ``perturb`` those get seeded nonzero values."""
     rng = np.random.default_rng(seed)
     out = {}
-    for key, shape in sorted(param_shapes(config, num_classes).items()):
+    shapes = param_shapes(config, num_classes)
+    for key in sorted(shapes, key=_draw_order):
+        shape = shapes[key]
         leaf = key.rsplit("/", 1)[1]
         if leaf == "lora_A":
             bound = shape[-2] ** -0.5
@@ -95,6 +106,10 @@ def init_params(config: TrainingConfig, num_classes: int, seed: int = 0,
         elif leaf == "kernel":
             fan_in = int(np.prod(shape[:-1]))
             a = rng.normal(0.0, fan_in ** -0.5, shape)
+        elif leaf == "embedding":  # flax Embed: variance scaling over the width
+            a = rng.normal(0.0, shape[-1] ** -0.5, shape)
+        elif leaf == "pos_embed" and key.startswith("params/encoder/text/"):
+            a = rng.normal(0.0, 0.01, shape)
         elif leaf in ("cls_token", "pos_embed", "null_tokens"):
             a = rng.normal(0.0, 0.02, shape)
         elif leaf == "bias" or leaf == "mean":

@@ -354,6 +354,69 @@ def test_int8_mlp_tail_known_values(cuda, G, T, D, F):
     assert torch.equal(out, ((x2 + o) + b2[:, None]).bfloat16())
 
 
+@pytest.mark.parametrize("G", [1, 3])
+def test_out_mlp_int8_on_the_gemm_core(cuda, G):
+    """#6 with its out-projection on the s8 core, at the MM-3 query's 6,304
+    rows a group, against out_mlp_int8_plain at the int8 tolerances."""
+    d = _block_operands(cuda, G, 6304, 768, 3072)
+    q = {k: fb.quantize_weight(d[k]) for k in ("wo", "w1", "w2")}
+    args = (d["attn"], d["x"], *q["wo"], d["bo"], d["lns"], d["lnb"], *q["w1"], d["b1"],
+            *q["w2"], d["b2"])
+    got = fb.fused_out_mlp_int8(*args)
+    torch.cuda.synchronize()
+    want = fb.out_mlp_int8_plain(*args)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _rel(got, want) < 1e-2
+    assert (got.float() - want.float()).abs().max().item() < 0.1
+
+
+@pytest.mark.parametrize("G,T,D,F", [(1, 300, 256, 512), (3, 77, 96, 208)])
+def test_out_mlp_int8_out_projection_known_values(cuda, G, T, D, F):
+    """#6's out-projection epilogue (DQ_RES_X) with an exact answer: woq maps
+    each input column to one output column (weight 1), so every int32
+    accumulator is one int8 value of the kernel's own aq and x2 = (x +
+    ((aq[k] * as) * wos)) + bo in f32 bit for bit; a wrongly swizzled f32
+    sub-tile, a residual read off its row or a row scale that read 0 moves
+    values.  The attention rows quantize as quant_rows does on the CPU."""
+    import ctypes
+
+    from prcv2025reid_tpu_torch.ops import _kernels
+
+    g = torch.Generator(device=cuda).manual_seed(19)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=cuda)
+
+    attn, x = (r(G, T, D) * 3).bfloat16(), r(G, T, D).bfloat16()
+    perm = _injection(D, D, 20).to(cuda)
+    woq = torch.zeros(G, D, D, device=cuda, dtype=torch.int8)  # [N, K] storage
+    woq[:, perm, torch.arange(D, device=cuda)] = 1
+    wos, bo = 0.5 + torch.rand(G, D, generator=g, device=cuda), r(G, D)
+    lns, lnb = torch.ones(D, device=cuda), torch.zeros(D, device=cuda)
+    w1q, w2q = (torch.zeros(G, n, k, device=cuda, dtype=torch.int8) for n, k in ((F, D), (D, F)))
+    w1s, b1, w2s, b2 = torch.ones(G, F, device=cuda), r(G, F), torch.ones(G, D, device=cuda), r(G, D)
+    aq = torch.empty(G, T, D, dtype=torch.int8, device=cuda)
+    as_ = torch.empty(G, T, device=cuda)
+    x2 = torch.full((G, T, D), float("nan"), device=cuda)
+    tail = [torch.empty(G, T, D, dtype=torch.int8, device=cuda), torch.empty(G, T, device=cuda),
+            torch.empty(G, T, F, device=cuda), torch.empty(G, T, dtype=torch.int32, device=cuda),
+            torch.empty(G, T, F, dtype=torch.int8, device=cuda), torch.empty(G, T, device=cuda)]
+    out = torch.empty(G, T, D, dtype=torch.bfloat16, device=cuda)
+    c = _kernels.lib("fused_block_int8").out_mlp_int8
+    c.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    c.restype = ctypes.c_int
+    rc = c(*_ptrs(attn, x, woq, wos, bo, aq, as_, x2, lns, lnb, w1q, w1s, b1, w2q, w2s, b2,
+                  *tail, out), G, T, D, F, fb.LN_EPS, _kernels.stream_ptr(x))
+    _kernels.check(rc, "out_mlp_int8")
+    torch.cuda.synchronize()
+    want_q, want_s = fb.quant_rows(attn.cpu().float())
+    assert torch.equal(aq.cpu(), want_q) and torch.equal(as_.cpu(), want_s[..., 0])
+    acc = torch.zeros(G, T, D, dtype=torch.int32, device=cuda)
+    acc[..., perm] = aq.int()
+    dq = (acc.float() * as_[..., None]) * wos[:, None]
+    assert torch.equal(x2, (x.float() + dq) + bo[:, None])
+
+
 def test_int8_wrappers_reject_what_the_kernels_do_not_take(cuda):
     d = _block_operands(cuda, 1, 40, 64, 128)
     wq, ws = fb.quantize_weight(d["wqkv"])
@@ -699,3 +762,68 @@ def test_model_paths_launch_kernels(cuda, over, expected):
     inexact = over.get("block_impl", "").startswith("fused_int8") or not expected
     bar = 0.99 if inexact else 0.999
     assert (got * want).sum(dim=1).min().item() > bar
+
+
+def test_retrieval_metrics_on_the_card_equal_the_cpu(cuda):
+    """compute_retrieval_metrics and ranking_equivalence on the card against
+    the same calls on the CPU: the same f32 similarities up to summation
+    order (TF32 off inside the call, whatever the process default), so the
+    same stable orders and the same metrics within float32 sums."""
+    from prcv2025reid_tpu_torch.evaluation.protocol import (
+        compute_retrieval_metrics,
+        ranking_equivalence,
+    )
+
+    rng = np.random.default_rng(0)
+    base = rng.normal(size=(40, 512))
+    g_pids = np.repeat(np.arange(40), 10)
+    g = base[g_pids] + rng.normal(size=(400, 512))
+    q_pids = rng.integers(0, 42, 300)
+    q = np.concatenate([base, rng.normal(size=(2, 512))])[q_pids] + rng.normal(size=(300, 512))
+    g, q = (x / np.linalg.norm(x, axis=1, keepdims=True) for x in (g, q))
+    g, q = g.astype(np.float32), q.astype(np.float32)
+    idx = rng.integers(-1, 400, 300).astype(np.int32)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True  # the call must switch it off itself
+    try:
+        for kw in ({}, {"exclude": idx, "query_chunk": 128}):
+            got = compute_retrieval_metrics(q, q_pids, g, g_pids, device=cuda, **kw)
+            want = compute_retrieval_metrics(q, q_pids, g, g_pids, device="cpu", **kw)
+            assert set(got) == set(want)
+            assert all(abs(got[k] - want[k]) <= 1e-6 for k in want), (got, want)
+        qt = q + 0.02 * rng.normal(size=q.shape).astype(np.float32)
+        got = ranking_equivalence(q, g, qt, g, q_pids, g_pids, device=cuda)
+        want = ranking_equivalence(q, g, qt, g, q_pids, g_pids, device="cpu")
+        assert got["top_overlap"] == want["top_overlap"]
+        assert abs(got["map_delta"] - want["map_delta"]) <= 1e-6
+        assert torch.backends.cuda.matmul.allow_tf32  # restored
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("active", [("text",), ("nir", "text"), ("nir", "sk", "cp", "text")])
+def test_text_combo_step_on_the_card_matches_the_cpu(cuda, active):
+    """A text combo through make_combo_embed_step on the card against the
+    CPU port on the same f32 weights and inputs: min-cosine >= 0.999."""
+    cfg = TrainingConfig(vision_hidden_dim=128, vision_layers=3, vision_heads=2,
+                         vision_mlp_dim=256, image_size=64, fusion_dim=32, fusion_num_heads=4,
+                         text_hidden_dim=64, text_layers=2, text_heads=4, text_mlp_dim=128,
+                         compute_dtype="float32")
+    from prcv2025reid_tpu_torch.params import init_params
+
+    params = init_params(cfg, 5, seed=1)
+    rng = np.random.default_rng(3)
+    B, ctx = 6, cfg.text_context_length
+    imgs = rng.integers(0, 256, (B, 4, 64, 64, 3), dtype=np.uint8)
+    mask = np.ones((B, 4), np.float32)
+    tokens = np.zeros((B, ctx), np.int64)
+    for i, length in enumerate([5, ctx, 12, 3, 40, 77]):
+        tokens[i, 0], tokens[i, length - 1] = 49406, 49407
+        tokens[i, 1:length - 1] = rng.integers(1, 49406, length - 2)
+    text_mask = np.array([1, 1, 0, 1, 1, 1], np.float32)
+    got = make_combo_embed_step(build_model(cfg, params, device=cuda), active)(
+        imgs, mask, tokens, text_mask)
+    want = make_combo_embed_step(build_model(cfg, params, device="cpu"), active)(
+        imgs, mask, tokens, text_mask)
+    assert got.is_cuda and got.shape == (B, 32)
+    assert (got.cpu() * want).sum(dim=1).min().item() >= 0.999

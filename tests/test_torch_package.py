@@ -31,6 +31,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import prcv2025reid_tpu_torch.ops.fused_attention, prcv2025reid_tpu_torch.params\n"
         "import prcv2025reid_tpu_torch.ops.fused_mlp, prcv2025reid_tpu_torch.ops.fused_resln\n"
         "import prcv2025reid_tpu_torch.models.vit, prcv2025reid_tpu_torch.ops.matmul\n"
+        "import prcv2025reid_tpu_torch.models.text, prcv2025reid_tpu_torch.models.encoder\n"
+        "import prcv2025reid_tpu_torch.evaluation.protocol\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'prcv2025reid_tpu')]\n"
         "print(repr(bad))\n"
     )
@@ -128,12 +130,15 @@ def test_invalid_values_raise_like_jax(override):
 
 
 def test_text_in_active_set_raises():
+    """A combo with text needs the token rows and their mask."""
     model = build_model(TrainingConfig(**TINY), num_classes=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="text tower"):
-        make_combo_embed_step(model, ("vis", "text"))
     images = torch.zeros(1, 4, 32, 32, 3, dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="text tower"):
+    with pytest.raises(ValueError, match="text_tokens and text_mask"):
+        make_combo_embed_step(model, ("vis", "text"))(images, torch.ones(1, 4))
+    with pytest.raises(ValueError, match="text_tokens and text_mask"):
         model.encode_subset(images, torch.ones(1, 4), None, None, ("text",))
+    with pytest.raises(ValueError, match="not in"):
+        model.encode_subset(images, torch.ones(1, 4), None, None, ("txt",))
 
 
 def test_defaults_are_vit_b16():

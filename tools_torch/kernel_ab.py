@@ -3,7 +3,7 @@
 fused MLP, LN1 + QKV and out-projection + MLP block kernels on one card, in
 turns, on the same inputs; and diagnostic variants of the attention kernel.
 
-    python3 tools_torch/kernel_ab.py --other DIR [--runs 25]
+    python3 tools_torch/kernel_ab.py --other DIR [--runs 25] [--only TEXT ...]
     python3 tools_torch/kernel_ab.py --diagnostics [--runs 25]
 
 DIR is another checkout of the repository, e.g. a parent commit unpacked
@@ -42,9 +42,10 @@ kernel so that the host's dispatch is not timed).  SDPA, cuBLAS (for the
 MLP: its two bare products; for the block kernels their three) and
 ``torch._int_mm`` are timed beside them as yardsticks.  Prints one JSON line
 per kernel (both versions' two readings, the max-abs difference of their
-outputs), then for each block kernel this tree's launches from
+outputs), then for each block kernel both trees' launches from
 torch.profiler (device time per launch, by kernel name), and the card's name
-and power limit.  Exits 1 without a CUDA device.
+and power limit.  ``--only`` keeps the kernels whose label contains one of
+the given texts (e.g. ``--only '#6'``).  Exits 1 without a CUDA device.
 
 --diagnostics builds variants of this tree's csrc/attention.cu, each with
 one part taken out by a text substitution (edit them with the kernel; a
@@ -359,8 +360,8 @@ class Block:
 
 
 def profile_launches(fn, calls=5):
-    """This tree's kernel launches of ``fn`` by name: [name, launches per
-    call, device microseconds per launch]."""
+    """The kernel launches of ``fn`` by name: [name, launches per call,
+    device microseconds per launch]."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -402,6 +403,8 @@ def main() -> int:
     ap.add_argument("--diagnostics", action="store_true",
                     help="time the attention kernel's diagnostic variants")
     ap.add_argument("--runs", type=int, default=25)
+    ap.add_argument("--only", nargs="+", metavar="TEXT",
+                    help="time only the kernels whose label contains one of these")
     args = ap.parse_args()
     if args.other is None and not args.diagnostics:
         ap.error("give --other DIR, --diagnostics or both")
@@ -490,6 +493,9 @@ def main() -> int:
                  lambda lib, b=blk, x2=x2: b.mlp_int8(lib, x2), None, None)):
             cases.append((label, run, library, library_name))
             profiled.append((label, run))
+    if args.only:
+        cases = [c for c in cases if any(t in c[0] for t in args.only)]
+        profiled = [c for c in profiled if any(t in c[0] for t in args.only)]
     for label, run, library, library_name in cases:
         diff = (run(other).float() - run(this).float()).abs().max().item()
         ms = {"other": [], "this": []}
@@ -502,8 +508,10 @@ def main() -> int:
             line[library_name + "_ms"] = time_ms(library, args.runs)
         print(json.dumps(line))
     for label, run in profiled:
-        print(json.dumps({"kernel": label, "this_launches": profile_launches(
-            lambda run=run: run(this)), "card": card}))
+        print(json.dumps({"kernel": label,
+                          "this_launches": profile_launches(lambda run=run: run(this)),
+                          "other_launches": profile_launches(lambda run=run: run(other)),
+                          "card": card}))
     print(f"card: {card}")
     return 0
 
