@@ -79,6 +79,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      |dmAP| <= RANK_MAX_MAP_DELTA on every plan, the int8 plan's readings are
      printed; and the device ms and idle share of one text-only query step
      (BATCH captions of 77 tokens);
+  4b. train at full width through the entry points (build_model,
+     init_train_state, make_train_step): the 8x4 recipe (TRAIN_P ids x
+     TRAIN_K instances, one seeded uint8 batch, TrainingConfig defaults:
+     bf16, frozen backbone, stored GELU and attention residuals, the
+     adaptive clip, no accumulation), steps_per_epoch 1, sdm weight 0.1,
+     tau 0.18, on two paths, xla (plain) and pallas_attention (the fused
+     attention kernel in the forward).  Per path: one step with the launch
+     counters zeroed just before it (fused_mha L-1 on pallas_attention,
+     every counter 0 on xla) and no host synchronisation inside it
+     (torch.cuda's sync debug mode); TRAIN_STEPS finite, unskipped steps
+     with a falling loss, frozen parameters bit for bit unchanged, every
+     trainable group and the BN statistics moved; a poisoned step (one NaN
+     pixel in a float batch) skipped with params, optimizer state and BN
+     statistics bit for bit; it/s and samples/s (median of TRAIN_ROUNDS
+     rounds of TRAIN_ITERS steps), device ms, idle share and the top device
+     ops of one step (torch.profiler), peak memory.  Step 1 of
+     pallas_attention against xla (losses within TRAIN_LOSS_REL, each
+     trainable group's gradient cosine >= TRAIN_GRAD_COS, the global norm
+     within TRAIN_GNORM_REL); remat_blocks on pallas_attention (fused_mha
+     2L launches a step; step-1 gradients within TRAIN_REMAT_REL of the
+     same trunk run without recomputation, and at the cross-path bars
+     against the plain trunk); step 1 at P x K = 2 x 2 with no dropout: the
+     card in f32 against the CPU in f32 (losses within TRAIN_F32_LOSS_REL,
+     gradient cosine >= TRAIN_F32_GRAD_COS), and the card in bf16 against
+     the CPU in f32 (losses within TRAIN_CPU_LOSS_REL, each group's gradient
+     cosine within TRAIN_BF16_COS_SLACK of the CPU's own bf16 run's);
   5. time every kernel, its plain version and (where one PyTorch call
      computes the same function) that call with CUDA events, median of
      TIMED_RUNS after warm-up queued behind a spin kernel (device time
@@ -150,6 +176,29 @@ MM_IDS, MM_GALLERY_PER_ID, MM_QUERY_PER_ID = 32, 8, 4
 MM_NOISE = 20.0
 MM_PATHS = ("xla", "fused_trunk", "fused_int8")
 BOS, EOT = 49406, 49407  # CLIP's start and end tokens (EOT: the highest id)
+# the training phase: the 8x4 recipe (P ids x K instances, batch 32, no
+# accumulation), TRAIN_STEPS steps on one seeded batch; timing: TRAIN_ROUNDS
+# rounds of TRAIN_ITERS steps after TRAIN_WARMUP
+TRAIN_P, TRAIN_K, TRAIN_STEPS = 8, 4, 20
+TRAIN_ROUNDS, TRAIN_ITERS, TRAIN_WARMUP = 3, 10, 2
+SDM_WEIGHT, SDM_TAU = 0.1, 0.18
+# step 1 of the kernel path against the plain one (the same bf16 model, the
+# same dropout masks): the losses, each trainable group's gradient, the norm
+TRAIN_LOSS_REL, TRAIN_GRAD_COS, TRAIN_GNORM_REL = 1e-2, 0.99, 0.02
+# step 1 at P x K = 2 x 2, no dropout: the card against the CPU in f32 (the
+# same arithmetic summed in another order), and the card in bf16 against the
+# CPU in f32: the losses within TRAIN_CPU_LOSS_REL, each group's gradient
+# cosine no more than TRAIN_BF16_COS_SLACK under the CPU's own bf16 run's
+# (bf16 rounding through 12 blocks turns a 4-sample gradient by as much on
+# either device: the CPU's reads 0.964 for the LoRA group, PERF.md)
+TRAIN_CPU_LOSS_REL, TRAIN_F32_LOSS_REL, TRAIN_F32_GRAD_COS = 2e-2, 1e-4, 0.9999
+TRAIN_BF16_COS_SLACK = 0.01
+# remat_blocks: its step-1 gradients against the same trunk (every block in
+# full) run without recomputation; against the plain trunk (whose last block
+# is CLS-only, with folded weights: another bf16 rounding) the cross-path bars
+TRAIN_REMAT_REL = 1e-3
+NO_RANDOMNESS = dict(drop_path=0.0, dropout_rate=0.0, fusion_dropout=0.0, sdm_dropout=0.0,
+                     modality_dropout=0.0)
 MATMUL_ROWS = (25344, 6304)  # the microbenchmark's M, and a multiple of no row tile
 MICROBENCH = ("xla_bf16", "xla_int8", "pallas_bf16", "pallas_int8", "pallas_sweep", "bw",
               "floor")
@@ -252,6 +301,292 @@ def mm_query_set(torch, cfg, dev):
     tokens = torch.where(pos >= length, 0, tokens)
     return dict(g_images=noisy(g_pids), g_pids=g_pids, q_images=q_images, q_mask=q_mask,
                 tokens=tokens, text_mask=torch.ones(nq, device=dev), q_pids=q_pids)
+
+
+def train_batch(torch, cfg, dev, P, K, seed):
+    """P ids x K instances on the card: four uint8 images a sample (one base
+    image per id and modality plus MM_NOISE grey levels of noise), all masks
+    1, one caption a sample (a per-id token row with a fifth of its words
+    redrawn; BOS ... EOT, zero padding), labels = pids = each id K times."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    size, Mv, ctx = cfg.image_size, len(cfg.vision_modalities), cfg.text_context_length
+    pids = torch.arange(P, device=dev).repeat_interleave(K)
+    base = torch.randint(0, 256, (P, Mv, size, size, 3), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    noise = torch.randn(P * K, Mv, size, size, 3, generator=gen, device=dev) * MM_NOISE
+    images = (base[pids].float() + noise).round().clamp(0, 255).to(torch.uint8)
+    lengths = torch.randint(8, ctx + 1, (P,), generator=gen, device=dev)[pids][:, None]
+    words = torch.randint(1, BOS, (P, ctx), generator=gen, device=dev)[pids]
+    redraw = torch.rand(P * K, ctx, generator=gen, device=dev) < 0.2
+    tokens = torch.where(redraw, torch.randint(1, BOS, (P * K, ctx), generator=gen, device=dev),
+                         words)
+    pos = torch.arange(ctx, device=dev)[None]
+    tokens = torch.where(pos == 0, BOS, torch.where(pos == lengths - 1, EOT, tokens))
+    tokens = torch.where(pos >= lengths, 0, tokens)
+    B = P * K
+    return dict(images=images, image_mask=torch.ones(B, Mv, device=dev), text_tokens=tokens,
+                text_mask=torch.ones(B, device=dev), labels=pids, pids=pids)
+
+
+def group_grads(torch, model, cfg, batch):
+    """Step 1's losses and its gradient per trainable group (the step's own
+    generators: seed 0, step 0): ({loss: float}, {group: flat f32 tensor})."""
+    from prcv2025reid_tpu_torch.training.param_groups import freeze, label_params
+    from prcv2025reid_tpu_torch.training.train_step import loss_and_grads, step_generators
+
+    trainable = freeze(model, cfg)
+    labels = label_params(model, cfg)
+    dev = model.null_tokens.device
+    losses, _, _, grads = loss_and_grads(model, cfg, [p for _, p in trainable], batch,
+                                         SDM_WEIGHT, SDM_TAU,
+                                         generators=step_generators(0, 0, dev))
+    by_group = {}
+    for (name, _), g in zip(trainable, grads):
+        by_group.setdefault(labels[name], []).append(g.detach().float().flatten().cpu())
+    return ({k: float(losses[k].detach()) for k in ("total_loss", "ce_loss", "sdm_loss")},
+            {k: torch.cat(v) for k, v in by_group.items()})
+
+
+def readings_ops(events):
+    return {e.key: round(device_time(e) / 1e3, 3) for e in events}
+
+
+def compare_grads(torch, got, want):
+    """(per-group cosine, per-group relative error, global-norm ratio), in
+    f64 (an f32 dot over millions of entries can read a cosine above 1)."""
+    got = {g: t.double() for g, t in got.items()}
+    want = {g: t.double() for g, t in want.items()}
+    cos = {g: float(got[g] @ want[g] / (got[g].norm() * want[g].norm())) for g in want}
+    rel = {g: float((got[g] - want[g]).norm() / want[g].norm()) for g in want}
+    norm = float(torch.cat(list(got.values())).norm() / torch.cat(list(want.values())).norm())
+    return cos, rel, norm
+
+
+def train_phase(torch, cfg, params, counters, dev, card):
+    """The training step at full width on the card (see the module
+    docstring, phase 4b); fails the run on any failed check and returns
+    the readings."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from prcv2025reid_tpu_torch import build_model, init_train_state, make_train_step
+    from prcv2025reid_tpu_torch.data.augment import normalize_images_device
+    from prcv2025reid_tpu_torch.training.param_groups import label_params
+
+    L = cfg.vision_layers
+    tcfg = cfg.replace(num_ids_per_batch=TRAIN_P, instances_per_id=TRAIN_K)
+    if tcfg.accum_steps != 1 or tcfg.compute_dtype != "bfloat16" or not tcfg.freeze_backbone:
+        fail(f"the 8x4 recipe is bf16, frozen backbone, no accumulation: {tcfg}")
+    batch = train_batch(torch, cfg, dev, TRAIN_P, TRAIN_K, seed=11)
+    paths = {"xla": tcfg, "pallas_attention": tcfg.replace(use_pallas_attention=True)}
+    expected = {"xla": {}, "pallas_attention": {"fused_mha": L - 1}}
+
+    def counted_step(label, step, state, b, want):
+        """One step with every counter zeroed just before it; fails unless
+        the counts read ``want`` and no host synchronisation happened in it."""
+        import warnings
+
+        for counter in counters.values():
+            counter.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                state, m = step(state, b, SDM_WEIGHT, SDM_TAU)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        syncs = [str(w.message).splitlines()[0] for w in caught
+                 if "synchroniz" in str(w.message).lower()]
+        if syncs:
+            fail(f"train step {label}: {len(syncs)} host synchronisations inside the step: "
+                 f"{syncs[:3]}")
+        got = {n: f.launches for n, f in counters.items()}
+        want = {n: want.get(n, 0) for n in counters}
+        print(f"train {label}: launches in one step {got} (expected {want}); "
+              f"no host synchronisation inside the step")
+        if got != want:
+            fail(f"train {label}: launch counts {got} != {want}")
+        return state, m
+
+    readings, first = {}, {}
+    for name, pcfg in paths.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()  # the eval models of phase 4
+        model = build_model(pcfg, params, device=dev)
+        first[name] = group_grads(torch, model, pcfg, batch)
+        state = init_train_state(model, pcfg, 1, seed=0)
+        step = make_train_step(model, pcfg, 1)
+        trainable = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+        frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+                  if not p.requires_grad}
+        bn0 = [model.bn_neck.bn.mean.clone(), model.bn_neck.bn.var.clone()]
+        state, m = counted_step(name, step, state, batch, expected[name])
+        history = [m]
+        for _ in range(TRAIN_STEPS - 1):
+            state, m = step(state, batch, SDM_WEIGHT, SDM_TAU)
+            history.append(m)
+        hist = {k: torch.stack([h[k] for h in history]).tolist() for k in m}
+        print(f"train {name}: {TRAIN_STEPS} steps, total_loss "
+              + " ".join(f"{v:.4f}" for v in hist["total_loss"]))
+        finite = all(torch.isfinite(torch.tensor(hist[k])).all()
+                     for k in ("total_loss", "ce_loss", "sdm_loss", "grad_norm"))
+        if not finite or any(hist["skipped"]):
+            fail(f"train {name}: a non-finite loss or a skipped step: {hist}")
+        if not hist["total_loss"][-1] < hist["total_loss"][0]:
+            fail(f"train {name}: the loss did not fall in {TRAIN_STEPS} steps: {hist['total_loss']}")
+        named = dict(model.named_parameters())
+        moved_frozen = [n for n, p in frozen.items() if not torch.equal(named[n], p)]
+        if moved_frozen:
+            fail(f"train {name}: frozen parameters moved: {moved_frozen[:5]}")
+        labels = label_params(model, pcfg)
+        moved = {}
+        for n, p0 in trainable.items():
+            moved[labels[n]] = moved.get(labels[n], False) or not torch.equal(named[n], p0)
+        bn_moved = not (torch.equal(model.bn_neck.bn.mean, bn0[0]) and
+                        torch.equal(model.bn_neck.bn.var, bn0[1]))
+        print(f"train {name}: frozen parameters unchanged ({len(frozen)} tensors); groups moved "
+              f"{moved}; BN running statistics moved {bn_moved}")
+        if not all(moved.values()) or not bn_moved:
+            fail(f"train {name}: a trainable group or the BN statistics did not move")
+
+        # a poisoned step: one NaN pixel in a float batch skips everything
+        bad = dict(batch)
+        bad["images"] = normalize_images_device(batch["images"]).clone()
+        bad["images"][0, 0, 0, 0, 0] = float("nan")
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        opt_before = [t.clone() for t in state.opt_state.tensors()]
+        skipped_before = int(state.skipped_total)
+        state, m = step(state, bad, SDM_WEIGHT, SDM_TAU)
+        kept = all(torch.equal(v, before[k]) for k, v in model.state_dict().items()) and all(
+            torch.equal(a, c) for a, c in zip(state.opt_state.tensors(), opt_before))
+        print(f"train {name}: poisoned step skipped {float(m['skipped'])}, skipped_total "
+              f"{skipped_before} -> {int(state.skipped_total)}, params, optimizer state and BN "
+              f"statistics bit for bit {kept}")
+        if float(m["skipped"]) != 1.0 or not kept or int(state.skipped_total) != skipped_before + 1:
+            fail(f"train {name}: the poisoned step was not skipped cleanly")
+
+        # timing: median of TRAIN_ROUNDS rounds of TRAIN_ITERS steps
+        for _ in range(TRAIN_WARMUP):
+            state, m = step(state, batch, SDM_WEIGHT, SDM_TAU)
+        rates = []
+        for _ in range(TRAIN_ROUNDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_ITERS):
+                state, m = step(state, batch, SDM_WEIGHT, SDM_TAU)
+            torch.cuda.synchronize()
+            rates.append(TRAIN_ITERS / (time.perf_counter() - t0))
+        it_s = statistics.median(rates)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, m = step(state, batch, SDM_WEIGHT, SDM_TAU)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and device_time(e) > 0]
+        device_ms = sum(device_time(e) for e in events) / 1e3
+        wall_ms = 1e3 / it_s
+        top = sorted(events, key=device_time, reverse=True)[:TOP_KERNELS]
+        # the same device time by the PyTorch op that launched it
+        ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU
+               and e.key.startswith("aten::") and device_time(e) > 0]
+        top_ops = sorted(ops, key=device_time, reverse=True)[:2 * TOP_KERNELS]
+        peak_gb = (torch.cuda.max_memory_allocated() - resident) / 1e9
+        readings[name] = dict(
+            it_per_s=it_s, samples_per_s=it_s * TRAIN_P * TRAIN_K, rounds_it_per_s=rates,
+            device_ms=device_ms, wall_ms=wall_ms, idle_share=1 - device_ms / wall_ms,
+            peak_mem_gb=peak_gb, launches_per_step=expected[name].get("fused_mha", 0),
+            top_ops_ms=readings_ops(top_ops),
+            total_loss=hist["total_loss"], step1=first[name][0])
+        print(f"train {name} ({card}): {it_s:.3f} it/s, {it_s * TRAIN_P * TRAIN_K:.1f} samples/s "
+              f"(rounds {[round(r, 3) for r in rates]}); device {device_ms:.3f} ms of "
+              f"{wall_ms:.3f} ms a step (idle share {1 - device_ms / wall_ms:.3f}) in "
+              f"{len(events)} kernels; peak memory {peak_gb:.2f} GB over {resident / 1e9:.2f} GB "
+              f"resident; top ops (device ms): {json.dumps(readings_ops(top_ops))}; top kernels: "
+              + json.dumps(
+                  [[e.key[:60], e.count, round(device_time(e) / 1e3, 4)] for e in top]))
+        del model, state, step, trainable, frozen, before, opt_before
+        torch.cuda.empty_cache()
+
+    # step 1 of the kernel path against the plain path
+    (l_x, g_x), (l_p, g_p) = first["xla"], first["pallas_attention"]
+    loss_rel = {k: abs(l_p[k] - l_x[k]) / abs(l_x[k]) for k in l_x}
+    cos, rel, norm = compare_grads(torch, g_p, g_x)
+    print(f"train step 1 pallas_attention vs xla: loss rel {json.dumps(loss_rel)} "
+          f"(<= {TRAIN_LOSS_REL}); gradient cosine by group {json.dumps(cos)} "
+          f"(>= {TRAIN_GRAD_COS}); global norm ratio {norm:.5f} (within {TRAIN_GNORM_REL})")
+    if max(loss_rel.values()) > TRAIN_LOSS_REL or min(cos.values()) < TRAIN_GRAD_COS or \
+            abs(norm - 1) > TRAIN_GNORM_REL:
+        fail("train step 1: pallas_attention disagrees with xla")
+    readings["pallas_vs_xla"] = dict(loss_rel=loss_rel, grad_cos=cos, grad_rel=rel,
+                                     norm_ratio=norm)
+
+    # remat_blocks on pallas_attention: every block in full, each recomputed
+    from prcv2025reid_tpu_torch.models import vit
+
+    rcfg = paths["pallas_attention"].replace(remat_blocks=True)
+    model = build_model(rcfg, params, device=dev)
+    l_r, g_r = group_grads(torch, model, rcfg, batch)
+    recompute = vit.checkpoint
+    vit.checkpoint = lambda fn, *args, **kw: fn(*args)  # the same trunk, no recomputation
+    try:
+        _, g_n = group_grads(torch, model, rcfg, batch)
+    finally:
+        vit.checkpoint = recompute
+    grel = float(torch.cat([g_r[g] - g_n[g] for g in g_n]).norm() /
+                 torch.cat(list(g_n.values())).norm())
+    cos_r, rel_r, norm_r = compare_grads(torch, g_r, g_p)
+    print(f"train remat_blocks, step 1: gradients against the same trunk without "
+          f"recomputation: relative error {grel:.3e} (<= {TRAIN_REMAT_REL}); against the plain "
+          f"trunk (CLS-only last block): cosine by group {json.dumps(cos_r)} (>= "
+          f"{TRAIN_GRAD_COS}), relative error by group {json.dumps(rel_r)}, norm ratio "
+          f"{norm_r:.5f} (within {TRAIN_GNORM_REL}); loss {l_r['total_loss']:.6f} vs "
+          f"{l_p['total_loss']:.6f}")
+    state = init_train_state(model, rcfg, 1, seed=0)
+    counted_step("pallas_attention remat_blocks", make_train_step(model, rcfg, 1), state, batch,
+                 {"fused_mha": 2 * L})
+    if grel > TRAIN_REMAT_REL or min(cos_r.values()) < TRAIN_GRAD_COS or \
+            abs(norm_r - 1) > TRAIN_GNORM_REL:
+        fail("remat_blocks: step-1 gradients disagree")
+    readings["remat"] = dict(grad_rel_vs_no_recompute=grel, grad_cos_vs_plain=cos_r,
+                             grad_rel_vs_plain=rel_r, norm_ratio_vs_plain=norm_r,
+                             launches_per_step=2 * L)
+    del model, state
+
+    # step 1 at 2 x 2, no dropout: the card against the CPU
+    ccfg = tcfg.replace(num_ids_per_batch=2, instances_per_id=2,
+                        gradient_accumulation_steps=1, **NO_RANDOMNESS)
+    f32 = ccfg.replace(compute_dtype="float32")
+    small = train_batch(torch, cfg, dev, 2, 2, seed=12)
+    small_cpu = {k: v.cpu() for k, v in small.items()}
+    t0 = time.perf_counter()
+    runs = {(d, dt): group_grads(torch, build_model(c, params, device=d), c,
+                                 small if d == dev else small_cpu)
+            for d, dt, c in ((dev, "f32", f32), ("cpu", "f32", f32), (dev, "bf16", ccfg),
+                             ("cpu", "bf16", ccfg))}
+    (l_cf, g_cf), (l_f, g_f) = runs[dev, "f32"], runs["cpu", "f32"]
+    (l_cb, g_cb), (l_pb, g_pb) = runs[dev, "bf16"], runs["cpu", "bf16"]
+    f32_loss = {k: abs(l_cf[k] - l_f[k]) / abs(l_f[k]) for k in l_f}
+    f32_cos = compare_grads(torch, g_cf, g_f)[0]
+    bf16_loss = {k: abs(l_cb[k] - l_f[k]) / abs(l_f[k]) for k in l_f}
+    bf16_cos, _, bf16_norm = compare_grads(torch, g_cb, g_f)
+    cpu_bf16_cos = compare_grads(torch, g_pb, g_f)[0]
+    print(f"train step 1, 2x2 ({time.perf_counter() - t0:.1f} s): card f32 vs CPU f32: loss rel "
+          f"{json.dumps(f32_loss)} (<= {TRAIN_F32_LOSS_REL}), gradient cosine by group "
+          f"{json.dumps(f32_cos)} (>= {TRAIN_F32_GRAD_COS}); card bf16 vs CPU f32: loss rel "
+          f"{json.dumps(bf16_loss)} (<= {TRAIN_CPU_LOSS_REL}), gradient cosine by group "
+          f"{json.dumps(bf16_cos)} (the CPU's bf16 run: {json.dumps(cpu_bf16_cos)}, slack "
+          f"{TRAIN_BF16_COS_SLACK}), norm ratio {bf16_norm:.5f}")
+    if max(f32_loss.values()) > TRAIN_F32_LOSS_REL or min(f32_cos.values()) < TRAIN_F32_GRAD_COS:
+        fail("train step 1: the card in f32 disagrees with the CPU in f32")
+    if max(bf16_loss.values()) > TRAIN_CPU_LOSS_REL or any(
+            bf16_cos[g] < cpu_bf16_cos[g] - TRAIN_BF16_COS_SLACK for g in bf16_cos):
+        fail("train step 1: the card in bf16 drifts from the CPU in f32 more than bf16 does")
+    readings["card_vs_cpu"] = dict(f32_loss_rel=f32_loss, f32_grad_cos=f32_cos,
+                                   bf16_loss_rel=bf16_loss, bf16_grad_cos=bf16_cos,
+                                   cpu_bf16_grad_cos=cpu_bf16_cos, bf16_norm_ratio=bf16_norm)
+    torch.cuda.empty_cache()
+    return readings
 
 
 def main() -> int:
@@ -740,6 +1075,11 @@ def main() -> int:
             fail(f"{name}: min-cosine {cos} against the f32 CPU reference < {F32_MIN_COSINE}")
     del ref_model
 
+    # ---- 4b. the training step at full width: the 8x4 recipe
+    t0 = time.perf_counter()
+    train = train_phase(torch, cfg, params, counters, dev, card)
+    print(f"train phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- 5. timing
     import torch.nn.functional as Fn
 
@@ -957,6 +1297,7 @@ def main() -> int:
         "min_cosine_vs_xla": gate, "rank_gate_vs_xla": rank_gate,
         "text_query_step": {"device_ms": text_device_ms, "wall_ms": text_wall_ms,
                             "idle_share": 1 - text_device_ms / text_wall_ms},
+        "train_step_8x4": train,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     for r in rows:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "

@@ -1,5 +1,7 @@
 """Typed configuration for the PyTorch port: the fields the eval embedding
-path reads (the vision towers, the text tower, fusion).
+path reads (the vision towers, the text tower, fusion) and the fields of
+the training step (batch, freezing, the optimizer and its schedules, the
+clip, the losses, the SDM module, dropout and the backward schedules).
 
 Own copy of the JAX package's ``TrainingConfig`` subset: the same field
 names, defaults (full-width ViT-B/16) and validation.  A value that the JAX
@@ -12,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 from prcv2025reid_tpu_torch.utils.modalities import MODALITIES
 
@@ -47,10 +49,77 @@ class TrainingConfig:
     mer_lora_alpha: float = 1.0
 
     modalities: Tuple[str, ...] = ("vis", "nir", "sk", "cp", "text")
+    freeze_text_backbone: bool = False
+    drop_path: float = 0.15
+    dropout_rate: float = 0.5
+
+    # ----- batching: P ids x K instances, gradient accumulation -----
+    num_ids_per_batch: int = 3
+    instances_per_id: int = 2
+    # None = auto-size to target_effective_batch; an explicit int overrides
+    gradient_accumulation_steps: Optional[int] = None
+    target_effective_batch: int = 16
+    freeze_backbone: bool = True
+    num_epochs: int = 60
+
+    # ----- layered learning rates and their schedule -----
+    base_learning_rate: float = 5e-6  # CLIP shared trunk
+    mer_learning_rate: float = 2e-5  # LoRA experts
+    tokenizer_learning_rate: float = 2e-5  # non-shared patch embeds
+    fusion_learning_rate: float = 2e-5  # projections / fusion / other
+    head_learning_rate: float = 3e-3  # classifier head
+    head_lr_warmup_epochs: int = 2  # the head LR is flat from this 1-based epoch
+    weight_decay: float = 1e-4
+    warmup_epochs: int = 5
+    scheduler: str = "cosine"  # cosine | step | multistep | plateau
+    lr_floor_ratio: float = 0.01
+    step_lr_every: int = 20
+    step_lr_gamma: float = 0.1
+    multistep_milestones: Tuple[int, ...] = (30, 50)
+    plateau_factor: float = 0.5
+    plateau_patience: int = 8
+    plateau_threshold: float = 0.001
+    plateau_min_scale: float = 0.001
+
+    # ----- gradient clipping: p70 of the last 10 norms x 1.15 in [0.5, 3] -----
+    adaptive_gradient_clip: bool = True
+    max_grad_norm: float = 0.5
+    adaptive_clip_min: float = 0.5
+    adaptive_clip_max: float = 3.0
+    adaptive_clip_pct: float = 0.70
+    adaptive_clip_margin: float = 1.15
+    adaptive_clip_window: int = 10
+    # AdamW's second moment (nu) is STORED in this dtype; its arithmetic is f32
+    opt_nu_dtype: str = "float32"
+
+    # ----- losses -----
+    ce_weight: float = 1.0
+    label_smoothing: float = 0.1
+    sdm_weight_warmup_epochs: int = 1
+    sdm_weight_schedule: Tuple[float, ...] = (0.1, 0.3, 0.5)
+    sdm_weight_initial: float = 0.1
+    sdm_weight_final: float = 0.5
+    sdm_weight_max: float = 0.5
+    sdm_impl: str = "unrolled"  # "unrolled" (one pass per modality) | "batched"
+    contrastive_weight: float = 0.0  # the live SDM weight before the first epoch
+    sdm_dropout: float = 0.1  # both SDM-module dropout sites
+    sdm_semantic_dim: int = 512
+    sdm_num_heads: int = 8
+    sdm_temperature: float = 0.2
+    sdm_init_temperature: float = 0.18
+    sdm_final_temperature: float = 0.16
+    sdm_fallback_temperature: float = 0.20
+    sdm_temp_warmup_epochs: int = 3
 
     # fusion module
     fusion_num_heads: int = 8
     fusion_mlp_ratio: float = 2.0
+    fusion_dropout: float = 0.1
+
+    # modality dropout (a whole modality for the whole batch; never 'vis')
+    modality_dropout: float = 0.15
+    modality_dropout_warmup_epochs: int = 3
+    min_modalities: int = 1
 
     # numerics and compute-path selectors
     compute_dtype: str = "bfloat16"
@@ -63,6 +132,27 @@ class TrainingConfig:
     block_impl: str = "xla"
     token_keep: int = 0
     token_reduce_layer: int = 6
+    token_reduce_train: bool = False
+    # training-path backward schedules: "stored" keeps the residual (the
+    # erf of the GELU, the [N, H, S, S] softmax); "remat" recomputes it
+    gelu_bwd: str = "stored"
+    attn_bwd: str = "stored"
+    # torch.utils.checkpoint around every training block (full policy only)
+    remat_blocks: bool = False
+    remat_policy: str = "full"
+
+    @property
+    def batch_size(self) -> int:
+        """P * K."""
+        return self.num_ids_per_batch * self.instances_per_id
+
+    @property
+    def accum_steps(self) -> int:
+        """Gradient-accumulation steps: an explicit value, else enough that
+        batch_size * accum >= target_effective_batch."""
+        if self.gradient_accumulation_steps is not None:
+            return max(1, int(self.gradient_accumulation_steps))
+        return max(1, self.target_effective_batch // max(1, self.batch_size))
 
     @property
     def vision_modalities(self) -> Tuple[str, ...]:
@@ -123,6 +213,15 @@ class TrainingConfig:
             )
         if self.param_dtype != "float32":
             raise ValueError(f"param_dtype={self.param_dtype!r}; valid: ['float32']")
+        for name, valid in (("gelu_bwd", ("remat", "stored")), ("attn_bwd", ("remat", "stored")),
+                            ("remat_policy", ("dots", "full")),
+                            ("opt_nu_dtype", ("bfloat16", "float32")),
+                            ("sdm_impl", ("batched", "unrolled")),
+                            ("scheduler", ("cosine", "multistep", "plateau", "step"))):
+            if getattr(self, name) not in valid:
+                raise ValueError(f"{name}={getattr(self, name)!r}; valid: {list(valid)}")
+        if self.token_reduce_train and self.token_keep == 0:
+            raise ValueError("token_reduce_train=True requires token_keep > 0")
         self._reject_bypasses()
         self._reject_unported()
 
@@ -151,8 +250,19 @@ class TrainingConfig:
                 "test device; the port runs the plain version for CPU tensors "
                 f"— use block_impl={impl!r}"
             )
+        if self.token_reduce_train:
+            raise NotImplementedError(
+                "token_reduce_train=True is not ported yet: ROADMAP.md §1, the item "
+                "'`token_keep`' (token reduction in the trunk, training included)"
+            )
         if self.token_keep > 0:
             raise NotImplementedError(
                 f"token_keep={self.token_keep} is not ported yet: ROADMAP.md "
                 "§1, the item '`token_keep`' (token reduction in the trunk)"
+            )
+        if self.remat_policy == "dots":
+            raise NotImplementedError(
+                "remat_policy='dots' is not ported yet: ROADMAP.md §1, the item "
+                "'`remat_policy=\"dots\"`' (save the products, recompute the "
+                "elementwise chains)"
             )

@@ -1,12 +1,18 @@
-"""Entry points: build the model on a device and embed a batch of any
-modality combo.
+"""Entry points: build the model on a device, embed a batch of any
+modality combo, and train it.
 
 ``make_combo_embed_step`` is the counterpart of the JAX package's
 ``training/train_step.py::make_combo_embed_step``: uint8 images
 [B, Mv, H, W, 3] (and, for a combo with text, token rows [B, S]) in,
-L2-normalised f32 [B, fusion_dim] out, on the model's device.  Entry points
-run on the card unless the caller passes ``device="cpu"``; with no CUDA
-device they raise rather than carry on on the CPU.
+L2-normalised f32 [B, fusion_dim] out, on the model's device.
+``init_train_state(model, config, steps_per_epoch, seed=0)`` and
+``make_train_step(model, config, steps_per_epoch)`` (from
+``training/train_step.py``) are the counterparts of ``TrainState.create`` +
+``build_optimizer`` and of ``make_train_step``: ``train_step(state, batch,
+sdm_weight, sdm_tau, enable_modality_dropout=False) -> (state, metrics)``,
+one training step on the model's device with no host synchronisation.
+Entry points run on the card unless the caller passes ``device="cpu"``;
+with no CUDA device they raise rather than carry on on the CPU.
 """
 from __future__ import annotations
 
@@ -18,6 +24,10 @@ import torch
 from prcv2025reid_tpu_torch.configs import TrainingConfig
 from prcv2025reid_tpu_torch.models.reid_model import MultiModalReIDModel
 from prcv2025reid_tpu_torch.params import check_skipped, init_params, load_params
+from prcv2025reid_tpu_torch.training.train_step import (  # noqa: F401 (entry points)
+    init_train_state,
+    make_train_step,
+)
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -78,3 +88,4 @@ def make_combo_embed_step(model: MultiModalReIDModel,
         return feats / norm
 
     return embed
+

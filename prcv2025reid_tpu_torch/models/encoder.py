@@ -1,5 +1,6 @@
 """Unified encoder: the MER vision trunk, the text tower and ``text_proj``
-(counterpart of the JAX package's ``models/encoder.py::UnifiedEncoder``)."""
+(counterpart of the JAX package's ``models/encoder.py::UnifiedEncoder``).
+The text tower has no training-only behaviour (no dropout, no drop-path)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -62,11 +63,20 @@ class UnifiedEncoder(nn.Module):
             resln_impl="auto" if config.use_fused_resln else "xla",
             block_impl=config.block_impl,
             gelu_impl=config.gelu_impl,
+            drop_path=config.drop_path,
+            gelu_bwd=config.gelu_bwd,
+            attn_bwd=config.attn_bwd,
+            remat_blocks=config.remat_blocks,
             device=device,
         ), text, text_proj)
 
     def encode_vision(self, images: torch.Tensor, modality_id: int) -> torch.Tensor:
         return self.vision.encode_single(images, modality_id)
+
+    def encode_vision_stacked(self, images: torch.Tensor, deterministic: bool = True,
+                              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """[B, Mv, H, W, 3] -> [B, Mv, fusion_dim], one trunk call."""
+        return self.vision.encode_stacked(images, deterministic, generator)
 
     def encode_text(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.text_proj(self.text(tokens), self.text.dtype)

@@ -1,19 +1,21 @@
-"""Vision trunk, eval forward: per-modality patch embedding + MER transformer
-stack (counterpart of the JAX package's ``models/vit.py``).
+"""Vision trunk: per-modality patch embedding + MER transformer stack
+(counterpart of the JAX package's ``models/vit.py``).
 
 patchify -> +CLS -> +pos-embed -> blocks 0..L-2 -> CLS-only last block ->
-final LN -> projection; with ``resln_impl="auto"`` the fused-stream trunk
-(``_trunk_fused``) instead.  Patchify is a reshape + matmul: the 16x16/stride-16
+final LN -> projection; in eval with ``resln_impl="auto"`` the fused-stream
+trunk (``_trunk_fused``) instead, and in training under ``remat_blocks``
+all L blocks in full, each recomputed in the backward.  Patchify is a reshape + matmul: the 16x16/stride-16
 "conv" is a linear map on non-overlapping patches, so the patch kernel keeps
 its ``[P, P, C, D]`` layout flattened in (i, j, c) order (no ``conv2d``,
 whose weight layout differs and which cuDNN runs in TF32 for f32).
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from prcv2025reid_tpu_torch.data.augment import normalize_images_device
 from prcv2025reid_tpu_torch.models.mer import Dense, LNParams, MERBlock, _param, ln_apply
@@ -53,10 +55,13 @@ class PatchEmbed(nn.Module):
 
 
 class MERVisionTransformer(nn.Module):
-    """The MER-routed ViT trunk, eval forward.  ``mlp_impl`` and
-    ``gelu_impl`` go to every block's MLP (see ``MERMlp``); ``resln_impl``
-    'auto' selects the fused-stream trunk on every device (its residual+LN
-    wrapper runs the plain version for CPU tensors), 'xla' the plain one."""
+    """The MER-routed ViT trunk.  ``mlp_impl`` and ``gelu_impl`` go to every
+    block's MLP (see ``MERMlp``); ``resln_impl`` 'auto' selects the
+    fused-stream eval trunk on every device (its residual+LN wrapper runs
+    the plain version for CPU tensors), 'xla' the plain one.  Training:
+    drop-path rises linearly with depth to ``drop_path`` at the last block;
+    ``remat_blocks`` wraps every block in ``torch.utils.checkpoint``;
+    ``gelu_bwd`` and ``attn_bwd`` go to every block (see ``MERBlock``)."""
 
     def __init__(self, embed_dim: int = 768, num_layers: int = 12, num_heads: int = 12,
                  mlp_dim: int = 3072, patch_size: int = 16, image_size: int = 224,
@@ -64,12 +69,14 @@ class MERVisionTransformer(nn.Module):
                  enable_mer: bool = True,
                  modalities: Tuple[str, ...] = VISION_MODALITIES, dtype=torch.float32,
                  attn_impl: str = "xla", mlp_impl: str = "xla", resln_impl: str = "xla",
-                 block_impl: str = "xla", gelu_impl: str = "erf", device=None):
+                 block_impl: str = "xla", gelu_impl: str = "erf", drop_path: float = 0.0,
+                 gelu_bwd: str = "stored", attn_bwd: str = "stored", remat_blocks: bool = False,
+                 device=None):
         super().__init__()
         if resln_impl not in ("xla", "auto"):
             raise ValueError(f"resln_impl={resln_impl!r}; valid: ['auto', 'xla']")
         self.embed_dim, self.num_layers, self.dtype = embed_dim, num_layers, dtype
-        self.resln_impl = resln_impl
+        self.resln_impl, self.remat_blocks = resln_impl, remat_blocks
         self.modalities = tuple(modalities)
         num_patches = (image_size // patch_size) ** 2
         for mod in self.modalities:
@@ -77,11 +84,13 @@ class MERVisionTransformer(nn.Module):
                 embed_dim, patch_size, 1 if mod in SINGLE_CHANNEL else 3, dtype, device))
         self.cls_token = _param(1, 1, embed_dim, device=device)
         self.pos_embed = _param(num_patches + 1, embed_dim, device=device)
+        last = max(1, num_layers - 1)
         for i in range(num_layers):
             self.add_module(f"block_{i}", MERBlock(
                 embed_dim, num_heads, mlp_dim, len(self.modalities), rank=lora_rank,
                 alpha=lora_alpha, dtype=dtype, attn_impl=attn_impl, mlp_impl=mlp_impl,
                 enable_mer=enable_mer, block_impl=block_impl, gelu_impl=gelu_impl,
+                drop_path_rate=drop_path * (i / last), gelu_bwd=gelu_bwd, attn_bwd=attn_bwd,
                 device=device))
         self.ln_final = LNParams(embed_dim, device=device)
         self.proj = Dense(embed_dim, fusion_dim, use_bias=False, device=device)
@@ -93,19 +102,32 @@ class MERVisionTransformer(nn.Module):
     def blocks(self) -> Tuple[MERBlock, ...]:
         return tuple(getattr(self, f"block_{i}") for i in range(self.num_layers))
 
-    def trunk(self, patch_tokens: torch.Tensor, expert_ids: Sequence[int]) -> torch.Tensor:
-        """[G, B, num_patches, D] + one expert id per group -> [G, B, fusion_dim]."""
+    def trunk(self, patch_tokens: torch.Tensor, expert_ids: Sequence[int],
+              deterministic: bool = True,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """[G, B, num_patches, D] + one expert id per group -> [G, B, fusion_dim].
+        ``deterministic=False`` is the training forward; ``generator`` feeds
+        its drop-path masks."""
         G, B = patch_tokens.shape[:2]
         dt = self.dtype
         cls = self.cls_token.to(dt).expand(G, B, 1, self.embed_dim)
         x = torch.cat([cls, patch_tokens.to(dt)], dim=2)
         x = x + self.pos_embed.to(dt)[None, None]
-        if self.resln_impl == "auto":
+        if deterministic and self.resln_impl == "auto":
             return self._trunk_fused(x, expert_ids)
         blocks = self.blocks
-        for block in blocks[:-1]:
-            x = block(x, expert_ids)
-        cls = blocks[-1].cls_only_call(x, expert_ids)
+        if deterministic or not self.remat_blocks:
+            for block in blocks[:-1]:
+                x = block(x, expert_ids, deterministic, generator)
+            cls = blocks[-1].cls_only_call(x, expert_ids, deterministic, generator)
+        else:
+            # training under remat: every block in full, its masks drawn
+            # outside the checkpoint so that the recompute sees the same ones
+            for block in blocks:
+                masks = block.drop_path_masks(x, generator)
+                x = checkpoint(block.train_forward, x, expert_ids, *masks,
+                               use_reentrant=False)
+            cls = x[:, :, 0]
         cls = ln_apply(cls, *self.ln_final.params())
         return self.proj(cls, dt)
 
@@ -135,3 +157,15 @@ class MERVisionTransformer(nn.Module):
         mod = self.modalities[modality_id]
         tokens = self.patch_embed(mod)(images)[None]
         return self.trunk(tokens, (modality_id,))[0]
+
+    def encode_stacked(self, images: torch.Tensor, deterministic: bool = True,
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Every modality in one trunk call, G = Mv groups:
+        [B, Mv, H, W, 3] -> [B, Mv, fusion_dim]."""
+        if images.shape[1] != len(self.modalities):
+            raise ValueError(f"images carry {images.shape[1]} modality slots, the trunk "
+                             f"{len(self.modalities)}")
+        tokens = torch.stack([self.patch_embed(mod)(images[:, i])
+                              for i, mod in enumerate(self.modalities)], dim=0)
+        feats = self.trunk(tokens, tuple(range(len(self.modalities))), deterministic, generator)
+        return feats.transpose(0, 1)

@@ -19,12 +19,15 @@ import torch
 from prcv2025reid_tpu_torch.configs import TrainingConfig
 
 COLLECTIONS = ("params", "batch_stats")
-# keys of the JAX tree that belong to modules this port does not have yet
-NOT_YET_PORTED = ("params/sdm_module/",)
+# keys of the JAX tree that belong to modules this port does not have yet:
+# none since the SDM module came with the training step
+NOT_YET_PORTED = ()
 # init_params draws the keys of each later group after all earlier ones, so
 # that a module added to the port leaves every earlier key's values as they
-# were: the text tower and text_proj came after the vision path
-LATER_GROUPS = (("params/encoder/text/", "params/encoder/text_proj/"),)
+# were: the text tower and text_proj came after the vision path, the SDM
+# module after them
+LATER_GROUPS = (("params/encoder/text/", "params/encoder/text_proj/"),
+                ("params/sdm_module/",))
 
 
 def _draw_order(key: str):

@@ -827,3 +827,96 @@ def test_text_combo_step_on_the_card_matches_the_cpu(cuda, active):
         imgs, mask, tokens, text_mask)
     assert got.is_cuda and got.shape == (B, 32)
     assert (got.cpu() * want).sum(dim=1).min().item() >= 0.999
+
+
+# the training step at tiny widths; Dh = 64, as the attention kernel takes it
+TRAIN_TINY = dict(vision_hidden_dim=128, vision_layers=3, vision_heads=2, vision_mlp_dim=256,
+                  image_size=32, fusion_dim=32, sdm_semantic_dim=32, sdm_num_heads=4,
+                  fusion_num_heads=4, text_hidden_dim=64, text_layers=2, text_heads=4,
+                  text_mlp_dim=128, text_vocab_size=100, text_context_length=16,
+                  num_ids_per_batch=4, instances_per_id=2, gradient_accumulation_steps=1,
+                  num_epochs=4, warmup_epochs=1)
+NO_RANDOMNESS = dict(drop_path=0.0, dropout_rate=0.0, fusion_dropout=0.0, sdm_dropout=0.0,
+                     modality_dropout=0.0)
+
+
+def _train_batch(seed, B=8):
+    rng = np.random.default_rng(seed)
+    tokens = np.zeros((B, 16), np.int64)
+    for i in range(B):
+        n = int(rng.integers(3, 17))
+        tokens[i, 0], tokens[i, n - 1] = 98, 99
+        tokens[i, 1:n - 1] = rng.integers(1, 98, n - 2)
+    return dict(images=rng.integers(0, 256, (B, 4, 32, 32, 3), dtype=np.uint8),
+                image_mask=np.ones((B, 4), np.float32), text_tokens=tokens,
+                text_mask=np.ones(B, np.float32), labels=np.repeat(np.arange(B // 2), 2))
+
+
+def test_train_steps_on_the_card_match_the_cpu(cuda):
+    """Three f32 steps (no dropout) on the card against the same steps on
+    the CPU, same weights and batches: every metric within 1e-4 relative
+    (f32 products summed in another order), the first moments after step 1
+    within 1e-4 of each leaf's largest entry plus 1e-6 of the largest."""
+    from prcv2025reid_tpu_torch import init_train_state, make_train_step
+    from prcv2025reid_tpu_torch.params import init_params
+
+    cfg = TrainingConfig(**TRAIN_TINY, **NO_RANDOMNESS, compute_dtype="float32")
+    params = init_params(cfg, 5, seed=2)
+    runs = {}
+    for dev in (cuda, "cpu"):
+        model = build_model(cfg, params, device=dev)
+        state = init_train_state(model, cfg, 10)
+        step = make_train_step(model, cfg, 10)
+        metrics = []
+        for s in range(3):
+            state, m = step(state, _train_batch(s), 0.1, 0.18)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if s == 0:
+                mu = [t.cpu() for t in state.opt_state.mu]
+        runs[str(dev)] = metrics, mu
+    (got, mu_got), (want, mu_want) = runs["cuda"], runs["cpu"]
+    for g, w in zip(got, want):
+        for k in w:
+            assert abs(g[k] - w[k]) <= 1e-4 * max(abs(w[k]), 1e-3), (k, g[k], w[k])
+    top = max(t.abs().max().item() for t in mu_want)
+    for a, b in zip(mu_got, mu_want):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item() + 1e-6 * top
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_fused_mha_launches_in_the_train_step(cuda, remat):
+    """use_pallas_attention: the attention kernel runs in the forward of
+    every block but the CLS-only last one (L - 1 a step), or of every block
+    twice under remat_blocks (the recompute: 2L); its backward is plain
+    PyTorch and launches nothing.  The step makes no host synchronisation."""
+    from prcv2025reid_tpu_torch import init_train_state, make_train_step
+
+    cfg = TrainingConfig(**TRAIN_TINY, use_pallas_attention=True, remat_blocks=remat)
+    model = build_model(cfg, num_classes=5, device=cuda)
+    state = init_train_state(model, cfg, 10)
+    step = make_train_step(model, cfg, 10)
+    state, _ = step(state, _train_batch(0), 0.1, 0.18)  # warm-up
+    batch = {k: torch.as_tensor(v, device=cuda) for k, v in _train_batch(1).items()}
+    torch.cuda.synchronize()
+    fused_mha.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = step(state, batch, 0.1, 0.18)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    L = cfg.vision_layers
+    assert fused_mha.launches == (2 * L if remat else L - 1)
+    assert float(m["skipped"]) == 0.0 and np.isfinite(float(m["total_loss"]))
+
+
+def test_fused_mha_backward_launches_no_kernel(cuda):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn(2, 2, 17, 64, generator=g, device=cuda).bfloat16().requires_grad_()
+               for _ in range(3))
+    fused_mha.launches = 0
+    out = fused_mha(q, k, v)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert fused_mha.launches == 1
+    assert all(t.grad is not None and torch.isfinite(t.grad.float()).all() for t in (q, k, v))

@@ -16,7 +16,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "prcv2025reid_tpu_torch"
 # the JAX package's name is a prefix of the port's: match it only as a whole name
 JAX_IMPORT = re.compile(
-    r"^\s*(from|import)\s+(jax|flax|prcv2025reid_tpu)(?![_\w])", re.MULTILINE)
+    r"^\s*(from|import)\s+(jax|flax|optax|prcv2025reid_tpu)(?![_\w])", re.MULTILINE)
 
 TINY = dict(vision_hidden_dim=64, vision_layers=2, vision_heads=4, vision_mlp_dim=128,
             image_size=32, fusion_dim=32, fusion_num_heads=4, compute_dtype="float32")
@@ -32,8 +32,12 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import prcv2025reid_tpu_torch.ops.fused_mlp, prcv2025reid_tpu_torch.ops.fused_resln\n"
         "import prcv2025reid_tpu_torch.models.vit, prcv2025reid_tpu_torch.ops.matmul\n"
         "import prcv2025reid_tpu_torch.models.text, prcv2025reid_tpu_torch.models.encoder\n"
-        "import prcv2025reid_tpu_torch.evaluation.protocol\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'prcv2025reid_tpu')]\n"
+        "import prcv2025reid_tpu_torch.evaluation.protocol, prcv2025reid_tpu_torch.ops.losses\n"
+        "import prcv2025reid_tpu_torch.training.train_step\n"
+        "import prcv2025reid_tpu_torch.training.param_groups\n"
+        "import prcv2025reid_tpu_torch.training.schedulers\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'prcv2025reid_tpu')]\n"
         "print(repr(bad))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -50,6 +54,12 @@ def test_no_port_source_imports_the_jax_package():
     assert not JAX_IMPORT.search("from prcv2025reid_tpu_torch.ops import x")
     assert JAX_IMPORT.search("from prcv2025reid_tpu.ops import x")
     assert JAX_IMPORT.search("import prcv2025reid_tpu")
+    assert JAX_IMPORT.search("import optax") and JAX_IMPORT.search("from flax import linen")
+    # the training modules and the losses are among the files scanned
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {"prcv2025reid_tpu_torch/ops/losses.py", "prcv2025reid_tpu_torch/training/train_step.py",
+            "prcv2025reid_tpu_torch/training/param_groups.py",
+            "prcv2025reid_tpu_torch/training/schedulers.py"} <= names
 
 
 def test_build_model_raises_without_cuda(monkeypatch):
@@ -64,6 +74,8 @@ def test_build_model_raises_without_cuda(monkeypatch):
     {"block_impl": "fused_interpret"},
     {"block_impl": "fused_int8_interpret"},
     {"token_keep": 4, "token_reduce_layer": 1},
+    {"remat_policy": "dots"},
+    {"token_reduce_train": True, "token_keep": 4, "token_reduce_layer": 1},
 ])
 def test_unported_values_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP.md|interpret"):
@@ -123,6 +135,12 @@ def test_fused_stream_flags_build(override):
     {"modalities": ("vis", "text", "nir")},
     {"token_keep": -1},
     {"use_pallas_attention": True, "attn_backend": "splash"},
+    {"gelu_bwd": "stash"},
+    {"attn_bwd": "flash"},
+    {"remat_policy": "some"},
+    {"opt_nu_dtype": "float16"},
+    {"sdm_impl": "vmap"},
+    {"token_reduce_train": True},  # needs token_keep > 0
 ])
 def test_invalid_values_raise_like_jax(override):
     with pytest.raises(ValueError):
@@ -139,6 +157,12 @@ def test_text_in_active_set_raises():
         model.encode_subset(images, torch.ones(1, 4), None, None, ("text",))
     with pytest.raises(ValueError, match="not in"):
         model.encode_subset(images, torch.ones(1, 4), None, None, ("txt",))
+
+
+def test_params_not_yet_ported_is_empty():
+    from prcv2025reid_tpu_torch.params import NOT_YET_PORTED
+
+    assert NOT_YET_PORTED == ()
 
 
 def test_defaults_are_vit_b16():

@@ -193,16 +193,14 @@ def test_loader_skips_only_unported_modules(flat_params):
 
     model = MultiModalReIDModel(port_config(JaxConfig(**TINY_BASE)), NUM_CLASSES)
     skipped = load_params(model, flat_params)
-    assert skipped and all(k.startswith("params/sdm_module/") for k in skipped)
+    assert skipped == []  # every module is ported since the SDM module came
     torch.testing.assert_close(model.bn_neck.bn.var,
                                torch.from_numpy(flat_params["batch_stats/bn_neck/bn/var"]))
 
 
 def test_init_params_matches_jax_tree(flat_params):
     ours = init_params(port_config(JaxConfig(**TINY_BASE)), NUM_CLASSES, seed=3)
-    unported = ("params/sdm_module/",)
-    jax_subset = {k: v.shape for k, v in flat_params.items() if not k.startswith(unported)}
-    assert {k: v.shape for k, v in ours.items()} == jax_subset
+    assert {k: v.shape for k, v in ours.items()} == {k: v.shape for k, v in flat_params.items()}
     assert all(v.dtype == np.float32 for v in ours.values())
     assert all(np.abs(v).max() > 0 for k, v in ours.items() if k.endswith(("lora_B", "bn/mean")))
     assert any(np.abs(ours[k] - 1).max() > 0 for k in ours if k.endswith("bn/var"))

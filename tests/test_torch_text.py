@@ -164,13 +164,16 @@ def test_combo_step_without_text_ignores_the_captions(batch, port_model):
 
 
 def test_full_jax_export_loads_skipping_only_the_sdm_module(flat_params):
+    """Since the SDM module was ported with the training step, nothing is
+    skipped: every key of the export, the SDM module's included, loads."""
     from prcv2025reid_tpu_torch.models.reid_model import MultiModalReIDModel
 
-    assert NOT_YET_PORTED == ("params/sdm_module/",)
+    assert NOT_YET_PORTED == ()
     model = MultiModalReIDModel(port_config(), NUM_CLASSES)
-    skipped = load_params(model, flat_params)
-    assert skipped and all(k.startswith("params/sdm_module/") for k in skipped)
-    assert sorted(skipped) == sorted(k for k in flat_params if k.startswith("params/sdm_module/"))
+    assert any(k.startswith("params/sdm_module/") for k in flat_params)
+    assert load_params(model, flat_params) == []
+    torch.testing.assert_close(model.sdm_module.proj1.kernel, torch.from_numpy(
+        np.array(flat_params["params/sdm_module/proj1/kernel"])), rtol=0, atol=0)
     torch.testing.assert_close(
         model.encoder.text.token_embedding.embedding,
         torch.from_numpy(np.array(flat_params["params/encoder/text/token_embedding/embedding"])))
@@ -186,7 +189,8 @@ VISION_KEY_COUNT = 92
 def test_init_params_keeps_the_earlier_keys_values():
     ours = init_params(port_config(), NUM_CLASSES, seed=3)
     earlier = [k for k in sorted(ours) if not k.startswith(("params/encoder/text/",
-                                                            "params/encoder/text_proj/"))]
+                                                            "params/encoder/text_proj/",
+                                                            "params/sdm_module/"))]
     h = hashlib.sha256()
     for k in earlier:
         h.update(k.encode())

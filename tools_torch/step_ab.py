@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Device milliseconds of one full-width embed step under a few paths, for
-two trees of the repository on one card, in turns.
+"""Device milliseconds and wall-clock embeds/s of one full-width embed step
+under a few paths, for two trees of the repository on one card, in turns.
 
     python3 tools_torch/step_ab.py --other DIR [--paths fused_int8 xla ...] [--windows 5]
 
@@ -15,8 +15,11 @@ does, and embeds one seeded uint8 batch of 128 four-modality samples as a
 windows of one step each.  A window's reading is the device time summed over
 the step's kernels and its kernel launches; a path's reading is the median
 of its windows, with the spread (min, max) and the launch counts beside it,
-so a window in which the profiler lost kernels shows.  Prints one JSON line
-per path with both trees' readings, and the card's name and power limit.
+so a window in which the profiler lost kernels shows.  Before the windows,
+RATE_ROUNDS rounds of RATE_ITERS steps on the host clock (synchronised at
+each round's ends) give the path's embeds/s (their median) and, with the
+device ms, its idle share.  Prints one JSON line per path with both trees'
+readings, and the card's name and power limit.
 Exits 1 without a CUDA device.
 """
 from __future__ import annotations
@@ -31,6 +34,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 BATCH, NUM_CLASSES = 128, 400
+RATE_ROUNDS, RATE_ITERS = 5, 10
 FUSED_TRUNK = {"use_fused_resln": True, "use_fused_mlp": True, "use_pallas_attention": True}
 PATHS = {
     "xla": {},
@@ -50,6 +54,8 @@ def worker(tree: Path, paths, windows: int) -> None:
     """One tree's readings, one JSON line per path, on stdout."""
     sys.path.insert(0, str(tree))
     import torch
+    import time
+
     from torch.profiler import ProfilerActivity, profile
 
     from prcv2025reid_tpu_torch import TrainingConfig, build_model, make_combo_embed_step
@@ -67,7 +73,14 @@ def worker(tree: Path, paths, windows: int) -> None:
         step = make_combo_embed_step(build_model(cfg.replace(**PATHS[name]), params), ("vis",))
         for _ in range(2):
             step(images, mask)
-        torch.cuda.synchronize()
+        rates = []
+        for _ in range(RATE_ROUNDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(RATE_ITERS):
+                step(images, mask)
+            torch.cuda.synchronize()
+            rates.append(BATCH * RATE_ITERS / (time.perf_counter() - t0))
         readings = []
         for _ in range(windows):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -84,7 +97,8 @@ def worker(tree: Path, paths, windows: int) -> None:
                     launches += e.count
             readings.append((ms, launches))
         print(json.dumps({"path": name, "device_ms": [r[0] for r in readings],
-                          "launches": [r[1] for r in readings]}), flush=True)
+                          "launches": [r[1] for r in readings], "embeds_per_s": rates}),
+              flush=True)
 
 
 def run_tree(tree: Path, paths, windows: int) -> dict:
@@ -124,9 +138,15 @@ def main() -> int:
     for name in args.paths:
         line = {"path": name, "card": card}
         for who in ("other", "this"):
-            line[who] = [{"median_ms": statistics.median(r[name]["device_ms"]),
-                          "min_ms": min(r[name]["device_ms"]), "max_ms": max(r[name]["device_ms"]),
-                          "launches": sorted(set(r[name]["launches"]))} for r in runs[who]]
+            line[who] = []
+            for r in runs[who]:
+                ms, rate = statistics.median(r[name]["device_ms"]), statistics.median(
+                    r[name]["embeds_per_s"])
+                line[who].append({"median_ms": ms, "min_ms": min(r[name]["device_ms"]),
+                                  "max_ms": max(r[name]["device_ms"]),
+                                  "launches": sorted(set(r[name]["launches"])),
+                                  "embeds_per_s": rate,
+                                  "idle_share": 1 - ms / (BATCH / rate * 1e3)})
         print(json.dumps(line))
     print(f"card: {card}")
     return 0
