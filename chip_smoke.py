@@ -105,6 +105,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      gradient cosine >= TRAIN_F32_GRAD_COS), and the card in bf16 against
      the CPU in f32 (losses within TRAIN_CPU_LOSS_REL, each group's gradient
      cosine within TRAIN_BF16_COS_SLACK of the CPU's own bf16 run's);
+  4c. the dataset path at full width through the entry points a user calls:
+     a synthetic ORBench tree (make_synthetic_orbench: DATA_IDS ids x
+     DATA_ANCHORS anchors, DATA_IMG px JPEGs, in a temporary directory)
+     split id-disjoint (val_ratio 0.2); the native image decode and BPE
+     tokenizer built with g++ (a failed build fails the run, except a
+     missing jpeglib.h, which is printed and leaves the host on PIL); the
+     native BPE equal to the Python BPE on a vocab this script writes; the
+     8x4 PKBatchSampler -> HostPipeline (num_workers=-1; the worker and
+     core counts printed) alone, batches/s over PIPE_BATCHES batches after
+     its workers are warm, with PIL and with native decode; the pipeline
+     feeding FEED_STEPS train steps through prefetch_to_device on xla and
+     pallas_attention, with no host synchronisation (sync debug mode
+     'error' around each fetch and step), fused_mha L-1 launches a step on
+     pallas_attention (every counter 0 on xla), finite unskipped steps whose
+     last five losses average below the first five, it/s after FEED_WARMUP,
+     device ms of one profiled fed step, idle share, beside phase 4b's
+     figures for a resident batch; evaluate_protocol over the val split (all
+     15 plans, make_combo_embed_step per plan) under xla (the trained model)
+     and the fused-stream trunk built from its weights, with launch counts
+     per embed batch with a vision tower (trunk: fused_mha L, fused_mlp L,
+     fused_residual_ln 2L), gallery min-cosine >= MIN_COSINE and |dmAP| <=
+     RANK_MAX_MAP_DELTA on every plan; a second call with the GalleryCache
+     that skips the gallery embed and reads the first call's features bit
+     for bit; gallery embeds/s and idle share of embed_samples (host decode
+     in the calling process) over the whole tree; and
+     export_submission_csv: one row a query, each row's top-k gallery ids
+     valid and unique;
   5. time every kernel, its plain version and (where one PyTorch call
      computes the same function) that call with CUDA events, median of
      TIMED_RUNS after warm-up queued behind a spin kernel (device time
@@ -126,6 +153,7 @@ checkout of the repository.
 from __future__ import annotations
 
 import json
+import os
 import re
 import shutil
 import statistics
@@ -199,6 +227,16 @@ TRAIN_BF16_COS_SLACK = 0.01
 TRAIN_REMAT_REL = 1e-3
 NO_RANDOMNESS = dict(drop_path=0.0, dropout_rate=0.0, fusion_dropout=0.0, sdm_dropout=0.0,
                      modality_dropout=0.0)
+# the dataset phase: a synthetic ORBench tree (DATA_IDS ids x DATA_ANCHORS
+# anchors, DATA_IMG px JPEGs, the host pipeline probe's image size).  Its val
+# split (a fifth of the ids) must hold enough queries that bf16 rounding alone
+# moves no plan's mAP past RANK_MAX_MAP_DELTA: at 64 ids (52 val records) the
+# xla path against the same weights in f32 read |dmAP| up to 0.0114, at 256
+# ids (204 records) up to 0.0013 (tools_torch/eval_noise.py, PERF.md).  The
+# pipeline alone times PIPE_BATCHES batches after its workers are warm; the
+# fed train step runs FEED_STEPS steps, timed after FEED_WARMUP
+DATA_IDS, DATA_ANCHORS, DATA_IMG = 256, 4, 256
+PIPE_BATCHES, FEED_STEPS, FEED_WARMUP = 32, 20, 2
 MATMUL_ROWS = (25344, 6304)  # the microbenchmark's M, and a multiple of no row tile
 MICROBENCH = ("xla_bf16", "xla_int8", "pallas_bf16", "pallas_int8", "pallas_sweep", "bw",
               "floor")
@@ -369,7 +407,7 @@ def train_phase(torch, cfg, params, counters, dev, card):
     from torch.profiler import ProfilerActivity, profile
 
     from prcv2025reid_tpu_torch import build_model, init_train_state, make_train_step
-    from prcv2025reid_tpu_torch.data.augment import normalize_images_device
+    from prcv2025reid_tpu_torch.data.device_feed import normalize_images_device
     from prcv2025reid_tpu_torch.training.param_groups import label_params
 
     L = cfg.vision_layers
@@ -586,6 +624,381 @@ def train_phase(torch, cfg, params, counters, dev, card):
                                    bf16_loss_rel=bf16_loss, bf16_grad_cos=bf16_cos,
                                    cpu_bf16_grad_cos=cpu_bf16_cos, bf16_norm_ratio=bf16_norm)
     torch.cuda.empty_cache()
+    return readings
+
+
+def write_bpe_vocab(directory: str) -> None:
+    """A small vocab in CLIP's layout (vocab.json + merges.txt), written as
+    tests/test_native_tokenizer.py writes one: the byte alphabet and its
+    end-of-word forms, merges that build the synthetic captions' words, BOS
+    and EOT (no download)."""
+    from prcv2025reid_tpu_torch.data.tokenizer import _bytes_to_unicode
+
+    base = list(_bytes_to_unicode().values())
+    vocab = {tok: i for i, tok in enumerate(base + [t + "</w>" for t in base])}
+    merges = ["p e", "pe r", "per s", "pers o", "perso n</w>", "w e", "we a", "wea r",
+              "i n", "in g</w>", "wear ing</w>", "o u", "ou t", "out f", "outf i", "outfi t</w>",
+              "w a", "wa l", "wal k", "walk ing</w>"]
+    for m in merges:
+        vocab["".join(m.split())] = len(vocab)
+    vocab["<|startoftext|>"] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(directory, "merges.txt"), "w") as f:
+        f.write("#version\n" + "\n".join(merges) + "\n")
+
+
+def dataset_phase(torch, cfg, params, counters, dev, card, resident):
+    """The host data path and the dataset evaluation at full width on the
+    card (see the module docstring, phase 4c); fails the run on any failed
+    check and returns the readings.  ``resident``: phase 4b's readings by
+    path (the same step on one batch that stays on the card)."""
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from prcv2025reid_tpu_torch import build_model, init_train_state, make_combo_embed_step
+    from prcv2025reid_tpu_torch import make_train_step
+    from prcv2025reid_tpu_torch.data import native_build, native_image, native_tokenizer
+    from prcv2025reid_tpu_torch.data.dataset import MultiModalDataset
+    from prcv2025reid_tpu_torch.data.device_feed import prefetch_to_device
+    from prcv2025reid_tpu_torch.data.pipeline import HostPipeline, resolve_num_workers
+    from prcv2025reid_tpu_torch.data.sampler import PKBatchSampler
+    from prcv2025reid_tpu_torch.data.split import create_split_datasets, verify_split_integrity
+    from prcv2025reid_tpu_torch.data.tokenizer import ClipBPETokenizer, build_tokenizer
+    from prcv2025reid_tpu_torch.evaluation.protocol import (
+        GalleryCache,
+        build_query_plans,
+        checkpoint_cache_tag,
+        embed_samples,
+        evaluate_protocol,
+        export_submission_csv,
+    )
+    from prcv2025reid_tpu_torch.utils.synthetic import make_synthetic_orbench
+
+    L = cfg.vision_layers
+    readings = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_orbench_") as tmp:
+        # the tree and its split
+        t0 = time.perf_counter()
+        root = make_synthetic_orbench(os.path.join(tmp, "orbench"), num_ids=DATA_IDS,
+                                      anchors_per_id=DATA_ANCHORS, img_size=DATA_IMG)
+        n_files = sum(len(files) for _, _, files in os.walk(root))
+        dcfg = cfg.replace(data_root=root, json_file=os.path.join(root, "text_annos.json"),
+                           num_ids_per_batch=TRAIN_P, instances_per_id=TRAIN_K)
+        decoders = {"pil": create_split_datasets(dcfg)}
+        train_ds, val_ds, pid2label = decoders["pil"]
+        verify_split_integrity(train_ds, val_ds)
+        print(f"data: {n_files} files ({DATA_IDS} ids x {DATA_ANCHORS} anchors, {DATA_IMG} px "
+              f"JPEG) written in {time.perf_counter() - t0:.1f} s; split val_ratio "
+              f"{dcfg.val_ratio}: train {len(train_ds)} records of {len(train_ds.person_ids)} ids, "
+              f"val {len(val_ds)} records of {len(val_ds.person_ids)} ids, {len(pid2label)} labels")
+
+        # the native libraries: a failed build fails the run, except a
+        # machine without jpeglib.h, where the host decodes with PIL
+        img_lib, bpe_lib = native_image.build_library(), native_tokenizer.build_library()
+        img_err = native_build.build_errors.get("libimage_decode.so", "")
+        print(f"native: image decode {img_lib or 'NOT built'}; BPE tokenizer "
+              f"{bpe_lib or 'NOT built'} (g++ into {native_build.cache_dir()})")
+        if bpe_lib is None:
+            fail(f"the native BPE tokenizer did not build: "
+                 f"{native_build.build_errors.get('libclip_bpe.so')}")
+        if img_lib is None and "jpeglib.h" not in img_err:
+            fail(f"the native image decode did not build: {img_err}")
+        if img_lib is None:
+            print("native: jpeglib.h is missing on this machine: the host decodes with PIL "
+                  "only (a fallback on the host, as the JAX package's; the device path is the "
+                  "same)")
+        elif not native_image.available():
+            fail(f"the native image decode built but does not load: {img_lib}")
+        else:
+            decoders["native"] = create_split_datasets(dcfg.replace(use_native_decode=True))
+
+        # the tokenizers: the native BPE against the Python BPE on a written
+        # vocab; the hash tokenizer feeds the model (its ids span the vocab)
+        vocab_dir = os.path.join(tmp, "vocab")
+        write_bpe_vocab(vocab_dir)
+        captions = [r.caption for r in train_ds.records + val_ds.records]
+        native_bpe = native_tokenizer.NativeClipBPETokenizer(vocab_dir, dcfg.text_context_length)
+        ids = native_bpe(captions)
+        same = np.array_equal(ids, ClipBPETokenizer(vocab_dir, dcfg.text_context_length)(captions))
+        print(f"tokenizer: native BPE on {len(captions)} captions equals the Python BPE: {same} "
+              f"(row 0: {ids[0][:12].tolist()})")
+        if not same:
+            fail("the native BPE disagrees with the Python BPE")
+        tok = build_tokenizer(None, dcfg.text_vocab_size, dcfg.text_context_length)
+
+        def pipeline_for(ds, steps):
+            sampler = PKBatchSampler(
+                ds, TRAIN_P, TRAIN_K, allow_id_reuse=dcfg.allow_id_reuse, seed=dcfg.seed,
+                steps_per_epoch=steps, force_modal_pairs=dcfg.force_modal_pairs,
+                sampling_fallback=dcfg.sampling_fallback,
+                min_modal_coverage=dcfg.min_modal_coverage)
+            return HostPipeline(ds, sampler, tok, num_workers=dcfg.num_workers,
+                                prefetch=dcfg.prefetch_batches, seed=dcfg.seed)
+
+        # the pipeline alone: batches/s after the workers are warm
+        workers, cores = resolve_num_workers(dcfg.num_workers), len(os.sched_getaffinity(0))
+        warm = workers + dcfg.prefetch_batches  # the batches in flight at once
+        print(f"pipeline: num_workers={dcfg.num_workers} -> {workers} worker processes, "
+              f"{cores} cores available (os.sched_getaffinity)")
+        shape = (TRAIN_P * TRAIN_K, len(cfg.vision_modalities), cfg.image_size, cfg.image_size, 3)
+        readings["pipeline"] = {"workers": workers, "cores": cores}
+        for decode, (ds, _, _) in decoders.items():
+            pipe = pipeline_for(ds, warm + PIPE_BATCHES)
+            try:
+                it = iter(pipe)
+                for _ in range(warm):
+                    next(it)
+                t0 = time.perf_counter()
+                n = 0
+                for b in it:
+                    n += 1
+                    if b["images"].shape != shape or b["images"].dtype != np.uint8:
+                        fail(f"pipeline {decode}: a batch of {b['images'].shape} "
+                             f"{b['images'].dtype}, expected {shape} uint8")
+                dt = time.perf_counter() - t0
+            finally:
+                pipe.close()
+            readings["pipeline"][decode] = {"batches_per_s": n / dt,
+                                            "samples_per_s": n * TRAIN_P * TRAIN_K / dt}
+            print(f"pipeline {decode} ({workers} workers): {n / dt:.2f} batches/s, "
+                  f"{n * TRAIN_P * TRAIN_K / dt:.1f} samples/s of {TRAIN_P}x{TRAIN_K} "
+                  f"({n} batches after {warm} warm-up)")
+
+        # the pipeline feeding the train step through the device feed
+        feed_ds = decoders.get("native", decoders["pil"])[0]
+        feed_decode = "native" if "native" in decoders else "pil"
+        tcfg = dcfg.replace(num_ids_per_batch=TRAIN_P, instances_per_id=TRAIN_K)
+        trained = None
+        readings["fed"] = {}
+        for name, pcfg in (("xla", tcfg), ("pallas_attention", tcfg.replace(use_pallas_attention=True))):
+            model = build_model(pcfg, params, device=dev)
+            state = init_train_state(model, pcfg, 1, seed=0)
+            step = make_train_step(model, pcfg, 1)
+            pipe = pipeline_for(feed_ds, FEED_STEPS + 1)
+            want = {n: 0 for n in counters}
+            if name == "pallas_attention":
+                want["fused_mha"] = (L - 1) * FEED_STEPS
+            history, fetch_s = [], 0.0
+            try:
+                feed = prefetch_to_device(pipe, size=dcfg.prefetch_batches, device=dev)
+                for counter in counters.values():
+                    counter.launches = 0
+                torch.cuda.synchronize()
+                for i in range(FEED_STEPS):
+                    if i == FEED_WARMUP:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        t_fetch = time.perf_counter()
+                        batch = next(feed)
+                        if i >= FEED_WARMUP:  # the host's share of a fed step
+                            fetch_s += time.perf_counter() - t_fetch
+                        state, m = step(state, batch, SDM_WEIGHT, SDM_TAU)
+                    except RuntimeError as e:  # sync debug mode raises on a host synchronisation
+                        fail(f"fed train {name}, step {i}: {e}")
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                    history.append(m)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got = {n: f.launches for n, f in counters.items()}
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    state, m = step(state, next(feed), SDM_WEIGHT, SDM_TAU)
+                    torch.cuda.synchronize()
+            finally:
+                pipe.close()
+            hist = {k: torch.stack([h[k] for h in history]).tolist() for k in history[0]}
+            loss = hist["total_loss"]
+            print(f"fed train {name}: launches over {FEED_STEPS} steps {got} (expected {want}); "
+                  f"no host synchronisation in any step (sync debug mode 'error'); total_loss "
+                  + " ".join(f"{v:.4f}" for v in loss))
+            if got != want:
+                fail(f"fed train {name}: launch counts {got} != {want}")
+            finite = all(np.isfinite(hist[k]).all() for k in ("total_loss", "ce_loss", "sdm_loss",
+                                                               "grad_norm"))
+            if not finite or any(hist["skipped"]):
+                fail(f"fed train {name}: a non-finite loss or a skipped step: {hist}")
+            head, tail = statistics.mean(loss[:5]), statistics.mean(loss[-5:])
+            if not tail < head:
+                fail(f"fed train {name}: the loss did not fall (mean of the first five {head}, "
+                     f"of the last five {tail})")
+            events = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA and device_time(e) > 0]
+            device_ms = sum(device_time(e) for e in events) / 1e3
+            it_s = (FEED_STEPS - FEED_WARMUP) / wall
+            idle = 1 - device_ms / (1e3 / it_s)
+            r = resident[name]
+            fetch_ms = fetch_s / (FEED_STEPS - FEED_WARMUP) * 1e3
+            readings["fed"][name] = dict(it_per_s=it_s, samples_per_s=it_s * TRAIN_P * TRAIN_K,
+                                         device_ms=device_ms, wall_ms=1e3 / it_s, idle_share=idle,
+                                         fetch_ms=fetch_ms, loss_first5=head, loss_last5=tail,
+                                         decode=feed_decode, launches=got)
+            print(f"fed train {name} ({card}; {feed_decode} decode, {workers} workers): "
+                  f"{it_s:.3f} it/s, {it_s * TRAIN_P * TRAIN_K:.1f} samples/s; device "
+                  f"{device_ms:.3f} ms of {1e3 / it_s:.3f} ms a step (idle share {idle:.3f}), "
+                  f"{fetch_ms:.1f} ms of it in the feed's next() on the host; "
+                  f"phase 4b's resident batch: {r['it_per_s']:.3f} it/s, device "
+                  f"{r['device_ms']:.3f} ms, idle share {r['idle_share']:.3f}; loss mean "
+                  f"{head:.4f} -> {tail:.4f}")
+            if name == "xla":
+                trained = model
+            del model, state, step
+            torch.cuda.empty_cache()
+
+        # evaluate_protocol on the val split: xla and the fused-stream trunk
+        # built from the trained weights; the same weights in f32 read how far
+        # bf16 rounding alone moves each plan's mAP (printed, not a gate)
+        trunk_cfg = tcfg.replace(use_fused_resln=True, use_fused_mlp=True,
+                                 use_pallas_attention=True)
+        trunk = build_model(trunk_cfg, params, device=dev)
+        trunk.load_state_dict(trained.state_dict())
+        f32 = build_model(tcfg.replace(compute_dtype="float32"), params, device=dev)
+        f32.load_state_dict(trained.state_dict())
+        per_forward = {"xla": {}, "f32": {}, "fused_trunk": {"fused_mha": L, "fused_mlp": L,
+                                                             "fused_residual_ln": 2 * L}}
+        cache = GalleryCache(os.path.join(tmp, "eval_cache"), checkpoint_cache_tag(
+            trunk, dcfg.eval_cache_tag, step=FEED_STEPS, config=trunk_cfg))
+
+        def recording(model, log):
+            """make_combo_embed_step, each call's features kept by combo."""
+            def factory(mods):
+                step = make_combo_embed_step(model, mods)
+
+                def run(*args):
+                    out = step(*args)
+                    log.setdefault(mods, []).append(out)
+                    return out
+                return run
+            return factory
+
+        results, logs = {}, {}
+        for name, model in (("xla", trained), ("fused_trunk", trunk), ("f32", f32)):
+            logs[name] = {}
+            for counter in counters.values():
+                counter.launches = 0
+            t0 = time.perf_counter()
+            results[name] = evaluate_protocol(
+                None, val_ds, tok, batch_size=dcfg.eval_batch_size, device=dev,
+                embed_factory=recording(model, logs[name]),
+                cache=cache if name == "fused_trunk" else None)
+            torch.cuda.synchronize()
+            got = {n: f.launches for n, f in counters.items()}
+            n_vision = sum(len(v) for mods, v in logs[name].items() if mods != ("text",))
+            want = {n: per_forward[name].get(n, 0) * n_vision for n in counters}
+            print(f"eval {name}: evaluate_protocol over {len(val_ds)} val records, "
+                  f"{len(results[name]['detail'])} plans in {time.perf_counter() - t0:.1f} s; "
+                  f"launches {got} (expected {want}: {n_vision} embed batches with a vision "
+                  f"tower)")
+            if got != want:
+                fail(f"eval {name}: launch counts {got} != {want}")
+        plans = [p for p, _ in build_query_plans()]
+        if any(sorted(r["detail"]) != sorted(plans) for r in results.values()):
+            fail(f"evaluate_protocol: not all 15 plans: {[sorted(r['detail']) for r in results.values()]}")
+
+        def min_cos(mods):
+            a, b = (torch.cat(logs[n][mods]) for n in ("fused_trunk", "xla"))
+            return (a * b).sum(dim=1).min().item()
+
+        g_cos = min_cos(("vis",))
+        table = {}
+        for plan, mods in build_query_plans():
+            ref, got = results["xla"]["detail"][plan], results["fused_trunk"]["detail"][plan]
+            table[plan] = dict(map_xla=ref["mAP"], map_fused_trunk=got["mAP"],
+                               map_delta=abs(got["mAP"] - ref["mAP"]), query_min_cosine=min_cos(mods),
+                               cmc1=got["cmc1"], num_queries=got["num_queries"],
+                               map_f32=results["f32"]["detail"][plan]["mAP"])
+            t = table[plan]
+            print(f"eval {plan:26s} mAP xla {t['map_xla']:.4f} fused_trunk "
+                  f"{t['map_fused_trunk']:.4f} |dmAP| {t['map_delta']:.6f} (<= "
+                  f"{RANK_MAX_MAP_DELTA}); query min-cosine {t['query_min_cosine']:.6f}; gallery "
+                  f"min-cosine {g_cos:.6f} (>= {MIN_COSINE}); f32 {t['map_f32']:.4f}")
+            if t["map_delta"] > RANK_MAX_MAP_DELTA or g_cos < MIN_COSINE:
+                fail(f"eval {plan}: fused_trunk disagrees with xla: {t}, gallery {g_cos}")
+        floor = {p: max(abs(t["map_xla"] - t["map_f32"]), abs(t["map_fused_trunk"] - t["map_f32"]))
+                 for p, t in table.items()}
+        summary = {k: v for k, v in results["fused_trunk"].items() if k != "detail"}
+        print(f"eval: max |dmAP| fused_trunk vs xla {max(t['map_delta'] for t in table.values()):.6f}; "
+              f"against the f32 model: xla {max(abs(t['map_xla'] - t['map_f32']) for t in table.values()):.6f}, "
+              f"fused_trunk {max(abs(t['map_fused_trunk'] - t['map_f32']) for t in table.values()):.6f}; "
+              "fused_trunk summary " + json.dumps(summary))
+
+        # a second call hits the gallery cache: no gallery embed, the same bits
+        gallery = [i for i, r in enumerate(val_ds.records) if r.vis]
+        first = torch.cat(logs["fused_trunk"][("vis",)])[:len(gallery)].cpu().numpy()
+        hit = cache.load(gallery)
+        log2 = {}
+        again = evaluate_protocol(None, val_ds, tok, batch_size=dcfg.eval_batch_size, device=dev,
+                                  embed_factory=recording(trunk, log2), cache=cache,
+                                  include_patterns=["single/nir"])
+        cache_ok = hit is not None and ("vis",) not in log2 and np.array_equal(hit[0], first)
+        print(f"eval cache: the second call embedded {sorted(log2)}, the cached gallery features "
+              f"equal the first call's bit for bit: {cache_ok}; single/nir mAP "
+              f"{again['detail']['single/nir']['mAP']:.6f} (first call "
+              f"{results['fused_trunk']['detail']['single/nir']['mAP']:.6f})")
+        if not cache_ok:
+            fail("the gallery cache did not hit on the second call, or its features differ")
+
+        # gallery embeds/s through embed_samples: the host decodes in the
+        # calling process, one record after another, as JAX's
+        full = {d: MultiModalDataset(dcfg.replace(use_native_decode=d == "native"), split="val")
+                for d in decoders}
+        step = make_combo_embed_step(trunk, ("vis",))
+        readings["gallery_embed"] = {}
+        for decode, ds in full.items():
+            idx = list(range(len(ds)))
+            embed_samples(step, ds, idx[:dcfg.eval_batch_size], tok, dcfg.eval_batch_size)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feats, _ = embed_samples(step, ds, idx, tok, dcfg.eval_batch_size)
+            wall = time.perf_counter() - t0
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                embed_samples(step, ds, idx, tok, dcfg.eval_batch_size)
+                torch.cuda.synchronize()
+            dev_ms = sum(device_time(e) for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+            if feats.shape != (len(idx), cfg.fusion_dim) or not np.isfinite(feats).all():
+                fail(f"embed_samples: features {feats.shape}, expected {(len(idx), cfg.fusion_dim)}")
+            rate = len(idx) / wall
+            readings["gallery_embed"][decode] = dict(
+                embeds_per_s=rate, wall_ms=wall * 1e3, device_ms=dev_ms,
+                idle_share=1 - dev_ms / (wall * 1e3), records=len(idx),
+                batch=dcfg.eval_batch_size)
+            print(f"gallery embed_samples fused_trunk ({card}; {decode} decode in the calling "
+                  f"process, batch {dcfg.eval_batch_size}): {rate:.1f} embeds/s over {len(idx)} "
+                  f"records; device {dev_ms:.3f} ms of {wall * 1e3:.1f} ms (idle share "
+                  f"{1 - dev_ms / (wall * 1e3):.3f})")
+
+        # the submission CSV on the val split
+        path = os.path.join(tmp, "submission.csv")
+        n_rows = export_submission_csv(None, val_ds, tok, path, batch_size=dcfg.eval_batch_size,
+                                       embed_factory=lambda m: make_combo_embed_step(trunk, m),
+                                       device=dev)
+        stems = {os.path.splitext(os.path.basename(val_ds.records[i].anchor_vis))[0]
+                 for i in gallery}
+        with open(path) as f:
+            lines = f.read().splitlines()
+        k_eff = min(100, len(gallery))
+        bad = [ln for ln in lines[1:] if len(ln.split(",")) != 2
+               or len(ln.split(",")[0].split("|")) != 3
+               or len(set(ln.split(",")[1].split())) != k_eff
+               or not set(ln.split(",")[1].split()) <= stems]
+        n_queries = sum(r["num_queries"] for r in results["fused_trunk"]["detail"].values())
+        print(f"submission: {n_rows} rows ({n_queries} queries over 15 plans), top {k_eff} of "
+              f"{len(gallery)} gallery ids each, unique and valid; malformed rows {len(bad)}")
+        if lines[0] != "query_key,ranked_gallery_ids" or n_rows != len(lines) - 1 or \
+                n_rows != n_queries or bad:
+            fail(f"submission CSV: {n_rows} rows for {n_queries} queries, bad rows {bad[:3]}")
+        readings["eval"] = dict(plans=table, gallery_min_cosine=g_cos, summary=summary,
+                                bf16_vs_f32_max_map_delta=max(floor.values()), cache_hit=cache_ok,
+                                submission_rows=n_rows, val_records=len(val_ds))
+        del trained, trunk, f32, step
+        torch.cuda.empty_cache()
     return readings
 
 
@@ -1080,6 +1493,11 @@ def main() -> int:
     train = train_phase(torch, cfg, params, counters, dev, card)
     print(f"train phase: {time.perf_counter() - t0:.1f} s")
 
+    # ---- 4c. the host data path and the dataset evaluation at full width
+    t0 = time.perf_counter()
+    data = dataset_phase(torch, cfg, params, counters, dev, card, train)
+    print(f"dataset phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- 5. timing
     import torch.nn.functional as Fn
 
@@ -1260,6 +1678,16 @@ def main() -> int:
             rates[name].append(BATCH * E2E_ITERS / (time.perf_counter() - t0))
     e2e = {name: statistics.median(r) for name, r in rates.items()}
     print("end_to_end_rounds: " + json.dumps(rates))
+    print(f"dataset path vs resident batches ({card}): gallery embed_samples on fused_trunk "
+          + ", ".join(f"{d} decode {g['embeds_per_s']:.1f} embeds/s (idle share "
+                      f"{g['idle_share']:.3f}, batch {g['batch']})"
+                      for d, g in data["gallery_embed"].items())
+          + f" against {e2e['fused_trunk']:.1f} embeds/s for a resident batch of {BATCH}; the "
+          "pipeline " + ", ".join(f"{d} {data['pipeline'][d]['batches_per_s']:.2f} batches/s"
+                                  for d in data["gallery_embed"])
+          + "; the fed train step " + ", ".join(
+              f"{n} {f['it_per_s']:.3f} it/s (resident {train[n]['it_per_s']:.3f})"
+              for n, f in data["fed"].items()))
 
     # where one embed step's device time goes, per configuration
     device_ms = {}
@@ -1298,6 +1726,7 @@ def main() -> int:
         "text_query_step": {"device_ms": text_device_ms, "wall_ms": text_wall_ms,
                             "idle_share": 1 - text_device_ms / text_wall_ms},
         "train_step_8x4": train,
+        "dataset_phase": data,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     for r in rows:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "

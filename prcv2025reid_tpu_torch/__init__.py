@@ -2,24 +2,38 @@
 
 The JAX package ``prcv2025reid_tpu`` is the reference this port is held
 against; the port imports nothing from it.  Entry points:
-``engine.build_model``, ``engine.make_combo_embed_step`` and, for training,
-``engine.init_train_state`` and ``engine.make_train_step``.
-"""
-from prcv2025reid_tpu_torch.configs import TrainingConfig
-from prcv2025reid_tpu_torch.engine import (
-    build_model,
-    init_train_state,
-    make_combo_embed_step,
-    make_train_step,
-)
-from prcv2025reid_tpu_torch.params import init_params, load_params
+``engine.build_model``, ``engine.make_combo_embed_step``,
+``engine.make_embed_step`` and, for training, ``engine.init_train_state``
+and ``engine.make_train_step``.
 
-__all__ = [
-    "TrainingConfig",
-    "build_model",
-    "init_params",
-    "init_train_state",
-    "load_params",
-    "make_combo_embed_step",
-    "make_train_step",
-]
+The names below load on first access (a module ``__getattr__``): importing
+the package, or one of its torch-free host modules (``configs``,
+``data.dataset``, ``data.sampler``, ``data.pipeline`` ...), imports no torch,
+so the host pipeline's spawn workers, which unpickle a dataset, never load
+the model stack.
+"""
+from __future__ import annotations
+
+import importlib
+
+_EXPORTS = {
+    "TrainingConfig": "prcv2025reid_tpu_torch.configs",
+    "build_model": "prcv2025reid_tpu_torch.engine",
+    "init_train_state": "prcv2025reid_tpu_torch.engine",
+    "make_combo_embed_step": "prcv2025reid_tpu_torch.engine",
+    "make_embed_step": "prcv2025reid_tpu_torch.engine",
+    "make_train_step": "prcv2025reid_tpu_torch.engine",
+    "init_params": "prcv2025reid_tpu_torch.params",
+    "load_params": "prcv2025reid_tpu_torch.params",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name: str):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(module), name)
+    globals()[name] = value
+    return value

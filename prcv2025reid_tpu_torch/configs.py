@@ -1,7 +1,10 @@
 """Typed configuration for the PyTorch port: the fields the eval embedding
-path reads (the vision towers, the text tower, fusion) and the fields of
+path reads (the vision towers, the text tower, fusion), the fields of
 the training step (batch, freezing, the optimizer and its schedules, the
-clip, the losses, the SDM module, dropout and the backward schedules).
+clip, the losses, the SDM module, dropout and the backward schedules), and
+those of the host data path and the dataset evaluation (the data tree and
+its split, the sampler, augmentation, the worker pipeline, the eval plans
+and the gallery cache).
 
 Own copy of the JAX package's ``TrainingConfig`` subset: the same field
 names, defaults (full-width ViT-B/16) and validation.  A value that the JAX
@@ -27,6 +30,12 @@ _JAX_BLOCK_IMPLS = {
 
 @dataclass
 class TrainingConfig:
+    # ----- data: the ORBench tree and its id-disjoint split -----
+    data_root: str = "./data/train"
+    json_file: str = "./data/train/text_annos.json"
+    val_ratio: float = 0.2
+    seed: int = 42
+
     # ----- model widths (defaults: ViT-B/16) -----
     fusion_dim: int = 512
     vision_hidden_dim: int = 768
@@ -56,6 +65,10 @@ class TrainingConfig:
     # ----- batching: P ids x K instances, gradient accumulation -----
     num_ids_per_batch: int = 3
     instances_per_id: int = 2
+    allow_id_reuse: bool = True
+    sampling_fallback: bool = True  # soft-id fill + bucket swap when the strong pool is short
+    min_modal_coverage: float = 0.8  # warn when the strong-id share drops below
+    force_modal_pairs: bool = True  # per id K//2 vis + K-K//2 non-vis records
     # None = auto-size to target_effective_batch; an explicit int overrides
     gradient_accumulation_steps: Optional[int] = None
     target_effective_batch: int = 16
@@ -116,10 +129,42 @@ class TrainingConfig:
     fusion_mlp_ratio: float = 2.0
     fusion_dropout: float = 0.1
 
+    # ----- augmentation (host side, uint8) -----
+    random_flip: bool = True
+    random_crop: bool = True
+    crop_scale_min: float = 0.8
+    color_jitter: bool = True
+    color_jitter_strength: float = 0.2
+    random_erase: float = 0.3
+
     # modality dropout (a whole modality for the whole batch; never 'vis')
     modality_dropout: float = 0.15
     modality_dropout_warmup_epochs: int = 3
     min_modalities: int = 1
+
+    # ----- host pipeline -----
+    # -1 = auto: the available cores - 1 decode workers, clamped to [1, 32];
+    # 0 = in-process
+    num_workers: int = -1
+    prefetch_batches: int = 2
+    tokenizer_vocab_path: Optional[str] = None  # CLIP vocab.json/merges.txt dir; None = hashed
+    # JPEG decode + crop + resize in one pass through data/native/image_decode.cpp
+    # (libjpeg, PIL-matching resampler); falls back to PIL per image
+    use_native_decode: bool = False
+
+    # ----- evaluation over a dataset -----
+    eval_sample_ratio: float = 0.3
+    eval_include_patterns: Tuple[str, ...] = (
+        "single/nir",
+        "single/sk",
+        "single/cp",
+        "single/text",
+        "quad/nir+sk+cp+text",
+    )
+    eval_cache_dir: str = "./.eval_cache"
+    eval_cache_tag: str = "val_v1"
+    eval_batch_size: int = 64
+    inference_batch_size: int = 8  # serving-mode embed batch
 
     # numerics and compute-path selectors
     compute_dtype: str = "bfloat16"
@@ -132,6 +177,7 @@ class TrainingConfig:
     block_impl: str = "xla"
     token_keep: int = 0
     token_reduce_layer: int = 6
+    token_reduce_mode: str = "merge"  # 'merge' | 'prune'
     token_reduce_train: bool = False
     # training-path backward schedules: "stored" keeps the residual (the
     # erf of the GELU, the [N, H, S, S] softmax); "remat" recomputes it
@@ -200,6 +246,10 @@ class TrainingConfig:
             raise ValueError(
                 f"gelu_impl={self.gelu_impl!r}; valid: ['erf', 'poly', 'tanh']"
             )
+        if self.token_reduce_mode not in ("merge", "prune"):
+            raise ValueError(
+                f"token_reduce_mode={self.token_reduce_mode!r}; valid: ['merge', 'prune']"
+            )
         if self.token_keep < 0:
             raise ValueError(f"token_keep={self.token_keep} must be >= 0")
         if self.token_keep and not (0 < self.token_reduce_layer < self.vision_layers):
@@ -222,6 +272,11 @@ class TrainingConfig:
                 raise ValueError(f"{name}={getattr(self, name)!r}; valid: {list(valid)}")
         if self.token_reduce_train and self.token_keep == 0:
             raise ValueError("token_reduce_train=True requires token_keep > 0")
+        if self.num_workers < -1:
+            raise ValueError(
+                f"num_workers={self.num_workers} (use -1 for auto, 0 for "
+                "in-process, or a positive worker count)"
+            )
         self._reject_bypasses()
         self._reject_unported()
 

@@ -1,10 +1,12 @@
 """Entry points: build the model on a device, embed a batch of any
-modality combo, and train it.
+modality combo or through the full forward, and train it.
 
 ``make_combo_embed_step`` is the counterpart of the JAX package's
 ``training/train_step.py::make_combo_embed_step``: uint8 images
 [B, Mv, H, W, 3] (and, for a combo with text, token rows [B, S]) in,
-L2-normalised f32 [B, fusion_dim] out, on the model's device.
+L2-normalised f32 [B, fusion_dim] out, on the model's device;
+``make_embed_step`` (from ``training/train_step.py``) embeds every modality
+through the full forward, as JAX's ``make_embed_step``.
 ``init_train_state(model, config, steps_per_epoch, seed=0)`` and
 ``make_train_step(model, config, steps_per_epoch)`` (from
 ``training/train_step.py``) are the counterparts of ``TrainState.create`` +
@@ -26,6 +28,7 @@ from prcv2025reid_tpu_torch.models.reid_model import MultiModalReIDModel
 from prcv2025reid_tpu_torch.params import check_skipped, init_params, load_params
 from prcv2025reid_tpu_torch.training.train_step import (  # noqa: F401 (entry points)
     init_train_state,
+    make_embed_step,
     make_train_step,
 )
 

@@ -1,9 +1,12 @@
-"""The MM-1..4 query plans and the ranking metrics (counterpart of the JAX
-package's ``evaluation/protocol.py``: ``build_query_plans``,
-``filter_plans``, ``compute_retrieval_metrics``, ``ranking_equivalence``).
+"""The MM-1..4 retrieval evaluation engine (counterpart of the JAX
+package's ``evaluation/protocol.py``): the query plans, the ranking
+metrics, the batched embedding of dataset records (``embed_samples``), the
+gallery feature cache and its tag, ``evaluate_protocol`` and the
+submission CSV.
 
-- queries = every k-combination of {nir, sk, cp, text}, named
-  single/double/triple/quad with '+'-joined modalities; the gallery is vis;
+- gallery = all vis anchors of the split; queries = every k-combination of
+  {nir, sk, cp, text} per record, named single/double/triple/quad with
+  '+'-joined modalities; whitelist filtering by fnmatch patterns;
 - ranking is one f32 product per query chunk, then a stable argsort and
   vectorised AP / CMC on the device.  mAP counts only queries with at least
   one relevant gallery item; top-1 divides by all queries; CMC@k over the
@@ -12,24 +15,53 @@ package's ``evaluation/protocol.py``: ``build_query_plans``,
 The similarities are f32 products at full precision, as JAX's
 ``Precision.HIGHEST``: TF32 is switched off for the product whatever the
 process default.  Ties (and the -inf of excluded pairs) order by gallery
-position, as ``jnp.argsort`` and ``jax.lax.top_k`` order them.  Single
-device: the JAX ``mesh`` argument (query-sharded ranking) is not ported
-(ROADMAP.md §1, the item 'Parallel and multi-process').
+position, as ``jnp.argsort`` and ``jax.lax.top_k`` order them.
+
+**The embedding call contract differs from JAX's.**  JAX calls
+``embed_fn(variables, batch)``; here an embed step holds its model's
+weights and takes ``(images, image_mask, text_tokens, text_mask)`` (the
+port's ``make_combo_embed_step`` and ``make_embed_step``), so
+``embed_samples``, ``evaluate_protocol`` and ``export_submission_csv`` take
+no ``variables``.  Single device and single process: the JAX ``mesh`` and
+``sharding`` arguments, and the multi-process gallery cache, raise
+(ROADMAP.md §1, the item 'Parallel and multi-process'); ``rerank`` raises
+until re-ranking is ported (ROADMAP.md §1, the item 'Re-ranking').
 """
 from __future__ import annotations
 
 import contextlib
 import fnmatch
+import hashlib
 import itertools
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+import os
+import zlib
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from prcv2025reid_tpu_torch.data.dataset import MultiModalDataset
+from prcv2025reid_tpu_torch.data.pipeline import collate
 from prcv2025reid_tpu_torch.engine import resolve_device
 
 NONVIS = ("nir", "sk", "cp", "text")
 KIND_NAME = {1: "single", 2: "double", 3: "triple", 4: "quad"}
+
+
+def _single_device(**kw) -> None:
+    """Raise for a JAX mesh / sharding argument: not ported yet."""
+    given = [k for k, v in kw.items() if v is not None]
+    if given:
+        raise NotImplementedError(
+            f"{', '.join(given)}: sharded ranking and embedding are not ported yet "
+            "(ROADMAP.md §1, the item 'Parallel and multi-process')")
+
+
+def _no_rerank(rerank) -> None:
+    if rerank is not None:
+        raise NotImplementedError(
+            "rerank: k-reciprocal re-ranking is not ported yet (ROADMAP.md §1, the "
+            "item 'Re-ranking')")
 
 
 def build_query_plans(k_values: Sequence[int] = (1, 2, 3, 4)) -> List[Tuple[str, Tuple[str, ...]]]:
@@ -140,10 +172,7 @@ def compute_retrieval_metrics(
 ) -> Dict[str, float]:
     """mAP / top-1 / CMC, computed on ``device`` in query chunks (device
     memory O(query_chunk x Ng)).  Inputs are numpy arrays or tensors."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: sharded ranking is not ported yet (ROADMAP.md §1, the item "
-            "'Parallel and multi-process')")
+    _single_device(mesh=mesh)
     dev = resolve_device(device)
     topk_cmc = tuple(topk_cmc)
     q = torch.as_tensor(q_feats, dtype=torch.float32, device=dev)
@@ -237,3 +266,338 @@ def ranking_equivalence(
         "map_test": m_test["mAP"],
         "map_delta": abs(m_test["mAP"] - m_ref["mAP"]),
     }
+
+
+# ----- batched embedding of dataset records -----
+
+
+def _fetch_async(feats: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:
+    """Start the device-to-host copy of ``feats``: into pinned memory,
+    non-blocking, with an event the host waits on before reading.  A CPU
+    tensor is already on the host."""
+    if feats.device.type != "cuda":
+        return feats, None
+    host = torch.empty(feats.shape, dtype=feats.dtype, pin_memory=True)
+    host.copy_(feats, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(feats.device))
+    return host, done
+
+
+def embed_samples(
+    embed_fn: Callable[..., torch.Tensor],
+    dataset: MultiModalDataset,
+    indices: Sequence[int],
+    tokenizer,
+    batch_size: int,
+    modalities: Optional[Tuple[str, ...]] = None,
+    seed: int = 0,
+    sharding=None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Embed records -> (features [N, D] f32, pids [N]) as numpy arrays.
+
+    ``embed_fn(images, image_mask, text_tokens, text_mask)`` returns the
+    features of one collated batch as a tensor (JAX's takes ``(variables,
+    batch)``).  ``modalities=None`` -> gallery mode (vis only).  The last
+    batch is padded to ``batch_size`` by reusing its last sample, so every
+    call sees one shape.  One-deep overlap, as JAX's: the records are
+    decoded here, in the calling process, one after another, and the next
+    batch's decode runs while the current embed runs on the device; its
+    features come back by a non-blocking copy into pinned memory that the
+    host reads only after the next batch is dispatched."""
+    _single_device(sharding=sharding)
+    rng = np.random.default_rng(seed)
+    feats_out: List[np.ndarray] = []
+    pids_out: List[np.ndarray] = []
+    mods = modalities if modalities is not None else ("vis",)
+    pending = None  # (host features, their copy's event, n_real, pids)
+
+    def _collect(p):
+        host, done, n_real, pids = p
+        if done is not None:
+            done.synchronize()
+        feats_out.append(host.numpy()[:n_real])
+        pids_out.append(pids[:n_real])
+
+    for start in range(0, len(indices), batch_size):
+        chunk = list(indices[start : start + batch_size])
+        n_real = len(chunk)
+        samples = [dataset.get_query_sample(i, mods, rng) for i in chunk]
+        # pad the tail batch by REUSING the last decoded sample (rows past
+        # n_real are discarded)
+        samples.extend(samples[-1:] * (batch_size - n_real))
+        batch = collate(samples, tokenizer)
+        feats = embed_fn(batch["images"], batch["image_mask"], batch["text_tokens"],
+                         batch["text_mask"])  # enqueued on the device
+        host, done = _fetch_async(feats.float())
+        if pending is not None:
+            _collect(pending)
+        pending = (host, done, n_real, np.asarray(batch["pids"]))
+    if pending is not None:
+        _collect(pending)
+    if not feats_out:
+        return np.zeros((0, 1), np.float32), np.zeros((0,), np.int64)
+    return np.concatenate(feats_out), np.concatenate(pids_out)
+
+
+# ----- gallery cache -----
+
+
+# every config selector that changes embedding NUMERICS (not just speed):
+# (field, default).  A cache entry written under one value must never be
+# reused under another — the tag appends each non-default value.  The
+# token_reduce_* fields enter the tag even when token_keep = 0, where they
+# change nothing: mirrored from JAX so the two packages' tags stay equal
+# (ROADMAP.md §3).
+NUMERICS_PATH_FIELDS = (
+    ("block_impl", "xla"),
+    ("attn_backend", "xla"),
+    ("use_pallas_attention", False),
+    ("use_fused_resln", False),
+    ("use_fused_mlp", False),
+    ("gelu_impl", "erf"),
+    ("compute_dtype", "bfloat16"),
+    ("token_keep", 0),
+    ("token_reduce_layer", 6),
+    ("token_reduce_mode", "merge"),
+)
+
+
+def checkpoint_cache_tag(model: torch.nn.Module, base: str, *, step: int, config,
+                         weighted: bool = False) -> str:
+    """Cache tag that changes with the WEIGHTS (md5 of the classifier
+    kernel's bytes, f32 [in, out] as flax stores it — the JAX package's
+    string for the same weights) and with the COMPUTE PATH
+    (NUMERICS_PATH_FIELDS is the authority)."""
+    kernel = model.bn_neck.classifier.kernel.detach().to("cpu", torch.float32).contiguous()
+    fp = hashlib.md5(kernel.numpy().tobytes()).hexdigest()[:10]
+    tag = f"{base}_st{step}_{fp}"
+    if weighted:
+        tag += "_w"
+    for field, default in NUMERICS_PATH_FIELDS:
+        val = getattr(config, field)
+        if val != default:
+            tag += f"_{field}={val}"
+    return tag
+
+
+class GalleryCache:
+    """On-disk gallery feature cache (npz; the JAX package's file names and
+    keys, so either package reads the other's files).
+
+    ``keep_newest`` bounds the directory: each save evicts the oldest
+    gallery npz beyond the limit (the just-written file is always retained).
+    Single process: ``process_count > 1`` raises (the JAX package makes
+    process 0 the authority and broadcasts its hits)."""
+
+    def __init__(self, cache_dir: str, tag: str, keep_newest: int = 4, process_count: int = 1):
+        self.cache_dir = cache_dir
+        self.tag = tag
+        self.keep_newest = keep_newest
+        self.process_count = process_count
+
+    def _single_process(self) -> None:
+        if self.process_count > 1:
+            raise NotImplementedError(
+                f"process_count={self.process_count}: the multi-process gallery cache is not "
+                "ported yet (ROADMAP.md §1, the item 'Parallel and multi-process')")
+
+    def _path(self, indices: Sequence[int]) -> str:
+        h = hashlib.md5(np.asarray(indices, np.int64).tobytes()).hexdigest()[:12]
+        return os.path.join(self.cache_dir, f"gallery_{self.tag}_{len(indices)}_{h}.npz")
+
+    def load(self, indices) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        self._single_process()
+        try:
+            with np.load(self._path(indices)) as z:
+                return z["feats"], z["pids"]
+        except (OSError, ValueError):
+            # absent, or evicted/truncated by a concurrent process between
+            # our check and the read — treat as a miss and re-embed
+            return None
+
+    def save(self, indices, feats: np.ndarray, pids: np.ndarray):
+        self._single_process()
+        os.makedirs(self.cache_dir, exist_ok=True)
+        p = self._path(indices)
+        # atomic: a concurrent reader must never observe a truncated npz
+        tmp = f"{p}.tmp.{os.getpid()}"
+        with open(tmp, "wb") as f:
+            np.savez(f, feats=feats, pids=pids)
+        os.replace(tmp, p)
+        self._evict(protect=p)
+
+    def _evict(self, protect: str):
+        if self.keep_newest is None or self.keep_newest < 1:
+            return
+        try:
+            entries = [
+                os.path.join(self.cache_dir, f)
+                for f in os.listdir(self.cache_dir)
+                if f.startswith("gallery_") and f.endswith(".npz")
+            ]
+            entries.sort(key=os.path.getmtime, reverse=True)
+            for p in entries[self.keep_newest :]:
+                if os.path.abspath(p) != os.path.abspath(protect):
+                    os.remove(p)
+        except OSError:  # concurrent eval processes racing on the same dir
+            pass
+
+
+# ----- the protocol -----
+
+
+def _query_indices(dataset: MultiModalDataset, mods: Tuple[str, ...]) -> List[int]:
+    return [i for i, r in enumerate(dataset.records) if all(m in r.modalities() for m in mods)]
+
+
+def evaluate_protocol(
+    embed_fn: Optional[Callable[..., torch.Tensor]],
+    dataset: MultiModalDataset,
+    tokenizer,
+    *,
+    batch_size: int = 64,
+    include_patterns: Optional[Sequence[str]] = None,
+    k_values: Sequence[int] = (1, 2, 3, 4),
+    exclude_same_image: bool = False,
+    cache: Optional[GalleryCache] = None,
+    sample_ratio: float = 1.0,
+    seed: int = 0,
+    embed_factory: Optional[Callable[[Tuple[str, ...]], Callable]] = None,
+    sharding=None,
+    mesh=None,
+    rerank: Optional[Dict] = None,
+    device: Union[str, torch.device] = "cuda",
+) -> Dict:
+    """Run the MM protocol; returns {map_single, map_quad, map_avg2,
+    map_mm_avg, mm{k}_map, cmc1/5/10, detail} as JAX's.
+
+    ``embed_factory(modalities) -> embed step`` gives a combo-specialised
+    step per plan (e.g. ``lambda m: make_combo_embed_step(model, m)``);
+    without it ``embed_fn`` embeds every plan.  The ranking runs on
+    ``device``."""
+    _single_device(sharding=sharding, mesh=mesh)
+    _no_rerank(rerank)
+    gallery_indices = [i for i, r in enumerate(dataset.records) if r.vis]
+
+    def _fn(mods: Tuple[str, ...]) -> Callable:
+        return embed_factory(mods) if embed_factory is not None else embed_fn
+
+    g = cache.load(gallery_indices) if cache else None
+    if g is None:
+        g_feats, g_pids = embed_samples(_fn(("vis",)), dataset, gallery_indices, tokenizer,
+                                        batch_size)
+        if cache:
+            cache.save(gallery_indices, g_feats, g_pids)
+    else:
+        g_feats, g_pids = g
+
+    plans = filter_plans(build_query_plans(k_values), include_patterns)
+    detail: Dict[str, Dict] = {}
+    for name, mods in plans:
+        q_indices = _query_indices(dataset, mods)
+        if sample_ratio < 1.0 and len(q_indices) > 4:
+            # per-plan derived stream: the subset for (checkpoint, plan,
+            # seed) must not depend on which OTHER plans ran before it
+            plan_rng = np.random.default_rng([seed, zlib.crc32(name.encode())])
+            n_keep = max(1, int(len(q_indices) * sample_ratio))
+            q_indices = sorted(plan_rng.choice(q_indices, n_keep, replace=False).tolist())
+        if not q_indices:
+            continue
+        q_feats, q_pids = embed_samples(_fn(mods), dataset, q_indices, tokenizer, batch_size,
+                                        modalities=mods, seed=seed)
+        exclude = None
+        if exclude_same_image:
+            # a query must not retrieve the gallery entry built from the very
+            # same record: at most ONE gallery position per query
+            g_pos = {rec_i: pos for pos, rec_i in enumerate(gallery_indices)}
+            exclude = np.asarray([g_pos.get(qi, -1) for qi in q_indices], np.int32)
+        detail[name] = compute_retrieval_metrics(q_feats, q_pids, g_feats, g_pids, exclude,
+                                                 device=device)
+
+    singles = [detail[f"single/{m}"]["mAP"] for m in NONVIS if f"single/{m}" in detail]
+    map_single = float(np.mean(singles)) if singles else 0.0
+    map_quad = detail.get("quad/nir+sk+cp+text", {}).get("mAP", 0.0)
+    all_cmc = {
+        f"cmc{k}": float(np.mean([d[f"cmc{k}"] for d in detail.values()])) if detail else 0.0
+        for k in (1, 5, 10)
+    }
+    # MM-k averages: the mean over the combos of size k
+    mm_avgs = {}
+    for k in k_values:
+        vals = [d["mAP"] for n, d in detail.items() if n.startswith(KIND_NAME[k] + "/")]
+        if vals:
+            mm_avgs[f"mm{k}_map"] = float(np.mean(vals))
+    mm_all = list(mm_avgs.values())
+    return {
+        "map_single": map_single,
+        "map_quad": map_quad,
+        "map_avg2": (map_single + map_quad) / 2.0,
+        "map_mm_avg": float(np.mean(mm_all)) if mm_all else 0.0,
+        **mm_avgs,
+        **all_cmc,
+        "detail": detail,
+    }
+
+
+def export_submission_csv(
+    embed_fn: Optional[Callable[..., torch.Tensor]],
+    dataset: MultiModalDataset,
+    tokenizer,
+    output_path: str,
+    *,
+    batch_size: int = 64,
+    k_values: Sequence[int] = (1, 2, 3, 4),
+    top_k: int = 100,
+    seed: int = 0,
+    embed_factory: Optional[Callable[[Tuple[str, ...]], Callable]] = None,
+    mesh=None,
+    sharding=None,
+    rerank: Optional[Dict] = None,
+    device: Union[str, torch.device] = "cuda",
+) -> int:
+    """Write the competition CSV: ``query_key,ranked_gallery_ids``, one row
+    a query; query_key = pid|mods|anchor-stem, then the top-k gallery
+    anchor stems by similarity, space-joined.  Returns the row count.
+
+    Ranked on ``device`` by a stable descending sort of the full-f32
+    similarities, so ties go to the lower gallery index as JAX's
+    ``lax.top_k`` orders them (``torch.topk`` defines no order among ties
+    on CUDA)."""
+    _single_device(mesh=mesh, sharding=sharding)
+    _no_rerank(rerank)
+    dev = resolve_device(device)
+
+    def _fn(mods: Tuple[str, ...]) -> Callable:
+        return embed_factory(mods) if embed_factory is not None else embed_fn
+
+    gallery_indices = [i for i, r in enumerate(dataset.records) if r.vis]
+    g_feats, _ = embed_samples(_fn(("vis",)), dataset, gallery_indices, tokenizer, batch_size)
+    g_ids = [os.path.splitext(os.path.basename(dataset.records[i].anchor_vis))[0]
+             for i in gallery_indices]
+    g = torch.as_tensor(g_feats, dtype=torch.float32, device=dev)
+    k_eff = min(top_k, g_feats.shape[0])
+
+    rows: List[Tuple[str, str]] = []
+    for _, mods in build_query_plans(k_values):
+        q_indices = _query_indices(dataset, mods)
+        if not q_indices:
+            continue
+        q_feats, _ = embed_samples(_fn(mods), dataset, q_indices, tokenizer, batch_size,
+                                   modalities=mods, seed=seed)
+        order = np.concatenate([
+            torch.argsort(-similarity(q, g), dim=1, stable=True)[:, :k_eff].cpu().numpy()
+            for q in torch.as_tensor(q_feats, dtype=torch.float32, device=dev).split(1024)
+        ])
+        for qi, record_idx in enumerate(q_indices):
+            rec = dataset.records[record_idx]
+            stem = os.path.splitext(os.path.basename(rec.anchor_vis))[0]
+            query_key = f"{rec.pid}|{'+'.join(mods)}|{stem}"
+            rows.append((query_key, " ".join(g_ids[j] for j in order[qi])))
+
+    os.makedirs(os.path.dirname(os.path.abspath(output_path)), exist_ok=True)
+    with open(output_path, "w") as f:
+        f.write("query_key,ranked_gallery_ids\n")
+        for key, ranked in rows:
+            f.write(f"{key},{ranked}\n")
+    return len(rows)

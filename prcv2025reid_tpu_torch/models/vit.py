@@ -17,7 +17,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from prcv2025reid_tpu_torch.data.augment import normalize_images_device
+from prcv2025reid_tpu_torch.data.device_feed import normalize_images_device
 from prcv2025reid_tpu_torch.models.mer import Dense, LNParams, MERBlock, _param, ln_apply
 from prcv2025reid_tpu_torch.ops.fused_resln import fused_residual_ln
 from prcv2025reid_tpu_torch.utils.modalities import SINGLE_CHANNEL, VISION_MODALITIES

@@ -241,3 +241,25 @@ def make_train_step(model: MultiModalReIDModel, config: TrainingConfig,
         return new_state, {k: v.detach() for k, v in metrics.items()}
 
     return train_step
+
+
+def make_embed_step(model: MultiModalReIDModel) -> Callable[..., torch.Tensor]:
+    """Eval-time embedding through the full forward (every modality encoded
+    densely, the masks carrying validity): ``embed(images, image_mask,
+    text_tokens, text_mask)`` -> L2-normalised f32 ``bn_features`` [B, D] on
+    the model's device (the counterpart of the JAX package's
+    ``make_embed_step``; the retrieval feature is ``bn_features``).  The
+    inputs are tensors or numpy arrays; the module holds its own weights, so
+    the step takes no ``variables`` argument as JAX's does."""
+    device = model.null_tokens.device
+
+    @torch.inference_mode()
+    def embed(images, image_mask, text_tokens, text_mask) -> torch.Tensor:
+        outputs, _ = model(torch.as_tensor(images, device=device),
+                           torch.as_tensor(image_mask, device=device),
+                           torch.as_tensor(text_tokens, device=device),
+                           torch.as_tensor(text_mask, device=device), train=False)
+        feats = outputs["bn_features"].float()
+        return feats / torch.clamp(torch.linalg.vector_norm(feats, dim=1, keepdim=True), min=1e-12)
+
+    return embed

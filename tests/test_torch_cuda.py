@@ -920,3 +920,42 @@ def test_fused_mha_backward_launches_no_kernel(cuda):
     torch.cuda.synchronize()
     assert fused_mha.launches == 1
     assert all(t.grad is not None and torch.isfinite(t.grad.float()).all() for t in (q, k, v))
+
+
+def _host_batches(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return [{"images": rng.integers(0, 256, (6, 4, 32, 32, 3), dtype=np.uint8),
+             "image_mask": rng.random((6, 4)).astype(np.float32),
+             "text_tokens": rng.integers(0, 100, (6, 16)).astype(np.int32),
+             "labels": np.arange(6, dtype=np.int32) + i} for i in range(n)]
+
+
+@pytest.mark.parametrize("size", [1, 2, 3])
+def test_prefetch_to_device_on_the_card(cuda, size):
+    """Every batch arrives on the card equal to its host copy, each pinned
+    buffer reused only after its copy completed (7 batches through size + 1
+    slots), and neither the feed nor a consumer on another stream makes a
+    host synchronisation (sync debug mode 'error')."""
+    from prcv2025reid_tpu_torch.data.device_feed import prefetch_to_device
+
+    batches = _host_batches(7)
+    consumer = torch.cuda.Stream(cuda)
+    sums = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.cuda.stream(consumer):
+            got = []
+            for b in prefetch_to_device(iter(batches), size=size, device=cuda):
+                sums.append(b["images"].float().sum())  # read on the consumer's stream
+                got.append(b)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert len(got) == len(batches)
+    for g, w, s in zip(got, batches, sums):
+        assert set(g) == set(w)
+        for k in w:
+            assert g[k].device.type == "cuda" and g[k].dtype == torch.from_numpy(w[k]).dtype
+            np.testing.assert_array_equal(g[k].cpu().numpy(), w[k])
+        assert s.item() == float(w["images"].astype(np.float64).sum())
