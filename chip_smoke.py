@@ -107,7 +107,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      cosine within TRAIN_BF16_COS_SLACK of the CPU's own bf16 run's);
   4c. the dataset path at full width through the entry points a user calls:
      a synthetic ORBench tree (make_synthetic_orbench: DATA_IDS ids x
-     DATA_ANCHORS anchors, DATA_IMG px JPEGs, in a temporary directory)
+     DATA_ANCHORS anchors, DATA_IMG px JPEGs, in a temporary directory that
+     phase 4d trains on too)
      split id-disjoint (val_ratio 0.2); the native image decode and BPE
      tokenizer built with g++ (a failed build fails the run, except a
      missing jpeglib.h, which is printed and leaves the host on PIL); the
@@ -132,6 +133,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      in the calling process) over the whole tree; and
      export_submission_csv: one row a query, each row's top-k gallery ids
      valid and unique;
+  4d. the trainer through its command line, tools_torch/train.py's
+     main(argv), on 4c's tree at full width (TrainingConfig(): ViT-B/16,
+     TRAIN_P x TRAIN_K, 7 decode workers) with use_pallas_attention,
+     use_fused_mlp and use_fused_resln, warmup_epochs 1 (the second epoch
+     trains at the full LR), each train step under the sync debug mode
+     'error' (no host synchronisation in any).  Run A: 2 epochs of
+     TRAINER_STEPS steps, the eval (all 15 plans, the whole val split) at
+     epoch 2 and the final one, async checkpoints: the histories (two train
+     rows), latest/ and best/ with their sidecars, training.log; the launch
+     counts of the whole run, zeroed just before it (fused_mha L-1 a train
+     step; fused_mha L, fused_mlp L, fused_residual_ln 2L a vision forward:
+     each vision embed batch of each evaluate and the smoke test's); finite
+     losses and a falling CE (the mean of the last five steps below the first
+     five; the SDM term joins at epoch 2).  Run B (blocking checkpoints, no
+     eval, which changes nothing of the training before epoch 10): 1 epoch,
+     then a new trainer resumes it to 2, held to run A: the per-epoch losses
+     within TRAINER_LOSS_REL, each trainable group's parameters at cosine >=
+     TRAINER_COS, the sampler state equal; whether the parameters are the
+     same bits is printed.  Then steps/s by epoch beside 4c's fed
+     pallas_attention it/s, device ms and idle share of one profiled step of
+     each run's trainer, seconds per evaluate, the checkpoint's size, and
+     the time the loop spent in save_checkpoint and finalize_pending_saves
+     with async (A) and blocking (B) saves;
   5. time every kernel, its plain version and (where one PyTorch call
      computes the same function) that call with CUDA events, median of
      TIMED_RUNS after warm-up queued behind a spin kernel (device time
@@ -152,6 +176,7 @@ checkout of the repository.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -237,6 +262,12 @@ NO_RANDOMNESS = dict(drop_path=0.0, dropout_rate=0.0, fusion_dropout=0.0, sdm_dr
 # fed train step runs FEED_STEPS steps, timed after FEED_WARMUP
 DATA_IDS, DATA_ANCHORS, DATA_IMG = 256, 4, 256
 PIPE_BATCHES, FEED_STEPS, FEED_WARMUP = 32, 20, 2
+# the trainer phase: 2 epochs of TRAINER_STEPS steps through the command
+# line; the resumed run against the uninterrupted one: the per-epoch losses
+# within TRAINER_LOSS_REL, each trainable group's parameters at cosine >=
+# TRAINER_COS
+TRAINER_STEPS = 10
+TRAINER_LOSS_REL, TRAINER_COS = 1e-4, 0.9999
 MATMUL_ROWS = (25344, 6304)  # the microbenchmark's M, and a multiple of no row tile
 MICROBENCH = ("xla_bf16", "xla_int8", "pallas_bf16", "pallas_int8", "pallas_sweep", "bw",
               "floor")
@@ -650,13 +681,13 @@ def write_bpe_vocab(directory: str) -> None:
         f.write("#version\n" + "\n".join(merges) + "\n")
 
 
-def dataset_phase(torch, cfg, params, counters, dev, card, resident):
+def dataset_phase(torch, cfg, params, counters, dev, card, resident, tmp):
     """The host data path and the dataset evaluation at full width on the
     card (see the module docstring, phase 4c); fails the run on any failed
     check and returns the readings.  ``resident``: phase 4b's readings by
-    path (the same step on one batch that stays on the card)."""
-    import tempfile
-
+    path (the same step on one batch that stays on the card); ``tmp``: a
+    scratch directory, where the tree is written to ``tmp/orbench`` (phase
+    4d trains on it)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -681,324 +712,567 @@ def dataset_phase(torch, cfg, params, counters, dev, card, resident):
 
     L = cfg.vision_layers
     readings = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_orbench_") as tmp:
-        # the tree and its split
-        t0 = time.perf_counter()
-        root = make_synthetic_orbench(os.path.join(tmp, "orbench"), num_ids=DATA_IDS,
-                                      anchors_per_id=DATA_ANCHORS, img_size=DATA_IMG)
-        n_files = sum(len(files) for _, _, files in os.walk(root))
-        dcfg = cfg.replace(data_root=root, json_file=os.path.join(root, "text_annos.json"),
-                           num_ids_per_batch=TRAIN_P, instances_per_id=TRAIN_K)
-        decoders = {"pil": create_split_datasets(dcfg)}
-        train_ds, val_ds, pid2label = decoders["pil"]
-        verify_split_integrity(train_ds, val_ds)
-        print(f"data: {n_files} files ({DATA_IDS} ids x {DATA_ANCHORS} anchors, {DATA_IMG} px "
-              f"JPEG) written in {time.perf_counter() - t0:.1f} s; split val_ratio "
-              f"{dcfg.val_ratio}: train {len(train_ds)} records of {len(train_ds.person_ids)} ids, "
-              f"val {len(val_ds)} records of {len(val_ds.person_ids)} ids, {len(pid2label)} labels")
+    # the tree and its split
+    t0 = time.perf_counter()
+    root = make_synthetic_orbench(os.path.join(tmp, "orbench"), num_ids=DATA_IDS,
+                                  anchors_per_id=DATA_ANCHORS, img_size=DATA_IMG)
+    n_files = sum(len(files) for _, _, files in os.walk(root))
+    dcfg = cfg.replace(data_root=root, json_file=os.path.join(root, "text_annos.json"),
+                       num_ids_per_batch=TRAIN_P, instances_per_id=TRAIN_K)
+    decoders = {"pil": create_split_datasets(dcfg)}
+    train_ds, val_ds, pid2label = decoders["pil"]
+    verify_split_integrity(train_ds, val_ds)
+    print(f"data: {n_files} files ({DATA_IDS} ids x {DATA_ANCHORS} anchors, {DATA_IMG} px "
+          f"JPEG) written in {time.perf_counter() - t0:.1f} s; split val_ratio "
+          f"{dcfg.val_ratio}: train {len(train_ds)} records of {len(train_ds.person_ids)} ids, "
+          f"val {len(val_ds)} records of {len(val_ds.person_ids)} ids, {len(pid2label)} labels")
 
-        # the native libraries: a failed build fails the run, except a
-        # machine without jpeglib.h, where the host decodes with PIL
-        img_lib, bpe_lib = native_image.build_library(), native_tokenizer.build_library()
-        img_err = native_build.build_errors.get("libimage_decode.so", "")
-        print(f"native: image decode {img_lib or 'NOT built'}; BPE tokenizer "
-              f"{bpe_lib or 'NOT built'} (g++ into {native_build.cache_dir()})")
-        if bpe_lib is None:
-            fail(f"the native BPE tokenizer did not build: "
-                 f"{native_build.build_errors.get('libclip_bpe.so')}")
-        if img_lib is None and "jpeglib.h" not in img_err:
-            fail(f"the native image decode did not build: {img_err}")
-        if img_lib is None:
-            print("native: jpeglib.h is missing on this machine: the host decodes with PIL "
-                  "only (a fallback on the host, as the JAX package's; the device path is the "
-                  "same)")
-        elif not native_image.available():
-            fail(f"the native image decode built but does not load: {img_lib}")
-        else:
-            decoders["native"] = create_split_datasets(dcfg.replace(use_native_decode=True))
+    # the native libraries: a failed build fails the run, except a
+    # machine without jpeglib.h, where the host decodes with PIL
+    img_lib, bpe_lib = native_image.build_library(), native_tokenizer.build_library()
+    img_err = native_build.build_errors.get("libimage_decode.so", "")
+    print(f"native: image decode {img_lib or 'NOT built'}; BPE tokenizer "
+          f"{bpe_lib or 'NOT built'} (g++ into {native_build.cache_dir()})")
+    if bpe_lib is None:
+        fail(f"the native BPE tokenizer did not build: "
+             f"{native_build.build_errors.get('libclip_bpe.so')}")
+    if img_lib is None and "jpeglib.h" not in img_err:
+        fail(f"the native image decode did not build: {img_err}")
+    if img_lib is None:
+        print("native: jpeglib.h is missing on this machine: the host decodes with PIL "
+              "only (a fallback on the host, as the JAX package's; the device path is the "
+              "same)")
+    elif not native_image.available():
+        fail(f"the native image decode built but does not load: {img_lib}")
+    else:
+        decoders["native"] = create_split_datasets(dcfg.replace(use_native_decode=True))
 
-        # the tokenizers: the native BPE against the Python BPE on a written
-        # vocab; the hash tokenizer feeds the model (its ids span the vocab)
-        vocab_dir = os.path.join(tmp, "vocab")
-        write_bpe_vocab(vocab_dir)
-        captions = [r.caption for r in train_ds.records + val_ds.records]
-        native_bpe = native_tokenizer.NativeClipBPETokenizer(vocab_dir, dcfg.text_context_length)
-        ids = native_bpe(captions)
-        same = np.array_equal(ids, ClipBPETokenizer(vocab_dir, dcfg.text_context_length)(captions))
-        print(f"tokenizer: native BPE on {len(captions)} captions equals the Python BPE: {same} "
-              f"(row 0: {ids[0][:12].tolist()})")
-        if not same:
-            fail("the native BPE disagrees with the Python BPE")
-        tok = build_tokenizer(None, dcfg.text_vocab_size, dcfg.text_context_length)
+    # the tokenizers: the native BPE against the Python BPE on a written
+    # vocab; the hash tokenizer feeds the model (its ids span the vocab)
+    vocab_dir = os.path.join(tmp, "vocab")
+    write_bpe_vocab(vocab_dir)
+    captions = [r.caption for r in train_ds.records + val_ds.records]
+    native_bpe = native_tokenizer.NativeClipBPETokenizer(vocab_dir, dcfg.text_context_length)
+    ids = native_bpe(captions)
+    same = np.array_equal(ids, ClipBPETokenizer(vocab_dir, dcfg.text_context_length)(captions))
+    print(f"tokenizer: native BPE on {len(captions)} captions equals the Python BPE: {same} "
+          f"(row 0: {ids[0][:12].tolist()})")
+    if not same:
+        fail("the native BPE disagrees with the Python BPE")
+    tok = build_tokenizer(None, dcfg.text_vocab_size, dcfg.text_context_length)
 
-        def pipeline_for(ds, steps):
-            sampler = PKBatchSampler(
-                ds, TRAIN_P, TRAIN_K, allow_id_reuse=dcfg.allow_id_reuse, seed=dcfg.seed,
-                steps_per_epoch=steps, force_modal_pairs=dcfg.force_modal_pairs,
-                sampling_fallback=dcfg.sampling_fallback,
-                min_modal_coverage=dcfg.min_modal_coverage)
-            return HostPipeline(ds, sampler, tok, num_workers=dcfg.num_workers,
-                                prefetch=dcfg.prefetch_batches, seed=dcfg.seed)
+    def pipeline_for(ds, steps):
+        sampler = PKBatchSampler(
+            ds, TRAIN_P, TRAIN_K, allow_id_reuse=dcfg.allow_id_reuse, seed=dcfg.seed,
+            steps_per_epoch=steps, force_modal_pairs=dcfg.force_modal_pairs,
+            sampling_fallback=dcfg.sampling_fallback,
+            min_modal_coverage=dcfg.min_modal_coverage)
+        return HostPipeline(ds, sampler, tok, num_workers=dcfg.num_workers,
+                            prefetch=dcfg.prefetch_batches, seed=dcfg.seed)
 
-        # the pipeline alone: batches/s after the workers are warm
-        workers, cores = resolve_num_workers(dcfg.num_workers), len(os.sched_getaffinity(0))
-        warm = workers + dcfg.prefetch_batches  # the batches in flight at once
-        print(f"pipeline: num_workers={dcfg.num_workers} -> {workers} worker processes, "
-              f"{cores} cores available (os.sched_getaffinity)")
-        shape = (TRAIN_P * TRAIN_K, len(cfg.vision_modalities), cfg.image_size, cfg.image_size, 3)
-        readings["pipeline"] = {"workers": workers, "cores": cores}
-        for decode, (ds, _, _) in decoders.items():
-            pipe = pipeline_for(ds, warm + PIPE_BATCHES)
-            try:
-                it = iter(pipe)
-                for _ in range(warm):
-                    next(it)
-                t0 = time.perf_counter()
-                n = 0
-                for b in it:
-                    n += 1
-                    if b["images"].shape != shape or b["images"].dtype != np.uint8:
-                        fail(f"pipeline {decode}: a batch of {b['images'].shape} "
-                             f"{b['images'].dtype}, expected {shape} uint8")
-                dt = time.perf_counter() - t0
-            finally:
-                pipe.close()
-            readings["pipeline"][decode] = {"batches_per_s": n / dt,
-                                            "samples_per_s": n * TRAIN_P * TRAIN_K / dt}
-            print(f"pipeline {decode} ({workers} workers): {n / dt:.2f} batches/s, "
-                  f"{n * TRAIN_P * TRAIN_K / dt:.1f} samples/s of {TRAIN_P}x{TRAIN_K} "
-                  f"({n} batches after {warm} warm-up)")
+    # the pipeline alone: batches/s after the workers are warm
+    workers, cores = resolve_num_workers(dcfg.num_workers), len(os.sched_getaffinity(0))
+    warm = workers + dcfg.prefetch_batches  # the batches in flight at once
+    print(f"pipeline: num_workers={dcfg.num_workers} -> {workers} worker processes, "
+          f"{cores} cores available (os.sched_getaffinity)")
+    shape = (TRAIN_P * TRAIN_K, len(cfg.vision_modalities), cfg.image_size, cfg.image_size, 3)
+    readings["pipeline"] = {"workers": workers, "cores": cores}
+    for decode, (ds, _, _) in decoders.items():
+        pipe = pipeline_for(ds, warm + PIPE_BATCHES)
+        try:
+            it = iter(pipe)
+            for _ in range(warm):
+                next(it)
+            t0 = time.perf_counter()
+            n = 0
+            for b in it:
+                n += 1
+                if b["images"].shape != shape or b["images"].dtype != np.uint8:
+                    fail(f"pipeline {decode}: a batch of {b['images'].shape} "
+                         f"{b['images'].dtype}, expected {shape} uint8")
+            dt = time.perf_counter() - t0
+        finally:
+            pipe.close()
+        readings["pipeline"][decode] = {"batches_per_s": n / dt,
+                                        "samples_per_s": n * TRAIN_P * TRAIN_K / dt}
+        print(f"pipeline {decode} ({workers} workers): {n / dt:.2f} batches/s, "
+              f"{n * TRAIN_P * TRAIN_K / dt:.1f} samples/s of {TRAIN_P}x{TRAIN_K} "
+              f"({n} batches after {warm} warm-up)")
 
-        # the pipeline feeding the train step through the device feed
-        feed_ds = decoders.get("native", decoders["pil"])[0]
-        feed_decode = "native" if "native" in decoders else "pil"
-        tcfg = dcfg.replace(num_ids_per_batch=TRAIN_P, instances_per_id=TRAIN_K)
-        trained = None
-        readings["fed"] = {}
-        for name, pcfg in (("xla", tcfg), ("pallas_attention", tcfg.replace(use_pallas_attention=True))):
-            model = build_model(pcfg, params, device=dev)
-            state = init_train_state(model, pcfg, 1, seed=0)
-            step = make_train_step(model, pcfg, 1)
-            pipe = pipeline_for(feed_ds, FEED_STEPS + 1)
-            want = {n: 0 for n in counters}
-            if name == "pallas_attention":
-                want["fused_mha"] = (L - 1) * FEED_STEPS
-            history, fetch_s = [], 0.0
-            try:
-                feed = prefetch_to_device(pipe, size=dcfg.prefetch_batches, device=dev)
-                for counter in counters.values():
-                    counter.launches = 0
-                torch.cuda.synchronize()
-                for i in range(FEED_STEPS):
-                    if i == FEED_WARMUP:
-                        torch.cuda.synchronize()
-                        t0 = time.perf_counter()
-                    torch.cuda.set_sync_debug_mode("error")
-                    try:
-                        t_fetch = time.perf_counter()
-                        batch = next(feed)
-                        if i >= FEED_WARMUP:  # the host's share of a fed step
-                            fetch_s += time.perf_counter() - t_fetch
-                        state, m = step(state, batch, SDM_WEIGHT, SDM_TAU)
-                    except RuntimeError as e:  # sync debug mode raises on a host synchronisation
-                        fail(f"fed train {name}, step {i}: {e}")
-                    finally:
-                        torch.cuda.set_sync_debug_mode(0)
-                    history.append(m)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                got = {n: f.launches for n, f in counters.items()}
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    state, m = step(state, next(feed), SDM_WEIGHT, SDM_TAU)
-                    torch.cuda.synchronize()
-            finally:
-                pipe.close()
-            hist = {k: torch.stack([h[k] for h in history]).tolist() for k in history[0]}
-            loss = hist["total_loss"]
-            print(f"fed train {name}: launches over {FEED_STEPS} steps {got} (expected {want}); "
-                  f"no host synchronisation in any step (sync debug mode 'error'); total_loss "
-                  + " ".join(f"{v:.4f}" for v in loss))
-            if got != want:
-                fail(f"fed train {name}: launch counts {got} != {want}")
-            finite = all(np.isfinite(hist[k]).all() for k in ("total_loss", "ce_loss", "sdm_loss",
-                                                               "grad_norm"))
-            if not finite or any(hist["skipped"]):
-                fail(f"fed train {name}: a non-finite loss or a skipped step: {hist}")
-            head, tail = statistics.mean(loss[:5]), statistics.mean(loss[-5:])
-            if not tail < head:
-                fail(f"fed train {name}: the loss did not fall (mean of the first five {head}, "
-                     f"of the last five {tail})")
-            events = [e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA and device_time(e) > 0]
-            device_ms = sum(device_time(e) for e in events) / 1e3
-            it_s = (FEED_STEPS - FEED_WARMUP) / wall
-            idle = 1 - device_ms / (1e3 / it_s)
-            r = resident[name]
-            fetch_ms = fetch_s / (FEED_STEPS - FEED_WARMUP) * 1e3
-            readings["fed"][name] = dict(it_per_s=it_s, samples_per_s=it_s * TRAIN_P * TRAIN_K,
-                                         device_ms=device_ms, wall_ms=1e3 / it_s, idle_share=idle,
-                                         fetch_ms=fetch_ms, loss_first5=head, loss_last5=tail,
-                                         decode=feed_decode, launches=got)
-            print(f"fed train {name} ({card}; {feed_decode} decode, {workers} workers): "
-                  f"{it_s:.3f} it/s, {it_s * TRAIN_P * TRAIN_K:.1f} samples/s; device "
-                  f"{device_ms:.3f} ms of {1e3 / it_s:.3f} ms a step (idle share {idle:.3f}), "
-                  f"{fetch_ms:.1f} ms of it in the feed's next() on the host; "
-                  f"phase 4b's resident batch: {r['it_per_s']:.3f} it/s, device "
-                  f"{r['device_ms']:.3f} ms, idle share {r['idle_share']:.3f}; loss mean "
-                  f"{head:.4f} -> {tail:.4f}")
-            if name == "xla":
-                trained = model
-            del model, state, step
-            torch.cuda.empty_cache()
-
-        # evaluate_protocol on the val split: xla and the fused-stream trunk
-        # built from the trained weights; the same weights in f32 read how far
-        # bf16 rounding alone moves each plan's mAP (printed, not a gate)
-        trunk_cfg = tcfg.replace(use_fused_resln=True, use_fused_mlp=True,
-                                 use_pallas_attention=True)
-        trunk = build_model(trunk_cfg, params, device=dev)
-        trunk.load_state_dict(trained.state_dict())
-        f32 = build_model(tcfg.replace(compute_dtype="float32"), params, device=dev)
-        f32.load_state_dict(trained.state_dict())
-        per_forward = {"xla": {}, "f32": {}, "fused_trunk": {"fused_mha": L, "fused_mlp": L,
-                                                             "fused_residual_ln": 2 * L}}
-        cache = GalleryCache(os.path.join(tmp, "eval_cache"), checkpoint_cache_tag(
-            trunk, dcfg.eval_cache_tag, step=FEED_STEPS, config=trunk_cfg))
-
-        def recording(model, log):
-            """make_combo_embed_step, each call's features kept by combo."""
-            def factory(mods):
-                step = make_combo_embed_step(model, mods)
-
-                def run(*args):
-                    out = step(*args)
-                    log.setdefault(mods, []).append(out)
-                    return out
-                return run
-            return factory
-
-        results, logs = {}, {}
-        for name, model in (("xla", trained), ("fused_trunk", trunk), ("f32", f32)):
-            logs[name] = {}
+    # the pipeline feeding the train step through the device feed
+    feed_ds = decoders.get("native", decoders["pil"])[0]
+    feed_decode = "native" if "native" in decoders else "pil"
+    tcfg = dcfg.replace(num_ids_per_batch=TRAIN_P, instances_per_id=TRAIN_K)
+    trained = None
+    readings["fed"] = {}
+    for name, pcfg in (("xla", tcfg), ("pallas_attention", tcfg.replace(use_pallas_attention=True))):
+        model = build_model(pcfg, params, device=dev)
+        state = init_train_state(model, pcfg, 1, seed=0)
+        step = make_train_step(model, pcfg, 1)
+        pipe = pipeline_for(feed_ds, FEED_STEPS + 1)
+        want = {n: 0 for n in counters}
+        if name == "pallas_attention":
+            want["fused_mha"] = (L - 1) * FEED_STEPS
+        history, fetch_s = [], 0.0
+        try:
+            feed = prefetch_to_device(pipe, size=dcfg.prefetch_batches, device=dev)
             for counter in counters.values():
                 counter.launches = 0
-            t0 = time.perf_counter()
-            results[name] = evaluate_protocol(
-                None, val_ds, tok, batch_size=dcfg.eval_batch_size, device=dev,
-                embed_factory=recording(model, logs[name]),
-                cache=cache if name == "fused_trunk" else None)
             torch.cuda.synchronize()
-            got = {n: f.launches for n, f in counters.items()}
-            n_vision = sum(len(v) for mods, v in logs[name].items() if mods != ("text",))
-            want = {n: per_forward[name].get(n, 0) * n_vision for n in counters}
-            print(f"eval {name}: evaluate_protocol over {len(val_ds)} val records, "
-                  f"{len(results[name]['detail'])} plans in {time.perf_counter() - t0:.1f} s; "
-                  f"launches {got} (expected {want}: {n_vision} embed batches with a vision "
-                  f"tower)")
-            if got != want:
-                fail(f"eval {name}: launch counts {got} != {want}")
-        plans = [p for p, _ in build_query_plans()]
-        if any(sorted(r["detail"]) != sorted(plans) for r in results.values()):
-            fail(f"evaluate_protocol: not all 15 plans: {[sorted(r['detail']) for r in results.values()]}")
-
-        def min_cos(mods):
-            a, b = (torch.cat(logs[n][mods]) for n in ("fused_trunk", "xla"))
-            return (a * b).sum(dim=1).min().item()
-
-        g_cos = min_cos(("vis",))
-        table = {}
-        for plan, mods in build_query_plans():
-            ref, got = results["xla"]["detail"][plan], results["fused_trunk"]["detail"][plan]
-            table[plan] = dict(map_xla=ref["mAP"], map_fused_trunk=got["mAP"],
-                               map_delta=abs(got["mAP"] - ref["mAP"]), query_min_cosine=min_cos(mods),
-                               cmc1=got["cmc1"], num_queries=got["num_queries"],
-                               map_f32=results["f32"]["detail"][plan]["mAP"])
-            t = table[plan]
-            print(f"eval {plan:26s} mAP xla {t['map_xla']:.4f} fused_trunk "
-                  f"{t['map_fused_trunk']:.4f} |dmAP| {t['map_delta']:.6f} (<= "
-                  f"{RANK_MAX_MAP_DELTA}); query min-cosine {t['query_min_cosine']:.6f}; gallery "
-                  f"min-cosine {g_cos:.6f} (>= {MIN_COSINE}); f32 {t['map_f32']:.4f}")
-            if t["map_delta"] > RANK_MAX_MAP_DELTA or g_cos < MIN_COSINE:
-                fail(f"eval {plan}: fused_trunk disagrees with xla: {t}, gallery {g_cos}")
-        floor = {p: max(abs(t["map_xla"] - t["map_f32"]), abs(t["map_fused_trunk"] - t["map_f32"]))
-                 for p, t in table.items()}
-        summary = {k: v for k, v in results["fused_trunk"].items() if k != "detail"}
-        print(f"eval: max |dmAP| fused_trunk vs xla {max(t['map_delta'] for t in table.values()):.6f}; "
-              f"against the f32 model: xla {max(abs(t['map_xla'] - t['map_f32']) for t in table.values()):.6f}, "
-              f"fused_trunk {max(abs(t['map_fused_trunk'] - t['map_f32']) for t in table.values()):.6f}; "
-              "fused_trunk summary " + json.dumps(summary))
-
-        # a second call hits the gallery cache: no gallery embed, the same bits
-        gallery = [i for i, r in enumerate(val_ds.records) if r.vis]
-        first = torch.cat(logs["fused_trunk"][("vis",)])[:len(gallery)].cpu().numpy()
-        hit = cache.load(gallery)
-        log2 = {}
-        again = evaluate_protocol(None, val_ds, tok, batch_size=dcfg.eval_batch_size, device=dev,
-                                  embed_factory=recording(trunk, log2), cache=cache,
-                                  include_patterns=["single/nir"])
-        cache_ok = hit is not None and ("vis",) not in log2 and np.array_equal(hit[0], first)
-        print(f"eval cache: the second call embedded {sorted(log2)}, the cached gallery features "
-              f"equal the first call's bit for bit: {cache_ok}; single/nir mAP "
-              f"{again['detail']['single/nir']['mAP']:.6f} (first call "
-              f"{results['fused_trunk']['detail']['single/nir']['mAP']:.6f})")
-        if not cache_ok:
-            fail("the gallery cache did not hit on the second call, or its features differ")
-
-        # gallery embeds/s through embed_samples: the host decodes in the
-        # calling process, one record after another, as JAX's
-        full = {d: MultiModalDataset(dcfg.replace(use_native_decode=d == "native"), split="val")
-                for d in decoders}
-        step = make_combo_embed_step(trunk, ("vis",))
-        readings["gallery_embed"] = {}
-        for decode, ds in full.items():
-            idx = list(range(len(ds)))
-            embed_samples(step, ds, idx[:dcfg.eval_batch_size], tok, dcfg.eval_batch_size)
+            for i in range(FEED_STEPS):
+                if i == FEED_WARMUP:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    t_fetch = time.perf_counter()
+                    batch = next(feed)
+                    if i >= FEED_WARMUP:  # the host's share of a fed step
+                        fetch_s += time.perf_counter() - t_fetch
+                    state, m = step(state, batch, SDM_WEIGHT, SDM_TAU)
+                except RuntimeError as e:  # sync debug mode raises on a host synchronisation
+                    fail(f"fed train {name}, step {i}: {e}")
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                history.append(m)
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            feats, _ = embed_samples(step, ds, idx, tok, dcfg.eval_batch_size)
             wall = time.perf_counter() - t0
+            got = {n: f.launches for n, f in counters.items()}
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                embed_samples(step, ds, idx, tok, dcfg.eval_batch_size)
+                state, m = step(state, next(feed), SDM_WEIGHT, SDM_TAU)
                 torch.cuda.synchronize()
-            dev_ms = sum(device_time(e) for e in prof.key_averages()
-                         if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-            if feats.shape != (len(idx), cfg.fusion_dim) or not np.isfinite(feats).all():
-                fail(f"embed_samples: features {feats.shape}, expected {(len(idx), cfg.fusion_dim)}")
-            rate = len(idx) / wall
-            readings["gallery_embed"][decode] = dict(
-                embeds_per_s=rate, wall_ms=wall * 1e3, device_ms=dev_ms,
-                idle_share=1 - dev_ms / (wall * 1e3), records=len(idx),
-                batch=dcfg.eval_batch_size)
-            print(f"gallery embed_samples fused_trunk ({card}; {decode} decode in the calling "
-                  f"process, batch {dcfg.eval_batch_size}): {rate:.1f} embeds/s over {len(idx)} "
-                  f"records; device {dev_ms:.3f} ms of {wall * 1e3:.1f} ms (idle share "
-                  f"{1 - dev_ms / (wall * 1e3):.3f})")
-
-        # the submission CSV on the val split
-        path = os.path.join(tmp, "submission.csv")
-        n_rows = export_submission_csv(None, val_ds, tok, path, batch_size=dcfg.eval_batch_size,
-                                       embed_factory=lambda m: make_combo_embed_step(trunk, m),
-                                       device=dev)
-        stems = {os.path.splitext(os.path.basename(val_ds.records[i].anchor_vis))[0]
-                 for i in gallery}
-        with open(path) as f:
-            lines = f.read().splitlines()
-        k_eff = min(100, len(gallery))
-        bad = [ln for ln in lines[1:] if len(ln.split(",")) != 2
-               or len(ln.split(",")[0].split("|")) != 3
-               or len(set(ln.split(",")[1].split())) != k_eff
-               or not set(ln.split(",")[1].split()) <= stems]
-        n_queries = sum(r["num_queries"] for r in results["fused_trunk"]["detail"].values())
-        print(f"submission: {n_rows} rows ({n_queries} queries over 15 plans), top {k_eff} of "
-              f"{len(gallery)} gallery ids each, unique and valid; malformed rows {len(bad)}")
-        if lines[0] != "query_key,ranked_gallery_ids" or n_rows != len(lines) - 1 or \
-                n_rows != n_queries or bad:
-            fail(f"submission CSV: {n_rows} rows for {n_queries} queries, bad rows {bad[:3]}")
-        readings["eval"] = dict(plans=table, gallery_min_cosine=g_cos, summary=summary,
-                                bf16_vs_f32_max_map_delta=max(floor.values()), cache_hit=cache_ok,
-                                submission_rows=n_rows, val_records=len(val_ds))
-        del trained, trunk, f32, step
+        finally:
+            pipe.close()
+        hist = {k: torch.stack([h[k] for h in history]).tolist() for k in history[0]}
+        loss = hist["total_loss"]
+        print(f"fed train {name}: launches over {FEED_STEPS} steps {got} (expected {want}); "
+              f"no host synchronisation in any step (sync debug mode 'error'); total_loss "
+              + " ".join(f"{v:.4f}" for v in loss))
+        if got != want:
+            fail(f"fed train {name}: launch counts {got} != {want}")
+        finite = all(np.isfinite(hist[k]).all() for k in ("total_loss", "ce_loss", "sdm_loss",
+                                                           "grad_norm"))
+        if not finite or any(hist["skipped"]):
+            fail(f"fed train {name}: a non-finite loss or a skipped step: {hist}")
+        head, tail = statistics.mean(loss[:5]), statistics.mean(loss[-5:])
+        if not tail < head:
+            fail(f"fed train {name}: the loss did not fall (mean of the first five {head}, "
+                 f"of the last five {tail})")
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and device_time(e) > 0]
+        device_ms = sum(device_time(e) for e in events) / 1e3
+        it_s = (FEED_STEPS - FEED_WARMUP) / wall
+        idle = 1 - device_ms / (1e3 / it_s)
+        r = resident[name]
+        fetch_ms = fetch_s / (FEED_STEPS - FEED_WARMUP) * 1e3
+        readings["fed"][name] = dict(it_per_s=it_s, samples_per_s=it_s * TRAIN_P * TRAIN_K,
+                                     device_ms=device_ms, wall_ms=1e3 / it_s, idle_share=idle,
+                                     fetch_ms=fetch_ms, loss_first5=head, loss_last5=tail,
+                                     decode=feed_decode, launches=got)
+        print(f"fed train {name} ({card}; {feed_decode} decode, {workers} workers): "
+              f"{it_s:.3f} it/s, {it_s * TRAIN_P * TRAIN_K:.1f} samples/s; device "
+              f"{device_ms:.3f} ms of {1e3 / it_s:.3f} ms a step (idle share {idle:.3f}), "
+              f"{fetch_ms:.1f} ms of it in the feed's next() on the host; "
+              f"phase 4b's resident batch: {r['it_per_s']:.3f} it/s, device "
+              f"{r['device_ms']:.3f} ms, idle share {r['idle_share']:.3f}; loss mean "
+              f"{head:.4f} -> {tail:.4f}")
+        if name == "xla":
+            trained = model
+        del model, state, step
         torch.cuda.empty_cache()
+
+    # evaluate_protocol on the val split: xla and the fused-stream trunk
+    # built from the trained weights; the same weights in f32 read how far
+    # bf16 rounding alone moves each plan's mAP (printed, not a gate)
+    trunk_cfg = tcfg.replace(use_fused_resln=True, use_fused_mlp=True,
+                             use_pallas_attention=True)
+    trunk = build_model(trunk_cfg, params, device=dev)
+    trunk.load_state_dict(trained.state_dict())
+    f32 = build_model(tcfg.replace(compute_dtype="float32"), params, device=dev)
+    f32.load_state_dict(trained.state_dict())
+    per_forward = {"xla": {}, "f32": {}, "fused_trunk": {"fused_mha": L, "fused_mlp": L,
+                                                         "fused_residual_ln": 2 * L}}
+    cache = GalleryCache(os.path.join(tmp, "eval_cache"), checkpoint_cache_tag(
+        trunk, dcfg.eval_cache_tag, step=FEED_STEPS, config=trunk_cfg))
+
+    def recording(model, log):
+        """make_combo_embed_step, each call's features kept by combo."""
+        def factory(mods):
+            step = make_combo_embed_step(model, mods)
+
+            def run(*args):
+                out = step(*args)
+                log.setdefault(mods, []).append(out)
+                return out
+            return run
+        return factory
+
+    results, logs = {}, {}
+    for name, model in (("xla", trained), ("fused_trunk", trunk), ("f32", f32)):
+        logs[name] = {}
+        for counter in counters.values():
+            counter.launches = 0
+        t0 = time.perf_counter()
+        results[name] = evaluate_protocol(
+            None, val_ds, tok, batch_size=dcfg.eval_batch_size, device=dev,
+            embed_factory=recording(model, logs[name]),
+            cache=cache if name == "fused_trunk" else None)
+        torch.cuda.synchronize()
+        got = {n: f.launches for n, f in counters.items()}
+        n_vision = sum(len(v) for mods, v in logs[name].items() if mods != ("text",))
+        want = {n: per_forward[name].get(n, 0) * n_vision for n in counters}
+        print(f"eval {name}: evaluate_protocol over {len(val_ds)} val records, "
+              f"{len(results[name]['detail'])} plans in {time.perf_counter() - t0:.1f} s; "
+              f"launches {got} (expected {want}: {n_vision} embed batches with a vision "
+              f"tower)")
+        if got != want:
+            fail(f"eval {name}: launch counts {got} != {want}")
+    plans = [p for p, _ in build_query_plans()]
+    if any(sorted(r["detail"]) != sorted(plans) for r in results.values()):
+        fail(f"evaluate_protocol: not all 15 plans: {[sorted(r['detail']) for r in results.values()]}")
+
+    def min_cos(mods):
+        a, b = (torch.cat(logs[n][mods]) for n in ("fused_trunk", "xla"))
+        return (a * b).sum(dim=1).min().item()
+
+    g_cos = min_cos(("vis",))
+    table = {}
+    for plan, mods in build_query_plans():
+        ref, got = results["xla"]["detail"][plan], results["fused_trunk"]["detail"][plan]
+        table[plan] = dict(map_xla=ref["mAP"], map_fused_trunk=got["mAP"],
+                           map_delta=abs(got["mAP"] - ref["mAP"]), query_min_cosine=min_cos(mods),
+                           cmc1=got["cmc1"], num_queries=got["num_queries"],
+                           map_f32=results["f32"]["detail"][plan]["mAP"])
+        t = table[plan]
+        print(f"eval {plan:26s} mAP xla {t['map_xla']:.4f} fused_trunk "
+              f"{t['map_fused_trunk']:.4f} |dmAP| {t['map_delta']:.6f} (<= "
+              f"{RANK_MAX_MAP_DELTA}); query min-cosine {t['query_min_cosine']:.6f}; gallery "
+              f"min-cosine {g_cos:.6f} (>= {MIN_COSINE}); f32 {t['map_f32']:.4f}")
+        if t["map_delta"] > RANK_MAX_MAP_DELTA or g_cos < MIN_COSINE:
+            fail(f"eval {plan}: fused_trunk disagrees with xla: {t}, gallery {g_cos}")
+    floor = {p: max(abs(t["map_xla"] - t["map_f32"]), abs(t["map_fused_trunk"] - t["map_f32"]))
+             for p, t in table.items()}
+    summary = {k: v for k, v in results["fused_trunk"].items() if k != "detail"}
+    print(f"eval: max |dmAP| fused_trunk vs xla {max(t['map_delta'] for t in table.values()):.6f}; "
+          f"against the f32 model: xla {max(abs(t['map_xla'] - t['map_f32']) for t in table.values()):.6f}, "
+          f"fused_trunk {max(abs(t['map_fused_trunk'] - t['map_f32']) for t in table.values()):.6f}; "
+          "fused_trunk summary " + json.dumps(summary))
+
+    # a second call hits the gallery cache: no gallery embed, the same bits
+    gallery = [i for i, r in enumerate(val_ds.records) if r.vis]
+    first = torch.cat(logs["fused_trunk"][("vis",)])[:len(gallery)].cpu().numpy()
+    hit = cache.load(gallery)
+    log2 = {}
+    again = evaluate_protocol(None, val_ds, tok, batch_size=dcfg.eval_batch_size, device=dev,
+                              embed_factory=recording(trunk, log2), cache=cache,
+                              include_patterns=["single/nir"])
+    cache_ok = hit is not None and ("vis",) not in log2 and np.array_equal(hit[0], first)
+    print(f"eval cache: the second call embedded {sorted(log2)}, the cached gallery features "
+          f"equal the first call's bit for bit: {cache_ok}; single/nir mAP "
+          f"{again['detail']['single/nir']['mAP']:.6f} (first call "
+          f"{results['fused_trunk']['detail']['single/nir']['mAP']:.6f})")
+    if not cache_ok:
+        fail("the gallery cache did not hit on the second call, or its features differ")
+
+    # gallery embeds/s through embed_samples: the host decodes in the
+    # calling process, one record after another, as JAX's
+    full = {d: MultiModalDataset(dcfg.replace(use_native_decode=d == "native"), split="val")
+            for d in decoders}
+    step = make_combo_embed_step(trunk, ("vis",))
+    readings["gallery_embed"] = {}
+    for decode, ds in full.items():
+        idx = list(range(len(ds)))
+        embed_samples(step, ds, idx[:dcfg.eval_batch_size], tok, dcfg.eval_batch_size)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats, _ = embed_samples(step, ds, idx, tok, dcfg.eval_batch_size)
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            embed_samples(step, ds, idx, tok, dcfg.eval_batch_size)
+            torch.cuda.synchronize()
+        dev_ms = sum(device_time(e) for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        if feats.shape != (len(idx), cfg.fusion_dim) or not np.isfinite(feats).all():
+            fail(f"embed_samples: features {feats.shape}, expected {(len(idx), cfg.fusion_dim)}")
+        rate = len(idx) / wall
+        readings["gallery_embed"][decode] = dict(
+            embeds_per_s=rate, wall_ms=wall * 1e3, device_ms=dev_ms,
+            idle_share=1 - dev_ms / (wall * 1e3), records=len(idx),
+            batch=dcfg.eval_batch_size)
+        print(f"gallery embed_samples fused_trunk ({card}; {decode} decode in the calling "
+              f"process, batch {dcfg.eval_batch_size}): {rate:.1f} embeds/s over {len(idx)} "
+              f"records; device {dev_ms:.3f} ms of {wall * 1e3:.1f} ms (idle share "
+              f"{1 - dev_ms / (wall * 1e3):.3f})")
+
+    # the submission CSV on the val split
+    path = os.path.join(tmp, "submission.csv")
+    n_rows = export_submission_csv(None, val_ds, tok, path, batch_size=dcfg.eval_batch_size,
+                                   embed_factory=lambda m: make_combo_embed_step(trunk, m),
+                                   device=dev)
+    stems = {os.path.splitext(os.path.basename(val_ds.records[i].anchor_vis))[0]
+             for i in gallery}
+    with open(path) as f:
+        lines = f.read().splitlines()
+    k_eff = min(100, len(gallery))
+    bad = [ln for ln in lines[1:] if len(ln.split(",")) != 2
+           or len(ln.split(",")[0].split("|")) != 3
+           or len(set(ln.split(",")[1].split())) != k_eff
+           or not set(ln.split(",")[1].split()) <= stems]
+    n_queries = sum(r["num_queries"] for r in results["fused_trunk"]["detail"].values())
+    print(f"submission: {n_rows} rows ({n_queries} queries over 15 plans), top {k_eff} of "
+          f"{len(gallery)} gallery ids each, unique and valid; malformed rows {len(bad)}")
+    if lines[0] != "query_key,ranked_gallery_ids" or n_rows != len(lines) - 1 or \
+            n_rows != n_queries or bad:
+        fail(f"submission CSV: {n_rows} rows for {n_queries} queries, bad rows {bad[:3]}")
+    readings["eval"] = dict(plans=table, gallery_min_cosine=g_cos, summary=summary,
+                            bf16_vs_f32_max_map_delta=max(floor.values()), cache_hit=cache_ok,
+                            submission_rows=n_rows, val_records=len(val_ds))
+    del trained, trunk, f32, step
+    torch.cuda.empty_cache()
+    return readings
+
+
+def trainer_phase(torch, cfg, counters, dev, card, fed, tmp):
+    """The trainer at full width on the card through its command line (see
+    the module docstring, phase 4d); fails the run on any failed check and
+    returns the readings.  ``fed``: phase 4c's fed-step readings by path;
+    ``tmp``: the scratch directory whose ``orbench`` tree phase 4c wrote."""
+    import importlib.util
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from prcv2025reid_tpu_torch import TrainingConfig
+    from prcv2025reid_tpu_torch.data.pipeline import collate
+    from prcv2025reid_tpu_torch.evaluation.protocol import build_query_plans
+    from prcv2025reid_tpu_torch.training import trainer as trainer_module
+    from prcv2025reid_tpu_torch.training.param_groups import label_params
+
+    spec = importlib.util.spec_from_file_location(
+        "train_cli", Path(__file__).resolve().parent / "tools_torch" / "train.py")
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    L = cfg.vision_layers
+    default_cfg = TrainingConfig()
+    root = os.path.join(tmp, "orbench")
+    plans = sorted(p for p, _ in build_query_plans())
+    saves = []  # (run, kind, seconds) of each save_checkpoint / finalize_pending_saves call
+
+    class Probe(trainer_module.Trainer):
+        """The trainer as the command line builds it, with its train step
+        run under the sync debug mode 'error' and its evaluations, vision
+        embed batches and step losses recorded."""
+        made = []
+
+        def __init__(self, config, device="cuda"):
+            super().__init__(config, device)
+            Probe.made.append(self)
+            self.losses, self.evals, self.vision_batches = [], [], 0
+            step = self.raw_step = self.train_step
+
+            def checked(state, batch, *args, **kw):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    state, m = step(state, batch, *args, **kw)
+                except RuntimeError as e:  # sync debug mode raises on a host synchronisation
+                    fail(f"trainer step {state.step}: {e}")
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                self.losses.append(torch.stack([m["total_loss"], m["ce_loss"], m["sdm_loss"]]))
+                return state, m
+
+            self.train_step = checked
+
+        def embed_factory(self, modalities):
+            step = super().embed_factory(modalities)
+            if tuple(modalities) == ("text",):
+                return step
+
+            def counted(*args):
+                self.vision_batches += 1
+                return step(*args)
+            return counted
+
+        def evaluate(self, epoch=None, sample_ratio=None):
+            t0 = time.perf_counter()
+            result = super().evaluate(epoch, sample_ratio)
+            torch.cuda.synchronize()
+            self.evals.append(dict(seconds=time.perf_counter() - t0, plans=sorted(result["detail"]),
+                                   map_avg2=result["map_avg2"]))
+            return result
+
+    def timed(run, kind, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                saves.append((run, kind, time.perf_counter() - t0))
+        return call
+
+    def argv(run, **over):
+        # cfg's widths and settings (TrainingConfig() in main: none), then the phase's
+        flags = {f.name: ",".join(map(str, v)) if isinstance(v, tuple) else v
+                 for f in dataclasses.fields(cfg)
+                 if (v := getattr(cfg, f.name)) != getattr(default_cfg, f.name)}
+        flags.update(
+            data_root=root, json_file=os.path.join(root, "text_annos.json"),
+            num_ids_per_batch=TRAIN_P, instances_per_id=TRAIN_K, steps_per_epoch=TRAINER_STEPS,
+            num_epochs=2, warmup_epochs=1, eval_every_n_epoch=2, eval_sample_ratio=1.0,
+            eval_include_patterns="", use_pallas_attention="true", use_fused_mlp="true",
+            use_fused_resln="true", save_dir=os.path.join(tmp, run, "ckpt"),
+            log_dir=os.path.join(tmp, run, "logs"), eval_cache_dir=os.path.join(tmp, run, "cache"))
+        flags.update(over)
+        return [f"--{k}={v}" for k, v in flags.items()]
+
+    def drive(run, flags):
+        """tools_torch/train.py's main(flags) with the counters zeroed just
+        before it: (the trainer, its result, the launch counts)."""
+        for counter in counters.values():
+            counter.launches = 0
+        torch.cuda.synchronize()
+        result = cli.main(flags)
+        torch.cuda.synchronize()
+        return Probe.made[-1], result, {n: f.launches for n, f in counters.items()}
+
+    saved = (trainer_module.Trainer, trainer_module.save_checkpoint,
+             trainer_module.finalize_pending_saves)
+    runs = {}
+    try:
+        trainer_module.Trainer = Probe
+        # run A: 2 epochs with the eval at epoch 2 and the final one, async saves
+        trainer_module.save_checkpoint = timed("A", "save", saved[1])
+        trainer_module.finalize_pending_saves = timed("A", "finalize", saved[2])
+        t0 = time.perf_counter()
+        runs["A"] = drive("A", argv("A"))
+        wall_a = time.perf_counter() - t0
+        # run B: 1 epoch, then a new trainer resumes it to 2; blocking saves,
+        # no eval (it changes nothing of the training before epoch 10)
+        trainer_module.save_checkpoint = timed("B", "save", saved[1])
+        trainer_module.finalize_pending_saves = timed("B", "finalize", saved[2])
+        t0 = time.perf_counter()
+        b_flags = argv("B", async_checkpoint="false", do_eval="false")
+        first = drive("B", b_flags + ["--num_epochs=1"])
+        runs["B"] = drive("B", b_flags)
+        wall_b = time.perf_counter() - t0
+    finally:
+        trainer_module.Trainer, trainer_module.save_checkpoint, \
+            trainer_module.finalize_pending_saves = saved
+
+    (ta, ra, got_a), (tb, rb, got_b) = runs["A"], runs["B"]
+    # run A's artifacts, launches, losses
+    logs, ckpt = os.path.join(tmp, "A", "logs"), os.path.join(tmp, "A", "ckpt")
+    rows = ta.train_history.rows
+    have = {n: os.path.exists(os.path.join(d, n)) for d, names in (
+        (logs, ("train_history.csv", "eval_history.csv", "training.log")),
+        (ckpt, ("latest/state.pt", "latest/host_state.json", "best/state.pt",
+                "best/host_state.json"))) for n in names}
+    print(f"trainer A (tools_torch/train.py, {TRAIN_P}x{TRAIN_K}, 2 epochs x {TRAINER_STEPS} "
+          f"steps, {wall_a:.1f} s): artifacts {have}; train_history rows "
+          f"{len(rows)}, eval_history rows {len(ta.eval_history.rows)}; evaluations "
+          + json.dumps([dict(e, plans=len(e["plans"])) for e in ta.evals]))
+    if not all(have.values()) or len(rows) != 2 or len(ta.eval_history.rows) < 1 \
+            or os.path.getsize(os.path.join(logs, "training.log")) == 0:
+        fail(f"trainer A: missing artifacts {have}, or {len(rows)} train rows")
+    if len(ta.evals) != 2 or any(e["plans"] != plans for e in ta.evals):
+        fail(f"trainer A: expected 2 evaluations of all 15 plans: {ta.evals}")
+    steps = 2 * TRAINER_STEPS
+    for name, trainer, got, vision_batches in (("A", ta, got_a, ta.vision_batches + 1),
+                                               ("B", tb, got_b, 0)):
+        # + 1: the smoke test's forward (run A; run B's resumed half has none)
+        want = {n: 0 for n in counters}
+        want.update(fused_mha=(L - 1) * TRAINER_STEPS * (2 if name == "A" else 1) + L * vision_batches,
+                    fused_mlp=L * vision_batches, fused_residual_ln=2 * L * vision_batches)
+        print(f"trainer {name}: launches {got} (expected {want}: #1 {L - 1} a train step, "
+              f"#1 {L}, #8 {L}, #9 {2 * L} a vision forward, {vision_batches} of them)")
+        if got != want:
+            fail(f"trainer {name}: launch counts {got} != {want}")
+    losses = torch.stack(ta.losses).tolist()
+    ce = [l[1] for l in losses]
+    if len(losses) != steps or not np.isfinite(losses).all():
+        fail(f"trainer A: {len(losses)} steps, or a non-finite loss: {losses}")
+    head, tail = statistics.mean(ce[:5]), statistics.mean(ce[-5:])
+    print(f"trainer A: no host synchronisation in any of {steps} steps (sync debug mode "
+          f"'error'); ce_loss " + " ".join(f"{v:.4f}" for v in ce)
+          + f"; mean of the first five {head:.4f}, of the last five {tail:.4f}")
+    if not tail < head:
+        fail(f"trainer A: the CE loss did not fall ({head} -> {tail})")
+
+    # run B against run A
+    b_rows = tb.train_history.rows
+    loss_rel = {f"{k}@{r['epoch']}": abs(rb_[k] - r[k]) / max(abs(r[k]), 1e-12)
+                for r, rb_ in zip(rows, b_rows) for k in ("total_loss", "ce_loss", "sdm_loss")}
+    labels = label_params(ta.model, ta.config)
+    pa, pb = dict(ta.model.named_parameters()), dict(tb.model.named_parameters())
+    cos, bitwise = {}, True
+    for group in sorted(set(labels.values()) - {"frozen"}):
+        a = torch.cat([pa[n].detach().flatten() for n, g in labels.items() if g == group])
+        b = torch.cat([pb[n].detach().flatten() for n, g in labels.items() if g == group])
+        cos[group] = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+    differ = [n for n in pa if not torch.equal(pa[n], pb[n])]
+    buffers = [n for n, t in ta.model.named_buffers()
+               if not torch.equal(t, dict(tb.model.named_buffers())[n])]
+    same_sampler = ta.sampler.state_dict() == tb.sampler.state_dict()
+    print(f"trainer B (1 epoch, then resumed to 2; {wall_b:.1f} s): start epoch "
+          f"{tb.start_epoch}; per-epoch losses against A, relative: {json.dumps(loss_rel)}; "
+          f"per-group parameter cosine {json.dumps(cos)}; sampler state equal: {same_sampler}; "
+          f"bit for bit: {not differ and not buffers} ({len(differ)} parameters and "
+          f"{len(buffers)} buffers differ{': ' + ', '.join((differ + buffers)[:4]) if differ or buffers else ''})")
+    if len(b_rows) != 2 or tb.start_epoch != 2 or first[0].state.step != TRAINER_STEPS:
+        fail(f"trainer B: {len(b_rows)} rows, start epoch {tb.start_epoch}")
+    if max(loss_rel.values()) > TRAINER_LOSS_REL or min(cos.values()) < TRAINER_COS \
+            or not same_sampler:
+        fail(f"trainer B disagrees with A: losses {loss_rel}, cosine {cos}, sampler "
+             f"{same_sampler}")
+
+    # speed, one profiled step, evaluate, checkpoints
+    per_epoch = [r["steps_per_sec"] for r in rows]
+    size = sum(os.path.getsize(os.path.join(ckpt, "latest", f))
+               for f in os.listdir(os.path.join(ckpt, "latest")))
+    save_s = {run: {kind: [round(t, 4) for r, k, t in saves if r == run and k == kind]
+                    for kind in ("save", "finalize")} for run in ("A", "B")}
+    blocked = {run: sum(t for r, _, t in saves if r == run) for run in ("A", "B")}
+    profiled = {}
+    for name, trainer in (("A", ta), ("B", tb)):
+        snap = trainer.sampler.state_dict()
+        indices = trainer.sampler.sample_batch()
+        trainer.sampler.load_state_dict(snap)
+        rng = np.random.default_rng(0)
+        batch = collate([trainer.train_ds.get_sample(i, rng, modality_dropout=0.0)
+                         for i in indices], trainer.tokenizer)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        state, _ = trainer.raw_step(trainer.state, batch, 0.1, 0.18)  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trainer.raw_step(state, batch, 0.1, 0.18)
+            torch.cuda.synchronize()
+        device_ms = sum(device_time(e) for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        wall_ms = 1e3 / trainer.train_history.rows[-1]["steps_per_sec"]
+        profiled[name] = dict(device_ms=device_ms, wall_ms=wall_ms, idle_share=1 - device_ms / wall_ms)
+    f = fed["pallas_attention"]
+    readings = dict(
+        steps_per_sec=per_epoch, steps_per_sec_b=[r["steps_per_sec"] for r in b_rows],
+        fed_pallas_it_per_s=f["it_per_s"], profiled_step=profiled,
+        evaluate_s=[e["seconds"] for e in ta.evals], checkpoint_bytes=size, save_s=save_s,
+        blocked_s=blocked, losses=loss_rel, cosine=cos, bitwise=not differ and not buffers,
+        launches_a=got_a, vision_batches_a=ta.vision_batches, ce_first5=head, ce_last5=tail,
+        best_map=ra["best_map"], final=ra["final"])
+    print(f"trainer ({card}): steps_per_sec by epoch A {[round(v, 3) for v in per_epoch]}, B "
+          f"{[round(r['steps_per_sec'], 3) for r in b_rows]} (epoch 1 includes the decode "
+          f"workers' start) beside phase 4c's fed pallas_attention {f['it_per_s']:.3f} it/s; one "
+          f"profiled step: A device {profiled['A']['device_ms']:.3f} ms of "
+          f"{profiled['A']['wall_ms']:.3f} ms (idle share {profiled['A']['idle_share']:.3f}), B "
+          f"{profiled['B']['device_ms']:.3f} of {profiled['B']['wall_ms']:.3f} "
+          f"({profiled['B']['idle_share']:.3f}); evaluate "
+          f"{[round(e['seconds'], 2) for e in ta.evals]} s over {len(ta.val_ds)} val records "
+          f"(15 plans; the second hits the gallery cache); checkpoint {size / 1e9:.3f} GB; "
+          f"time in save_checkpoint / finalize_pending_saves: A async {json.dumps(save_s['A'])} "
+          f"= {blocked['A']:.3f} s, B blocking {json.dumps(save_s['B'])} = {blocked['B']:.3f} s; "
+          f"final eval " + json.dumps(ra["final"]))
+    del ta, tb, runs, first
+    Probe.made.clear()
+    torch.cuda.empty_cache()
     return readings
 
 
@@ -1493,10 +1767,18 @@ def main() -> int:
     train = train_phase(torch, cfg, params, counters, dev, card)
     print(f"train phase: {time.perf_counter() - t0:.1f} s")
 
-    # ---- 4c. the host data path and the dataset evaluation at full width
-    t0 = time.perf_counter()
-    data = dataset_phase(torch, cfg, params, counters, dev, card, train)
-    print(f"dataset phase: {time.perf_counter() - t0:.1f} s")
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+        # ---- 4c. the host data path and the dataset evaluation at full width
+        t0 = time.perf_counter()
+        data = dataset_phase(torch, cfg, params, counters, dev, card, train, tmp)
+        print(f"dataset phase: {time.perf_counter() - t0:.1f} s")
+
+        # ---- 4d. the trainer through its command line, on 4c's tree
+        t0 = time.perf_counter()
+        trainer = trainer_phase(torch, cfg, counters, dev, card, data["fed"], tmp)
+        print(f"trainer phase: {time.perf_counter() - t0:.1f} s")
 
     # ---- 5. timing
     import torch.nn.functional as Fn
@@ -1727,6 +2009,7 @@ def main() -> int:
                             "idle_share": 1 - text_device_ms / text_wall_ms},
         "train_step_8x4": train,
         "dataset_phase": data,
+        "trainer_phase": trainer,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     for r in rows:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "

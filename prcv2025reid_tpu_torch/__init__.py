@@ -3,8 +3,9 @@
 The JAX package ``prcv2025reid_tpu`` is the reference this port is held
 against; the port imports nothing from it.  Entry points:
 ``engine.build_model``, ``engine.make_combo_embed_step``,
-``engine.make_embed_step`` and, for training, ``engine.init_train_state``
-and ``engine.make_train_step``.
+``engine.make_embed_step`` and, for training, ``engine.init_train_state``,
+``engine.make_train_step`` and the whole loop, ``Trainer``
+(``training/trainer.py``; ``tools_torch/train.py`` is its command line).
 
 The names below load on first access (a module ``__getattr__``): importing
 the package, or one of its torch-free host modules (``configs``,
@@ -17,6 +18,7 @@ from __future__ import annotations
 import importlib
 
 _EXPORTS = {
+    "Trainer": "prcv2025reid_tpu_torch.training.trainer",
     "TrainingConfig": "prcv2025reid_tpu_torch.configs",
     "build_model": "prcv2025reid_tpu_torch.engine",
     "init_train_state": "prcv2025reid_tpu_torch.engine",

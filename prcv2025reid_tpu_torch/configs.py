@@ -1,23 +1,22 @@
-"""Typed configuration for the PyTorch port: the fields the eval embedding
-path reads (the vision towers, the text tower, fusion), the fields of
-the training step (batch, freezing, the optimizer and its schedules, the
-clip, the losses, the SDM module, dropout and the backward schedules), and
-those of the host data path and the dataset evaluation (the data tree and
-its split, the sampler, augmentation, the worker pipeline, the eval plans
-and the gallery cache).
+"""Typed configuration for the PyTorch port: own copy of the JAX
+package's ``TrainingConfig`` with all of its fields (the towers, fusion,
+the training step, the host data path, the evaluation, the trainer's
+checkpoints and logs, the mesh and process settings), the same names,
+defaults (full-width ViT-B/16) and validation, and its JSON form, model
+presets and ``--key=value`` overrides, so a JAX run's ``host_state.json``
+config reads back into the port and the reverse.
 
-Own copy of the JAX package's ``TrainingConfig`` subset: the same field
-names, defaults (full-width ViT-B/16) and validation.  A value that the JAX
-package accepts but this port does not implement yet raises
-``NotImplementedError`` naming the ROADMAP.md item it waits for; it is never
-silently ignored.  A combination that the JAX package accepts and then
-silently bypasses raises ``ValueError``.
+A value that the JAX package accepts but this port does not implement yet
+raises ``NotImplementedError`` naming the ROADMAP.md item it waits for; it
+is never silently ignored.  A combination that the JAX package accepts and
+then silently bypasses raises ``ValueError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 from prcv2025reid_tpu_torch.utils.modalities import MODALITIES
 
@@ -37,6 +36,9 @@ class TrainingConfig:
     seed: int = 42
 
     # ----- model widths (defaults: ViT-B/16) -----
+    clip_model_name: str = "openai/clip-vit-base-patch16"
+    # a local HF snapshot / .npz of CLIP weights; None = random init
+    clip_weights_path: Optional[str] = None
     fusion_dim: int = 512
     vision_hidden_dim: int = 768
     vision_layers: int = 12
@@ -74,6 +76,7 @@ class TrainingConfig:
     target_effective_batch: int = 16
     freeze_backbone: bool = True
     num_epochs: int = 60
+    steps_per_epoch: Optional[int] = None  # None = the sampler's estimate
 
     # ----- layered learning rates and their schedule -----
     base_learning_rate: float = 5e-6  # CLIP shared trunk
@@ -142,6 +145,10 @@ class TrainingConfig:
     modality_dropout_warmup_epochs: int = 3
     min_modalities: int = 1
 
+    # the vis <-> non-vis pair-coverage health line (training/monitors.py)
+    pair_coverage_target: float = 0.85
+    pair_coverage_window: int = 100
+
     # ----- host pipeline -----
     # -1 = auto: the available cores - 1 decode workers, clamped to [1, 32];
     # 0 = in-process
@@ -151,6 +158,16 @@ class TrainingConfig:
     # JPEG decode + crop + resize in one pass through data/native/image_decode.cpp
     # (libjpeg, PIL-matching resampler); falls back to PIL per image
     use_native_decode: bool = False
+
+    # ----- checkpoints and logs (training/trainer.py) -----
+    save_dir: str = "./checkpoints"
+    log_dir: str = "./logs"
+    save_freq: int = 20  # an epoch_{n} checkpoint every save_freq epochs
+    # write each checkpoint in a background thread after a synchronous copy
+    # to the host (training/checkpoint.py)
+    async_checkpoint: bool = True
+    best_model_path: Optional[str] = None  # None = "<save_dir>/best"
+    tensorboard: bool = True  # scalar export to <log_dir>/tb (tensorboardX, optional)
 
     # ----- evaluation over a dataset -----
     eval_sample_ratio: float = 0.3
@@ -165,6 +182,9 @@ class TrainingConfig:
     eval_cache_tag: str = "val_v1"
     eval_batch_size: int = 64
     inference_batch_size: int = 8  # serving-mode embed batch
+    eval_every_n_epoch: int = 1
+    do_eval: bool = True
+    rank_topk: int = 100  # submission export depth
 
     # numerics and compute-path selectors
     compute_dtype: str = "bfloat16"
@@ -186,6 +206,21 @@ class TrainingConfig:
     # torch.utils.checkpoint around every training block (full policy only)
     remat_blocks: bool = False
     remat_policy: str = "full"
+    # JAX donates its train state into the jitted step; the port's step
+    # updates the model and the optimizer state in place already, so this
+    # setting changes nothing here (kept so that a JAX config reads back)
+    donate_train_state: bool = True
+
+    # ----- mesh and processes (JAX: parallel/mesh.py, utils/distributed.py) -----
+    mesh_shape: Tuple[int, ...] = ()  # empty = one device
+    mesh_axis_names: Tuple[str, ...] = ("data",)
+    distributed: str = "off"  # "off" | "auto" | "on"
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+
+    # populated at runtime
+    num_classes: Optional[int] = None
 
     @property
     def batch_size(self) -> int:
@@ -210,6 +245,18 @@ class TrainingConfig:
 
     def replace(self, **kw) -> "TrainingConfig":
         return dataclasses.replace(self, **kw)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, default=str)
+
+    @classmethod
+    def from_json(cls, s: str) -> "TrainingConfig":
+        """The inverse of ``to_json`` (JSON lists become tuples); keys that
+        are not fields are ignored, as JAX's ``from_json`` does."""
+        fields = {f.name for f in dataclasses.fields(cls)}
+        kw = {k: tuple(v) if isinstance(v, list) else v
+              for k, v in json.loads(s).items() if k in fields}
+        return cls(**kw)
 
     def __post_init__(self):
         self.modalities = tuple(self.modalities)
@@ -270,6 +317,10 @@ class TrainingConfig:
                             ("scheduler", ("cosine", "multistep", "plateau", "step"))):
             if getattr(self, name) not in valid:
                 raise ValueError(f"{name}={getattr(self, name)!r}; valid: {list(valid)}")
+        if self.distributed not in ("off", "auto", "on"):
+            raise ValueError(
+                f"distributed={self.distributed!r}; valid: ['auto', 'off', 'on']"
+            )
         if self.token_reduce_train and self.token_keep == 0:
             raise ValueError("token_reduce_train=True requires token_keep > 0")
         if self.num_workers < -1:
@@ -321,3 +372,105 @@ class TrainingConfig:
                 "'`remat_policy=\"dots\"`' (save the products, recompute the "
                 "elementwise chains)"
             )
+        multi = {"distributed": (self.distributed, "off"), "mesh_shape": (self.mesh_shape, ()),
+                 "num_processes": (self.num_processes, None),
+                 "process_id": (self.process_id, None),
+                 "coordinator_address": (self.coordinator_address, None)}
+        for name, (value, default) in multi.items():
+            if value != default:
+                raise NotImplementedError(
+                    f"{name}={value!r} is not ported yet: ROADMAP.md §1, the item "
+                    "'Parallel and multi-process' (the port runs one process on one device)"
+                )
+        if self.clip_weights_path is not None:
+            raise NotImplementedError(
+                f"clip_weights_path={self.clip_weights_path!r}: loading CLIP weights is not "
+                "ported yet: ROADMAP.md §1, the item 'Serving and tools' "
+                "(`convert_clip.py`); the port would start from random weights instead"
+            )
+
+
+# ----- model presets (the CLIP families the encoder supports) -----
+MODEL_PRESETS = {
+    "clip-vit-base-patch16": dict(
+        clip_model_name="openai/clip-vit-base-patch16",
+        vision_hidden_dim=768, vision_layers=12, vision_heads=12,
+        vision_mlp_dim=3072, patch_size=16,
+        text_hidden_dim=512, text_layers=12, text_heads=8, text_mlp_dim=2048,
+        fusion_dim=512,
+    ),
+    "clip-vit-base-patch32": dict(
+        clip_model_name="openai/clip-vit-base-patch32",
+        vision_hidden_dim=768, vision_layers=12, vision_heads=12,
+        vision_mlp_dim=3072, patch_size=32,
+        text_hidden_dim=512, text_layers=12, text_heads=8, text_mlp_dim=2048,
+        fusion_dim=512,
+    ),
+    "clip-vit-large-patch14": dict(
+        clip_model_name="openai/clip-vit-large-patch14",
+        vision_hidden_dim=1024, vision_layers=24, vision_heads=16,
+        vision_mlp_dim=4096, patch_size=14,
+        text_hidden_dim=768, text_layers=12, text_heads=12, text_mlp_dim=3072,
+        fusion_dim=768,
+    ),
+}
+
+
+def apply_model_preset(config: TrainingConfig, preset: str) -> TrainingConfig:
+    if preset not in MODEL_PRESETS:
+        raise ValueError(f"unknown model preset {preset!r}; have {sorted(MODEL_PRESETS)}")
+    return config.replace(**MODEL_PRESETS[preset])
+
+
+def apply_cli_overrides(config: TrainingConfig, argv: List[str]) -> TrainingConfig:
+    """Apply ``--key=value`` overrides (a bare ``--key`` is ``true``), each
+    value parsed by the type of the field's current value."""
+    fields = {f.name for f in dataclasses.fields(TrainingConfig)}
+    updates = {}
+    for arg in argv:
+        if not arg.startswith("--"):
+            raise ValueError(f"unrecognized argument: {arg!r} (expected --key=value)")
+        key, raw = arg[2:].split("=", 1) if "=" in arg else (arg[2:], "true")
+        key = key.replace("-", "_")
+        if key not in fields:
+            raise ValueError(f"unknown config field: {key!r}")
+        updates[key] = _parse_value(raw, config, key)
+    return config.replace(**updates)
+
+
+def _parse_value(raw: str, config: TrainingConfig, key: str):
+    current = getattr(config, key)
+    if isinstance(current, bool):
+        return raw.lower() in ("1", "true", "yes", "on")
+    if isinstance(current, int):
+        return int(raw)
+    if isinstance(current, float):
+        return float(raw)
+    if isinstance(current, tuple):
+        items = [x for x in raw.split(",") if x]
+        if current and isinstance(current[0], float):
+            return tuple(float(x) for x in items)
+        if current and isinstance(current[0], int):
+            return tuple(int(x) for x in items)
+        if not current:
+            # an empty default (mesh_shape=()) carries no element type:
+            # each item becomes an int, else a float, else stays a string
+            return tuple(_coerce(x) for x in items)
+        return tuple(items)
+    if current is None:
+        if raw.lower() in ("none", "null", ""):
+            return None
+        try:
+            return int(raw)
+        except ValueError:
+            return raw
+    return raw
+
+
+def _coerce(x: str):
+    for kind in (int, float):
+        try:
+            return kind(x)
+        except ValueError:
+            pass
+    return x

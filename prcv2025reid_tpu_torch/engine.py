@@ -13,8 +13,11 @@ through the full forward, as JAX's ``make_embed_step``.
 ``build_optimizer`` and of ``make_train_step``: ``train_step(state, batch,
 sdm_weight, sdm_tau, enable_modality_dropout=False) -> (state, metrics)``,
 one training step on the model's device with no host synchronisation.
-Entry points run on the card unless the caller passes ``device="cpu"``;
-with no CUDA device they raise rather than carry on on the CPU.
+``Trainer(config, device="cuda")`` (from ``training/trainer.py``, loaded on
+first access) runs the whole training loop: epochs, evaluation,
+checkpoints and resume.  Entry points run on the card unless the caller
+passes ``device="cpu"``; with no CUDA device they raise rather than carry
+on on the CPU.
 """
 from __future__ import annotations
 
@@ -92,3 +95,12 @@ def make_combo_embed_step(model: MultiModalReIDModel,
 
     return embed
 
+
+
+def __getattr__(name: str):
+    # the trainer imports this module, so it loads on first access
+    if name == "Trainer":
+        from prcv2025reid_tpu_torch.training.trainer import Trainer
+
+        return Trainer
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
