@@ -32,7 +32,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      (quantize_weight) and the splash core on [B, S, H, Dh] views of one QKV
      projection; the microbenchmark's tiled matmul in both modes at its
      M = 25,344 rows and at a ragged 6,304, for every row tile (block_rows),
-     bf16 within REL_TOL / ABS_TOL and int8 bit for bit;
+     bf16 within REL_TOL / ABS_TOL and int8 bit for bit; at token
+     reduction's shapes (phase 4e: S_RED tokens after the reduction, 128
+     images of them = 12,288 rows) attention at S_RED and S_RED - 1 ('prune')
+     and the LN1 + QKV (bf16, int8), out-projection + MLP (bf16, int8) and
+     fused MLP kernels at 12,288 rows;
      then the gradients: each bf16 wrapper (fused_mha also causal, the
      splash core, fused_ln_qkv, fused_out_mlp, fused_mlp at G=1,
      fused_residual_ln) at the same shapes with every input requiring grad,
@@ -156,10 +160,47 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      each run's trainer, seconds per evaluate, the checkpoint's size, and
      the time the loop spent in save_checkpoint and finalize_pending_saves
      with async (A) and blocking (B) saves;
+  4e. the evaluation command line, tools_torch/eval_mm_protocol.py's
+     main(argv), at full width on 4c's tree, each run's launch counts zeroed
+     just before it and read per vision embed batch (the fused-stream
+     trunk: fused_mha L, fused_mlp L, fused_residual_ln 2L; the reduced
+     trunk: fused_mha and fused_mlp L-1 each, the last block being CLS-only;
+     its block kernels' plan: fused_ln_qkv and fused_out_mlp L-1 each).
+     (a) tools_torch/train.py trains a token-reduced run (token_keep
+     TOKEN_KEEP after block TOKEN_LAYER, token_reduce_train,
+     use_pallas_attention, use_fused_mlp; 1 epoch of TRAINER_STEPS steps, no
+     eval): fused_mha L-1 a step, no host synchronisation in any step,
+     finite losses; one step of the same trunk under remat_blocks (fused_mha
+     2L; step-1 gradients within TRAIN_REMAT_REL of the same trunk run
+     without recomputation).  (b) The CLI on 4d's run A best/ (--eval_split
+     val, --sample_ratio of the run, no same-image exclusion, as the
+     trainer's evaluation): every aggregate within CLI_METRIC_TOL of epoch
+     2's row of eval_history.csv; its --submission CSV one row a query of
+     unique gallery ids of the split.  (c) --fusion_mode weighted: the cache
+     tag is (b)'s with _w after the weights' fingerprint; one MM-3 batch
+     through make_weighted_embed_step launches one stacked trunk and holds
+     the weighted sum of the per-modality make_combo_embed_step features at
+     MIN_COSINE.  (d) --rerank with the defaults on (b)'s gallery cache:
+     every plan's mAP_plain equals (b)'s mAP bit for bit, and the CSV's rows
+     are the re-ranked heads rerank_orders returned.  (e) The run of (a): at
+     its token_keep, at --token_keep=0 and with --block_impl fused (E_SAMPLE
+     of each plan's queries), three distinct cache tags; the block kernels'
+     gallery against the default path at TOKEN_FUSED_MIN_COSINE (its 0.999
+     reading printed) and how many rows' keep sets differ.  Then token
+     reduction on a resident batch: embeds/s in turns and device ms against
+     the same path without it.  (f) rerank_orders on RR_QUERIES queries
+     against an RR_GALLERY x 512 clustered gallery
+     (tools_torch/tune_rerank.make_clustered at RR_SIGMAS, RR_IDS ids, each
+     query excluding one of its id's items): queries/s at each query_chunk of
+     RR_CHUNKS (in turns, twice), one 512-query chunk's device ms; the card
+     against the CPU on RR_CPU_QUERIES queries (RR_SAME_ROWS of the rows
+     equal, |dmAP| <= RR_MAP_TOL); lam=1.0 equal to the plain cosine top-N;
+     tune_rerank.py --quick on the card;
   5. time every kernel, its plain version and (where one PyTorch call
      computes the same function) that call with CUDA events, median of
      TIMED_RUNS after warm-up queued behind a spin kernel (device time
-     only), beside the least time the card could take;
+     only), beside the least time the card could take (attention and the
+     fused MLP also at token reduction's shapes);
      time end-to-end embeds/s per configuration (in turns, median of
      E2E_ROUNDS rounds) and print torch.profiler's device time per kernel
      for one embed step of each;
@@ -268,6 +309,30 @@ PIPE_BATCHES, FEED_STEPS, FEED_WARMUP = 32, 20, 2
 # TRAINER_COS
 TRAINER_STEPS = 10
 TRAINER_LOSS_REL, TRAINER_COS = 1e-4, 0.9999
+# the eval command line phase: token reduction as docs/training_guide.md's
+# recipe sets it (94 patch tokens kept after block 6, merged: blocks 6-10 run
+# at S_RED tokens, 95 with 'prune'); the reduced runs' query plans sampled at
+# E_SAMPLE; the CLI's aggregates against the trainer's within CLI_METRIC_TOL;
+# the block kernels' plan on the reduced trunk against the default path at
+# TOKEN_FUSED_MIN_COSINE (a keep set is a discrete choice that bf16 rounding
+# can flip; the 0.999 reading is printed).  Re-ranking at the competition's
+# scale: RR_GALLERY x 512 f32 (the ORBench RGB count) of RR_IDS ids,
+# RR_QUERIES queries, each query chunk size of RR_CHUNKS; the card against
+# the CPU on RR_CPU_QUERIES queries: RR_SAME_ROWS of the rows equal, |dmAP|
+# <= RR_MAP_TOL
+TOKEN_KEEP, TOKEN_LAYER = 94, 6
+S_RED = TOKEN_KEEP + 2
+E_SAMPLE = 0.25
+CLI_METRIC_TOL = 1e-5
+TOKEN_FUSED_MIN_COSINE = 0.99
+RR_GALLERY, RR_IDS, RR_QUERIES, RR_CPU_QUERIES = 45113, 1000, 4096, 256
+# tune_rerank's difficulties are set for 64-d features; at 512-d its "mid"
+# sigmas put plain mAP at 1.0 (nothing for re-ranking to do, and 45 items an
+# id packed so tight that f32 distance ties decide the k-reciprocal sets:
+# PERF.md §6).  These put plain mAP in the mid band (0.62 on 256 queries)
+RR_SIGMAS = dict(sigma_g=2.2, sigma_q=2.4)
+RR_CHUNKS = (128, 256, 512, 1024)
+RR_SAME_ROWS, RR_MAP_TOL = 0.99, 1e-4
 MATMUL_ROWS = (25344, 6304)  # the microbenchmark's M, and a multiple of no row tile
 MICROBENCH = ("xla_bf16", "xla_int8", "pallas_bf16", "pallas_int8", "pallas_sweep", "bw",
               "floor")
@@ -276,6 +341,18 @@ MICROBENCH = ("xla_bf16", "xla_int8", "pallas_bf16", "pallas_int8", "pallas_swee
 def fail(msg: str) -> "NoReturn":  # noqa: F821
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def load_tool(name: str):
+    """tools_torch/<name>.py as a module, loaded by path under a name of its
+    own (the JAX package's tools/ holds modules of the same names)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"tools_torch_{name}", Path(__file__).resolve().parent / "tools_torch" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def bound_ms(work, nbytes: float):
@@ -431,6 +508,36 @@ def compare_grads(torch, got, want):
     return cos, rel, norm
 
 
+def counted_step(torch, counters, label, step, state, b, want):
+    """One train step with every counter zeroed just before it; fails unless
+    the counts read ``want`` and no host synchronisation happened in it."""
+    import warnings
+
+    for counter in counters.values():
+        counter.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            state, m = step(state, b, SDM_WEIGHT, SDM_TAU)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "synchroniz" in str(w.message).lower()]
+    if syncs:
+        fail(f"train step {label}: {len(syncs)} host synchronisations inside the step: "
+             f"{syncs[:3]}")
+    got = {n: f.launches for n, f in counters.items()}
+    want = {n: want.get(n, 0) for n in counters}
+    print(f"train {label}: launches in one step {got} (expected {want}); "
+          f"no host synchronisation inside the step")
+    if got != want:
+        fail(f"train {label}: launch counts {got} != {want}")
+    return state, m
+
+
 def train_phase(torch, cfg, params, counters, dev, card):
     """The training step at full width on the card (see the module
     docstring, phase 4b); fails the run on any failed check and returns
@@ -449,35 +556,6 @@ def train_phase(torch, cfg, params, counters, dev, card):
     paths = {"xla": tcfg, "pallas_attention": tcfg.replace(use_pallas_attention=True)}
     expected = {"xla": {}, "pallas_attention": {"fused_mha": L - 1}}
 
-    def counted_step(label, step, state, b, want):
-        """One step with every counter zeroed just before it; fails unless
-        the counts read ``want`` and no host synchronisation happened in it."""
-        import warnings
-
-        for counter in counters.values():
-            counter.launches = 0
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                state, m = step(state, b, SDM_WEIGHT, SDM_TAU)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        syncs = [str(w.message).splitlines()[0] for w in caught
-                 if "synchroniz" in str(w.message).lower()]
-        if syncs:
-            fail(f"train step {label}: {len(syncs)} host synchronisations inside the step: "
-                 f"{syncs[:3]}")
-        got = {n: f.launches for n, f in counters.items()}
-        want = {n: want.get(n, 0) for n in counters}
-        print(f"train {label}: launches in one step {got} (expected {want}); "
-              f"no host synchronisation inside the step")
-        if got != want:
-            fail(f"train {label}: launch counts {got} != {want}")
-        return state, m
-
     readings, first = {}, {}
     for name, pcfg in paths.items():
         torch.cuda.empty_cache()
@@ -491,7 +569,8 @@ def train_phase(torch, cfg, params, counters, dev, card):
         frozen = {n: p.detach().clone() for n, p in model.named_parameters()
                   if not p.requires_grad}
         bn0 = [model.bn_neck.bn.mean.clone(), model.bn_neck.bn.var.clone()]
-        state, m = counted_step(name, step, state, batch, expected[name])
+        state, m = counted_step(torch, counters, name, step, state, batch,
+                                expected[name])
         history = [m]
         for _ in range(TRAIN_STEPS - 1):
             state, m = step(state, batch, SDM_WEIGHT, SDM_TAU)
@@ -612,7 +691,8 @@ def train_phase(torch, cfg, params, counters, dev, card):
           f"{norm_r:.5f} (within {TRAIN_GNORM_REL}); loss {l_r['total_loss']:.6f} vs "
           f"{l_p['total_loss']:.6f}")
     state = init_train_state(model, rcfg, 1, seed=0)
-    counted_step("pallas_attention remat_blocks", make_train_step(model, rcfg, 1), state, batch,
+    counted_step(torch, counters, "pallas_attention remat_blocks",
+                 make_train_step(model, rcfg, 1), state, batch,
                  {"fused_mha": 2 * L})
     if grel > TRAIN_REMAT_REL or min(cos_r.values()) < TRAIN_GRAD_COS or \
             abs(norm_r - 1) > TRAIN_GNORM_REL:
@@ -1032,36 +1112,13 @@ def dataset_phase(torch, cfg, params, counters, dev, card, resident, tmp):
     return readings
 
 
-def trainer_phase(torch, cfg, counters, dev, card, fed, tmp):
-    """The trainer at full width on the card through its command line (see
-    the module docstring, phase 4d); fails the run on any failed check and
-    returns the readings.  ``fed``: phase 4c's fed-step readings by path;
-    ``tmp``: the scratch directory whose ``orbench`` tree phase 4c wrote."""
-    import importlib.util
-
-    import numpy as np
-    from torch.profiler import ProfilerActivity, profile
-
-    from prcv2025reid_tpu_torch import TrainingConfig
-    from prcv2025reid_tpu_torch.data.pipeline import collate
-    from prcv2025reid_tpu_torch.evaluation.protocol import build_query_plans
-    from prcv2025reid_tpu_torch.training import trainer as trainer_module
-    from prcv2025reid_tpu_torch.training.param_groups import label_params
-
-    spec = importlib.util.spec_from_file_location(
-        "train_cli", Path(__file__).resolve().parent / "tools_torch" / "train.py")
-    cli = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cli)
-    L = cfg.vision_layers
-    default_cfg = TrainingConfig()
-    root = os.path.join(tmp, "orbench")
-    plans = sorted(p for p, _ in build_query_plans())
-    saves = []  # (run, kind, seconds) of each save_checkpoint / finalize_pending_saves call
+def probe_trainer(torch, trainer_module):
+    """The trainer class as the command line builds it, with its train step
+    run under the sync debug mode 'error' (a host synchronisation fails the
+    run) and its evaluations, vision embed batches and step losses recorded;
+    ``Probe.made`` lists the trainers made."""
 
     class Probe(trainer_module.Trainer):
-        """The trainer as the command line builds it, with its train step
-        run under the sync debug mode 'error' and its evaluations, vision
-        embed batches and step losses recorded."""
         made = []
 
         def __init__(self, config, device="cuda"):
@@ -1101,6 +1158,53 @@ def trainer_phase(torch, cfg, counters, dev, card, fed, tmp):
                                    map_avg2=result["map_avg2"]))
             return result
 
+    return Probe
+
+
+def trainer_argv(cfg, tmp, run, **over):
+    """tools_torch/train.py's flags for a run on ``tmp/orbench`` (phase 4c's
+    tree): cfg's widths and settings (TrainingConfig() in main: none), the
+    8x4 recipe, TRAINER_STEPS steps an epoch, 2 epochs with the eval (all 15
+    plans, the whole val split) at epoch 2, the three eval-trunk flags, and
+    ``tmp/<run>/{ckpt,logs,cache}``; then ``over``."""
+    from prcv2025reid_tpu_torch import TrainingConfig
+
+    default_cfg = TrainingConfig()
+    root = os.path.join(tmp, "orbench")
+    flags = {f.name: ",".join(map(str, v)) if isinstance(v, tuple) else v
+             for f in dataclasses.fields(cfg)
+             if (v := getattr(cfg, f.name)) != getattr(default_cfg, f.name)}
+    flags.update(
+        data_root=root, json_file=os.path.join(root, "text_annos.json"),
+        num_ids_per_batch=TRAIN_P, instances_per_id=TRAIN_K, steps_per_epoch=TRAINER_STEPS,
+        num_epochs=2, warmup_epochs=1, eval_every_n_epoch=2, eval_sample_ratio=1.0,
+        eval_include_patterns="", use_pallas_attention="true", use_fused_mlp="true",
+        use_fused_resln="true", save_dir=os.path.join(tmp, run, "ckpt"),
+        log_dir=os.path.join(tmp, run, "logs"), eval_cache_dir=os.path.join(tmp, run, "cache"))
+    flags.update(over)
+    return [f"--{k}={v}" for k, v in flags.items()]
+
+
+def trainer_phase(torch, cfg, counters, dev, card, fed, tmp):
+    """The trainer at full width on the card through its command line (see
+    the module docstring, phase 4d); fails the run on any failed check and
+    returns the readings.  ``fed``: phase 4c's fed-step readings by path;
+    ``tmp``: the scratch directory whose ``orbench`` tree phase 4c wrote."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from prcv2025reid_tpu_torch.data.pipeline import collate
+    from prcv2025reid_tpu_torch.evaluation.protocol import build_query_plans
+    from prcv2025reid_tpu_torch.training import trainer as trainer_module
+    from prcv2025reid_tpu_torch.training.param_groups import label_params
+
+    cli = load_tool("train")
+    L = cfg.vision_layers
+    plans = sorted(p for p, _ in build_query_plans())
+    saves = []  # (run, kind, seconds) of each save_checkpoint / finalize_pending_saves call
+
+    Probe = probe_trainer(torch, trainer_module)
+
     def timed(run, kind, fn):
         def call(*args, **kw):
             t0 = time.perf_counter()
@@ -1111,19 +1215,7 @@ def trainer_phase(torch, cfg, counters, dev, card, fed, tmp):
         return call
 
     def argv(run, **over):
-        # cfg's widths and settings (TrainingConfig() in main: none), then the phase's
-        flags = {f.name: ",".join(map(str, v)) if isinstance(v, tuple) else v
-                 for f in dataclasses.fields(cfg)
-                 if (v := getattr(cfg, f.name)) != getattr(default_cfg, f.name)}
-        flags.update(
-            data_root=root, json_file=os.path.join(root, "text_annos.json"),
-            num_ids_per_batch=TRAIN_P, instances_per_id=TRAIN_K, steps_per_epoch=TRAINER_STEPS,
-            num_epochs=2, warmup_epochs=1, eval_every_n_epoch=2, eval_sample_ratio=1.0,
-            eval_include_patterns="", use_pallas_attention="true", use_fused_mlp="true",
-            use_fused_resln="true", save_dir=os.path.join(tmp, run, "ckpt"),
-            log_dir=os.path.join(tmp, run, "logs"), eval_cache_dir=os.path.join(tmp, run, "cache"))
-        flags.update(over)
-        return [f"--{k}={v}" for k, v in flags.items()]
+        return trainer_argv(cfg, tmp, run, **over)
 
     def drive(run, flags):
         """tools_torch/train.py's main(flags) with the counters zeroed just
@@ -1276,6 +1368,423 @@ def trainer_phase(torch, cfg, counters, dev, card, fed, tmp):
     return readings
 
 
+def rerank_phase(torch, dev, card):
+    """Re-ranking at the competition's scale on the card (phase 4e (f), see
+    the module docstring); fails the run on any failed check and returns the
+    readings."""
+    import contextlib
+    import io
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from prcv2025reid_tpu_torch.evaluation import protocol, rerank
+
+    tune = load_tool("tune_rerank")
+    per_id = RR_GALLERY // RR_IDS
+    q, qp, g, gp = tune.make_clustered(n_ids=RR_IDS, per_id_g=per_id, n_distract=3,
+                                       n_q=RR_QUERIES, dim=512, **RR_SIGMAS)
+    g, gp = g[:RR_GALLERY], gp[:RR_GALLERY]
+    excl = (qp * per_id).astype(np.int32)  # each query drops its id's first gallery item
+    qd, gd = torch.from_numpy(q).to(dev), torch.from_numpy(g).to(dev)
+    rerank.rerank_orders(qd[:512], gd, excl_idx=excl[:512], device=dev)  # warm
+    qps, orders = {}, {}
+    for rnd in range(2):
+        for chunk in (RR_CHUNKS if rnd == 0 else RR_CHUNKS[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            orders[chunk] = rerank.rerank_orders(qd, gd, excl_idx=excl, query_chunk=chunk,
+                                                 device=dev)
+            qps.setdefault(chunk, []).append(RR_QUERIES / (time.perf_counter() - t0))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rerank.rerank_orders(qd[:512], gd, excl_idx=excl[:512], device=dev)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and device_time(e) > 0]
+    chunk_ms = sum(device_time(e) for e in events) / 1e3
+    top = sorted(events, key=device_time, reverse=True)[:TOP_KERNELS]
+    same_chunks = all(np.array_equal(orders[c], orders[512]) for c in RR_CHUNKS)
+    n = RR_CPU_QUERIES
+    on_cpu = rerank.rerank_orders(q[:n], g, excl_idx=excl[:n], device="cpu")
+    rows_same = float((on_cpu == orders[512][:n]).all(axis=1).mean())
+    m = {k: protocol.compute_retrieval_metrics(q[:n], qp[:n], g, gp, excl[:n], boost_idx=o,
+                                               device=dev)["mAP"]
+         for k, o in (("card", orders[512][:n]), ("cpu", on_cpu), ("plain", None))}
+    lam1 = rerank.rerank_orders(qd[:512], gd, lam=1.0, device=dev)
+    plain = torch.argsort(-protocol.similarity(qd[:512], gd), dim=1,
+                          stable=True)[:, :lam1.shape[1]].cpu().numpy()
+    lam1_ok = np.array_equal(lam1, plain)
+    print(f"eval cli (f) re-ranking {RR_QUERIES} queries against {RR_GALLERY} x 512 ({card}; "
+          f"{RR_IDS} ids, {RR_SIGMAS}, exclusion on): queries/s by query_chunk " + json.dumps(
+              {c: [round(v, 1) for v in r] for c, r in qps.items()})
+          + f"; the same orders at every chunk size {same_chunks}; one 512-query chunk "
+          f"{chunk_ms:.3f} device-ms in {len(events)} kernels, top: " + json.dumps(
+              [[e.key[:50], e.count, round(device_time(e) / 1e3, 4)] for e in top])
+          + f"; the card against the CPU on {n} queries: rows equal {rows_same:.4f} (>= "
+          f"{RR_SAME_ROWS}), mAP {m['card']:.6f} / {m['cpu']:.6f} (|d| <= {RR_MAP_TOL}), plain "
+          f"{m['plain']:.6f}; lambda 1.0 gives the plain cosine top-{lam1.shape[1]}: {lam1_ok}")
+    if rows_same < RR_SAME_ROWS or abs(m["card"] - m["cpu"]) > RR_MAP_TOL or not lam1_ok:
+        fail(f"re-ranking at scale: rows {rows_same}, mAP {m}, lambda 1.0 {lam1_ok}")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        sweep = tune.main(["--quick"])
+    best = [ln for ln in buf.getvalue().splitlines() if "BEST" in ln]
+    print(f"eval cli (f) tune_rerank.py --quick on the card: {len(sweep)} rows in "
+          f"{time.perf_counter() - t0:.1f} s; {best}")
+    if len(sweep) != 9 or not best:
+        fail(f"tune_rerank.py --quick: {len(sweep)} rows")
+    del qd, gd
+    torch.cuda.empty_cache()
+    return dict(queries_per_s=qps, chunk_512_device_ms=chunk_ms, rows_equal_cpu=rows_same,
+                map=m, lam1_plain=lam1_ok, top_kernels=readings_ops(top))
+
+
+def eval_cli_phase(torch, cfg, params, counters, dev, card, tmp):
+    """The evaluation command line at full width on the card (see the module
+    docstring, phase 4e): a token-reduced run trained through
+    tools_torch/train.py, then tools_torch/eval_mm_protocol.py's main on
+    phase 4d's run A and on that run, and re-ranking at the competition's
+    scale; fails the run on any failed check and returns the readings.
+    ``params``: phase 4's weights; ``tmp``: the scratch directory of phases
+    4c and 4d."""
+    import contextlib
+    import csv
+    import io
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from prcv2025reid_tpu_torch import (
+        TrainingConfig,
+        build_model,
+        engine,
+        init_train_state,
+        make_train_step,
+    )
+    from prcv2025reid_tpu_torch.data.pipeline import collate
+    from prcv2025reid_tpu_torch.data.split import create_split_datasets
+    from prcv2025reid_tpu_torch.data.tokenizer import build_tokenizer
+    from prcv2025reid_tpu_torch.evaluation import protocol, rerank
+    from prcv2025reid_tpu_torch.models import vit
+    from prcv2025reid_tpu_torch.training import trainer as trainer_module
+
+    L = cfg.vision_layers
+    root, out = os.path.join(tmp, "orbench"), os.path.join(tmp, "E")
+    os.makedirs(out)
+    readings = {}
+
+    def counts():
+        return {n: f.launches for n, f in counters.items()}
+
+    def zero():
+        for counter in counters.values():
+            counter.launches = 0
+        torch.cuda.synchronize()
+
+    # ---- (a) a token-reduced training run through tools_torch/train.py
+    Probe = probe_trainer(torch, trainer_module)
+    flags = trainer_argv(cfg, tmp, "TR", num_epochs=1, do_eval="false", use_fused_resln="false",
+                         token_keep=TOKEN_KEEP, token_reduce_layer=TOKEN_LAYER,
+                         token_reduce_train="true")
+    saved = trainer_module.Trainer
+    zero()
+    t0 = time.perf_counter()
+    try:
+        trainer_module.Trainer = Probe
+        load_tool("train").main(flags)
+    finally:
+        trainer_module.Trainer = saved
+    torch.cuda.synchronize()
+    tr = Probe.made[-1]
+    got = counts()
+    # L - 1 a train step, and L - 1 of #1 and #8 in the smoke test's eval forward
+    want = {n: 0 for n in counters}
+    want.update(fused_mha=(L - 1) * (TRAINER_STEPS + 1), fused_mlp=L - 1)
+    losses = torch.stack(tr.losses).tolist()
+    print(f"eval cli (a) token-reduced training (token_keep {TOKEN_KEEP} after block "
+          f"{TOKEN_LAYER}, token_reduce_train, {TRAINER_STEPS} steps, "
+          f"{time.perf_counter() - t0:.1f} s): launches {got} (expected {want}: #1 {L - 1} a "
+          f"step, #1 and #8 {L - 1} in the smoke test); no host synchronisation in any step; "
+          f"total_loss " + " ".join(f"{v[0]:.4f}" for v in losses))
+    if got != want:
+        fail(f"token-reduced training: launch counts {got} != {want}")
+    if len(losses) != TRAINER_STEPS or not np.isfinite(losses).all():
+        fail(f"token-reduced training: {len(losses)} steps or a non-finite loss: {losses}")
+    readings["train"] = dict(launches=got, total_loss=[v[0] for v in losses])
+    tr_config = tr.config
+    del tr
+    Probe.made.clear()
+
+    # one step of the same trunk under remat_blocks: every block in full and
+    # recomputed, the reduction stored between them
+    rcfg = tr_config.replace(remat_blocks=True)
+    model = build_model(rcfg, params, device=dev)
+    batch = train_batch(torch, cfg, dev, TRAIN_P, TRAIN_K, seed=11)
+    _, g_r = group_grads(torch, model, rcfg, batch)
+    recompute = vit.checkpoint
+    vit.checkpoint = lambda fn, *args, **kw: fn(*args)  # the same trunk, no recomputation
+    try:
+        _, g_n = group_grads(torch, model, rcfg, batch)
+    finally:
+        vit.checkpoint = recompute
+    grel = float(torch.cat([g_r[g] - g_n[g] for g in g_n]).norm() /
+                 torch.cat(list(g_n.values())).norm())
+    print(f"eval cli (a) token-reduced remat_blocks, step 1: gradients against the same trunk "
+          f"without recomputation: relative error {grel:.3e} (<= {TRAIN_REMAT_REL})")
+    counted_step(torch, counters, "token-reduced remat_blocks", make_train_step(model, rcfg, 1),
+                 init_train_state(model, rcfg, 1, seed=0), batch, {"fused_mha": 2 * L})
+    if grel > TRAIN_REMAT_REL:
+        fail(f"token-reduced remat_blocks: step-1 gradients {grel} from the same trunk")
+    readings["remat_grad_rel"] = grel
+    del model, batch, g_r, g_n
+    torch.cuda.empty_cache()
+
+    # ---- the command line, its embed steps counted
+    cli = load_tool("eval_mm_protocol")
+    factories = (engine.make_combo_embed_step, engine.make_weighted_embed_step)
+    seen = {"model": None, "vision_batches": 0}
+
+    def counting(factory):
+        def make(model, active, *args, **kw):
+            seen["model"] = model
+            step = factory(model, active, *args, **kw)
+            if tuple(active) == ("text",):
+                return step
+
+            def counted(*a):
+                seen["vision_batches"] += 1
+                return step(*a)
+            return counted
+        return make
+
+    def drive(name, flags, per_batch):
+        """eval_mm_protocol.main(flags) with the counters zeroed just before
+        it: fails unless each kernel launched ``per_batch`` times a vision
+        embed batch and nothing else launched; -> (result, readings)."""
+        zero()
+        seen["vision_batches"] = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        engine.make_combo_embed_step, engine.make_weighted_embed_step = map(counting, factories)
+        try:
+            with contextlib.redirect_stdout(buf):
+                result = cli.main(flags)
+        finally:
+            engine.make_combo_embed_step, engine.make_weighted_embed_step = factories
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got, vb = counts(), seen["vision_batches"]
+        want = {n: per_batch.get(n, 0) * vb for n in counters}
+        print(f"eval cli {name} ({seconds:.1f} s): launches {got} (expected {want}: "
+              f"{per_batch} a vision embed batch, {vb} of them)")
+        if got != want or not vb:
+            fail(f"eval cli {name}: launch counts {got} != {want}")
+        if json.loads(buf.getvalue()) != json.loads(json.dumps(result, default=float)):
+            fail(f"eval cli {name}: the printed JSON is not the result")
+        return result, dict(seconds=seconds, launches=got, vision_batches=vb)
+
+    def cache_file(name):
+        files = [f for f in os.listdir(os.path.join(out, name)) if f.endswith(".npz")]
+        if len(files) != 1:
+            fail(f"eval cli: {len(files)} gallery files in {name}, expected 1")
+        return os.path.join(out, name, files[0])
+
+    # ---- (b) run A's best checkpoint (the fused-stream trunk) against its own evaluation
+    a_ckpt = os.path.join(tmp, "A", "ckpt", "best")
+    with open(os.path.join(a_ckpt, "host_state.json")) as f:
+        cfg_a = TrainingConfig.from_json(json.load(f)["config"])
+    with open(os.path.join(tmp, "A", "logs", "eval_history.csv")) as f:
+        row = next(r for r in csv.DictReader(f) if int(float(r["epoch"])) == 2)
+    base = [f"--dataset_root={root}", f"--model_path={a_ckpt}", "--eval_split=val",
+            f"--sample_ratio={cfg_a.eval_sample_ratio}", "--no-exclude_same_image"]
+    trunk = {"fused_mha": L, "fused_mlp": L, "fused_residual_ln": 2 * L}
+    b_csv = os.path.join(out, "b.csv")
+    res_b, readings["b"] = drive("(b) run A's best/", base + [
+        f"--cache_dir={out}/cache_a", f"--submission={b_csv}"], trunk)
+    keys = ["map_single", "map_quad", "map_avg2", "map_mm_avg", "mm1_map", "mm2_map", "mm3_map",
+            "mm4_map", "cmc1", "cmc5", "cmc10"]
+    diff = {k: abs(res_b[k] - float(row[k])) for k in keys}
+    print(f"eval cli (b) aggregates against epoch 2 of run A's eval_history.csv: max |diff| "
+          f"{max(diff.values()):.3e} (<= {CLI_METRIC_TOL}); "
+          + json.dumps({k: round(res_b[k], 6) for k in keys}))
+    if max(diff.values()) > CLI_METRIC_TOL:
+        fail(f"eval cli (b): the aggregates differ from the trainer's evaluation: {diff}")
+    _, val_ds, _ = create_split_datasets(cfg_a)
+    g_list = [os.path.splitext(os.path.basename(r.anchor_vis))[0] for r in val_ds.records if r.vis]
+    with open(b_csv) as f:
+        b_rows = f.read().splitlines()
+    n_queries = sum(d["num_queries"] for d in res_b["detail"].values())
+    depth = min(cfg_a.rank_topk, len(g_list))
+    bad = [r for r in b_rows[1:] if not (len(set(r.split(",")[1].split())) == depth
+                                          and set(r.split(",")[1].split()) <= set(g_list))]
+    print(f"eval cli (b) submission: {len(b_rows) - 1} rows for {n_queries} queries, each "
+          f"{depth} unique gallery ids of the split's {len(g_list)}: {not bad}")
+    if b_rows[0] != "query_key,ranked_gallery_ids" or len(b_rows) - 1 != n_queries or bad:
+        fail(f"eval cli (b): submission rows {len(b_rows) - 1} for {n_queries} queries, "
+             f"{len(bad)} rows with invalid or repeated ids")
+
+    # ---- (c) the weighted fusion: one stacked trunk, its own cache tag
+    res_c, readings["c"] = drive("(c) --fusion_mode weighted", base + [
+        f"--cache_dir={out}/cache_c", "--fusion_mode=weighted"], trunk)
+    name_a, name_c = (os.path.basename(cache_file(d)) for d in ("cache_a", "cache_c"))
+    fp = re.search(r"_st\d+_([0-9a-f]{10})", name_a).group(1)
+    tag_ok = name_c == name_a.replace(f"_{fp}", f"_{fp}_w", 1)
+    model = seen["model"]
+    tokenizer = build_tokenizer(cfg_a.tokenizer_vocab_path, cfg_a.text_vocab_size,
+                                cfg_a.text_context_length)
+    mm3_idx = [i for i, r in enumerate(val_ds.records)
+               if all(m in r.modalities() for m in MM3_QUERY)][:cfg_a.eval_batch_size]
+    rng = np.random.default_rng(0)
+    mb = collate([val_ds.get_query_sample(i, MM3_QUERY, rng) for i in mm3_idx], tokenizer)
+    args = tuple(torch.as_tensor(mb[k], device=dev)
+                 for k in ("images", "image_mask", "text_tokens", "text_mask"))
+    zero()
+    weighted = factories[1](model, MM3_QUERY)(*args)
+    torch.cuda.synchronize()
+    one_batch = counts()
+    composed = sum(factories[0](model, (m,))(*args) for m in MM3_QUERY)
+    composed = composed / composed.norm(dim=1, keepdim=True)
+    w_cos = (weighted * composed).sum(dim=1).min().item()
+    print(f"eval cli (c) cache files {name_a} -> {name_c}: weighted tag {tag_ok}; one MM-3 "
+          f"batch of {len(mm3_idx)}: launches {one_batch} (one stacked trunk: #1 {L}, #8 {L}); "
+          f"encode_weighted against the weighted sum of encode_subset((m,)): min-cosine "
+          f"{w_cos:.6f} (>= {MIN_COSINE}); map_avg2 weighted {res_c['map_avg2']:.6f}, model "
+          f"fusion {res_b['map_avg2']:.6f}")
+    if not tag_ok or w_cos < MIN_COSINE or one_batch != {n: trunk.get(n, 0) for n in counters}:
+        fail(f"eval cli (c): tag {tag_ok}, min-cosine {w_cos}, launches {one_batch}")
+    readings["c"].update(min_cosine=w_cos, one_batch_launches=one_batch)
+    del model, weighted, composed, args
+    seen["model"] = None
+
+    # ---- (d) re-ranking with the defaults, the gallery from (b)'s cache
+    recorded = []
+    orders_fn = rerank.rerank_orders
+
+    def recording(*a, **kw):
+        recorded.append(orders_fn(*a, **kw))
+        return recorded[-1]
+
+    d_csv = os.path.join(out, "d.csv")
+    rerank.rerank_orders = recording
+    try:
+        res_d, readings["d"] = drive("(d) --rerank", base + [
+            f"--cache_dir={out}/cache_a", "--rerank", f"--submission={d_csv}"], trunk)
+    finally:
+        rerank.rerank_orders = orders_fn
+    plain_equal = all(res_d["detail"][p]["mAP_plain"] == res_b["detail"][p]["mAP"]
+                      for p in res_b["detail"])
+    with open(d_csv) as f:
+        d_rows = f.read().splitlines()[1:]
+    heads = [" ".join(g_list[j] for j in row) for order in recorded[-len(res_b["detail"]):]
+             for row in order[:, :depth]]
+    csv_ok = [r.split(",")[1] for r in d_rows] == heads
+    moved = sum(a != b for a, b in zip(d_rows, b_rows[1:]))
+    print(f"eval cli (d) re-ranking (top_n 100, k1 20, k2 6, lambda 0.3): mAP_plain equal to "
+          f"(b)'s mAP bit for bit on every plan {plain_equal} ({readings['d']['vision_batches']} "
+          f"vision embed batches: the gallery came from (b)'s cache); map_avg2 re-ranked "
+          f"{res_d['map_avg2']:.6f} against plain {res_b['map_avg2']:.6f}; by plan (re-ranked / "
+          f"plain) " + json.dumps({p: [round(d["mAP"], 4), round(d["mAP_plain"], 4)]
+                                   for p, d in res_d["detail"].items()})
+          + f"; the CSV's rows are the re-ranked heads {csv_ok} ({moved} of {len(d_rows)} rows "
+          "differ from (b)'s)")
+    if not plain_equal or not csv_ok or readings["d"]["vision_batches"] >= \
+            readings["b"]["vision_batches"]:
+        fail(f"eval cli (d): mAP_plain {plain_equal}, CSV {csv_ok}")
+    readings["d"].update(map_avg2=res_d["map_avg2"], map_avg2_plain=res_b["map_avg2"],
+                         rows_moved=moved)
+
+    # ---- (e) the token-reduced checkpoint: its own token_keep, 0, the block kernels
+    tr_ckpt = os.path.join(tmp, "TR", "ckpt", "latest")
+    ebase = [f"--dataset_root={root}", f"--model_path={tr_ckpt}", "--eval_split=val",
+             f"--sample_ratio={E_SAMPLE}"]
+    reduced = {"fused_mha": L - 1, "fused_mlp": L - 1}
+    keeps = {}
+    keep_fn = vit.MERVisionTransformer.keep_indices
+    for i, (name, extra, per_batch) in enumerate((
+            ("token_keep", [], reduced), ("token_keep=0", ["--token_keep=0"], reduced),
+            ("block_impl=fused", ["--block_impl=fused"],
+             {"fused_ln_qkv": L - 1, "fused_out_mlp": L - 1}))):
+        log = keeps.setdefault(name, [])
+
+        def keep(self, x, log=log):
+            idx = keep_fn(self, x)
+            log.append(idx.sort(dim=-1).values.cpu())
+            return idx
+
+        vit.MERVisionTransformer.keep_indices = keep
+        try:
+            _, readings[f"e {name}"] = drive(f"(e) {name}", ebase + [
+                f"--cache_dir={out}/cache_e{i}"] + extra, per_batch)
+        finally:
+            vit.MERVisionTransformer.keep_indices = keep_fn
+    names_e = [os.path.basename(cache_file(f"cache_e{i}")) for i in range(3)]
+    with np.load(cache_file("cache_e0")) as z0, np.load(cache_file("cache_e2")) as z2:
+        e_cos = float((z0["feats"] * z2["feats"]).sum(axis=1).min())
+    rows = [(a != b).any(dim=-1) for a, b in zip(keeps["token_keep"], keeps["block_impl=fused"])]
+    flipped, total = sum(int(r.sum()) for r in rows), sum(r.numel() for r in rows)
+    print(f"eval cli (e) token-reduced checkpoint: cache tags {names_e} (distinct: "
+          f"{len(set(names_e)) == 3}); keep sets recorded {[len(v) for v in keeps.values()]} "
+          f"batches; the block kernels' plan against the default path: gallery min-cosine "
+          f"{e_cos:.6f} (>= {TOKEN_FUSED_MIN_COSINE}; the promotion gate {MIN_COSINE}: "
+          f"{'met' if e_cos >= MIN_COSINE else 'missed'}), keep sets differ in {flipped} of "
+          f"{total} rows")
+    if len(set(names_e)) != 3 or keeps["token_keep=0"] or not keeps["token_keep"] or len(
+            keeps["token_keep"]) != len(keeps["block_impl=fused"]) or e_cos < TOKEN_FUSED_MIN_COSINE:
+        fail(f"eval cli (e): tags {names_e}, min-cosine {e_cos}, keep sets "
+             f"{[len(v) for v in keeps.values()]}")
+    readings["e"] = dict(min_cosine_fused=e_cos, keep_rows_differ=flipped, keep_rows=total)
+
+    # ---- token reduction on a resident batch of BATCH
+    gen = torch.Generator(device=dev).manual_seed(13)
+    Mv = len(cfg.vision_modalities)
+    images = torch.randint(0, 256, (BATCH, Mv, cfg.image_size, cfg.image_size, 3),
+                           generator=gen, device=dev, dtype=torch.uint8)
+    image_mask = torch.ones(BATCH, Mv, device=dev)
+    full_cfg = cfg.replace(use_pallas_attention=True, use_fused_mlp=True)
+    paths = {"full": full_cfg, "reduced": full_cfg.replace(token_keep=TOKEN_KEEP,
+                                                           token_reduce_layer=TOKEN_LAYER)}
+    steps = {n: factories[0](build_model(c, params, device=dev), ("vis",))
+             for n, c in paths.items()}
+    rates, device_ms = {n: [] for n in steps}, {}
+    for name, step in steps.items():
+        zero()
+        step(images, image_mask)
+        torch.cuda.synchronize()
+        if counts() != {n: reduced.get(n, 0) for n in counters}:
+            fail(f"resident {name}: launch counts {counts()}")
+    for rnd in range(E2E_ROUNDS):
+        for name in (list(steps) if rnd % 2 == 0 else list(steps)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(E2E_ITERS):
+                steps[name](images, image_mask)
+            torch.cuda.synchronize()
+            rates[name].append(BATCH * E2E_ITERS / (time.perf_counter() - t0))
+    for name, step in steps.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(images, image_mask)
+            torch.cuda.synchronize()
+        device_ms[name] = sum(device_time(e) for e in prof.key_averages()
+                              if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    eps = {n: statistics.median(r) for n, r in rates.items()}
+    work = (TOKEN_LAYER * (cfg.num_patches + 1) + (L - 1 - TOKEN_LAYER) * S_RED) / (
+        (L - 1) * (cfg.num_patches + 1))
+    print(f"eval cli token reduction on a resident batch of {BATCH} ({card}; pallas_attention + "
+          f"fused_mlp): {eps['reduced']:.1f} embeds/s against {eps['full']:.1f} without "
+          f"({eps['reduced'] / eps['full']:.3f}x; rounds {json.dumps(rates)}); device ms a step "
+          f"{device_ms['reduced']:.3f} against {device_ms['full']:.3f} "
+          f"({device_ms['reduced'] / max(device_ms['full'], 1e-9):.3f}; the blocks' per-token work "
+          f"{work:.3f})")
+    readings["resident"] = dict(embeds_per_s=eps, rounds=rates, device_ms=device_ms,
+                                block_token_work=work)
+    del steps, images
+    torch.cuda.empty_cache()
+
+    readings["rerank"] = rerank_phase(torch, dev, card)
+    return readings
+
+
 def main() -> int:
     import torch
 
@@ -1380,6 +1889,20 @@ def main() -> int:
               f" {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"fused_mha causal={causal} v{version}")
+    # token reduction: the blocks after the reduction attend over S_RED
+    # tokens (S_RED - 1 with 'prune')
+    for s_red in (S_RED, S_RED - 1):
+        qkv_r = randn(BATCH, s_red, 3, H, Dh).bfloat16()
+        q_r, k_r, v_r = (qkv_r[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+        got = fused_mha(q_r, k_r, v_r)
+        torch.cuda.synchronize()
+        mx, rel, ok = errors(torch, got, mha_plain(q_r, k_r, v_r))
+        att_checks[f"S={s_red}"] = (mx, rel)
+        print(f"check fused_mha S={s_red}: max_abs {mx:.3e} rel {rel:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"fused_mha S={s_red}")
+        if s_red == S_RED:
+            red_qkv = (q_r, k_r, v_r)  # timed in phase 5
 
     x = randn(1, T, D).bfloat16()
     attn = randn(1, T, D).bfloat16()
@@ -1420,6 +1943,11 @@ def main() -> int:
     mlp8_3_args = (g3["attn"], g3["x"], *q3["wo"], g3["bo"], *tail3)
     mlp8m_3_args = (g3["attn"], g3["x"], g3["wo"], g3["bo"], *tail3)
     splash_args = tuple(qkv[:, :, i] for i in range(3))  # [B, S, H, Dh] views
+    # token reduction's rows: BATCH images of S_RED tokens
+    T_RED = BATCH * S_RED
+    x_r, attn_r = randn(1, T_RED, D).bfloat16(), randn(1, T_RED, D).bfloat16()
+    tail_r = (lns, lnb, *q_w1, b1, *q_w2, b2)
+    fmlp_r_args = (x_r, w1, b1.bfloat16(), w2, b2.bfloat16())
     block_checks = {}
     for name, kern, plain, args in (
         ("fused_ln_qkv", fb.fused_ln_qkv, fb.ln_qkv_plain, qkv_args),
@@ -1441,6 +1969,15 @@ def main() -> int:
         ("fused_out_mlp_int8mlp G=3", fb.fused_out_mlp_int8mlp, fb.out_mlp_int8mlp_plain,
          mlp8m_3_args),
         ("splash_attention_bshd", att.splash_attention_bshd, att.splash_plain, splash_args),
+        (f"fused_ln_qkv T={T_RED}", fb.fused_ln_qkv, fb.ln_qkv_plain,
+         (x_r, lns, lnb, wqkv, bqkv)),
+        (f"fused_ln_qkv_int8 T={T_RED}", fb.fused_ln_qkv_int8, fb.ln_qkv_int8_plain,
+         (x_r, lns, lnb, *q_wqkv, bqkv)),
+        (f"fused_out_mlp T={T_RED}", fb.fused_out_mlp, fb.out_mlp_plain,
+         (attn_r, x_r, wo, bo, lns, lnb, w1, b1, w2, b2)),
+        (f"fused_out_mlp_int8 T={T_RED}", fb.fused_out_mlp_int8, fb.out_mlp_int8_plain,
+         (attn_r, x_r, *q_wo, bo, *tail_r)),
+        (f"fused_mlp T={T_RED}", fused_mlp, mlp_plain, fmlp_r_args),
     ):
         got = kern(*args)
         torch.cuda.synchronize()
@@ -1780,6 +2317,11 @@ def main() -> int:
         trainer = trainer_phase(torch, cfg, counters, dev, card, data["fed"], tmp)
         print(f"trainer phase: {time.perf_counter() - t0:.1f} s")
 
+        # ---- 4e. the evaluation command line, on 4d's run A and a token-reduced run
+        t0 = time.perf_counter()
+        eval_cli = eval_cli_phase(torch, cfg, params, counters, dev, card, tmp)
+        print(f"eval cli phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- 5. timing
     import torch.nn.functional as Fn
 
@@ -1805,7 +2347,8 @@ def main() -> int:
         name="fused_ln_qkv", route="cuda", source="prcv2025reid_tpu_torch/csrc/fused_block.cu",
         replaces="prcv2025reid_tpu/ops/fused_block.py:97",
         launches=launches["fused"]["fused_ln_qkv"],
-        max_abs_err=max(block_checks["fused_ln_qkv"][0], block_checks["fused_ln_qkv G=3"][0]),
+        max_abs_err=max(block_checks["fused_ln_qkv"][0], block_checks["fused_ln_qkv G=3"][0],
+                        block_checks[f"fused_ln_qkv T={T_RED}"][0]),
         ms=time_ms(torch, lambda: fb.fused_ln_qkv(*qkv_args)),
         plain_ms=time_ms(torch, lambda: fb.ln_qkv_plain(*qkv_args)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -1816,7 +2359,8 @@ def main() -> int:
         name="fused_out_mlp", route="cuda", source="prcv2025reid_tpu_torch/csrc/fused_block.cu",
         replaces="prcv2025reid_tpu/ops/fused_block.py:233",
         launches=launches["fused"]["fused_out_mlp"],
-        max_abs_err=max(block_checks["fused_out_mlp"][0], block_checks["fused_out_mlp G=3"][0]),
+        max_abs_err=max(block_checks["fused_out_mlp"][0], block_checks["fused_out_mlp G=3"][0],
+                        block_checks[f"fused_out_mlp T={T_RED}"][0]),
         ms=time_ms(torch, lambda: fb.fused_out_mlp(*mlp_args)),
         plain_ms=time_ms(torch, lambda: fb.out_mlp_plain(*mlp_args), runs=20),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -1827,7 +2371,7 @@ def main() -> int:
         name="fused_mlp", route="cuda", source="prcv2025reid_tpu_torch/csrc/fused_mlp.cu",
         replaces="prcv2025reid_tpu/ops/fused_mlp.py:43",
         launches=launches["fused_trunk"]["fused_mlp"],
-        max_abs_err=block_checks["fused_mlp"][0],
+        max_abs_err=max(block_checks["fused_mlp"][0], block_checks[f"fused_mlp T={T_RED}"][0]),
         ms=time_ms(torch, lambda: fused_mlp(*fmlp_args)),
         plain_ms=time_ms(torch, lambda: mlp_plain(*fmlp_args), runs=20),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -1855,7 +2399,8 @@ def main() -> int:
         replaces="prcv2025reid_tpu/ops/fused_block.py:103",
         launches=launches["fused_int8"]["fused_ln_qkv_int8"],
         max_abs_err=max(block_checks["fused_ln_qkv_int8"][0],
-                        block_checks["fused_ln_qkv_int8 G=3"][0]),
+                        block_checks["fused_ln_qkv_int8 G=3"][0],
+                        block_checks[f"fused_ln_qkv_int8 T={T_RED}"][0]),
         ms=time_ms(torch, lambda: fb.fused_ln_qkv_int8(*qkv8_args)),
         plain_ms=time_ms(torch, lambda: fb.ln_qkv_int8_plain(*qkv8_args), runs=20),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -1868,7 +2413,9 @@ def main() -> int:
         source="prcv2025reid_tpu_torch/csrc/fused_block_int8.cu",
         replaces="prcv2025reid_tpu/ops/fused_block.py:247",
         launches=launches["fused_int8"]["fused_out_mlp_int8"],
-        max_abs_err=max(block_checks["fused_out_mlp_int8"][0], block_checks["fused_out_mlp_int8 G=3"][0]),
+        max_abs_err=max(block_checks["fused_out_mlp_int8"][0],
+                        block_checks["fused_out_mlp_int8 G=3"][0],
+                        block_checks[f"fused_out_mlp_int8 T={T_RED}"][0]),
         ms=time_ms(torch, lambda: fb.fused_out_mlp_int8(*mlp8_args)),
         plain_ms=time_ms(torch, lambda: fb.out_mlp_int8_plain(*mlp8_args), runs=20),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -1896,6 +2443,29 @@ def main() -> int:
         plain_ms=time_ms(torch, lambda: att.splash_plain(*splash_args)),
         bound_ms=b_ms, bound_by=b_by, library_ms=sdpa_ms,
     ))
+    # #1 and #8 at token reduction's shapes (phase 4e's paths), beside their bounds
+    q_r, k_r, v_r = red_qkv
+    att_r_bytes = 4 * BATCH * H * S_RED * Dh * 2
+    b_ms, b_by = bound_ms([(4 * BATCH * H * S_RED * S_RED * Dh, PEAK_BF16_FLOPS)], att_r_bytes)
+    reduced_rows = [dict(
+        name="fused_mha", shape=f"B={BATCH} S={S_RED} H={H} Dh={Dh}",
+        max_abs_err=att_checks[f"S={S_RED}"][0],
+        ms=time_ms(torch, lambda: fused_mha(q_r, k_r, v_r)),
+        plain_ms=time_ms(torch, lambda: mha_plain(q_r, k_r, v_r)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, lambda: Fn.scaled_dot_product_attention(q_r, k_r, v_r)))]
+    b_ms, b_by = bound_ms([(4 * T_RED * D * F, PEAK_BF16_FLOPS)],
+                          2 * T_RED * D * 2 + 2 * D * F * 2 + (F + D) * 2)
+    reduced_rows.append(dict(
+        name="fused_mlp", shape=f"T={T_RED} D={D} F={F}",
+        max_abs_err=block_checks[f"fused_mlp T={T_RED}"][0],
+        ms=time_ms(torch, lambda: fused_mlp(*fmlp_r_args)),
+        plain_ms=time_ms(torch, lambda: mlp_plain(*fmlp_r_args), runs=20),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    for r in reduced_rows:
+        print(f"kernel {r['name']} at token reduction's shape {r['shape']} ({card}): "
+              f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']})")
     # the microbenchmark's tiled matmul at M = 25,344, K = 768, N = 3072: each
     # input read once, the output written once; no model path launches it
     Mm = MATMUL_ROWS[0]
@@ -1988,12 +2558,7 @@ def main() -> int:
               + json.dumps([[e.key[:60], e.count, round(device_time(e) / 1e3, 4)] for e in top]))
 
     # ---- 6. the microbenchmark's entry point: the card's own rates
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "perf_microbench", root / "tools_torch" / "perf_microbench.py")
-    pmb = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(pmb)
+    pmb = load_tool("perf_microbench")
     bench = pmb.Bench("cuda")
     probe_rates = {}
     t0 = time.perf_counter()
@@ -2010,6 +2575,8 @@ def main() -> int:
         "train_step_8x4": train,
         "dataset_phase": data,
         "trainer_phase": trainer,
+        "eval_cli_phase": eval_cli,
+        "kernels_at_token_reduced_shapes": reduced_rows,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     for r in rows:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "

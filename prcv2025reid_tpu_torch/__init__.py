@@ -3,9 +3,11 @@
 The JAX package ``prcv2025reid_tpu`` is the reference this port is held
 against; the port imports nothing from it.  Entry points:
 ``engine.build_model``, ``engine.make_combo_embed_step``,
-``engine.make_embed_step`` and, for training, ``engine.init_train_state``,
-``engine.make_train_step`` and the whole loop, ``Trainer``
-(``training/trainer.py``; ``tools_torch/train.py`` is its command line).
+``engine.make_embed_step``, ``engine.make_weighted_embed_step`` and, for
+training, ``engine.init_train_state``, ``engine.make_train_step`` and the
+whole loop, ``Trainer`` (``training/trainer.py``; ``tools_torch/train.py``
+is its command line).  ``tools_torch/eval_mm_protocol.py`` evaluates a
+saved checkpoint.
 
 The names below load on first access (a module ``__getattr__``): importing
 the package, or one of its torch-free host modules (``configs``,
@@ -25,6 +27,7 @@ _EXPORTS = {
     "make_combo_embed_step": "prcv2025reid_tpu_torch.engine",
     "make_embed_step": "prcv2025reid_tpu_torch.engine",
     "make_train_step": "prcv2025reid_tpu_torch.engine",
+    "make_weighted_embed_step": "prcv2025reid_tpu_torch.engine",
     "init_params": "prcv2025reid_tpu_torch.params",
     "load_params": "prcv2025reid_tpu_torch.params",
 }

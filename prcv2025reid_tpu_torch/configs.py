@@ -356,16 +356,6 @@ class TrainingConfig:
                 "test device; the port runs the plain version for CPU tensors "
                 f"— use block_impl={impl!r}"
             )
-        if self.token_reduce_train:
-            raise NotImplementedError(
-                "token_reduce_train=True is not ported yet: ROADMAP.md §1, the item "
-                "'`token_keep`' (token reduction in the trunk, training included)"
-            )
-        if self.token_keep > 0:
-            raise NotImplementedError(
-                f"token_keep={self.token_keep} is not ported yet: ROADMAP.md "
-                "§1, the item '`token_keep`' (token reduction in the trunk)"
-            )
         if self.remat_policy == "dots":
             raise NotImplementedError(
                 "remat_policy='dots' is not ported yet: ROADMAP.md §1, the item "

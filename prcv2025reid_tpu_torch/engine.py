@@ -6,7 +6,9 @@ modality combo or through the full forward, and train it.
 [B, Mv, H, W, 3] (and, for a combo with text, token rows [B, S]) in,
 L2-normalised f32 [B, fusion_dim] out, on the model's device;
 ``make_embed_step`` (from ``training/train_step.py``) embeds every modality
-through the full forward, as JAX's ``make_embed_step``.
+through the full forward, as JAX's ``make_embed_step``;
+``make_weighted_embed_step`` is the weighted-sum query fusion of JAX's
+``make_weighted_embed_step`` (text 1.2).
 ``init_train_state(model, config, steps_per_epoch, seed=0)`` and
 ``make_train_step(model, config, steps_per_epoch)`` (from
 ``training/train_step.py``) are the counterparts of ``TrainState.create`` +
@@ -21,7 +23,7 @@ on on the CPU.
 """
 from __future__ import annotations
 
-from typing import Callable, Mapping, Optional, Sequence, Union
+from typing import Callable, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -76,25 +78,51 @@ def make_combo_embed_step(model: MultiModalReIDModel,
     [B, S] (int) and ``text_mask`` [B], as tensors or numpy arrays; a combo
     without "text" ignores them, as JAX's does."""
     active = tuple(active)
-    device = model.null_tokens.device
 
     @torch.inference_mode()
     def embed(images, image_mask, text_tokens=None, text_mask=None) -> torch.Tensor:
-        images = torch.as_tensor(images, device=device)
-        image_mask = torch.as_tensor(image_mask, device=device)
-        if "text" in active:
-            if text_tokens is None or text_mask is None:
-                raise ValueError(f"the combo {active} needs text_tokens and text_mask")
-            text_tokens = torch.as_tensor(text_tokens, device=device)
-            text_mask = torch.as_tensor(text_mask, device=device)
-        else:
-            text_tokens = text_mask = None
-        feats = model.encode_subset(images, image_mask, text_tokens, text_mask, active).float()
+        args = _step_inputs(model, active, images, image_mask, text_tokens, text_mask)
+        feats = model.encode_subset(*args, active).float()
         norm = torch.clamp(torch.linalg.vector_norm(feats, dim=1, keepdim=True), min=1e-12)
         return feats / norm
 
     return embed
 
+
+def _step_inputs(model: MultiModalReIDModel, active: Tuple[str, ...], images, image_mask,
+                 text_tokens, text_mask):
+    """An embed step's arguments as tensors on the model's device; the text
+    rows only for a combo with "text", which needs them."""
+    device = model.null_tokens.device
+    images = torch.as_tensor(images, device=device)
+    image_mask = torch.as_tensor(image_mask, device=device)
+    if "text" not in active:
+        return images, image_mask, None, None
+    if text_tokens is None or text_mask is None:
+        raise ValueError(f"the combo {active} needs text_tokens and text_mask")
+    return (images, image_mask, torch.as_tensor(text_tokens, device=device),
+            torch.as_tensor(text_mask, device=device))
+
+
+def make_weighted_embed_step(model: MultiModalReIDModel, active: Sequence[str],
+                             weights: Optional[Mapping[str, float]] = None
+                             ) -> Callable[..., torch.Tensor]:
+    """Weighted-sum query fusion (``MultiModalReIDModel.encode_weighted``):
+    each active modality embedded alone through the head, the unit features
+    weight-summed (text 1.2, every other modality 1.0, unless ``weights``
+    says otherwise) and renormalised, with one stacked trunk pass.  The
+    step takes the arguments of ``make_combo_embed_step``'s step and returns
+    unit f32 [B, fusion_dim]."""
+    active = tuple(active)
+    weights = weights or {}
+    w = tuple(float(weights.get(m, 1.2 if m == "text" else 1.0)) for m in active)
+
+    @torch.inference_mode()
+    def embed(images, image_mask, text_tokens=None, text_mask=None) -> torch.Tensor:
+        args = _step_inputs(model, active, images, image_mask, text_tokens, text_mask)
+        return model.encode_weighted(*args, active, w)
+
+    return embed
 
 
 def __getattr__(name: str):

@@ -24,8 +24,9 @@ port's ``make_combo_embed_step`` and ``make_embed_step``), so
 ``embed_samples``, ``evaluate_protocol`` and ``export_submission_csv`` take
 no ``variables``.  Single device and single process: the JAX ``mesh`` and
 ``sharding`` arguments, and the multi-process gallery cache, raise
-(ROADMAP.md §1, the item 'Parallel and multi-process'); ``rerank`` raises
-until re-ranking is ported (ROADMAP.md §1, the item 'Re-ranking').
+(ROADMAP.md §1, the item 'Parallel and multi-process').  ``rerank`` (a dict
+of ``rerank_orders``' top_n, k1, k2, lam) re-ranks each query's head with
+``evaluation/rerank.py``.
 """
 from __future__ import annotations
 
@@ -55,13 +56,6 @@ def _single_device(**kw) -> None:
         raise NotImplementedError(
             f"{', '.join(given)}: sharded ranking and embedding are not ported yet "
             "(ROADMAP.md §1, the item 'Parallel and multi-process')")
-
-
-def _no_rerank(rerank) -> None:
-    if rerank is not None:
-        raise NotImplementedError(
-            "rerank: k-reciprocal re-ranking is not ported yet (ROADMAP.md §1, the "
-            "item 'Re-ranking')")
 
 
 def build_query_plans(k_values: Sequence[int] = (1, 2, 3, 4)) -> List[Tuple[str, Tuple[str, ...]]]:
@@ -474,10 +468,11 @@ def evaluate_protocol(
 
     ``embed_factory(modalities) -> embed step`` gives a combo-specialised
     step per plan (e.g. ``lambda m: make_combo_embed_step(model, m)``);
-    without it ``embed_fn`` embeds every plan.  The ranking runs on
-    ``device``."""
+    without it ``embed_fn`` embeds every plan.  With ``rerank`` each plan's
+    head is re-ranked (with the same-image exclusion when it is on), and
+    its ``detail`` entry gains ``mAP_plain``, the cosine ranking's mAP.  The
+    ranking runs on ``device``."""
     _single_device(sharding=sharding, mesh=mesh)
-    _no_rerank(rerank)
     gallery_indices = [i for i, r in enumerate(dataset.records) if r.vis]
 
     def _fn(mods: Tuple[str, ...]) -> Callable:
@@ -512,8 +507,17 @@ def evaluate_protocol(
             # same record: at most ONE gallery position per query
             g_pos = {rec_i: pos for pos, rec_i in enumerate(gallery_indices)}
             exclude = np.asarray([g_pos.get(qi, -1) for qi in q_indices], np.int32)
-        detail[name] = compute_retrieval_metrics(q_feats, q_pids, g_feats, g_pids, exclude,
-                                                 device=device)
+        if rerank is not None:
+            from prcv2025reid_tpu_torch.evaluation.rerank import rerank_orders
+
+            boost = rerank_orders(q_feats, g_feats, excl_idx=exclude, device=device, **rerank)
+            detail[name] = compute_retrieval_metrics(q_feats, q_pids, g_feats, g_pids, exclude,
+                                                     boost_idx=boost, device=device)
+            detail[name]["mAP_plain"] = compute_retrieval_metrics(
+                q_feats, q_pids, g_feats, g_pids, exclude, device=device)["mAP"]
+        else:
+            detail[name] = compute_retrieval_metrics(q_feats, q_pids, g_feats, g_pids, exclude,
+                                                     device=device)
 
     singles = [detail[f"single/{m}"]["mAP"] for m in NONVIS if f"single/{m}" in detail]
     map_single = float(np.mean(singles)) if singles else 0.0
@@ -563,9 +567,9 @@ def export_submission_csv(
     Ranked on ``device`` by a stable descending sort of the full-f32
     similarities, so ties go to the lower gallery index as JAX's
     ``lax.top_k`` orders them (``torch.topk`` defines no order among ties
-    on CUDA)."""
+    on CUDA).  With ``rerank`` the rows are the re-ranked heads, re-ranked
+    at least ``top_k`` deep."""
     _single_device(mesh=mesh, sharding=sharding)
-    _no_rerank(rerank)
     dev = resolve_device(device)
 
     def _fn(mods: Tuple[str, ...]) -> Callable:
@@ -585,10 +589,17 @@ def export_submission_csv(
             continue
         q_feats, _ = embed_samples(_fn(mods), dataset, q_indices, tokenizer, batch_size,
                                    modalities=mods, seed=seed)
-        order = np.concatenate([
-            torch.argsort(-similarity(q, g), dim=1, stable=True)[:, :k_eff].cpu().numpy()
-            for q in torch.as_tensor(q_feats, dtype=torch.float32, device=dev).split(1024)
-        ])
+        if rerank is not None:
+            from prcv2025reid_tpu_torch.evaluation.rerank import rerank_orders
+
+            rr = dict(rerank)
+            rr["top_n"] = max(rr.get("top_n", k_eff), k_eff)  # at least as deep as the rows
+            order = rerank_orders(q_feats, g_feats, device=dev, **rr)[:, :k_eff]
+        else:
+            order = np.concatenate([
+                torch.argsort(-similarity(q, g), dim=1, stable=True)[:, :k_eff].cpu().numpy()
+                for q in torch.as_tensor(q_feats, dtype=torch.float32, device=dev).split(1024)
+            ])
         for qi, record_idx in enumerate(q_indices):
             rec = dataset.records[record_idx]
             stem = os.path.splitext(os.path.basename(rec.anchor_vis))[0]

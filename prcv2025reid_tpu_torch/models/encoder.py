@@ -67,6 +67,10 @@ class UnifiedEncoder(nn.Module):
             gelu_bwd=config.gelu_bwd,
             attn_bwd=config.attn_bwd,
             remat_blocks=config.remat_blocks,
+            token_keep=config.token_keep,
+            token_reduce_layer=config.token_reduce_layer,
+            token_reduce_mode=config.token_reduce_mode,
+            token_reduce_train=config.token_reduce_train,
             device=device,
         ), text, text_proj)
 

@@ -4,7 +4,9 @@
 Missing modalities are handled by masked blending with learnable null
 tokens: feat = mask * enc + (1 - mask) * null.  ``encode_subset`` computes
 only the active vision towers (one trunk call over all of them), fuses the
-modality tokens and returns BNNeck features (L2 x 8).  ``forward`` is the
+modality tokens and returns BNNeck features (L2 x 8); ``encode_weighted``
+embeds each active modality alone through the head and weight-sums the
+unit features.  ``forward`` is the
 full model, the training forward with ``train=True``: every modality
 densely, the SDM module, modality dropout, fusion and BNNeck on batch
 statistics.  Its randomness comes from ``torch.Generator``s, one per purpose
@@ -222,6 +224,28 @@ class MultiModalReIDModel(nn.Module):
         self.null_tokens = _param(len(config.vision_modalities) + 1, config.fusion_dim,
                                   device=device)
 
+    def _check_active(self, active: Sequence[str], text_tokens: Optional[torch.Tensor],
+                      text_mask: Optional[torch.Tensor]) -> None:
+        names = self.config.vision_modalities + ("text",)
+        unknown = [m for m in active if m not in names]
+        if unknown:
+            raise ValueError(f"active modalities {unknown} not in {names}")
+        if "text" in active and (text_tokens is None or text_mask is None):
+            raise ValueError("'text' in the active set needs text_tokens and text_mask")
+
+    def _active_vision(self, images: torch.Tensor, active: Sequence[str]):
+        """One trunk call over the active vision modalities, G = n_active
+        groups: [(slot, modality, features [B, fusion_dim])]."""
+        active_vis = [(mi, mod) for mi, mod in enumerate(self.config.vision_modalities)
+                      if mod in active]
+        if not active_vis:
+            return []
+        vit = self.encoder.vision
+        tokens = torch.stack([vit.patch_embed(mod)(images[:, mi]) for mi, mod in active_vis],
+                             dim=0)
+        feats = vit.trunk(tokens, tuple(mi for mi, _ in active_vis))
+        return [(mi, mod, feats[j]) for j, (mi, mod) in enumerate(active_vis)]
+
     def encode_subset(self, images: torch.Tensor, image_mask: torch.Tensor,
                       text_tokens: Optional[torch.Tensor], text_mask: Optional[torch.Tensor],
                       active: Sequence[str]) -> torch.Tensor:
@@ -231,12 +255,7 @@ class MultiModalReIDModel(nn.Module):
         [B, Mv]; text_tokens [B, S] (int) and text_mask [B], read only when
         "text" is active (the last slot).  Inactive slots carry null tokens
         with zero masks.  Returns bn_features [B, fusion_dim] (L2 x 8, f32)."""
-        vis_mods = self.config.vision_modalities
-        unknown = [m for m in active if m not in vis_mods + ("text",)]
-        if unknown:
-            raise ValueError(f"active modalities {unknown} not in {vis_mods + ('text',)}")
-        if "text" in active and (text_tokens is None or text_mask is None):
-            raise ValueError("'text' in the active set needs text_tokens and text_mask")
+        self._check_active(active, text_tokens, text_mask)
         B, Mv = images.shape[:2]
         M = Mv + 1
         dt = self.dtype
@@ -244,16 +263,10 @@ class MultiModalReIDModel(nn.Module):
         feats = null[None].expand(B, M, null.shape[-1]).clone()
         masks = torch.zeros(B, M, dtype=torch.float32, device=images.device)
 
-        active_vis = [(mi, mod) for mi, mod in enumerate(vis_mods) if mod in active]
-        if active_vis:
-            vit = self.encoder.vision
-            tokens = torch.stack(
-                [vit.patch_embed(mod)(images[:, mi]) for mi, mod in active_vis], dim=0)
-            all_feats = vit.trunk(tokens, tuple(mi for mi, _ in active_vis))
-            for j, (mi, _) in enumerate(active_vis):
-                m = image_mask[:, mi].float()[:, None]
-                feats[:, mi] = m.to(dt) * all_feats[j] + (1 - m).to(dt) * null[mi]
-                masks[:, mi] = m[:, 0]
+        for mi, _, f in self._active_vision(images, active):
+            m = image_mask[:, mi].float()[:, None]
+            feats[:, mi] = m.to(dt) * f + (1 - m).to(dt) * null[mi]
+            masks[:, mi] = m[:, 0]
         if "text" in active:
             f = self.encoder.encode_text(text_tokens)
             m = text_mask.float()[:, None]
@@ -261,6 +274,41 @@ class MultiModalReIDModel(nn.Module):
             masks[:, M - 1] = m[:, 0]
 
         return self.bn_neck(self.fusion(feats, masks))
+
+    def encode_weighted(self, images: torch.Tensor, image_mask: torch.Tensor,
+                        text_tokens: Optional[torch.Tensor], text_mask: Optional[torch.Tensor],
+                        active: Sequence[str], weights: Sequence[float]) -> torch.Tensor:
+        """Weighted-sum fusion of per-modality embeddings: each active
+        modality alone through the head (its own slot, null tokens
+        elsewhere; fusion, then BNNeck on running statistics), L2-normalised
+        in f32, weight-summed (``weights``, one per active modality) and
+        renormalised.  All active vision modalities go through one stacked
+        trunk call.  Inputs as ``encode_subset``; returns unit f32
+        [B, fusion_dim]."""
+        self._check_active(active, text_tokens, text_mask)
+        B, Mv = images.shape[:2]
+        M = Mv + 1
+        dt = self.dtype
+        null = self.null_tokens.to(dt)
+
+        # modality -> (slot, features, mask [B])
+        per_mod = {mod: (mi, f, image_mask[:, mi].float())
+                   for mi, mod, f in self._active_vision(images, active)}
+        if "text" in active:
+            per_mod["text"] = (M - 1, self.encoder.encode_text(text_tokens), text_mask.float())
+
+        acc = None
+        for mod, w in zip(active, weights):
+            slot, f, m = per_mod[mod]
+            m = m[:, None]
+            feats = null[None].expand(B, M, null.shape[-1]).clone()
+            feats[:, slot] = m.to(dt) * f + (1 - m).to(dt) * null[slot]
+            masks = torch.zeros(B, M, dtype=torch.float32, device=images.device)
+            masks[:, slot] = m[:, 0]
+            bn = self.bn_neck(self.fusion(feats, masks)).float()
+            bn = bn / torch.clamp(torch.linalg.vector_norm(bn, dim=1, keepdim=True), min=1e-12)
+            acc = bn * w if acc is None else acc + bn * w
+        return acc / torch.clamp(torch.linalg.vector_norm(acc, dim=1, keepdim=True), min=1e-12)
 
     def forward(self, images: torch.Tensor, image_mask: torch.Tensor, text_tokens: torch.Tensor,
                 text_mask: torch.Tensor, train: bool = False,

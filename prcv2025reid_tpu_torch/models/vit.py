@@ -4,7 +4,9 @@
 patchify -> +CLS -> +pos-embed -> blocks 0..L-2 -> CLS-only last block ->
 final LN -> projection; in eval with ``resln_impl="auto"`` the fused-stream
 trunk (``_trunk_fused``) instead, and in training under ``remat_blocks``
-all L blocks in full, each recomputed in the backward.  Patchify is a reshape + matmul: the 16x16/stride-16
+all L blocks in full, each recomputed in the backward.  With ``token_keep``
+the tokens are reduced after block ``token_reduce_layer - 1``
+(``_reduce_tokens``).  Patchify is a reshape + matmul: the 16x16/stride-16
 "conv" is a linear map on non-overlapping patches, so the patch kernel keeps
 its ``[P, P, C, D]`` layout flattened in (i, j, c) order (no ``conv2d``,
 whose weight layout differs and which cuDNN runs in TF32 for f32).
@@ -61,7 +63,12 @@ class MERVisionTransformer(nn.Module):
     the plain version for CPU tensors), 'xla' the plain one.  Training:
     drop-path rises linearly with depth to ``drop_path`` at the last block;
     ``remat_blocks`` wraps every block in ``torch.utils.checkpoint``;
-    ``gelu_bwd`` and ``attn_bwd`` go to every block (see ``MERBlock``)."""
+    ``gelu_bwd`` and ``attn_bwd`` go to every block (see ``MERBlock``).
+    ``token_keep`` > 0 keeps that many patch tokens after block
+    ``token_reduce_layer - 1`` in eval, and in training too with
+    ``token_reduce_train`` (``_reduce_tokens``; ``token_reduce_mode`` 'merge'
+    or 'prune'); the fused-stream trunk runs every token, so it refuses
+    token reduction."""
 
     def __init__(self, embed_dim: int = 768, num_layers: int = 12, num_heads: int = 12,
                  mlp_dim: int = 3072, patch_size: int = 16, image_size: int = 224,
@@ -71,12 +78,21 @@ class MERVisionTransformer(nn.Module):
                  attn_impl: str = "xla", mlp_impl: str = "xla", resln_impl: str = "xla",
                  block_impl: str = "xla", gelu_impl: str = "erf", drop_path: float = 0.0,
                  gelu_bwd: str = "stored", attn_bwd: str = "stored", remat_blocks: bool = False,
+                 token_keep: int = 0, token_reduce_layer: int = 6,
+                 token_reduce_mode: str = "merge", token_reduce_train: bool = False,
                  device=None):
         super().__init__()
         if resln_impl not in ("xla", "auto"):
             raise ValueError(f"resln_impl={resln_impl!r}; valid: ['auto', 'xla']")
+        if token_reduce_mode not in ("merge", "prune"):
+            raise ValueError(f"token_reduce_mode={token_reduce_mode!r}; valid: ['merge', 'prune']")
+        if resln_impl == "auto" and token_keep > 0:
+            raise ValueError(f"resln_impl='auto' runs every token: token_keep={token_keep} "
+                             "needs resln_impl='xla'")
         self.embed_dim, self.num_layers, self.dtype = embed_dim, num_layers, dtype
         self.resln_impl, self.remat_blocks = resln_impl, remat_blocks
+        self.token_keep, self.token_reduce_layer = token_keep, token_reduce_layer
+        self.token_reduce_mode, self.token_reduce_train = token_reduce_mode, token_reduce_train
         self.modalities = tuple(modalities)
         num_patches = (image_size // patch_size) ** 2
         for mod in self.modalities:
@@ -116,20 +132,64 @@ class MERVisionTransformer(nn.Module):
         if deterministic and self.resln_impl == "auto":
             return self._trunk_fused(x, expert_ids)
         blocks = self.blocks
+        reduce_after = (
+            self.token_reduce_layer - 1
+            if (deterministic or self.token_reduce_train)
+            and 0 < self.token_keep < x.shape[2] - 1
+            and 0 < self.token_reduce_layer < self.num_layers
+            else None
+        )
         if deterministic or not self.remat_blocks:
-            for block in blocks[:-1]:
+            for i, block in enumerate(blocks[:-1]):
                 x = block(x, expert_ids, deterministic, generator)
+                if i == reduce_after:
+                    x = self._reduce_tokens(x)
             cls = blocks[-1].cls_only_call(x, expert_ids, deterministic, generator)
         else:
             # training under remat: every block in full, its masks drawn
-            # outside the checkpoint so that the recompute sees the same ones
-            for block in blocks:
+            # outside the checkpoint so that the recompute sees the same ones;
+            # the reduction sits between the checkpointed blocks, so it is
+            # stored, not recomputed
+            for i, block in enumerate(blocks):
                 masks = block.drop_path_masks(x, generator)
                 x = checkpoint(block.train_forward, x, expert_ids, *masks,
                                use_reentrant=False)
+                if i == reduce_after:
+                    x = self._reduce_tokens(x)
             cls = x[:, :, 0]
         cls = ln_apply(cls, *self.ln_final.params())
         return self.proj(cls, dt)
+
+    def keep_indices(self, x: torch.Tensor) -> torch.Tensor:
+        """The patch positions that ``_reduce_tokens`` keeps: [G, B, S, D] ->
+        [G, B, K], ordered by cosine(token, CLS) on the hidden states (f32),
+        highest first, ties to the lower position as ``jax.lax.top_k``
+        orders them (a stable sort; ``torch.topk`` defines no order among
+        ties on CUDA).  No gradient flows through the choice."""
+        with torch.no_grad():
+            xf = x.float()
+            n = xf / torch.clamp(torch.linalg.vector_norm(xf, dim=-1, keepdim=True), min=1e-6)
+            scores = (n[:, :, 1:] * n[:, :, :1]).sum(-1)  # [G, B, S-1]
+            return torch.argsort(-scores, dim=-1, stable=True)[..., :self.token_keep]
+
+    def _reduce_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """EViT-style token reduction: [G, B, S, D] -> [G, B, K+2, D] (CLS,
+        the K kept patch tokens in ``keep_indices`` order, and one token
+        holding the mean of the dropped ones), or [G, B, K+1, D] in 'prune'
+        mode (the dropped tokens discarded).  The merged token is formed in
+        f32 (total minus the kept sum, so the subtraction does not cancel
+        in bf16), then cast back to x's dtype.  Gradients flow through the
+        gather and the merge."""
+        G, B, S, D = x.shape
+        K = self.token_keep
+        idx = self.keep_indices(x)[..., None].expand(G, B, K, D)
+        kept = torch.gather(x[:, :, 1:], 2, idx)
+        if self.token_reduce_mode == "prune":
+            return torch.cat([x[:, :, :1], kept], dim=2)
+        patches = x[:, :, 1:].float()
+        kept_sum = torch.gather(patches, 2, idx).sum(dim=2)
+        merged = (patches.sum(dim=2) - kept_sum) / max(S - 1 - K, 1)
+        return torch.cat([x[:, :, :1], kept, merged[:, :, None].to(x.dtype)], dim=2)
 
     def _trunk_fused(self, x: torch.Tensor, expert_ids: Sequence[int]) -> torch.Tensor:
         """Eval trunk with the residual add fused into every LayerNorm

@@ -959,3 +959,82 @@ def test_prefetch_to_device_on_the_card(cuda, size):
             assert g[k].device.type == "cuda" and g[k].dtype == torch.from_numpy(w[k]).dtype
             np.testing.assert_array_equal(g[k].cpu().numpy(), w[k])
         assert s.item() == float(w["images"].astype(np.float64).sum())
+
+
+# ---- token reduction's shapes (blocks after the reduction: S = 96, or 95
+# with 'prune'; 128 images of 96 tokens = 12,288 rows) and re-ranking
+
+
+@pytest.mark.parametrize("S", [96, 95])
+def test_attention_kernel_at_the_token_reduced_length(cuda, S):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    qkv = torch.randn(128, S, 3, 12, 64, generator=g, device=cuda).bfloat16()
+    q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    out = fused_mha(q, k, v)
+    torch.cuda.synchronize()
+    assert _rel(out, mha_plain(q, k, v)) < 1e-2
+
+
+def test_block_and_mlp_kernels_at_the_token_reduced_rows(cuda):
+    d = _block_operands(cuda, 1, 128 * 96, 768, 3072)
+    qkv = fb.fused_ln_qkv(d["x"], d["lns"], d["lnb"], d["wqkv"], d["bqkv"])
+    args = (d["attn"], d["x"], d["wo"], d["bo"], d["lns"], d["lnb"], d["w1"], d["b1"], d["w2"],
+            d["b2"])
+    out = fb.fused_out_mlp(*args)
+    mlp = fused_mlp(d["x"], d["w1"], d["b1"].bfloat16(), d["w2"], d["b2"].bfloat16())
+    torch.cuda.synchronize()
+    assert _rel(qkv, fb.ln_qkv_plain(d["x"], d["lns"], d["lnb"], d["wqkv"], d["bqkv"])) < 1e-2
+    assert _rel(out, fb.out_mlp_plain(*args)) < 1e-2
+    assert _rel(mlp, mlp_plain(d["x"], d["w1"], d["b1"].bfloat16(), d["w2"],
+                               d["b2"].bfloat16())) < 1e-2
+
+
+def test_token_reduction_on_the_card_keeps_what_the_cpu_keeps(cuda):
+    """keep_indices on the card: among tied scores the lower positions, in
+    order (the stable sort; JAX's lax.top_k), and on random states the CPU's
+    set; the f32 plain trunk with token_keep embeds as on the CPU."""
+    from prcv2025reid_tpu_torch.models.vit import MERVisionTransformer
+    from prcv2025reid_tpu_torch.params import init_params
+
+    vit = MERVisionTransformer(embed_dim=64, num_layers=2, num_heads=2, mlp_dim=128,
+                               image_size=64, token_keep=6, token_reduce_layer=1, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(2, 3, 17, 64, generator=g, device=cuda)
+    assert torch.equal(vit.keep_indices(x).cpu(), vit.keep_indices(x.cpu()))
+    x[:, :, 1:] = x[:, :, 1:2]
+    assert vit.keep_indices(x).tolist() == [[list(range(6))] * 3] * 2
+    cfg = TrainingConfig(vision_hidden_dim=128, vision_layers=3, vision_heads=2,
+                         vision_mlp_dim=256, image_size=64, fusion_dim=64,
+                         fusion_num_heads=4, compute_dtype="float32", token_keep=6,
+                         token_reduce_layer=1)
+    params = init_params(cfg, 5, seed=0, perturb=True)
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (6, 4, 64, 64, 3), dtype=np.uint8)
+    mask = np.ones((6, 4), np.float32)
+    got, want = (make_combo_embed_step(build_model(cfg, params, device=d), ("nir", "sk"))(
+        images, mask).cpu() for d in (cuda, "cpu"))
+    assert (got * want).sum(dim=1).min().item() > 0.99999
+
+
+@pytest.mark.parametrize("excl", [False, True])
+def test_rerank_orders_on_the_card_against_the_cpu(cuda, excl):
+    from prcv2025reid_tpu_torch.evaluation.rerank import rerank_orders
+
+    rng = np.random.default_rng(3)
+    centers = rng.normal(size=(60, 64))
+    g_pids = np.repeat(np.arange(60), 20)
+    g = centers[g_pids] + 0.9 * rng.normal(size=(1200, 64))
+    q = centers[rng.integers(0, 60, 300)] + 0.9 * rng.normal(size=(300, 64))
+    g = (g / np.linalg.norm(g, axis=1, keepdims=True)).astype(np.float32)
+    q = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
+    kw = dict(excl_idx=rng.integers(-1, 1200, 300).astype(np.int32)) if excl else {}
+    got = rerank_orders(q, g, device=cuda, query_chunk=128, **kw)
+    want = rerank_orders(q, g, device="cpu", query_chunk=128, **kw)
+    assert got.shape == want.shape == (300, 100)
+    assert (got == want).all(axis=1).mean() >= 0.99
+    if not excl:  # lam = 1: the card's plain cosine order, exactly
+        from prcv2025reid_tpu_torch.evaluation.protocol import similarity
+
+        sims = similarity(torch.from_numpy(q).to(cuda), torch.from_numpy(g).to(cuda))
+        plain = torch.argsort(-sims, dim=1, stable=True)[:, :100].cpu().numpy()
+        np.testing.assert_array_equal(rerank_orders(q, g, device=cuda, lam=1.0), plain)

@@ -77,9 +77,10 @@ def tokenizers(jcfg):
 @pytest.fixture(scope="module")
 def flat_params(jcfg):
     S, ctx = jcfg.image_size, jcfg.text_context_length
-    variables = JaxModel(config=jcfg, num_classes=NUM_CLASSES).init(
-        {"params": jax.random.PRNGKey(0)}, jnp.zeros((2, 4, S, S, 3), jnp.float32),
-        jnp.ones((2, 4)), jnp.zeros((2, ctx), jnp.int32), jnp.ones((2,)), train=False)
+    variables = jax.jit(lambda *a: JaxModel(config=jcfg, num_classes=NUM_CLASSES).init(
+        {"params": jax.random.PRNGKey(0)}, *a, train=False))(
+        jnp.zeros((2, 4, S, S, 3), jnp.float32), jnp.ones((2, 4)),
+        jnp.zeros((2, ctx), jnp.int32), jnp.ones((2,)))
     flat = {k: np.asarray(v) for k, v in tu.flatten_dict(variables, sep="/").items()}
     rng = np.random.default_rng(1)
     for k, v in flat.items():
@@ -279,11 +280,13 @@ def test_single_device_and_unported_options_raise(tmp_path, datasets, tokenizers
     for bad in ({"mesh": object()}, {"sharding": object()}):
         with pytest.raises(NotImplementedError, match="Parallel and multi-process"):
             protocol.evaluate_protocol(None, ds, tokenizers[0], **kw, **bad)
-    with pytest.raises(NotImplementedError, match="Re-ranking"):
-        protocol.evaluate_protocol(None, ds, tokenizers[0], rerank={"top_n": 5}, **kw)
-    with pytest.raises(NotImplementedError, match="Re-ranking"):
+    # re-ranking is ported (tests/test_torch_rerank.py), on one device
+    with pytest.raises(NotImplementedError, match="Parallel and multi-process"):
+        protocol.evaluate_protocol(None, ds, tokenizers[0], rerank={"top_n": 5},
+                                   mesh=object(), **kw)
+    with pytest.raises(NotImplementedError, match="Parallel and multi-process"):
         protocol.export_submission_csv(None, ds, tokenizers[0], str(tmp_path / "x.csv"),
-                                       rerank={"top_n": 5}, **kw)
+                                       rerank={"top_n": 5}, mesh=object(), **kw)
     cache = protocol.GalleryCache(str(tmp_path), "mp", process_count=2)
     with pytest.raises(NotImplementedError, match="multi-process gallery cache"):
         cache.load([0, 1])

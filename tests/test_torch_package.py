@@ -36,6 +36,12 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import prcv2025reid_tpu_torch.training.train_step\n"
         "import prcv2025reid_tpu_torch.training.param_groups\n"
         "import prcv2025reid_tpu_torch.training.schedulers\n"
+        "import prcv2025reid_tpu_torch.evaluation.rerank\n"
+        "import importlib.util\n"
+        "for tool in ('eval_mm_protocol', 'generate_submission', 'tune_rerank', 'split',\n"
+        "             'rerank_agreement'):\n"
+        "    spec = importlib.util.spec_from_file_location('t_' + tool, f'tools_torch/{tool}.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'prcv2025reid_tpu')]\n"
         "print(repr(bad))\n"
@@ -73,9 +79,9 @@ def test_build_model_raises_without_cuda(monkeypatch):
 @pytest.mark.parametrize("override", [
     {"block_impl": "fused_interpret"},
     {"block_impl": "fused_int8_interpret"},
-    {"token_keep": 4, "token_reduce_layer": 1},
+    {"distributed": "on"},  # token reduction is ported (tests/test_torch_token_reduce.py)
     {"remat_policy": "dots"},
-    {"token_reduce_train": True, "token_keep": 4, "token_reduce_layer": 1},
+    {"clip_weights_path": "/weights/clip.npz"},
 ])
 def test_unported_values_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP.md|interpret"):
