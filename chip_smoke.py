@@ -144,7 +144,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      trains at the full LR), each train step under the sync debug mode
      'error' (no host synchronisation in any).  Run A: 2 epochs of
      TRAINER_STEPS steps, the eval (all 15 plans, the whole val split) at
-     epoch 2 and the final one, async checkpoints: the histories (two train
+     epoch 2 and the final one, async checkpoints (save_freq 1: epoch_1/ is
+     the checkpoint phase 4f reloads): the histories (two train
      rows), latest/ and best/ with their sidecars, training.log; the launch
      counts of the whole run, zeroed just before it (fused_mha L-1 a train
      step; fused_mha L, fused_mlp L, fused_residual_ln 2L a vision forward:
@@ -196,6 +197,36 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      against the CPU on RR_CPU_QUERIES queries (RR_SAME_ROWS of the rows
      equal, |dmAP| <= RR_MAP_TOL); lam=1.0 equal to the plain cosine top-N;
      tune_rerank.py --quick on the card;
+  4f. the serving path, tools_torch/serve_embed.py, on 4d's run A best/ (the
+     fused-stream trunk) and 4c's tree, each launch count zeroed just before
+     the call it reads.  (a) The command line: --images on the tree's vis
+     files at the eval batch, equal bit for bit to embed_samples' features of
+     the same records (or, naming the cause, min-cosine >= SERVE_MIN_COSINE),
+     #1 L, #8 L, #9 2L a vision batch; --text on its captions equal to the
+     text step's, no launch.  (b) Two servers in this process (make_server on
+     127.0.0.1, port 0) over one engine: one on an RR_GALLERY x 512 gallery
+     loaded as --serve_gallery loads it (phase 4e (f)'s clustered set), one
+     on (a)'s npz; /embed of vis and nir images, captions and MM-2/3/4
+     queries equal to direct engine calls bit for bit, with the launches of
+     each served batch (a vision batch #1 L, #8 L, #9 2L, a text batch none);
+     SERVE_CONCURRENT concurrent one-image requests equal to the sequential
+     answers, the batcher's dispatches against its requests.  (c) The store
+     on SERVE_QUERIES clustered queries: plain top-100 ids equal to
+     stable_topk over similarity, re-ranked ids (SERVE_RR) equal to
+     rerank_orders; /search equal to the store's search; the tree's vis files
+     queried by their own bytes find their own id first.  (d) Enrollment on
+     the tree's gallery: /gallery/add past a capacity doubling, an add in
+     place, /gallery/remove, each step's buffer and /search (plain and
+     re-ranked) equal to a store rebuilt from scratch; /gallery/save read
+     back by load_gallery.  (e) /admin/reload to run A's epoch_1/: /embed
+     equal to a fresh engine on those weights, no kernel build, the memory
+     allocated on the card before and after.  (f) Latency p50 / p90 of
+     SERVE_LATENCY_N sequential requests a route (/embed of one vis image,
+     one caption, one MM-4 query; /search of one caption at top 10, plain
+     and re-ranked) with the device ms of the calls a request makes;
+     --benchmark at BATCH and at the serving batch (its launches counted);
+     bench_query.py at BATCH on
+     xla and on the fused-stream trunk; bench_search.py at its defaults;
   5. time every kernel, its plain version and (where one PyTorch call
      computes the same function) that call with CUDA events, median of
      TIMED_RUNS after warm-up queued behind a spin kernel (device time
@@ -333,6 +364,17 @@ RR_GALLERY, RR_IDS, RR_QUERIES, RR_CPU_QUERIES = 45113, 1000, 4096, 256
 RR_SIGMAS = dict(sigma_g=2.2, sigma_q=2.4)
 RR_CHUNKS = (128, 256, 512, 1024)
 RR_SAME_ROWS, RR_MAP_TOL = 0.99, 1e-4
+# the serving phase: the server's re-ranking parameters (the CLI's defaults);
+# SERVE_QUERIES clustered queries against phase 4e (f)'s RR_GALLERY x 512 set;
+# SERVE_CONCURRENT one-image requests at once; SERVE_LATENCY_N requests a route
+# for the latency percentiles; the MM-2/3/4 combos served as /embed queries;
+# bench_query.py's calls a timed round; --images against embed_samples: bit
+# for bit, or SERVE_MIN_COSINE with the cause found
+SERVE_RR = dict(top_n=100, k1=20, k2=6, lam=0.3)
+SERVE_QUERIES, SERVE_CONCURRENT, SERVE_LATENCY_N, SERVE_BQ_ITERS = 256, 32, 200, 5
+MM_SERVE_COMBOS = (("nir", "text"), ("sk", "cp", "text"), ("nir", "sk", "cp"),
+                   ("nir", "sk", "cp", "text"))
+SERVE_MIN_COSINE = 0.9999
 MATMUL_ROWS = (25344, 6304)  # the microbenchmark's M, and a multiple of no row tile
 MICROBENCH = ("xla_bf16", "xla_int8", "pallas_bf16", "pallas_int8", "pallas_sweep", "bw",
               "floor")
@@ -1236,7 +1278,7 @@ def trainer_phase(torch, cfg, counters, dev, card, fed, tmp):
         trainer_module.save_checkpoint = timed("A", "save", saved[1])
         trainer_module.finalize_pending_saves = timed("A", "finalize", saved[2])
         t0 = time.perf_counter()
-        runs["A"] = drive("A", argv("A"))
+        runs["A"] = drive("A", argv("A", save_freq=1))  # epoch_1/: phase 4f reloads it
         wall_a = time.perf_counter() - t0
         # run B: 1 epoch, then a new trainer resumes it to 2; blocking saves,
         # no eval (it changes nothing of the training before epoch 10)
@@ -1785,6 +1827,504 @@ def eval_cli_phase(torch, cfg, params, counters, dev, card, tmp):
     return readings
 
 
+def serving_phase(torch, cfg, counters, dev, card, tmp):
+    """The serving path at full width on the card (phase 4f, see the module
+    docstring): tools_torch/serve_embed.py's command line and its server on
+    phase 4d's run A and phase 4c's tree, then the search-side benchmarks;
+    fails the run on any failed check and returns the readings."""
+    import base64
+    import contextlib
+    import gc
+    import glob
+    import io
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    from PIL import Image
+
+    from prcv2025reid_tpu_torch import TrainingConfig
+    from prcv2025reid_tpu_torch.data.dataset import MultiModalDataset
+    from prcv2025reid_tpu_torch.data.tokenizer import build_tokenizer
+    from prcv2025reid_tpu_torch.engine import make_combo_embed_step
+    from prcv2025reid_tpu_torch.evaluation.protocol import embed_samples, similarity
+    from prcv2025reid_tpu_torch.evaluation.rerank import _rerank_full, rerank_orders, stable_topk
+    from prcv2025reid_tpu_torch.ops import _kernels
+    from prcv2025reid_tpu_torch.utils.timing import device_ms
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    serve = load_tool("serve_embed")
+    L = cfg.vision_layers
+    trunk = {"fused_mha": L, "fused_mlp": L, "fused_residual_ln": 2 * L}
+    root, out = os.path.join(tmp, "orbench"), os.path.join(tmp, "F")
+    os.makedirs(out)
+    a_ckpt, e1_ckpt = (os.path.join(tmp, "A", "ckpt", n) for n in ("best", "epoch_1"))
+    readings = {}
+
+    def counts():
+        return {n: f.launches for n, f in counters.items()}
+
+    def zero():
+        torch.cuda.synchronize()
+        for counter in counters.values():
+            counter.launches = 0
+
+    def times(per, n):
+        return {k: v * n for k, v in per.items()}
+
+    def expect(label, per_batch):
+        torch.cuda.synchronize()
+        got, want = counts(), {n: per_batch.get(n, 0) for n in counters}
+        if got != want:
+            fail(f"serving {label}: launch counts {got} != {want}")
+        return got
+
+    def quiet(fn, *args, **kw):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            result = fn(*args, **kw)
+        return result, buf.getvalue()
+
+    # ---- (a) the command line: the tree's vis files and captions to npz files
+    with open(os.path.join(a_ckpt, "host_state.json")) as f:
+        cfg_a = TrainingConfig.from_json(json.load(f)["config"])
+    B = cfg_a.eval_batch_size
+    config, model = serve._load_model(a_ckpt, device=dev)
+    ds = MultiModalDataset(cfg_a, split="val")  # every record of the tree, as --eval_split all
+    idx = [i for i, r in enumerate(ds.records) if r.vis]
+    tok = build_tokenizer(cfg_a.tokenizer_vocab_path, cfg_a.text_vocab_size,
+                          cfg_a.text_context_length)
+    vis_step = make_combo_embed_step(model, ("vis",))
+    t0 = time.perf_counter()
+    want_vis, _ = embed_samples(vis_step, ds, idx, tok, B)
+    samples_s = time.perf_counter() - t0
+    vis_files = sorted(glob.glob(os.path.join(root, "vis", "*", "*.jpg")))
+    pos = {os.path.abspath(ds.records[i].anchor_vis): j for j, i in enumerate(idx)}
+    tree_npz = os.path.join(out, "tree_gallery.npz")
+    zero()
+    t0 = time.perf_counter()
+    (feats, ids), _ = quiet(serve.main, [f"--model_path={a_ckpt}", f"--images={root}/vis/*/*.jpg",
+                                         "--modality=vis", f"--out={tree_npz}",
+                                         f"--batch_size={B}"])
+    cli_vis_s = time.perf_counter() - t0
+    n_batches = -(-len(vis_files) // B)
+    got_a = expect("(a) --images", times(trunk, n_batches))
+    want = want_vis[[pos[os.path.abspath(p)] for p in vis_files]]
+    bits = feats.shape == want.shape and np.array_equal(feats, want)
+    cos_a = float((feats * want).sum(axis=1).min()) if feats.shape == want.shape else -1.0
+    ids_ok = ids == [os.path.splitext(os.path.basename(p))[0] for p in vis_files]
+    with open(os.path.join(root, "text_annos.json")) as f:
+        captions = [a["caption"] for a in json.load(f)]
+    cap_txt = os.path.join(out, "captions.txt")
+    with open(cap_txt, "w") as f:
+        f.write("\n".join(captions) + "\n")
+    zero()
+    t0 = time.perf_counter()
+    (t_feats, _), _ = quiet(serve.main, [f"--model_path={a_ckpt}", f"--text={cap_txt}",
+                                         f"--out={os.path.join(out, 'text.npz')}",
+                                         f"--batch_size={B}"])
+    cli_text_s = time.perf_counter() - t0
+    expect("(a) --text", {})
+    text_step = make_combo_embed_step(model, ("text",))
+    Mv, S = len(cfg_a.vision_modalities), cfg_a.image_size
+    no_images = torch.zeros((B, Mv, S, S, 3), dtype=torch.uint8, device=dev)
+    want_t = []
+    for start in range(0, len(captions), B):
+        chunk = captions[start:start + B]
+        mask = np.zeros((B,), np.float32)
+        mask[:len(chunk)] = 1.0
+        want_t.append(text_step(no_images, torch.zeros((B, Mv), device=dev),
+                                tok(chunk + [""] * (B - len(chunk))).astype(np.int32),
+                                mask).cpu().numpy()[:len(chunk)])
+    text_bits = np.array_equal(t_feats, np.concatenate(want_t))
+    print(f"serving (a) serve_embed.py --images on the tree's {len(vis_files)} vis files, batch "
+          f"{B} ({cli_vis_s:.1f} s, the checkpoint's load included; embed_samples {samples_s:.1f} "
+          f"s): launches {got_a} ({n_batches} vision batches); features equal embed_samples' bit "
+          f"for bit {bits} (min-cosine {cos_a:.7f}), ids the files' stems {ids_ok}; --text on the "
+          f"tree's {len(captions)} captions ({cli_text_s:.1f} s): launches 0, features equal the "
+          f"text step's bit for bit {text_bits}")
+    if not ids_ok or not text_bits or not (bits or cos_a >= SERVE_MIN_COSINE):
+        fail(f"serving (a): vis bits {bits} (min-cosine {cos_a}), ids {ids_ok}, text {text_bits}")
+    readings["a"] = dict(vis_bit_for_bit=bits, vis_min_cosine=cos_a, text_bit_for_bit=text_bits,
+                         cli_vis_s=cli_vis_s, cli_text_s=cli_text_s,
+                         embed_samples_s=samples_s, launches=got_a, vision_batches=n_batches)
+    del vis_step, text_step, want_vis, want, want_t, t_feats
+
+    # ---- (b) the server, in this process on 127.0.0.1: one on the 45k gallery
+    # (--serve_gallery, phase 4e (f)'s clustered set), one on the tree's gallery
+    tune = load_tool("tune_rerank")
+    per_id = RR_GALLERY // RR_IDS
+    q_cl, _, g_cl, _ = tune.make_clustered(n_ids=RR_IDS, per_id_g=per_id, n_distract=3,
+                                           n_q=SERVE_QUERIES, dim=512, **RR_SIGMAS)
+    big_npz = os.path.join(out, "gallery_45k.npz")
+    np.savez(big_npz, features=g_cl[:RR_GALLERY],
+             ids=np.asarray([str(i) for i in range(RR_GALLERY)]))
+    del g_cl
+    Bs = config.inference_batch_size
+    engine = serve.make_engine(config, model, Bs)
+    del model  # the engine holds it: a reload frees it
+    t0 = time.perf_counter()
+    serve.warmup_engine(config, engine)
+    warm_s = time.perf_counter() - t0
+    big, tree = serve.open_gallery(config, big_npz, dev), serve.open_gallery(config, tree_npz, dev)
+    rr = dict(SERVE_RR, default=False)
+    target = [e1_ckpt]
+    servers = [serve.make_server(0, "127.0.0.1", config, engine, gallery=big, rerank=rr,
+                                 reloader=lambda: serve._load_model(target[0], device=dev)[1]),
+               serve.make_server(0, "127.0.0.1", config, engine, gallery=tree, rerank=rr)]
+    for srv in servers:
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url, tree_url = (f"http://127.0.0.1:{s.server_address[1]}" for s in servers)
+
+    def post(base, route, obj):
+        req = urllib.request.Request(base + route, data=json.dumps(obj).encode(),
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    def ok(base, route, obj):
+        code, body = post(base, route, obj)
+        if code != 200:
+            fail(f"serving: POST {route} -> {code} {body}")
+        return body
+
+    def b64(path):
+        with open(path, "rb") as f:
+            return base64.b64encode(f.read()).decode()
+
+    def pil(path):
+        with Image.open(path) as im:
+            im.load()
+            return im.copy()
+
+    files = {m: sorted(glob.glob(os.path.join(root, m, "*", "*.jpg")))
+             for m in ("vis", "nir", "sk", "cp")}
+
+    def query(i, mods):
+        q = {m: files[m][i] for m in mods if m != "text"}
+        if "text" in mods:
+            q["text"] = captions[i]
+        return q
+
+    def as_http(q):
+        return {m: (v if m == "text" else b64(v)) for m, v in q.items()}
+
+    def as_pil(q):
+        return {m: (v if m == "text" else pil(v)) for m, v in q.items()}
+
+    def embedded(body):
+        return np.asarray(body["embeddings"], np.float32)
+
+    checks, per_batch = {}, {}
+    for label, obj, direct, n_vision in (
+            ("vis", {"images_b64": [b64(p) for p in files["vis"][:Bs]], "modality": "vis"},
+             lambda: engine.embed_pils([pil(p) for p in files["vis"][:Bs]], "vis"), 1),
+            ("nir", {"images_b64": [b64(p) for p in files["nir"][:5]], "modality": "nir"},
+             lambda: engine.embed_pils([pil(p) for p in files["nir"][:5]], "nir"), 1),
+            ("texts", {"texts": captions[:Bs]}, lambda: engine.embed_texts(captions[:Bs]), 0),
+            ("MM-2/3/4 queries", {"queries": [as_http(query(i, m)) for i, m in enumerate(
+                MM_SERVE_COMBOS)]}, lambda: engine.embed_queries([as_pil(query(i, m)) for i, m in
+                                                                  enumerate(MM_SERVE_COMBOS)]),
+             len(set(MM_SERVE_COMBOS)))):
+        zero()
+        body = ok(url, "/embed", obj)
+        per_batch[label] = expect(f"(b) /embed {label}", times(trunk, n_vision))
+        checks[label] = np.array_equal(embedded(body), direct())
+    print(f"serving (b) /embed against direct engine calls, bit for bit: {checks}; launches: "
+          + json.dumps(per_batch) + f" (a vision batch: {trunk}; a text batch: none; the "
+          f"queries: one batch a combo, {len(set(MM_SERVE_COMBOS))} combos); warm-up "
+          f"{warm_s:.1f} s")
+    if not all(checks.values()):
+        fail(f"serving (b): /embed differs from the engine: {checks}")
+
+    # 32 concurrent one-image requests against the sequential answers
+    conc = files["vis"][Bs:Bs + SERVE_CONCURRENT]
+    sequential = [engine.embed_pils([pil(p)], "vis")[0] for p in conc]
+    d0, r0 = servers[0].batcher.dispatches, servers[0].batcher.requests
+    answers, gate = [None] * len(conc), threading.Barrier(len(conc))
+
+    def one(i):
+        gate.wait()
+        answers[i] = post(url, "/embed", {"images_b64": [b64(conc[i])], "modality": "vis"})
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(conc))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    conc_ok = all(a is not None and a[0] == 200 and np.array_equal(embedded(a[1])[0], s)
+                  for a, s in zip(answers, sequential))
+    dispatches = servers[0].batcher.dispatches - d0
+    requests = servers[0].batcher.requests - r0
+    print(f"serving (b) {len(conc)} concurrent one-image requests equal the sequential answers "
+          f"bit for bit: {conc_ok}; the batcher: {dispatches} dispatches for {requests} requests")
+    if not conc_ok or requests != len(conc):
+        fail(f"serving (b): concurrent answers {conc_ok}, {requests} requests")
+    readings["b"] = dict(bit_for_bit=checks, launches=per_batch, concurrent_equal=conc_ok,
+                         dispatches=dispatches, requests=requests, warmup_s=warm_s)
+
+    # ---- (c) search: the store against stable_topk / rerank_orders on its features
+    n = big.size
+    g_ref = torch.from_numpy(big._feats.copy()).to(dev)
+    qd = torch.from_numpy(q_cl).to(dev)
+    got = big.search(q_cl, SERVE_RR["top_n"])
+    ref_s, ref_i = stable_topk(similarity(qd, g_ref), SERVE_RR["top_n"])
+    plain_ids = np.array_equal(np.asarray([[int(e["id"]) for e in r] for r in got]),
+                               ref_i.cpu().numpy())
+    plain_s = float(np.abs(np.asarray([[e["score"] for e in r] for r in got])
+                           - ref_s.cpu().numpy()).max())
+    got = big.search(q_cl, SERVE_RR["top_n"], rerank=SERVE_RR)
+    ref = rerank_orders(qd, g_ref, **SERVE_RR, device=dev)
+    rr_ids = np.array_equal(np.asarray([[int(e["id"]) for e in r] for r in got]), ref)
+    texts = captions[:4]
+    http = {lbl: ok(url, "/search", {"texts": texts, "top_k": 10, "rerank": flag})["results"]
+            for lbl, flag in (("plain", False), ("rerank", True))}
+    tf = engine.embed_texts(texts)
+    http_ok = (http["plain"] == big.search(tf, 10)
+               and http["rerank"] == big.search(tf, 10, rerank=SERVE_RR))
+    selfq = files["vis"][::len(files["vis"]) // 16][:16]
+    res = ok(tree_url, "/search", {"images_b64": [b64(p) for p in selfq], "modality": "vis",
+                                   "top_k": 5})["results"]
+    own = sum(r[0]["id"] == os.path.splitext(os.path.basename(p))[0] for r, p in zip(res, selfq))
+    print(f"serving (c) {SERVE_QUERIES} clustered queries against the {n} x 512 gallery "
+          f"(--serve_gallery, capacity {big.capacity}): plain top-{SERVE_RR['top_n']} ids equal "
+          f"stable_topk over similarity {plain_ids} (scores max |d| {plain_s:.2e}); re-ranked "
+          f"(top_n {SERVE_RR['top_n']}, k1 {SERVE_RR['k1']}, k2 {SERVE_RR['k2']}, lambda "
+          f"{SERVE_RR['lam']}) ids equal rerank_orders {rr_ids}; /search of 4 captions equals "
+          f"the store's search, plain and re-ranked: {http_ok}; the tree's gallery ({tree.size} "
+          f"rows): {own} of {len(selfq)} vis files queried by their own bytes return their own "
+          f"id first")
+    if not (plain_ids and plain_s == 0.0 and rr_ids and http_ok and own == len(selfq)):
+        fail(f"serving (c): plain {plain_ids} ({plain_s}), rerank {rr_ids}, http {http_ok}, "
+             f"self {own}/{len(selfq)}")
+    readings["c"] = dict(plain_ids_equal=plain_ids, rerank_ids_equal=rr_ids, http_equal=http_ok,
+                         self_top1=own, gallery=n, capacity=big.capacity)
+    del g_ref, qd
+
+    # ---- (d) enrollment on the tree's gallery: grow past a doubling, append in
+    # place, remove, save; each step against a store rebuilt from scratch
+    probe = [query(i, ("text",))["text"] for i in range(0, 64, 8)]
+    pf = engine.embed_texts(probe)
+    nir = files["nir"]
+    # a store rebuilt from scratch takes the rows from where the live one took
+    # them: the tree's npz and the engine's features of the enrolled images
+    base_f, base_ids = serve.load_gallery(tree_npz)
+    enr_f = np.concatenate([engine.embed_pils([pil(p) for p in nir[:6]], "nir"),
+                            engine.embed_pils([pil(p) for p in nir[6:9]], "nir")])
+    enr_ids = [f"enr{i}" for i in range(9)]
+
+    def rebuilt_agrees(rows, keep=None):
+        feats = np.concatenate([base_f, enr_f[:rows]])
+        ids = base_ids + enr_ids[:rows]
+        if keep is not None:
+            feats, ids = feats[[i for i, x in enumerate(ids) if x not in keep]], \
+                [x for x in ids if x not in keep]
+        fresh = serve.GalleryStore(config.fusion_dim, feats, ids, device=dev)
+        same_buf = tree.capacity == fresh.capacity and torch.equal(tree._snap[0], fresh._snap[0])
+        http_plain = ok(tree_url, "/search", {"texts": probe, "top_k": 10})["results"]
+        http_rr = ok(tree_url, "/search", {"texts": probe, "top_k": 10, "rerank": True})["results"]
+        return same_buf and list(tree._ids) == ids and http_plain == fresh.search(pf, 10) \
+            and http_rr == fresh.search(pf, 10, rerank=SERVE_RR)
+
+    steps_d = []
+    n_tree, cap0, buf0 = tree.size, tree.capacity, tree._snap[0]
+    body = ok(tree_url, "/gallery/add", {"images_b64": [b64(p) for p in nir[:6]],
+                                          "modality": "nir", "ids": enr_ids[:6]})
+    steps_d.append(("add 6", body["gallery_size"], tree.capacity, tree._snap[0] is buf0,
+                    rebuilt_agrees(6)))
+    buf1 = tree._snap[0]
+    body = ok(tree_url, "/gallery/add", {"images_b64": [b64(p) for p in nir[6:9]],
+                                          "modality": "nir", "ids": enr_ids[6:9]})
+    steps_d.append(("add 3", body["gallery_size"], tree.capacity, tree._snap[0] is buf1,
+                    rebuilt_agrees(9)))
+    drop = [tree._ids[0], tree._ids[5], "enr1"]
+    body = ok(tree_url, "/gallery/remove", {"ids": drop})
+    steps_d.append((f"remove {body['removed']}", body["gallery_size"], tree.capacity,
+                    tree._snap[0] is buf1, rebuilt_agrees(9, keep=set(drop))))
+    saved = ok(tree_url, "/gallery/save", {})
+    s_feats, s_ids = serve.load_gallery(saved["saved"])
+    file_ok = s_ids == list(tree._ids) and float(np.abs(s_feats - tree._feats).max()) <= 1e-6
+    print(f"serving (d) enrollment on {n_tree} rows at capacity {cap0}: (step, size, capacity, "
+          f"buffer kept in place, search and buffer equal to a store rebuilt from scratch) "
+          + json.dumps(steps_d) + f"; /gallery/save -> load_gallery equals the live state "
+          f"{file_ok}")
+    def capacity(rows):
+        c = 128  # GalleryStore's min_capacity
+        while c < rows:
+            c *= 2
+        return c
+
+    n0 = n_tree
+    want_d = [(n0 + 6, capacity(n0 + 6), capacity(n0 + 6) == cap0),
+              (n0 + 9, capacity(n0 + 9), capacity(n0 + 9) == capacity(n0 + 6)),
+              (n0 + 6, capacity(n0 + 6), False)]
+    if [s[1:4] for s in steps_d] != want_d or not all(s[4] for s in steps_d) or not file_ok \
+            or capacity(n0 + 6) == cap0:
+        fail(f"serving (d): {steps_d} (expected {want_d}), file {file_ok}")
+    readings["d"] = dict(steps=steps_d, file_equal=file_ok)
+
+    # ---- (e) hot reload to epoch 1 of the same run
+    libs = dict(_kernels._libs)
+    n_logs = len(_kernels.build_logs)
+    vis8 = files["vis"][:Bs]
+    mm = [as_http(query(i, m)) for i, m in enumerate(MM_SERVE_COMBOS)]
+    before = embedded(ok(url, "/embed", {"images_b64": [b64(p) for p in vis8],
+                                         "modality": "vis"}))
+    gc.collect()
+    torch.cuda.synchronize()
+    mem = [torch.cuda.memory_allocated()]
+    t0 = time.perf_counter()
+    body = ok(url, "/admin/reload", {})
+    reload_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.synchronize()
+    mem.append(torch.cuda.memory_allocated())
+    after = {"vis": embedded(ok(url, "/embed", {"images_b64": [b64(p) for p in vis8],
+                                                "modality": "vis"})),
+             "texts": embedded(ok(url, "/embed", {"texts": captions[:Bs]})),
+             "queries": embedded(ok(url, "/embed", {"queries": mm}))}
+    fresh = serve.make_engine(config, serve._load_model(e1_ckpt, device=dev)[1], Bs)
+    direct = {"vis": fresh.embed_pils([pil(p) for p in vis8], "vis"),
+              "texts": fresh.embed_texts(captions[:Bs]),
+              "queries": fresh.embed_queries([as_pil(query(i, m))
+                                              for i, m in enumerate(MM_SERVE_COMBOS)])}
+    reload_ok = {k: np.array_equal(after[k], direct[k]) for k in after}
+    moved = not np.array_equal(before, after["vis"])
+    del fresh
+    gc.collect()
+    torch.cuda.synchronize()
+    mem.append(torch.cuda.memory_allocated())
+    no_build = _kernels._libs == libs and len(_kernels.build_logs) == n_logs
+    print(f"serving (e) /admin/reload to {os.path.basename(e1_ckpt)}/ ({reload_s:.2f} s, "
+          f"fingerprint {body['weights_fingerprint']}): /embed equals a fresh engine on those "
+          f"weights bit for bit {reload_ok}; the features moved {moved}; no kernel build "
+          f"{no_build}; memory allocated on the card {[round(m / 1e9, 3) for m in mem]} GB "
+          f"(before, after the reload, after the fresh engine went)")
+    if not all(reload_ok.values()) or not moved or not no_build:
+        fail(f"serving (e): reload {reload_ok}, moved {moved}, no build {no_build}")
+    readings["e"] = dict(equal=reload_ok, moved=moved, no_build=no_build, reload_s=reload_s,
+                         memory_gb=[m / 1e9 for m in mem])
+
+    # ---- (f) readings: request latency, --benchmark, bench_query, bench_search
+    cap1 = captions[:SERVE_LATENCY_N]
+    quad = [as_http(query(i, ("nir", "sk", "cp", "text"))) for i in range(SERVE_LATENCY_N)]
+    routes = {
+        "embed_vis": ("/embed", [{"images_b64": [b64(p)], "modality": "vis"}
+                                 for p in files["vis"][:SERVE_LATENCY_N]]),
+        "embed_text": ("/embed", [{"texts": [c]} for c in cap1]),
+        "embed_mm4": ("/embed", [{"queries": [q]} for q in quad]),
+        "search_plain": ("/search", [{"texts": [c], "top_k": 10} for c in cap1]),
+        "search_rerank": ("/search", [{"texts": [c], "top_k": 10, "rerank": True} for c in cap1]),
+    }
+    latency = {}
+    for name, (route, bodies) in routes.items():
+        ms = []
+        for obj in bodies:
+            t0 = time.perf_counter()
+            ok(url, route, obj)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        latency[name] = dict(p50=float(np.percentile(ms, 50)), p90=float(np.percentile(ms, 90)),
+                             n=len(ms))
+    # the device's share of a request: the device ms (utils/timing.py) of the
+    # device work one request makes, on resident inputs (a pageable copy in
+    # the timed call would stall the host behind the spin kernel), against
+    # its p50; the weights do not change the time
+    vis_slots = {m: i for i, m in enumerate(config.vision_modalities)}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    img8 = torch.randint(0, 256, (Bs, len(vis_slots), S, S, 3), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    masks = {c: torch.tensor([[1.0 if m in c else 0.0 for m in vis_slots]] * Bs, device=dev)
+             for c in (("vis",), ("nir", "sk", "cp"))}
+    tok8 = torch.from_numpy(tok(captions[:Bs]).astype(np.int32)).to(dev)
+    tmask = torch.ones(Bs, device=dev)
+    f_model = serve._load_model(a_ckpt, device=dev)[1]
+    steps_f = {c: make_combo_embed_step(f_model, c)
+               for c in (("vis",), ("text",), ("nir", "sk", "cp", "text"))}
+    q1 = torch.from_numpy(engine.embed_texts(captions[:1])).to(dev)
+    live = big._snap[0][:n]
+    parts = {"embed_vis": lambda: steps_f[("vis",)](img8, masks[("vis",)]),
+             "embed_text": lambda: steps_f[("text",)](img8, masks[("vis",)] * 0, tok8, tmask),
+             "embed_mm4": lambda: steps_f[("nir", "sk", "cp", "text")](
+                 img8, masks[("nir", "sk", "cp")], tok8, tmask),
+             "search_plain": lambda: stable_topk(similarity(q1, live), 10),
+             "search_rerank": lambda: _rerank_full(q1, live, None, None, SERVE_RR["lam"],
+                                                   SERVE_RR["k1"], SERVE_RR["k2"],
+                                                   SERVE_RR["top_n"])}
+    dms = {k: device_ms(fn) for k, fn in parts.items()}
+    del steps_f, f_model
+    for k, v in latency.items():
+        v["device_ms"] = dms[k] + (dms["embed_text"] if k.startswith("search") else 0.0)
+        v["device_share"] = v["device_ms"] / v["p50"]
+    # torch.profiler's kernel sum against CUDA events on one ranking call this
+    # late in the process (utils/timing.py uses events: the sums drop kernels)
+    q_rank = torch.from_numpy(q_cl).to(dev)
+
+    def rank():
+        return stable_topk(similarity(q_rank, big._snap[0][:n]), SERVE_RR["top_n"])
+
+    rank()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rank()
+        torch.cuda.synchronize()
+    rank_prof = sum(device_time(e) for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    rank_events = device_ms(rank)
+    rank_bound, _ = bound_ms([(2 * len(q_cl) * n * 512, PEAK_F32_FLOPS)], 0)
+    readings["profiler_check"] = dict(profiler_ms=rank_prof, events_ms=rank_events,
+                                      product_bound_ms=rank_bound)
+    print(f"serving (f) one ranking call ({len(q_cl)} x {n} x 512, top {SERVE_RR['top_n']}): "
+          f"torch.profiler's kernel sum {rank_prof:.4f} ms, CUDA events {rank_events:.4f} ms, "
+          f"the f32 product's bound alone {rank_bound:.4f} ms")
+    print(f"serving (f) request latency ({card}; one client, sequential, {SERVE_LATENCY_N} "
+          f"requests a route, batch {Bs}, the {n}-row gallery) ms: " + json.dumps(
+              {k: [round(v["p50"], 3), round(v["p90"], 3)] for k, v in latency.items()})
+          + " (p50, p90); device ms of a request's device work on resident inputs (the "
+          "search's include its caption's embed) and its share of p50: " + json.dumps({k: [round(v["device_ms"], 3),
+                                                 round(v["device_share"], 3)]
+                                             for k, v in latency.items()}))
+    for srv in servers:
+        srv.shutdown()
+        srv.server_close()
+    del engine, servers, big, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    bench = {}
+    for b in (BATCH, Bs):  # the gallery batch and the serving batch
+        zero()
+        bench[b], _ = quiet(serve.main, [f"--model_path={a_ckpt}", "--benchmark",
+                                         f"--batch_size={b}"])
+        got_bench = expect("--benchmark", times(trunk, 32))  # 2 warm + 10 + 10 x 2 calls
+        print(f"serving (f) serve_embed.py --benchmark at batch {b} ({card}): "
+              f"{json.dumps(bench[b])}; launches {got_bench}; wall ms a call (one host "
+              f"call a batch) {b / bench[b]['embeds_per_sec_serving'] * 1e3:.3f}, device ms "
+              f"{b / bench[b]['embeds_per_sec'] * 1e3:.3f}")
+    bq = load_tool("bench_query")
+    queries_s = {}
+    for name, extra in (("xla", []), ("fused_trunk", ["--set=use_fused_resln=true",
+                                                     "--set=use_fused_mlp=true",
+                                                     "--set=use_pallas_attention=true"])):
+        queries_s[name], _ = quiet(bq.main, [f"--batch={BATCH}", f"--iters={SERVE_BQ_ITERS}",
+                                             *extra])
+        print(f"serving (f) bench_query.py {name} at batch {BATCH} ({card}): queries/s and "
+              f"device ms " + json.dumps({p: [r["queries_per_sec"], r["device_ms"]]
+                                          for p, r in queries_s[name]["paths"].items()}))
+    bs = load_tool("bench_search")
+    search, _ = quiet(bs.main, [])
+    print(f"serving (f) bench_search.py at its defaults ({card}): {json.dumps(search['paths'])}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    readings["f"] = dict(latency_ms=latency, benchmark=bench, bench_query=queries_s,
+                         bench_search=search["paths"], seconds=time.perf_counter() - t_phase)
+    return readings
+
+
 def main() -> int:
     import torch
 
@@ -2322,6 +2862,11 @@ def main() -> int:
         eval_cli = eval_cli_phase(torch, cfg, params, counters, dev, card, tmp)
         print(f"eval cli phase: {time.perf_counter() - t0:.1f} s")
 
+        # ---- 4f. the serving path, on 4d's run A and 4c's tree
+        t0 = time.perf_counter()
+        serving = serving_phase(torch, cfg, counters, dev, card, tmp)
+        print(f"serving phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- 5. timing
     import torch.nn.functional as Fn
 
@@ -2576,6 +3121,7 @@ def main() -> int:
         "dataset_phase": data,
         "trainer_phase": trainer,
         "eval_cli_phase": eval_cli,
+        "serving_phase": serving,
         "kernels_at_token_reduced_shapes": reduced_rows,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     for r in rows:

@@ -17,12 +17,16 @@ sdm_weight, sdm_tau, enable_modality_dropout=False) -> (state, metrics)``,
 one training step on the model's device with no host synchronisation.
 ``Trainer(config, device="cuda")`` (from ``training/trainer.py``, loaded on
 first access) runs the whole training loop: epochs, evaluation,
-checkpoints and resume.  Entry points run on the card unless the caller
+checkpoints and resume; ``load_checkpoint_model(model_path, device)``
+restores the eval model of a checkpoint it wrote (the eval and serving
+command lines).  Entry points run on the card unless the caller
 passes ``device="cpu"``; with no CUDA device they raise rather than carry
 on on the CPU.
 """
 from __future__ import annotations
 
+import json
+import os
 from typing import Callable, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -68,6 +72,31 @@ def build_model(config: TrainingConfig,
     model = MultiModalReIDModel(config, num_classes, device=dev)
     check_skipped(load_params(model, params))
     return model.eval()
+
+
+def load_checkpoint_model(model_path: str, device: Union[str, torch.device] = "cuda",
+                          **overrides) -> Tuple[TrainingConfig, MultiModalReIDModel, object,
+                                                dict]:
+    """The eval model of a checkpoint directory written by the port's
+    trainer (``state.pt`` + ``host_state.json``) -> ``(config, model,
+    state, host_state)``.  The config is the sidecar's with ``overrides``
+    applied (a combination the config refuses raises ``ValueError``); every
+    parameter and BN statistic comes from the checkpoint, whose optimizer
+    state is checked against an ``init_train_state`` template."""
+    from prcv2025reid_tpu_torch.training.checkpoint import restore_checkpoint
+
+    dev = resolve_device(device)
+    with open(os.path.join(model_path, "host_state.json")) as f:
+        host = json.load(f)
+    config = TrainingConfig.from_json(host["config"])
+    if overrides:
+        config = config.replace(**overrides)
+    model = MultiModalReIDModel(config, host["num_classes"], device=dev).eval()
+    template = init_train_state(model, config, steps_per_epoch=1)
+    path = os.path.abspath(model_path)  # abspath strips a trailing /
+    state, _ = restore_checkpoint(os.path.dirname(path), model, template,
+                                  name=os.path.basename(path), device=dev)
+    return config, model, state, host
 
 
 def make_combo_embed_step(model: MultiModalReIDModel,

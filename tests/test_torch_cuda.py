@@ -1038,3 +1038,47 @@ def test_rerank_orders_on_the_card_against_the_cpu(cuda, excl):
         sims = similarity(torch.from_numpy(q).to(cuda), torch.from_numpy(g).to(cuda))
         plain = torch.argsort(-sims, dim=1, stable=True)[:, :100].cpu().numpy()
         np.testing.assert_array_equal(rerank_orders(q, g, device=cuda, lam=1.0), plain)
+
+
+def test_serving_engine_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """tools_torch/serve_embed.py's engine and gallery over one checkpoint,
+    on the card against the CPU (f32, the same uint8 pixels and captions):
+    embed_pils, embed_texts and embed_queries at min-cosine >= 0.999; the
+    store's search on those features with the same ids, plain and
+    re-ranked."""
+    import importlib.util
+    from pathlib import Path
+
+    from PIL import Image
+
+    from prcv2025reid_tpu_torch import init_train_state
+    from prcv2025reid_tpu_torch.training.checkpoint import save_checkpoint
+
+    spec = importlib.util.spec_from_file_location(
+        "port_serve_embed_cuda", Path(__file__).resolve().parents[1] / "tools_torch" /
+        "serve_embed.py")
+    serve_embed = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(serve_embed)
+    cfg = TrainingConfig(**{**TRAIN_TINY, "inference_batch_size": 4, "compute_dtype": "float32"})
+    model = build_model(cfg, device="cpu", num_classes=5, seed=2)
+    save_checkpoint(str(tmp_path), model, init_train_state(model, cfg, 3, seed=1),
+                    {"epoch": 1, "num_classes": 5, "config": cfg.to_json()}, name="best")
+    rng = np.random.default_rng(5)
+    imgs = [Image.fromarray(rng.integers(0, 256, (40, 30, 3), dtype=np.uint8)) for _ in range(6)]
+    queries = [{"nir": imgs[0], "text": "a red coat"}, {"sk": imgs[1], "cp": imgs[2]},
+               {"nir": imgs[3], "sk": imgs[4], "cp": imgs[5], "text": "a hat"}]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        config, m = serve_embed._load_model(str(tmp_path / "best"), device=dev)
+        engine = serve_embed.make_engine(config, m, 4)
+        feats = (engine.embed_pils(imgs, "vis"), engine.embed_texts(["a person", "grey shoes"]),
+                 engine.embed_queries(queries))
+        store = serve_embed.GalleryStore(config.fusion_dim, feats[0], [str(i) for i in range(6)],
+                                         min_capacity=4, device=dev)
+        rr = {"top_n": 4, "k1": 2, "k2": 2, "lam": 0.3}
+        out[dev.type] = feats, [store.search(np.concatenate(feats), 3, rerank=r)
+                                for r in (None, rr)]
+    for got, want in zip(out["cuda"][0], out["cpu"][0]):
+        assert (got * want).sum(axis=1).min() >= 0.999
+    for got, want in zip(out["cuda"][1], out["cpu"][1]):
+        assert [[e["id"] for e in r] for r in got] == [[e["id"] for e in r] for r in want]

@@ -36,19 +36,23 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import prcv2025reid_tpu_torch.training.train_step\n"
         "import prcv2025reid_tpu_torch.training.param_groups\n"
         "import prcv2025reid_tpu_torch.training.schedulers\n"
-        "import prcv2025reid_tpu_torch.evaluation.rerank\n"
-        "import importlib.util\n"
-        "for tool in ('eval_mm_protocol', 'generate_submission', 'tune_rerank', 'split',\n"
-        "             'rerank_agreement'):\n"
-        "    spec = importlib.util.spec_from_file_location('t_' + tool, f'tools_torch/{tool}.py')\n"
+        "import prcv2025reid_tpu_torch.evaluation.rerank, prcv2025reid_tpu_torch.utils.timing\n"
+        "import importlib.util, pathlib\n"
+        "for path in sorted(pathlib.Path('tools_torch').glob('*.py')):\n"
+        "    spec = importlib.util.spec_from_file_location('t_' + path.stem, path)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "    print(path.stem)\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'prcv2025reid_tpu')]\n"
         "print(repr(bad))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-                         text=True, timeout=120, check=True)
-    assert out.stdout.strip() == "[]", out.stdout
+                         text=True, timeout=120, check=True).stdout.splitlines()
+    # every tool of tools_torch/ was imported, the serving path's among them
+    assert out[:-1] == sorted(p.stem for p in (ROOT / "tools_torch").glob("*.py"))
+    assert {"serve_embed", "bench_query", "bench_search", "train", "kernel_ab", "step_ab",
+            "perf_microbench", "eval_noise"} <= set(out[:-1])
+    assert out[-1] == "[]", out
 
 
 def test_no_port_source_imports_the_jax_package():

@@ -89,7 +89,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None, device="cuda"):
     from prcv2025reid_tpu_torch import engine
-    from prcv2025reid_tpu_torch.configs import TrainingConfig
     from prcv2025reid_tpu_torch.data.dataset import MultiModalDataset
     from prcv2025reid_tpu_torch.data.split import create_split_datasets
     from prcv2025reid_tpu_torch.data.tokenizer import build_tokenizer
@@ -99,8 +98,6 @@ def main(argv=None, device="cuda"):
         evaluate_protocol,
         export_submission_csv,
     )
-    from prcv2025reid_tpu_torch.models.reid_model import MultiModalReIDModel
-    from prcv2025reid_tpu_torch.training.checkpoint import restore_checkpoint
 
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
@@ -114,12 +111,6 @@ def main(argv=None, device="cuda"):
                 "the item 'Parallel and multi-process' (the port runs one process on one device)")
     dev = engine.resolve_device(device)
 
-    # the config comes from the checkpoint's sidecar, so the model matches it
-    with open(os.path.join(args.model_path, "host_state.json")) as f:
-        host = json.load(f)
-    config = TrainingConfig.from_json(host["config"]).replace(
-        data_root=args.dataset_root,
-        json_file=args.json_file or os.path.join(args.dataset_root, "text_annos.json"))
     # compute-path overrides (the same parameters); checkpoint_cache_tag keys
     # on every NUMERICS_PATH_FIELDS value, so another path never shares cached
     # gallery features
@@ -131,9 +122,12 @@ def main(argv=None, device="cuda"):
         # a checkpoint trained with token reduction carries token_reduce_train,
         # which the config refuses at token_keep=0; evaluation never trains
         overrides["token_reduce_train"] = False
-    if overrides:
-        config = config.replace(**overrides)
-    num_classes = host["num_classes"]
+    # the config comes from the checkpoint's sidecar, so the model matches it;
+    # every parameter and statistic comes from the checkpoint
+    config, model, state, host = engine.load_checkpoint_model(
+        args.model_path, dev, data_root=args.dataset_root,
+        json_file=args.json_file or os.path.join(args.dataset_root, "text_annos.json"),
+        **overrides)
 
     if args.eval_split == "all":
         dataset = MultiModalDataset(config, split="val")
@@ -145,14 +139,6 @@ def main(argv=None, device="cuda"):
                      len(dataset.records), config.val_ratio, config.seed)
     tokenizer = build_tokenizer(config.tokenizer_vocab_path, config.text_vocab_size,
                                 config.text_context_length)
-
-    # every parameter and statistic comes from the checkpoint; the train
-    # state is the template its optimizer state is checked against
-    model = MultiModalReIDModel(config, num_classes, device=dev).eval()
-    template = engine.init_train_state(model, config, steps_per_epoch=1)
-    ckpt_path = os.path.abspath(args.model_path)  # abspath strips a trailing /
-    state, _ = restore_checkpoint(os.path.dirname(ckpt_path), model, template,
-                                  name=os.path.basename(ckpt_path), device=dev)
 
     embed_fns = {}
 
