@@ -97,8 +97,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      trainable group and the BN statistics moved; a poisoned step (one NaN
      pixel in a float batch) skipped with params, optimizer state and BN
      statistics bit for bit; it/s and samples/s (median of TRAIN_ROUNDS
-     rounds of TRAIN_ITERS steps), device ms, idle share and the top device
-     ops of one step (torch.profiler), peak memory.  Step 1 of
+     rounds of TRAIN_ITERS steps), device ms (CUDA events), idle share and
+     the top device ops of one step (torch.profiler), peak memory.  Step 1 of
      pallas_attention against xla (losses within TRAIN_LOSS_REL, each
      trainable group's gradient cosine >= TRAIN_GRAD_COS, the global norm
      within TRAIN_GNORM_REL); remat_blocks on pallas_attention (fused_mha
@@ -157,8 +157,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      within TRAINER_LOSS_REL, each trainable group's parameters at cosine >=
      TRAINER_COS, the sampler state equal; whether the parameters are the
      same bits is printed.  Then steps/s by epoch beside 4c's fed
-     pallas_attention it/s, device ms and idle share of one profiled step of
-     each run's trainer, seconds per evaluate, the checkpoint's size, and
+     pallas_attention it/s, device ms (CUDA events) and idle share of one
+     step of each run's trainer, seconds per evaluate, the checkpoint's size, and
      the time the loop spent in save_checkpoint and finalize_pending_saves
      with async (A) and blocking (B) saves;
   4e. the evaluation command line, tools_torch/eval_mm_protocol.py's
@@ -227,14 +227,45 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      --benchmark at BATCH and at the serving batch (its launches counted);
      bench_query.py at BATCH on
      xla and on the fused-stream trunk; bench_search.py at its defaults;
+  4g. training from CLIP weights at full width, on 4c's tree.  (a) A seeded
+     checkpoint in HF CLIPModel's layout at openai/clip-vit-base-patch16's
+     widths (tools/convert_clip.hf_clip_shapes), written as
+     model.safetensors (the port's own writer), as pytorch_model.bin and as
+     a hub cache entry.  (b) The three load paths (the snapshot directory,
+     the .bin directory, clip_weights_path="hf" through HF_HUB_CACHE) give
+     the written values bit for bit; every leaf the conversion copies equals
+     the file's tensor (transposed) bit for bit; the vis embedding of
+     CLIP_ORACLE_BATCH images on the fused-stream trunk (bf16, #1 L, #8 L,
+     #9 2L) reaches MIN_COSINE against an f32 plain-PyTorch oracle built
+     from the HF tensors (conv patchify, CLS + positions, blocks with SDPA
+     and erf GELU, post-LN, projection).  (c) tools_torch/train.py with
+     --clip_weights_path, the three eval-trunk flags, 1 epoch of
+     TRAINER_STEPS steps and its evaluation of CLIP_EVAL_PLANS: the trainer
+     started from the file's leaves, no host synchronisation in any step,
+     #1 L-1 a train step and L, L, 2L a vision forward, the frozen backbone
+     unchanged bit for bit, every trainable group moved, finite losses,
+     best/.  (d) remat_policy "dots" against "full" and no remat on the 8x4
+     step (pallas_attention, the CLIP weights): step-1 gradients of dots
+     within TRAIN_REMAT_REL of full's, fused_mha 2L a step under both (L-1
+     without remat), no host synchronisation; it/s, peak memory above the
+     resident models and device ms (CUDA events) of each, CLIP_ROUNDS rounds
+     of CLIP_ITERS steps in turns.  (e) export_params on (c)'s best/, loaded
+     back through params.load_params: the vis embeddings equal bit for bit.
+     (f) diagnose.py on best/ (no entry flagged as zero, none non-finite),
+     diagnose_alignment.py on best/, probe_sdm_breaking.py at full width
+     (CLIP_PROBE_STEPS steps, one lr, one tau) and dryrun_real_data.py
+     --full-size --clip_weights_path (CLIP_DRYRUN_STEPS steps, the
+     fused-stream trunk, exit code 0);
   5. time every kernel, its plain version and (where one PyTorch call
      computes the same function) that call with CUDA events, median of
      TIMED_RUNS after warm-up queued behind a spin kernel (device time
      only), beside the least time the card could take (attention and the
      fused MLP also at token reduction's shapes);
      time end-to-end embeds/s per configuration (in turns, median of
-     E2E_ROUNDS rounds) and print torch.profiler's device time per kernel
-     for one embed step of each;
+     E2E_ROUNDS rounds) and the device ms of one embed step of each from
+     CUDA events, with torch.profiler's top kernels (its kernel sum, which
+     reads low late in the process, printed beside the events' reading: so
+     in every phase that reads device ms);
   6. run the roofline probes of tools_torch/perf_microbench.py that measure
      the card's own rates at the model's matmul shape: xla_bf16 (cuBLAS),
      xla_int8 (torch._int_mm), pallas_bf16, pallas_int8 and pallas_sweep (the
@@ -375,6 +406,13 @@ SERVE_QUERIES, SERVE_CONCURRENT, SERVE_LATENCY_N, SERVE_BQ_ITERS = 256, 32, 200,
 MM_SERVE_COMBOS = (("nir", "text"), ("sk", "cp", "text"), ("nir", "sk", "cp"),
                    ("nir", "sk", "cp", "text"))
 SERVE_MIN_COSINE = 0.9999
+# phase 4g, training from CLIP weights: the oracle's batch, the trainer's
+# evaluated plans, CLIP_ROUNDS rounds of CLIP_ITERS steps a remat policy in
+# turns, the probe's and the harness's step counts
+CLIP_ORACLE_BATCH = 32
+CLIP_EVAL_PLANS = ("single/nir", "quad/nir+sk+cp+text")
+CLIP_ROUNDS, CLIP_ITERS = 2, 3
+CLIP_PROBE_STEPS, CLIP_DRYRUN_STEPS = 10, 3
 MATMUL_ROWS = (25344, 6304)  # the microbenchmark's M, and a multiple of no row tile
 MICROBENCH = ("xla_bf16", "xla_int8", "pallas_bf16", "pallas_int8", "pallas_sweep", "bw",
               "floor")
@@ -428,6 +466,31 @@ def device_time(event) -> float:
     """Device (CUDA) self time of a profiler row in microseconds."""
     t = getattr(event, "self_device_time_total", None)
     return t if t is not None else event.self_cuda_time_total
+
+
+def device_reading(torch, fn, label: str):
+    """The device ms of one ``fn()`` from CUDA events
+    (``utils/timing.device_ms``: queued behind a spin kernel, so the span is
+    the device's), and torch.profiler's rows of another call, kept for their
+    lists of the top kernels: their kernel sum reads low late in this
+    process.  Both readings are printed.  ``fn`` runs three times; one that
+    synchronises the host inside reads its span, host gaps included.
+    Returns (events ms, profiler kernel-sum ms, kernel rows, all rows)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from prcv2025reid_tpu_torch.utils.timing import device_ms
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    kernels = [e for e in rows
+               if e.device_type == torch.autograd.DeviceType.CUDA and device_time(e) > 0]
+    prof_ms = sum(device_time(e) for e in kernels) / 1e3
+    events_ms = device_ms(fn)
+    print(f"device ms {label}: CUDA events {events_ms:.4f}, torch.profiler's kernel sum "
+          f"{prof_ms:.4f} ({len(kernels)} kernels)")
+    return events_ms, prof_ms, kernels, rows
 
 
 def errors(torch, got, want, rel_tol=REL_TOL, abs_tol=ABS_TOL):
@@ -584,8 +647,6 @@ def train_phase(torch, cfg, params, counters, dev, card):
     """The training step at full width on the card (see the module
     docstring, phase 4b); fails the run on any failed check and returns
     the readings."""
-    from torch.profiler import ProfilerActivity, profile
-
     from prcv2025reid_tpu_torch import build_model, init_train_state, make_train_step
     from prcv2025reid_tpu_torch.data.device_feed import normalize_images_device
     from prcv2025reid_tpu_torch.training.param_groups import label_params
@@ -669,22 +730,24 @@ def train_phase(torch, cfg, params, counters, dev, card):
             torch.cuda.synchronize()
             rates.append(TRAIN_ITERS / (time.perf_counter() - t0))
         it_s = statistics.median(rates)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            state, m = step(state, batch, SDM_WEIGHT, SDM_TAU)
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA and device_time(e) > 0]
-        device_ms = sum(device_time(e) for e in events) / 1e3
+        held = [state]
+
+        def one_step():
+            held[0], _ = step(held[0], batch, SDM_WEIGHT, SDM_TAU)
+
+        device_ms, prof_ms, events, prof_rows = device_reading(torch, one_step, f"train {name}")
+        state = held[0]
         wall_ms = 1e3 / it_s
         top = sorted(events, key=device_time, reverse=True)[:TOP_KERNELS]
-        # the same device time by the PyTorch op that launched it
-        ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU
+        # the profiler's device time by the PyTorch op that launched it
+        ops = [e for e in prof_rows if e.device_type == torch.autograd.DeviceType.CPU
                and e.key.startswith("aten::") and device_time(e) > 0]
         top_ops = sorted(ops, key=device_time, reverse=True)[:2 * TOP_KERNELS]
         peak_gb = (torch.cuda.max_memory_allocated() - resident) / 1e9
         readings[name] = dict(
             it_per_s=it_s, samples_per_s=it_s * TRAIN_P * TRAIN_K, rounds_it_per_s=rates,
-            device_ms=device_ms, wall_ms=wall_ms, idle_share=1 - device_ms / wall_ms,
+            device_ms=device_ms, profiler_ms=prof_ms, wall_ms=wall_ms,
+            idle_share=1 - device_ms / wall_ms,
             peak_mem_gb=peak_gb, launches_per_step=expected[name].get("fused_mha", 0),
             top_ops_ms=readings_ops(top_ops),
             total_loss=hist["total_loss"], step1=first[name][0])
@@ -811,7 +874,6 @@ def dataset_phase(torch, cfg, params, counters, dev, card, resident, tmp):
     scratch directory, where the tree is written to ``tmp/orbench`` (phase
     4d trains on it)."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from prcv2025reid_tpu_torch import build_model, init_train_state, make_combo_embed_step
     from prcv2025reid_tpu_torch import make_train_step
@@ -960,9 +1022,13 @@ def dataset_phase(torch, cfg, params, counters, dev, card, resident, tmp):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             got = {n: f.launches for n, f in counters.items()}
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                state, m = step(state, next(feed), SDM_WEIGHT, SDM_TAU)
-                torch.cuda.synchronize()
+            fed_batch, held = next(feed), [state]
+
+            def one_step():
+                held[0], _ = step(held[0], fed_batch, SDM_WEIGHT, SDM_TAU)
+
+            device_ms, prof_ms, _, _ = device_reading(torch, one_step, f"fed train {name}")
+            state = held[0]
         finally:
             pipe.close()
         hist = {k: torch.stack([h[k] for h in history]).tolist() for k in history[0]}
@@ -980,15 +1046,13 @@ def dataset_phase(torch, cfg, params, counters, dev, card, resident, tmp):
         if not tail < head:
             fail(f"fed train {name}: the loss did not fall (mean of the first five {head}, "
                  f"of the last five {tail})")
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA and device_time(e) > 0]
-        device_ms = sum(device_time(e) for e in events) / 1e3
         it_s = (FEED_STEPS - FEED_WARMUP) / wall
         idle = 1 - device_ms / (1e3 / it_s)
         r = resident[name]
         fetch_ms = fetch_s / (FEED_STEPS - FEED_WARMUP) * 1e3
         readings["fed"][name] = dict(it_per_s=it_s, samples_per_s=it_s * TRAIN_P * TRAIN_K,
-                                     device_ms=device_ms, wall_ms=1e3 / it_s, idle_share=idle,
+                                     device_ms=device_ms, profiler_ms=prof_ms,
+                                     wall_ms=1e3 / it_s, idle_share=idle,
                                      fetch_ms=fetch_ms, loss_first5=head, loss_last5=tail,
                                      decode=feed_decode, launches=got)
         print(f"fed train {name} ({card}; {feed_decode} decode, {workers} workers): "
@@ -1106,19 +1170,27 @@ def dataset_phase(torch, cfg, params, counters, dev, card, resident, tmp):
         idx = list(range(len(ds)))
         embed_samples(step, ds, idx[:dcfg.eval_batch_size], tok, dcfg.eval_batch_size)
         torch.cuda.synchronize()
+        calls = []
+
+        def recorded(*args):
+            calls.append(args)
+            return step(*args)
+
         t0 = time.perf_counter()
-        feats, _ = embed_samples(step, ds, idx, tok, dcfg.eval_batch_size)
+        feats, _ = embed_samples(recorded, ds, idx, tok, dcfg.eval_batch_size)
         wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            embed_samples(step, ds, idx, tok, dcfg.eval_batch_size)
-            torch.cuda.synchronize()
-        dev_ms = sum(device_time(e) for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        # the device time of the same embed steps on their inputs, resident
+        resident_args = [tuple(torch.as_tensor(a, device=dev) if a is not None else None
+                               for a in args) for args in calls]
+        dev_ms, prof_ms, _, _ = device_reading(
+            torch, lambda: [step(*a) for a in resident_args],
+            f"gallery embed_samples {decode} ({len(calls)} embed steps)")
+        del resident_args, calls
         if feats.shape != (len(idx), cfg.fusion_dim) or not np.isfinite(feats).all():
             fail(f"embed_samples: features {feats.shape}, expected {(len(idx), cfg.fusion_dim)}")
         rate = len(idx) / wall
         readings["gallery_embed"][decode] = dict(
-            embeds_per_s=rate, wall_ms=wall * 1e3, device_ms=dev_ms,
+            embeds_per_s=rate, wall_ms=wall * 1e3, device_ms=dev_ms, profiler_ms=prof_ms,
             idle_share=1 - dev_ms / (wall * 1e3), records=len(idx),
             batch=dcfg.eval_batch_size)
         print(f"gallery embed_samples fused_trunk ({card}; {decode} decode in the calling "
@@ -1233,7 +1305,6 @@ def trainer_phase(torch, cfg, counters, dev, card, fed, tmp):
     returns the readings.  ``fed``: phase 4c's fed-step readings by path;
     ``tmp``: the scratch directory whose ``orbench`` tree phase 4c wrote."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from prcv2025reid_tpu_torch.data.pipeline import collate
     from prcv2025reid_tpu_torch.evaluation.protocol import build_query_plans
@@ -1359,7 +1430,7 @@ def trainer_phase(torch, cfg, counters, dev, card, fed, tmp):
         fail(f"trainer B disagrees with A: losses {loss_rel}, cosine {cos}, sampler "
              f"{same_sampler}")
 
-    # speed, one profiled step, evaluate, checkpoints
+    # speed, one step's device ms, evaluate, checkpoints
     per_epoch = [r["steps_per_sec"] for r in rows]
     size = sum(os.path.getsize(os.path.join(ckpt, "latest", f))
                for f in os.listdir(os.path.join(ckpt, "latest")))
@@ -1375,15 +1446,16 @@ def trainer_phase(torch, cfg, counters, dev, card, fed, tmp):
         batch = collate([trainer.train_ds.get_sample(i, rng, modality_dropout=0.0)
                          for i in indices], trainer.tokenizer)
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        state, _ = trainer.raw_step(trainer.state, batch, 0.1, 0.18)  # warm
+        held = [trainer.raw_step(trainer.state, batch, 0.1, 0.18)[0]]  # warm
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            trainer.raw_step(state, batch, 0.1, 0.18)
-            torch.cuda.synchronize()
-        device_ms = sum(device_time(e) for e in prof.key_averages()
-                        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+        def one_step():
+            held[0], _ = trainer.raw_step(held[0], batch, 0.1, 0.18)
+
+        device_ms, prof_ms, _, _ = device_reading(torch, one_step, f"trainer {name} step")
         wall_ms = 1e3 / trainer.train_history.rows[-1]["steps_per_sec"]
-        profiled[name] = dict(device_ms=device_ms, wall_ms=wall_ms, idle_share=1 - device_ms / wall_ms)
+        profiled[name] = dict(device_ms=device_ms, profiler_ms=prof_ms, wall_ms=wall_ms,
+                              idle_share=1 - device_ms / wall_ms)
     f = fed["pallas_attention"]
     readings = dict(
         steps_per_sec=per_epoch, steps_per_sec_b=[r["steps_per_sec"] for r in b_rows],
@@ -1395,7 +1467,7 @@ def trainer_phase(torch, cfg, counters, dev, card, fed, tmp):
     print(f"trainer ({card}): steps_per_sec by epoch A {[round(v, 3) for v in per_epoch]}, B "
           f"{[round(r['steps_per_sec'], 3) for r in b_rows]} (epoch 1 includes the decode "
           f"workers' start) beside phase 4c's fed pallas_attention {f['it_per_s']:.3f} it/s; one "
-          f"profiled step: A device {profiled['A']['device_ms']:.3f} ms of "
+          f"step: A device {profiled['A']['device_ms']:.3f} ms of "
           f"{profiled['A']['wall_ms']:.3f} ms (idle share {profiled['A']['idle_share']:.3f}), B "
           f"{profiled['B']['device_ms']:.3f} of {profiled['B']['wall_ms']:.3f} "
           f"({profiled['B']['idle_share']:.3f}); evaluate "
@@ -1418,7 +1490,6 @@ def rerank_phase(torch, dev, card):
     import io
 
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from prcv2025reid_tpu_torch.evaluation import protocol, rerank
 
@@ -1438,12 +1509,10 @@ def rerank_phase(torch, dev, card):
             orders[chunk] = rerank.rerank_orders(qd, gd, excl_idx=excl, query_chunk=chunk,
                                                  device=dev)
             qps.setdefault(chunk, []).append(RR_QUERIES / (time.perf_counter() - t0))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        rerank.rerank_orders(qd[:512], gd, excl_idx=excl[:512], device=dev)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and device_time(e) > 0]
-    chunk_ms = sum(device_time(e) for e in events) / 1e3
+    # rerank_orders returns host arrays: the events read the chunk's span
+    chunk_ms, chunk_prof_ms, events, _ = device_reading(
+        torch, lambda: rerank.rerank_orders(qd[:512], gd, excl_idx=excl[:512], device=dev),
+        "re-ranking one 512-query chunk (its span: the call synchronises the host)")
     top = sorted(events, key=device_time, reverse=True)[:TOP_KERNELS]
     same_chunks = all(np.array_equal(orders[c], orders[512]) for c in RR_CHUNKS)
     n = RR_CPU_QUERIES
@@ -1460,7 +1529,7 @@ def rerank_phase(torch, dev, card):
           f"{RR_IDS} ids, {RR_SIGMAS}, exclusion on): queries/s by query_chunk " + json.dumps(
               {c: [round(v, 1) for v in r] for c, r in qps.items()})
           + f"; the same orders at every chunk size {same_chunks}; one 512-query chunk "
-          f"{chunk_ms:.3f} device-ms in {len(events)} kernels, top: " + json.dumps(
+          f"{chunk_ms:.3f} ms on the device (span), its top kernels: " + json.dumps(
               [[e.key[:50], e.count, round(device_time(e) / 1e3, 4)] for e in top])
           + f"; the card against the CPU on {n} queries: rows equal {rows_same:.4f} (>= "
           f"{RR_SAME_ROWS}), mAP {m['card']:.6f} / {m['cpu']:.6f} (|d| <= {RR_MAP_TOL}), plain "
@@ -1478,7 +1547,8 @@ def rerank_phase(torch, dev, card):
         fail(f"tune_rerank.py --quick: {len(sweep)} rows")
     del qd, gd
     torch.cuda.empty_cache()
-    return dict(queries_per_s=qps, chunk_512_device_ms=chunk_ms, rows_equal_cpu=rows_same,
+    return dict(queries_per_s=qps, chunk_512_device_ms=chunk_ms,
+                chunk_512_profiler_ms=chunk_prof_ms, rows_equal_cpu=rows_same,
                 map=m, lam1_plain=lam1_ok, top_kernels=readings_ops(top))
 
 
@@ -1495,7 +1565,6 @@ def eval_cli_phase(torch, cfg, params, counters, dev, card, tmp):
     import io
 
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from prcv2025reid_tpu_torch import (
         TrainingConfig,
@@ -1803,12 +1872,10 @@ def eval_cli_phase(torch, cfg, params, counters, dev, card, tmp):
                 steps[name](images, image_mask)
             torch.cuda.synchronize()
             rates[name].append(BATCH * E2E_ITERS / (time.perf_counter() - t0))
+    profiler_ms = {}
     for name, step in steps.items():
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step(images, image_mask)
-            torch.cuda.synchronize()
-        device_ms[name] = sum(device_time(e) for e in prof.key_averages()
-                              if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        device_ms[name], profiler_ms[name], _, _ = device_reading(
+            torch, lambda: step(images, image_mask), f"token reduction resident {name}")
     eps = {n: statistics.median(r) for n, r in rates.items()}
     work = (TOKEN_LAYER * (cfg.num_patches + 1) + (L - 1 - TOKEN_LAYER) * S_RED) / (
         (L - 1) * (cfg.num_patches + 1))
@@ -1819,7 +1886,7 @@ def eval_cli_phase(torch, cfg, params, counters, dev, card, tmp):
           f"({device_ms['reduced'] / max(device_ms['full'], 1e-9):.3f}; the blocks' per-token work "
           f"{work:.3f})")
     readings["resident"] = dict(embeds_per_s=eps, rounds=rates, device_ms=device_ms,
-                                block_token_work=work)
+                                profiler_ms=profiler_ms, block_token_work=work)
     del steps, images
     torch.cuda.empty_cache()
 
@@ -2325,6 +2392,422 @@ def serving_phase(torch, cfg, counters, dev, card, tmp):
     return readings
 
 
+def hf_clip_checkpoint(cfg, seed: int):
+    """A seeded state dict in HF ``CLIPModel``'s layout at ``cfg``'s widths
+    (``tools/convert_clip.hf_clip_shapes``): f32 weights of std 0.02, biases
+    of std 0.01, LayerNorm scales 1 + 0.02 noise, the position ids as HF
+    stores them; numpy, on the host."""
+    import numpy as np
+
+    from prcv2025reid_tpu_torch.tools.convert_clip import hf_clip_shapes
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key, (shape, dtype) in hf_clip_shapes(cfg).items():
+        if key.endswith("position_ids"):
+            out[key] = np.arange(shape[1], dtype=dtype)[None]
+        elif key == "logit_scale":
+            out[key] = np.array(np.log(1 / 0.07), dtype)
+        elif "norm" in key and key.endswith(".weight"):
+            out[key] = 1.0 + 0.02 * rng.standard_normal(shape, np.float32)
+        elif key.endswith(".bias"):
+            out[key] = 0.01 * rng.standard_normal(shape, np.float32)
+        else:
+            out[key] = 0.02 * rng.standard_normal(shape, np.float32)
+    return out
+
+
+def clip_leaf_pairs(cfg):
+    """(port key under params/encoder/, HF key, the layout change) for every
+    leaf the conversion copies from the file (the noisy patch-embed copies
+    aside): the reference's composition, written out from the published
+    layouts (torch Linear [out, in] -> [in, out], conv [D, C, P, P] ->
+    [P, P, C, D])."""
+    def same(a):
+        return a
+
+    def t(a):
+        return a.T
+
+    pairs = [("vision/cls_token", "vision_model.embeddings.class_embedding",
+              lambda a: a.reshape(1, 1, -1)),
+             ("vision/pos_embed", "vision_model.embeddings.position_embedding.weight", same),
+             ("vision/patch_embed_vis/kernel", "vision_model.embeddings.patch_embedding.weight",
+              lambda a: a.transpose(2, 3, 1, 0)),
+             ("vision/ln_final/scale", "vision_model.post_layernorm.weight", same),
+             ("vision/ln_final/bias", "vision_model.post_layernorm.bias", same),
+             ("vision/proj/kernel", "visual_projection.weight", t),
+             ("text/token_embedding/embedding", "text_model.embeddings.token_embedding.weight",
+              same),
+             ("text/pos_embed", "text_model.embeddings.position_embedding.weight", same),
+             ("text/ln_final/scale", "text_model.final_layer_norm.weight", same),
+             ("text/ln_final/bias", "text_model.final_layer_norm.bias", same),
+             ("text_proj/kernel", "text_projection.weight", t)]
+    for tower, layers, attn, mlp in (("vision", cfg.vision_layers, "attn/", "mlp/"),
+                                     ("text", cfg.text_layers, "", "")):
+        hf_tower = f"{tower}_model.encoder.layers"
+        shared = "/shared" if tower == "vision" else ""
+        for i in range(layers):
+            at, p = f"{tower}/block_{i}/", f"{hf_tower}.{i}."
+            for n in ("1", "2"):
+                pairs += [(f"{at}ln{n}/scale", f"{p}layer_norm{n}.weight", same),
+                          (f"{at}ln{n}/bias", f"{p}layer_norm{n}.bias", same)]
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                pairs += [(f"{at}{attn}{proj}{shared}/kernel", f"{p}self_attn.{proj}.weight", t),
+                          (f"{at}{attn}{proj}{shared}/bias", f"{p}self_attn.{proj}.bias", same)]
+            for fc in ("fc1", "fc2"):
+                pairs += [(f"{at}{mlp}{fc}{shared}/kernel", f"{p}mlp.{fc}.weight", t),
+                          (f"{at}{mlp}{fc}{shared}/bias", f"{p}mlp.{fc}.bias", same)]
+    return pairs
+
+
+def clip_vision_oracle(torch, hf, images, cfg, dev):
+    """The reference's vision composition on the HF tensors in plain PyTorch,
+    f32, independent of the port's modules: conv patchify, CLS + positions,
+    blocks of LN1 -> MHA (SDPA) -> residual and LN2 -> fc1 -> erf GELU ->
+    fc2 -> residual, the post-LN of the CLS row, the projection.  The
+    vision tower's GELU is erf, not CLIP's quick_gelu (the reference's
+    composition, JAX ``models/mer.py:373``).  ``images``: normalized f32
+    [B, H, W, 3]."""
+    import torch.nn.functional as Fn
+
+    w = {k: torch.from_numpy(v).to(dev) for k, v in hf.items()
+         if k.startswith("vision_model.") or k == "visual_projection.weight"}
+    D, H = cfg.vision_hidden_dim, cfg.vision_heads
+    with torch.no_grad():
+        x = Fn.conv2d(images.permute(0, 3, 1, 2),
+                      w["vision_model.embeddings.patch_embedding.weight"], stride=cfg.patch_size)
+        B = x.shape[0]
+        x = x.flatten(2).transpose(1, 2)
+        cls = w["vision_model.embeddings.class_embedding"].reshape(1, 1, D).expand(B, 1, D)
+        x = torch.cat([cls, x], dim=1) + w["vision_model.embeddings.position_embedding.weight"]
+        S = x.shape[1]
+        for i in range(cfg.vision_layers):
+            p = f"vision_model.encoder.layers.{i}."
+
+            def lin(h, name):
+                return Fn.linear(h, w[p + name + ".weight"], w[p + name + ".bias"])
+
+            def heads(t):
+                return t.reshape(B, S, H, D // H).transpose(1, 2)
+
+            h = Fn.layer_norm(x, (D,), w[p + "layer_norm1.weight"], w[p + "layer_norm1.bias"], 1e-5)
+            a = Fn.scaled_dot_product_attention(*(heads(lin(h, f"self_attn.{n}_proj"))
+                                                  for n in "qkv"))
+            x = x + lin(a.transpose(1, 2).reshape(B, S, D), "self_attn.out_proj")
+            h = Fn.layer_norm(x, (D,), w[p + "layer_norm2.weight"], w[p + "layer_norm2.bias"], 1e-5)
+            x = x + lin(Fn.gelu(lin(h, "mlp.fc1")), "mlp.fc2")
+        x = Fn.layer_norm(x[:, 0], (D,), w["vision_model.post_layernorm.weight"],
+                          w["vision_model.post_layernorm.bias"], 1e-5)
+        return Fn.linear(x, w["visual_projection.weight"])
+
+
+def clip_phase(torch, cfg, counters, dev, card, tmp):
+    """Training from CLIP weights at full width on the card (see the module
+    docstring, phase 4g); fails the run on any failed check and returns the
+    readings.  ``tmp``: the scratch directory whose ``orbench`` tree phase
+    4c wrote."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from prcv2025reid_tpu_torch import (
+        TrainingConfig,
+        build_model,
+        engine,
+        init_train_state,
+        make_combo_embed_step,
+        make_train_step,
+    )
+    from prcv2025reid_tpu_torch.params import init_params
+    from prcv2025reid_tpu_torch.tools import convert_clip, diagnose, export_params
+    from prcv2025reid_tpu_torch.training import trainer as trainer_module
+    from prcv2025reid_tpu_torch.training.param_groups import label_params
+
+    L = cfg.vision_layers
+    root = os.path.join(tmp, "orbench")
+    readings, t_phase = {}, time.perf_counter()
+
+    def counts():
+        return {n: f.launches for n, f in counters.items()}
+
+    def zero():
+        for counter in counters.values():
+            counter.launches = 0
+        torch.cuda.synchronize()
+
+    # ---- (a) the checkpoint: HF's layout at ViT-B/16's widths, three ways
+    t0 = time.perf_counter()
+    hf = hf_clip_checkpoint(cfg, seed=15)
+    st_dir, bin_dir = os.path.join(tmp, "clip"), os.path.join(tmp, "clip_bin")
+    os.makedirs(st_dir)
+    os.makedirs(bin_dir)
+    st_file = os.path.join(st_dir, "model.safetensors")
+    convert_clip.write_safetensors(st_file, hf)
+    torch.save({k: torch.from_numpy(v) for k, v in hf.items()},
+               os.path.join(bin_dir, "pytorch_model.bin"))
+    # the hub cache's layout: refs/main names the snapshot, whose file links
+    # to a blob
+    repo = os.path.join(tmp, "hub", "models--" + cfg.clip_model_name.replace("/", "--"))
+    rev = "0" * 40
+    os.makedirs(os.path.join(repo, "snapshots", rev))
+    os.makedirs(os.path.join(repo, "refs"))
+    with open(os.path.join(repo, "refs", "main"), "w") as f:
+        f.write(rev)
+    os.symlink(st_file, os.path.join(repo, "snapshots", rev, "model.safetensors"))
+    n_values = sum(v.size for v in hf.values())
+    readings["checkpoint"] = dict(values=n_values, bytes=os.path.getsize(st_file),
+                                  seconds=time.perf_counter() - t0)
+    print(f"clip (a) an HF-layout checkpoint at {cfg.clip_model_name}'s widths: {len(hf)} "
+          f"tensors, {n_values} values, {os.path.getsize(st_file) / 1e6:.1f} MB safetensors "
+          f"(+ pytorch_model.bin, + a hub cache entry) in {time.perf_counter() - t0:.1f} s")
+
+    # ---- (b) every path loads the same values; the converted leaves are the
+    # file's; the kernels' embedding against the plain oracle
+    t0 = time.perf_counter()
+    hub_env = os.environ.get("HF_HUB_CACHE")
+    os.environ["HF_HUB_CACHE"] = os.path.join(tmp, "hub")
+    try:
+        loads = {"snapshot dir": convert_clip.load_hf_state_dict(st_dir),
+                 ".bin dir": convert_clip.load_hf_state_dict(bin_dir),
+                 '"hf" (hub cache)': convert_clip.load_hf_state_dict(
+                     convert_clip.clip_source(TrainingConfig(clip_weights_path="hf")))}
+    finally:
+        if hub_env is None:
+            os.environ.pop("HF_HUB_CACHE")
+        else:
+            os.environ["HF_HUB_CACHE"] = hub_env
+    same = {name: set(sd) == set(hf) and all(np.array_equal(sd[k], hf[k]) for k in hf)
+            for name, sd in loads.items()}
+    del loads
+    flat = convert_clip.convert_clip_params(hf, init_params(cfg, NUM_CLASSES, perturb=False),
+                                            seed=cfg.seed)
+    pairs = clip_leaf_pairs(cfg)
+    off = [pk for pk, hk, fn in pairs if not np.array_equal(flat["params/encoder/" + pk],
+                                                            fn(hf[hk]))]
+    print(f"clip (b) loads equal to the written values: {same}; {len(pairs)} converted leaves "
+          f"equal the file's tensors (transposed) bit for bit, {len(off)} differ "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if not all(same.values()) or off:
+        fail(f"clip load: paths {same}, leaves differ {off[:5]}")
+    trunk_cfg = cfg.replace(use_pallas_attention=True, use_fused_mlp=True, use_fused_resln=True)
+    model = build_model(trunk_cfg, flat, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    imgs = torch.randn(CLIP_ORACLE_BATCH, cfg.image_size, cfg.image_size, 3, generator=gen,
+                       device=dev)
+    zero()
+    with torch.inference_mode():
+        got = model.encoder.encode_vision(imgs, 0).float()
+    torch.cuda.synchronize()
+    launched = counts()
+    want = {n: 0 for n in counters}
+    want.update(fused_mha=L, fused_mlp=L, fused_residual_ln=2 * L)
+    oracle = clip_vision_oracle(torch, hf, imgs, cfg, dev)
+    cos = torch.nn.functional.cosine_similarity(got, oracle, dim=1)
+    readings["oracle_min_cosine"] = cos.min().item()
+    print(f"clip (b) the vis embedding of {CLIP_ORACLE_BATCH} images on the fused-stream trunk "
+          f"(bf16, the kernels) against the f32 oracle built from the HF tensors (erf GELU): "
+          f"min-cosine {cos.min().item():.6f} (>= {MIN_COSINE}); launches {launched} (expected "
+          f"{want})")
+    if cos.min().item() < MIN_COSINE or not torch.isfinite(got).all():
+        fail(f"clip: the loaded model's vis embedding against the oracle: {cos.min().item()}")
+    if launched != want:
+        fail(f"clip oracle embed: launch counts {launched} != {want}")
+    del model, oracle, got
+
+    # ---- (c) training from the file through tools_torch/train.py
+    Probe = probe_trainer(torch, trainer_module)
+
+    class Snapshot(Probe):
+        def __init__(self, config, device="cuda"):
+            super().__init__(config, device)
+            self.initial = {n: p.detach().clone() for n, p in self.model.named_parameters()}
+
+    flags = trainer_argv(cfg, tmp, "CLIP", num_epochs=1, eval_every_n_epoch=1,
+                         eval_include_patterns=",".join(CLIP_EVAL_PLANS),
+                         clip_weights_path=st_dir)
+    saved = trainer_module.Trainer
+    zero()
+    t0 = time.perf_counter()
+    try:
+        trainer_module.Trainer = Snapshot
+        result = load_tool("train").main(flags)
+    finally:
+        trainer_module.Trainer = saved
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tr = Probe.made[-1]
+    got = counts()
+    vision_batches = tr.vision_batches + 1  # + the smoke test's forward
+    want = {n: 0 for n in counters}
+    want.update(fused_mha=(L - 1) * TRAINER_STEPS + L * vision_batches,
+                fused_mlp=L * vision_batches, fused_residual_ln=2 * L * vision_batches)
+    losses = torch.stack(tr.losses).tolist()
+    named = dict(tr.model.named_parameters())
+    start_off = [pk for pk, hk, fn in pairs
+                 if not np.array_equal(tr.initial["encoder." + pk.replace("/", ".")]
+                                       .cpu().numpy(), fn(hf[hk]))]
+    frozen_moved = [n for n, p in named.items()
+                    if not p.requires_grad and not torch.equal(p, tr.initial[n])]
+    labels = label_params(tr.model, tr.config)
+    moved = {}
+    for n, p in named.items():
+        if p.requires_grad:
+            moved[labels[n]] = moved.get(labels[n], False) or not torch.equal(p, tr.initial[n])
+    best = os.path.join(tmp, "CLIP", "ckpt", "best")
+    print(f"clip (c) tools_torch/train.py --clip_weights_path={st_dir} ({TRAINER_STEPS} steps, "
+          f"{len(tr.evals)} evaluations of {list(CLIP_EVAL_PLANS)}, {wall:.1f} s): the trainer "
+          f"started from the file ({len(pairs)} leaves, {len(start_off)} differ); launches "
+          f"{got} (expected {want}: #1 {L - 1} a train step, {vision_batches} vision forwards); "
+          f"no host synchronisation in any step; frozen parameters unchanged: "
+          f"{not frozen_moved}; trainable groups moved {moved}; total_loss "
+          + " ".join(f"{v[0]:.4f}" for v in losses) + f"; best/ {os.path.isdir(best)}")
+    if start_off or frozen_moved or not moved or not all(moved.values()):
+        fail(f"clip training: leaves off the file {start_off[:5]}, frozen moved "
+             f"{frozen_moved[:5]}, groups moved {moved}")
+    if got != want:
+        fail(f"clip training: launch counts {got} != {want}")
+    if len(losses) != TRAINER_STEPS or not np.isfinite(losses).all() or not os.path.isdir(best):
+        fail(f"clip training: {len(losses)} steps, a non-finite loss or no best/: {losses}")
+    readings["train"] = dict(seconds=wall, launches=got, total_loss=[v[0] for v in losses],
+                             groups_moved=moved, best_map=result["best_map"])
+    del tr, named
+    Probe.made.clear()
+    torch.cuda.empty_cache()
+
+    # ---- (d) remat_policy="dots" against "full" and no remat on the 8x4 step
+    tcfg = cfg.replace(num_ids_per_batch=TRAIN_P, instances_per_id=TRAIN_K,
+                       use_pallas_attention=True)
+    variants = {"none": tcfg, "full": tcfg.replace(remat_blocks=True),
+                "dots": tcfg.replace(remat_blocks=True, remat_policy="dots")}
+    batch = train_batch(torch, cfg, dev, TRAIN_P, TRAIN_K, seed=11)
+    grads, models, steps, states = {}, {}, {}, {}
+    for name, vcfg in variants.items():
+        models[name] = build_model(vcfg, flat, device=dev)
+        grads[name] = group_grads(torch, models[name], vcfg, batch)[1]
+    g_rel = {name: float(torch.cat([grads[name][g] - grads["full"][g] for g in grads["full"]])
+                         .norm() / torch.cat(list(grads["full"].values())).norm())
+             for name in ("dots", "none")}
+    del grads
+    for name, vcfg in variants.items():
+        steps[name] = make_train_step(models[name], vcfg, 1)
+        states[name] = counted_step(torch, counters, f"clip {name}", steps[name],
+                                    init_train_state(models[name], vcfg, 1, seed=0), batch,
+                                    {"fused_mha": L - 1 if name == "none" else 2 * L})[0]
+    rates, peaks = {n: [] for n in variants}, {n: [] for n in variants}
+    for rnd in range(CLIP_ROUNDS):
+        for name in (list(variants) if rnd % 2 == 0 else list(variants)[::-1]):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(CLIP_ITERS):
+                states[name], _ = steps[name](states[name], batch, SDM_WEIGHT, SDM_TAU)
+            torch.cuda.synchronize()
+            rates[name].append(CLIP_ITERS / (time.perf_counter() - t0))
+            peaks[name].append((torch.cuda.max_memory_allocated() - base) / 1e9)
+    remat = {}
+    for name in variants:
+        held = [states[name]]
+
+        def one_step(name=name, held=held):
+            held[0], _ = steps[name](held[0], batch, SDM_WEIGHT, SDM_TAU)
+
+        dev_ms, prof_ms, _, _ = device_reading(torch, one_step, f"clip train step {name}")
+        it_s = statistics.median(rates[name])
+        remat[name] = dict(it_per_s=it_s, rounds_it_per_s=rates[name], device_ms=dev_ms,
+                           profiler_ms=prof_ms, idle_share=1 - dev_ms / (1e3 / it_s),
+                           peak_mem_gb=max(peaks[name]),
+                           grad_rel_vs_full=g_rel.get(name, 0.0),
+                           launches_per_step=L - 1 if name == "none" else 2 * L)
+    print(f"clip (d) remat_policy on the 8x4 step, pallas_attention ({card}; CLIP weights, "
+          f"{CLIP_ROUNDS} rounds of {CLIP_ITERS} steps in turns): step-1 gradients of dots "
+          f"against full: relative error {g_rel['dots']:.3e} (<= {TRAIN_REMAT_REL}); no remat "
+          f"against full {g_rel['none']:.3e} (CLS-only last block: another rounding); "
+          + json.dumps({n: {k: (round(v, 4) if isinstance(v, float) else v)
+                            for k, v in r.items() if k != "rounds_it_per_s"}
+                        for n, r in remat.items()}))
+    if g_rel["dots"] > TRAIN_REMAT_REL:
+        fail(f"remat_policy='dots': step-1 gradients {g_rel['dots']} from full's")
+    readings["remat"] = remat
+    del models, steps, states, batch
+    torch.cuda.empty_cache()
+
+    # ---- (e) the exporter: (c)'s best/ -> npz -> params.load_params
+    t0 = time.perf_counter()
+    npz = os.path.join(tmp, "CLIP", "export.npz")
+    export_params.main(["--model_path", best, "--out", npz])
+    config, ref_model, _, _ = engine.load_checkpoint_model(best, dev)
+    loaded = build_model(config, npz, device=dev)
+    e_images = torch.randint(0, 256, (BATCH, len(cfg.vision_modalities), cfg.image_size,
+                                      cfg.image_size, 3), generator=gen, device=dev,
+                             dtype=torch.uint8)
+    e_mask = torch.ones(BATCH, len(cfg.vision_modalities), device=dev)
+    a = make_combo_embed_step(ref_model, ("vis",))(e_images, e_mask)
+    b = make_combo_embed_step(loaded, ("vis",))(e_images, e_mask)
+    exported_equal = torch.equal(a, b)
+    print(f"clip (e) export_params on best/: {os.path.getsize(npz) / 1e9:.3f} GB; loaded back "
+          f"through params.load_params, the vis embeddings of {BATCH} images equal bit for bit: "
+          f"{exported_equal} ({time.perf_counter() - t0:.1f} s)")
+    if not exported_equal:
+        fail("the exported npz does not give the checkpoint's embeddings bit for bit")
+    readings["export"] = dict(bytes=os.path.getsize(npz), seconds=time.perf_counter() - t0)
+    del ref_model, loaded, a, b
+
+    # ---- (f) the tools on (c)'s run
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        report = diagnose.main(["--model_path", best, "--dataset_root", root])
+    zeros = [k for k, e in report.items() if e["zero_fraction"] > 0.99]
+    nonfinite = [k for k, e in report.items() if e["nonfinite"]]
+    flagged = [k for k, e in report.items() if e["flagged"]]
+    print(f"clip (f) diagnose.py on best/: {len(report)} entries, {len(zeros)} flagged as zero, "
+          f"{len(nonfinite)} non-finite, {len(flagged)} flagged in all "
+          f"{flagged[:4]} ({time.perf_counter() - t0:.1f} s)")
+    if zeros or nonfinite:
+        fail(f"diagnose: entries flagged as zero {zeros[:5]} or non-finite {nonfinite[:5]}")
+    t0 = time.perf_counter()
+    panel = load_tool("diagnose_alignment").main(["--model_path", best, "--dataset_root", root])
+    if len(panel) != 15 or not all(np.isfinite(list(e.values())).all() for e in panel.values()):
+        fail(f"diagnose_alignment: {panel}")
+    print(f"clip (f) diagnose_alignment.py: {len(panel)} modality pairs "
+          f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    probe_out = os.path.join(tmp, "CLIP", "probe.json")
+    probe = load_tool("probe_sdm_breaking").main(
+        ["--steps", str(CLIP_PROBE_STEPS), "--every", "5", "--lrs", "1e-4", "--taus", "0.18",
+         "--out", probe_out])
+    cell = probe["cells"][0]
+    print(f"clip (f) probe_sdm_breaking.py --steps {CLIP_PROBE_STEPS} at full width "
+          f"({time.perf_counter() - t0:.1f} s): " + json.dumps(cell))
+    if len(probe["cells"]) != 1 or not np.isfinite([v for _, s, c in cell["trajectory"]
+                                                    for v in (s, c)]).all():
+        fail(f"probe_sdm_breaking: {probe}")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = load_tool("dryrun_real_data").main(
+            ["--data_root", root, "--work_dir", os.path.join(tmp, "dryrun"), "--full-size",
+             f"--clip_weights_path={st_dir}", "--steps_per_epoch", str(CLIP_DRYRUN_STEPS),
+             "--set", f"num_ids_per_batch={TRAIN_P}", "--set", f"instances_per_id={TRAIN_K}",
+             "--set", "use_pallas_attention=true", "--set", "use_fused_mlp=true",
+             "--set", "use_fused_resln=true", "--set", "do_eval=false"])
+    checks = [ln.strip() for ln in buf.getvalue().splitlines()
+              if ln.strip().startswith(("[OK]", "[FAIL]", "=="))]
+    print(f"clip (f) dryrun_real_data.py --full-size --clip_weights_path ({CLIP_DRYRUN_STEPS} "
+          f"steps, {time.perf_counter() - t0:.1f} s): exit code {rc}; " + " | ".join(checks))
+    if rc != 0:
+        fail(f"dryrun_real_data: exit code {rc}: {checks}")
+    readings["tools"] = dict(diagnose_entries=len(report), diagnose_flagged=len(flagged),
+                             alignment_pairs=len(panel), probe_cell=cell, dryrun_rc=rc)
+    readings["seconds"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    return readings
+
+
 def main() -> int:
     import torch
 
@@ -2803,8 +3286,6 @@ def main() -> int:
     print("mm_protocol: " + json.dumps(mm_table))
 
     # one text-only query step: its device time against its wall time
-    from torch.profiler import ProfilerActivity, profile
-
     text_args = (mm["q_images"], mm["q_mask"], mm["tokens"], mm["text_mask"])
     text_step = make_combo_embed_step(models["xla"], ("text",))
     for _ in range(WARMUP_RUNS):
@@ -2815,12 +3296,8 @@ def main() -> int:
         text_step(*text_args)
     torch.cuda.synchronize()
     text_wall_ms = (time.perf_counter() - t0) / E2E_ITERS * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        text_step(*text_args)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and device_time(e) > 0]
-    text_device_ms = sum(device_time(e) for e in events) / 1e3
+    text_device_ms, text_prof_ms, events, _ = device_reading(
+        torch, lambda: text_step(*text_args), "text query step")
     top = sorted(events, key=device_time, reverse=True)[:TOP_KERNELS]
     print(f"text query step (B={BATCH}, S={cfg.text_context_length}): device "
           f"{text_device_ms:.3f} ms of {text_wall_ms:.3f} ms (idle share "
@@ -2866,6 +3343,11 @@ def main() -> int:
         t0 = time.perf_counter()
         serving = serving_phase(torch, cfg, counters, dev, card, tmp)
         print(f"serving phase: {time.perf_counter() - t0:.1f} s")
+
+        # ---- 4g. training from CLIP weights, on 4c's tree
+        t0 = time.perf_counter()
+        clip = clip_phase(torch, cfg, counters, dev, card, tmp)
+        print(f"clip phase: {time.perf_counter() - t0:.1f} s")
 
     # ---- 5. timing
     import torch.nn.functional as Fn
@@ -3087,19 +3569,15 @@ def main() -> int:
               for n, f in data["fed"].items()))
 
     # where one embed step's device time goes, per configuration
-    device_ms = {}
+    device_ms, profiler_ms = {}, {}
     for name, step in steps.items():
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step(images, image_mask)
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA and device_time(e) > 0]
-        total = sum(device_time(e) for e in events)
+        device_ms[name], profiler_ms[name], events, _ = device_reading(
+            torch, lambda: step(images, image_mask), f"embed step {name}")
         top = sorted(events, key=device_time, reverse=True)[:TOP_KERNELS]
         wall_ms = BATCH / e2e[name] * 1e3
-        device_ms[name] = total / 1e3
-        print(f"profile {name}: device {total / 1e3:.3f} ms of {wall_ms:.3f} ms per step "
-              f"(idle share {1 - total / 1e3 / wall_ms:.3f}) in {len(events)} kernels; top: "
+        print(f"profile {name}: device {device_ms[name]:.3f} ms of {wall_ms:.3f} ms per step "
+              f"(idle share {1 - device_ms[name] / wall_ms:.3f}); top of the profiler's "
+              f"{len(events)} kernels: "
               + json.dumps([[e.key[:60], e.count, round(device_time(e) / 1e3, 4)] for e in top]))
 
     # ---- 6. the microbenchmark's entry point: the card's own rates
@@ -3114,14 +3592,17 @@ def main() -> int:
 
     print("end_to_end: " + json.dumps({
         "card": card, "batch": BATCH, "embeds_per_sec": e2e, "device_ms_per_step": device_ms,
+        "profiler_ms_per_step": profiler_ms,
         "min_cosine_vs_xla": gate, "rank_gate_vs_xla": rank_gate,
-        "text_query_step": {"device_ms": text_device_ms, "wall_ms": text_wall_ms,
+        "text_query_step": {"device_ms": text_device_ms, "profiler_ms": text_prof_ms,
+                            "wall_ms": text_wall_ms,
                             "idle_share": 1 - text_device_ms / text_wall_ms},
         "train_step_8x4": train,
         "dataset_phase": data,
         "trainer_phase": trainer,
         "eval_cli_phase": eval_cli,
         "serving_phase": serving,
+        "clip_phase": clip,
         "kernels_at_token_reduced_shapes": reduced_rows,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     for r in rows:

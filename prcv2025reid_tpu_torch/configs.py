@@ -37,7 +37,9 @@ class TrainingConfig:
 
     # ----- model widths (defaults: ViT-B/16) -----
     clip_model_name: str = "openai/clip-vit-base-patch16"
-    # a local HF snapshot / .npz of CLIP weights; None = random init
+    # CLIP weights to start from (tools/convert_clip.py): a local HF snapshot
+    # directory, a .safetensors / .bin / .npz file with HF's keys, an HF repo
+    # id in the local hub cache, or "hf" (= clip_model_name); None = random init
     clip_weights_path: Optional[str] = None
     fusion_dim: int = 512
     vision_hidden_dim: int = 768
@@ -203,7 +205,9 @@ class TrainingConfig:
     # erf of the GELU, the [N, H, S, S] softmax); "remat" recomputes it
     gelu_bwd: str = "stored"
     attn_bwd: str = "stored"
-    # torch.utils.checkpoint around every training block (full policy only)
+    # torch.utils.checkpoint around every training block; remat_policy
+    # "full" keeps each block's input, "dots" also the unbatched products
+    # (models/vit.py::DOTS_SAVED)
     remat_blocks: bool = False
     remat_policy: str = "full"
     # JAX donates its train state into the jitted step; the port's step
@@ -356,12 +360,6 @@ class TrainingConfig:
                 "test device; the port runs the plain version for CPU tensors "
                 f"— use block_impl={impl!r}"
             )
-        if self.remat_policy == "dots":
-            raise NotImplementedError(
-                "remat_policy='dots' is not ported yet: ROADMAP.md §1, the item "
-                "'`remat_policy=\"dots\"`' (save the products, recompute the "
-                "elementwise chains)"
-            )
         multi = {"distributed": (self.distributed, "off"), "mesh_shape": (self.mesh_shape, ()),
                  "num_processes": (self.num_processes, None),
                  "process_id": (self.process_id, None),
@@ -372,12 +370,6 @@ class TrainingConfig:
                     f"{name}={value!r} is not ported yet: ROADMAP.md §1, the item "
                     "'Parallel and multi-process' (the port runs one process on one device)"
                 )
-        if self.clip_weights_path is not None:
-            raise NotImplementedError(
-                f"clip_weights_path={self.clip_weights_path!r}: loading CLIP weights is not "
-                "ported yet: ROADMAP.md §1, the item 'Serving and tools' "
-                "(`convert_clip.py`); the port would start from random weights instead"
-            )
 
 
 # ----- model presets (the CLIP families the encoder supports) -----

@@ -67,6 +67,7 @@ class UnifiedEncoder(nn.Module):
             gelu_bwd=config.gelu_bwd,
             attn_bwd=config.attn_bwd,
             remat_blocks=config.remat_blocks,
+            remat_policy=config.remat_policy,
             token_keep=config.token_keep,
             token_reduce_layer=config.token_reduce_layer,
             token_reduce_mode=config.token_reduce_mode,

@@ -20,6 +20,8 @@ is its flax path with ``/`` replaced by ``.`` (see ``params.py``).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -39,6 +41,29 @@ from prcv2025reid_tpu_torch.ops.kernel_math import LN_EPS, gelu_poly_bf16, gelu_
 
 BLOCK_IMPLS = ("xla", "fused", "fused_int8", "fused_int8_mlp", "fused_qkv")
 GELU_IMPLS = ("erf", "tanh", "poly")
+
+
+# set while a training forward makes a product that no backward reads (the
+# MLP's fc2: its output only feeds the residual add); see unread_by_backward
+_UNREAD = contextvars.ContextVar("unread_by_backward", default=False)
+
+
+@contextlib.contextmanager
+def unread_by_backward():
+    """Marks the products made inside as ones the backward never reads:
+    ``remat_policy="dots"`` saves no such product, as JAX's partial
+    evaluation keeps no residual that its backward does not read
+    (``models/vit.py::dots_policy``)."""
+    token = _UNREAD.set(True)
+    try:
+        yield
+    finally:
+        _UNREAD.reset(token)
+
+
+def backward_unread() -> bool:
+    """Whether the caller runs inside :func:`unread_by_backward`."""
+    return _UNREAD.get()
 
 
 def _param(*shape, device=None) -> nn.Parameter:
@@ -366,7 +391,8 @@ class MERMlp(nn.Module):
         if not fold:
             h = self.fc1(x, expert_ids, fold=False)
             h = gelu_stored(h) if self.gelu_bwd == "stored" else gelu_erf(h)
-            return self.fc2(h, expert_ids, fold=False)
+            with unread_by_backward():
+                return self.fc2(h, expert_ids, fold=False)
         if self.impl == "xla" or not self.enable:
             return self.fc2(apply_gelu(self.fc1(x, expert_ids), self.gelu_impl), expert_ids)
         G, B, S, D = x.shape

@@ -4,7 +4,9 @@
 patchify -> +CLS -> +pos-embed -> blocks 0..L-2 -> CLS-only last block ->
 final LN -> projection; in eval with ``resln_impl="auto"`` the fused-stream
 trunk (``_trunk_fused``) instead, and in training under ``remat_blocks``
-all L blocks in full, each recomputed in the backward.  With ``token_keep``
+all L blocks in full, each recomputed in the backward (``remat_policy``
+"full": from its input alone; "dots": the unbatched products saved, see
+``dots_policy``).  With ``token_keep``
 the tokens are reduced after block ``token_reduce_layer - 1``
 (``_reduce_tokens``).  Patchify is a reshape + matmul: the 16x16/stride-16
 "conv" is a linear map on non-overlapping patches, so the patch kernel keeps
@@ -13,16 +15,49 @@ whose weight layout differs and which cuDNN runs in TF32 for f32).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from prcv2025reid_tpu_torch.data.device_feed import normalize_images_device
-from prcv2025reid_tpu_torch.models.mer import Dense, LNParams, MERBlock, _param, ln_apply
+from prcv2025reid_tpu_torch.models.mer import (
+    Dense,
+    LNParams,
+    MERBlock,
+    _param,
+    backward_unread,
+    ln_apply,
+)
 from prcv2025reid_tpu_torch.ops.fused_resln import fused_residual_ln
 from prcv2025reid_tpu_torch.utils.modalities import SINGLE_CHANNEL, VISION_MODALITIES
+
+
+REMAT_POLICIES = ("full", "dots")
+# the products without batch dimensions: x [.., in] @ W [in, out] folds to
+# one of these; the grouped LoRA products and the attention core's QK^T and
+# PV are aten.bmm, whose leading dimension is a batch dimension
+DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``remat_policy="dots"``, the counterpart of JAX's
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: the
+    unbatched products (``DOTS_SAVED``) are saved, every other op (the
+    LayerNorms, the batched LoRA and attention products, the softmax, the
+    GELU, the attention kernel's launch) is recomputed in the backward.  A
+    product made under ``mer.unread_by_backward`` (the MLP's fc2, whose
+    output only feeds the residual add) is not saved either: JAX's partial
+    evaluation keeps no residual that its backward does not read."""
+    if op in DOTS_SAVED and not backward_unread():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
@@ -62,7 +97,8 @@ class MERVisionTransformer(nn.Module):
     fused-stream eval trunk on every device (its residual+LN wrapper runs
     the plain version for CPU tensors), 'xla' the plain one.  Training:
     drop-path rises linearly with depth to ``drop_path`` at the last block;
-    ``remat_blocks`` wraps every block in ``torch.utils.checkpoint``;
+    ``remat_blocks`` wraps every block in ``torch.utils.checkpoint``
+    under ``remat_policy`` ("full" or "dots", :func:`dots_policy`);
     ``gelu_bwd`` and ``attn_bwd`` go to every block (see ``MERBlock``).
     ``token_keep`` > 0 keeps that many patch tokens after block
     ``token_reduce_layer - 1`` in eval, and in training too with
@@ -78,7 +114,7 @@ class MERVisionTransformer(nn.Module):
                  attn_impl: str = "xla", mlp_impl: str = "xla", resln_impl: str = "xla",
                  block_impl: str = "xla", gelu_impl: str = "erf", drop_path: float = 0.0,
                  gelu_bwd: str = "stored", attn_bwd: str = "stored", remat_blocks: bool = False,
-                 token_keep: int = 0, token_reduce_layer: int = 6,
+                 remat_policy: str = "full", token_keep: int = 0, token_reduce_layer: int = 6,
                  token_reduce_mode: str = "merge", token_reduce_train: bool = False,
                  device=None):
         super().__init__()
@@ -86,11 +122,14 @@ class MERVisionTransformer(nn.Module):
             raise ValueError(f"resln_impl={resln_impl!r}; valid: ['auto', 'xla']")
         if token_reduce_mode not in ("merge", "prune"):
             raise ValueError(f"token_reduce_mode={token_reduce_mode!r}; valid: ['merge', 'prune']")
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy={remat_policy!r}; valid: {list(REMAT_POLICIES)}")
         if resln_impl == "auto" and token_keep > 0:
             raise ValueError(f"resln_impl='auto' runs every token: token_keep={token_keep} "
                              "needs resln_impl='xla'")
         self.embed_dim, self.num_layers, self.dtype = embed_dim, num_layers, dtype
         self.resln_impl, self.remat_blocks = resln_impl, remat_blocks
+        self.remat_policy = remat_policy
         self.token_keep, self.token_reduce_layer = token_keep, token_reduce_layer
         self.token_reduce_mode, self.token_reduce_train = token_reduce_mode, token_reduce_train
         self.modalities = tuple(modalities)
@@ -150,10 +189,12 @@ class MERVisionTransformer(nn.Module):
             # outside the checkpoint so that the recompute sees the same ones;
             # the reduction sits between the checkpointed blocks, so it is
             # stored, not recomputed
+            policy = {} if self.remat_policy == "full" else dict(context_fn=functools.partial(
+                create_selective_checkpoint_contexts, dots_policy))
             for i, block in enumerate(blocks):
                 masks = block.drop_path_masks(x, generator)
                 x = checkpoint(block.train_forward, x, expert_ids, *masks,
-                               use_reentrant=False)
+                               use_reentrant=False, **policy)
                 if i == reduce_after:
                     x = self._reduce_tokens(x)
             cls = x[:, :, 0]

@@ -44,6 +44,11 @@ from prcv2025reid_tpu_torch.evaluation.protocol import (
     evaluate_protocol,
 )
 from prcv2025reid_tpu_torch.params import init_params
+from prcv2025reid_tpu_torch.tools.convert_clip import (
+    clip_source,
+    convert_clip_params,
+    load_hf_state_dict,
+)
 from prcv2025reid_tpu_torch.training.checkpoint import (
     finalize_pending_saves,
     latest_checkpoint_exists,
@@ -107,11 +112,15 @@ class Trainer:
 
         # --- model, optimizer state and step ---
         # JAX's initial values: zero lora_B and biases, unit scales, BN
-        # statistics (0, 1); loading CLIP weights waits for convert_clip
-        # (configs.py refuses clip_weights_path)
-        self.model = build_model(
-            config, init_params(config, self.num_classes, config.seed, perturb=False),
-            device=self.device)
+        # statistics (0, 1); with clip_weights_path the encoder's CLIP leaves
+        # are converted in before the optimizer state is built (a resumed
+        # run then restores its checkpoint over them, as JAX's does)
+        params = init_params(config, self.num_classes, config.seed, perturb=False)
+        if config.clip_weights_path:
+            source = clip_source(config)
+            params = convert_clip_params(load_hf_state_dict(source), params, seed=config.seed)
+            logger.info("loaded CLIP weights from %s (%s)", config.clip_weights_path, source)
+        self.model = build_model(config, params, device=self.device)
         steps_per_epoch = len(self.sampler)
         if config.accum_steps > 1:
             logger.info("gradient accumulation: %d x %d = effective batch %d (target %d)",

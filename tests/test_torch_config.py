@@ -1,7 +1,8 @@
 """The port's TrainingConfig against the JAX package's: the same 136 fields
 and defaults, ``to_json`` / ``from_json`` in both directions,
-``apply_model_preset`` and ``apply_cli_overrides`` on the same argv, and
-the values the port refuses with the ROADMAP.md item they wait for."""
+``apply_model_preset`` and ``apply_cli_overrides`` on the same argv, the
+values the port refuses with the ROADMAP.md item they wait for, and
+``clip_weights_path``, accepted and resolved as the trainer loads it."""
 import dataclasses
 import json
 
@@ -43,9 +44,10 @@ UNPORTED = [
     ({"num_processes": 2}, "Parallel and multi-process"),
     ({"process_id": 0}, "Parallel and multi-process"),
     ({"coordinator_address": "localhost:1234"}, "Parallel and multi-process"),
-    ({"clip_weights_path": "/ckpt/clip"}, "Serving and tools"),
-    ({"clip_weights_path": "hf"}, "Serving and tools"),
 ]
+# accepted since the CLIP loader came (tools/convert_clip.py): each value and
+# the checkpoint source the trainer resolves it to
+CLIP_PATHS = [("/ckpt/clip", "/ckpt/clip"), ("hf", "openai/clip-vit-base-patch16")]
 
 
 def fields(cfg):
@@ -133,3 +135,22 @@ def test_distributed_typo_raises_in_both():
 def test_donate_train_state_is_accepted_and_changes_nothing():
     cfg = configs.TrainingConfig(donate_train_state=False)
     assert fields(cfg) == {**fields(configs.TrainingConfig()), "donate_train_state": False}
+
+
+@pytest.mark.parametrize("value,source", CLIP_PATHS, ids=[v for v, _ in CLIP_PATHS])
+def test_clip_weights_path_reaches_the_loader(value, source, tmp_path, monkeypatch):
+    """Both packages accept it and read it back from JSON; the trainer's
+    loader resolves "hf" to the preset's model name, looks a repo id up in
+    the local hub cache, and names what it did not find."""
+    from prcv2025reid_tpu_torch.tools import convert_clip
+
+    jax_configs.TrainingConfig(clip_weights_path=value)
+    cfg = configs.TrainingConfig(clip_weights_path=value)
+    assert configs.TrainingConfig.from_json(cfg.to_json()).clip_weights_path == value
+    assert configs.apply_cli_overrides(
+        configs.TrainingConfig(), [f"--clip_weights_path={value}"]).clip_weights_path == value
+    assert convert_clip.clip_source(cfg) == source
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path))
+    missing = "models--openai--clip-vit-base-patch16" if value == "hf" else source
+    with pytest.raises(FileNotFoundError, match=missing):
+        convert_clip.load_hf_state_dict(source)

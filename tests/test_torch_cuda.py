@@ -1082,3 +1082,29 @@ def test_serving_engine_on_the_card_matches_the_cpu(cuda, tmp_path):
         assert (got * want).sum(axis=1).min() >= 0.999
     for got, want in zip(out["cuda"][1], out["cpu"][1]):
         assert [[e["id"] for e in r] for r in got] == [[e["id"] for e in r] for r in want]
+
+
+def test_clip_weights_on_the_card_match_the_cpu(cuda, tmp_path):
+    """A checkpoint in HF's layout (seeded values) converted and loaded on
+    the card, then a vis embed on the fused-stream trunk (the kernels)
+    against the same conversion in f32 on the CPU: min-cosine >= 0.999."""
+    from prcv2025reid_tpu_torch.params import init_params
+    from prcv2025reid_tpu_torch.tools import convert_clip
+
+    cfg = TrainingConfig(**TRAIN_TINY)
+    rng = np.random.default_rng(0)
+    hf = {k: (rng.normal(0.0, 0.05, shape) + (1.0 if k.endswith("norm1.weight") else 0.0)
+              ).astype(dtype) for k, (shape, dtype) in convert_clip.hf_clip_shapes(cfg).items()}
+    convert_clip.write_safetensors(str(tmp_path / "model.safetensors"), hf)
+    flat = convert_clip.convert_clip_params(convert_clip.load_hf_state_dict(str(tmp_path)),
+                                            init_params(cfg, 5, perturb=False), seed=1)
+    images = rng.integers(0, 256, (4, 4, cfg.image_size, cfg.image_size, 3), dtype=np.uint8)
+    mask = np.ones((4, 4), np.float32)
+    card = build_model(cfg.replace(use_pallas_attention=True, use_fused_mlp=True,
+                                   use_fused_resln=True), flat, device=cuda)
+    fused_mha.launches = 0
+    got = make_combo_embed_step(card, ("vis",))(images, mask).cpu()
+    assert fused_mha.launches == cfg.vision_layers
+    cpu = build_model(cfg.replace(compute_dtype="float32"), flat, device="cpu")
+    want = make_combo_embed_step(cpu, ("vis",))(images, mask)
+    assert (got * want).sum(dim=1).min().item() >= 0.999

@@ -16,7 +16,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "prcv2025reid_tpu_torch"
 # the JAX package's name is a prefix of the port's: match it only as a whole name
 JAX_IMPORT = re.compile(
-    r"^\s*(from|import)\s+(jax|flax|optax|prcv2025reid_tpu)(?![_\w])", re.MULTILINE)
+    r"^\s*(from|import)\s+(jax|flax|optax|prcv2025reid_tpu|transformers|safetensors)(?![_\w])",
+    re.MULTILINE)
 
 TINY = dict(vision_hidden_dim=64, vision_layers=2, vision_heads=4, vision_mlp_dim=128,
             image_size=32, fusion_dim=32, fusion_num_heads=4, compute_dtype="float32")
@@ -37,13 +38,16 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import prcv2025reid_tpu_torch.training.param_groups\n"
         "import prcv2025reid_tpu_torch.training.schedulers\n"
         "import prcv2025reid_tpu_torch.evaluation.rerank, prcv2025reid_tpu_torch.utils.timing\n"
-        "import importlib.util, pathlib\n"
+        "import prcv2025reid_tpu_torch.training.trainer\n"
+        "import importlib, importlib.util, pathlib\n"
+        "for path in sorted(pathlib.Path('prcv2025reid_tpu_torch/tools').glob('*.py')):\n"
+        "    importlib.import_module('prcv2025reid_tpu_torch.tools.' + path.stem)\n"
         "for path in sorted(pathlib.Path('tools_torch').glob('*.py')):\n"
         "    spec = importlib.util.spec_from_file_location('t_' + path.stem, path)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "    print(path.stem)\n"
-        "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'prcv2025reid_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'flax', 'optax', 'prcv2025reid_tpu', 'transformers', 'safetensors')]\n"
         "print(repr(bad))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -51,7 +55,11 @@ def test_import_leaves_jax_out_of_sys_modules():
     # every tool of tools_torch/ was imported, the serving path's among them
     assert out[:-1] == sorted(p.stem for p in (ROOT / "tools_torch").glob("*.py"))
     assert {"serve_embed", "bench_query", "bench_search", "train", "kernel_ab", "step_ab",
-            "perf_microbench", "eval_noise"} <= set(out[:-1])
+            "perf_microbench", "eval_noise", "diagnose_alignment", "probe_sdm_breaking",
+            "dryrun_real_data"} <= set(out[:-1])
+    # the port's own tools package: the CLIP converter, the exporter, diagnose
+    assert {p.stem for p in (PORT / "tools").glob("*.py")} >= {
+        "__init__", "convert_clip", "export_params", "diagnose"}
     assert out[-1] == "[]", out
 
 
@@ -65,9 +73,12 @@ def test_no_port_source_imports_the_jax_package():
     assert JAX_IMPORT.search("from prcv2025reid_tpu.ops import x")
     assert JAX_IMPORT.search("import prcv2025reid_tpu")
     assert JAX_IMPORT.search("import optax") and JAX_IMPORT.search("from flax import linen")
+    assert JAX_IMPORT.search("from safetensors.numpy import load_file")
+    assert JAX_IMPORT.search("    import transformers")
     # the training modules and the losses are among the files scanned
     names = {str(f.relative_to(ROOT)) for f in files}
-    assert {"prcv2025reid_tpu_torch/ops/losses.py", "prcv2025reid_tpu_torch/training/train_step.py",
+    assert {"prcv2025reid_tpu_torch/tools/convert_clip.py", "tools_torch/dryrun_real_data.py",
+            "prcv2025reid_tpu_torch/ops/losses.py", "prcv2025reid_tpu_torch/training/train_step.py",
             "prcv2025reid_tpu_torch/training/param_groups.py",
             "prcv2025reid_tpu_torch/training/schedulers.py"} <= names
 
@@ -84,12 +95,31 @@ def test_build_model_raises_without_cuda(monkeypatch):
     {"block_impl": "fused_interpret"},
     {"block_impl": "fused_int8_interpret"},
     {"distributed": "on"},  # token reduction is ported (tests/test_torch_token_reduce.py)
-    {"remat_policy": "dots"},
-    {"clip_weights_path": "/weights/clip.npz"},
 ])
 def test_unported_values_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP.md|interpret"):
         TrainingConfig(**{**TINY, **override})
+
+
+@pytest.mark.parametrize("override", [
+    {"remat_blocks": True, "remat_policy": "dots"},
+    {"clip_weights_path": "/weights/clip.npz"},
+])
+def test_lifted_values_reach_the_model_and_the_trainer(override):
+    """Values the port refused until it had them: remat_policy="dots" reaches
+    the trunk (tests/test_torch_remat.py holds its gradients), and
+    clip_weights_path reaches the trainer's loader, which names the file it
+    did not find (tests/test_torch_clip.py loads real ones)."""
+    from prcv2025reid_tpu_torch.tools import convert_clip
+
+    cfg = TrainingConfig(**{**TINY, **override})
+    if "remat_policy" in override:
+        vit = build_model(cfg, num_classes=3, device="cpu").encoder.vision
+        assert vit.remat_blocks and vit.remat_policy == "dots"
+    else:
+        assert convert_clip.clip_source(cfg) == "/weights/clip.npz"
+        with pytest.raises(FileNotFoundError, match="/weights/clip.npz"):
+            convert_clip.load_hf_state_dict(convert_clip.clip_source(cfg))
 
 
 @pytest.mark.parametrize("override", [
