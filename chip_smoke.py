@@ -256,6 +256,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      (CLIP_PROBE_STEPS steps, one lr, one tau) and dryrun_real_data.py
      --full-size --clip_weights_path (CLIP_DRYRUN_STEPS steps, the
      fused-stream trunk, exit code 0);
+  4h. the measuring tools and the serving artifact, each tool in a
+     subprocess of its own (sys.executable), on 4c-4g's files.  (a)
+     trace_embed.py at BATCH under TRACE_PATHS (fused and splash; xla and
+     fused_int8 are cut for time, phase 5 times them): each rollup sums to
+     its kernel table within 1%, the launches a step are the path's, the
+     pallas bucket holds the port's kernels of the path and matmul none of
+     them, and its CUDA events lie within TOOL_DEVICE_SPREAD of phase 5's
+     reading of the same path (checked after phase 5).  (d) bench_host_pipeline.py: the PIL rate, the native leg
+     (unavailable without jpeglib.h), the budget against the card's rates,
+     the overlap check.  (trace_train.py's traced run, train_ab.py and
+     flagship_train_probe.py, (b), (c) and (e), are cut for time and run
+     standalone.)  (f) toolchain_watch.py --fast (its train leg runs
+     trace_train.py --no-trace): exit 0 or 2, no probe without a reading.  (g) export_serving.py on 4d's
+     run A best/ (BUNDLE_GRAPHS at BUNDLE_BATCH; a --block_impl fused
+     gallery_vis from a copy of it without the fused-stream trunk, the two
+     exports at once): each graph's bytes, export seconds and prcv_reid ops (gallery_vis #1 L, #8 L,
+     #9 2L; the fused one #3 L-1, #5 L-1); then a fresh process loads the
+     bundle (serve_artifact.consumer_check): no model module in sys.modules,
+     a vis batch's launches #1 L, #8 L, #9 2L, its features (vis, text,
+     nir+text, quad) against the live serve_embed engine's on the same
+     inputs (bit for bit, or BUNDLE_MIN_COSINE with the cause), its server's
+     /embed and /search, the gallery's plain and re-ranked search, the
+     p50 / p90 of BUNDLE_LATENCY_N sequential
+     one-image /embed requests.  (h) The host us a call of
+     fused_residual_ln through torch.ops.prcv_reid against the direct
+     launch (the eager paths keep the direct launch);
   5. time every kernel, its plain version and (where one PyTorch call
      computes the same function) that call with CUDA events, median of
      TIMED_RUNS after warm-up queued behind a spin kernel (device time
@@ -402,7 +428,7 @@ RR_SAME_ROWS, RR_MAP_TOL = 0.99, 1e-4
 # bench_query.py's calls a timed round; --images against embed_samples: bit
 # for bit, or SERVE_MIN_COSINE with the cause found
 SERVE_RR = dict(top_n=100, k1=20, k2=6, lam=0.3)
-SERVE_QUERIES, SERVE_CONCURRENT, SERVE_LATENCY_N, SERVE_BQ_ITERS = 256, 32, 200, 5
+SERVE_QUERIES, SERVE_CONCURRENT, SERVE_LATENCY_N, SERVE_BQ_ITERS = 256, 32, 100, 5
 MM_SERVE_COMBOS = (("nir", "text"), ("sk", "cp", "text"), ("nir", "sk", "cp"),
                    ("nir", "sk", "cp", "text"))
 SERVE_MIN_COSINE = 0.9999
@@ -411,8 +437,23 @@ SERVE_MIN_COSINE = 0.9999
 # turns, the probe's and the harness's step counts
 CLIP_ORACLE_BATCH = 32
 CLIP_EVAL_PLANS = ("single/nir", "quad/nir+sk+cp+text")
-CLIP_ROUNDS, CLIP_ITERS = 2, 3
+CLIP_ROUNDS, CLIP_ITERS = 1, 3
 CLIP_PROBE_STEPS, CLIP_DRYRUN_STEPS = 10, 3
+# phase 4h, the tools: trace_embed.py's paths at BATCH (their CUDA events held
+# within TOOL_DEVICE_SPREAD of phase 5's reading of the same path), the host
+# benchmark's samples, the bundle's graphs and batch (its features against
+# the live engine: bit for bit, or BUNDLE_MIN_COSINE with the cause found),
+# the ops' host cost a call over DISPATCH_CALLS calls.  trace_train.py's
+# traced run, train_ab.py and flagship_train_probe.py are cut from the script
+# for time (PERF.md: their card runs are standalone; toolchain_watch.py runs
+# trace_train.py --no-trace here)
+TRACE_PATHS = {"fused": ["--block-impl", "fused"], "splash": ["--attn-backend", "splash"]}
+TRACE_ITERS, TOOL_DEVICE_SPREAD = 2, 0.10
+HOST_SAMPLES = 50
+BUNDLE_GRAPHS, BUNDLE_BATCH, BUNDLE_N = "gallery_vis,text,quad,combo_nir+text", 8, 64
+BUNDLE_LATENCY_N = 100
+BUNDLE_MIN_COSINE = 0.99999
+DISPATCH_CALLS = 500
 MATMUL_ROWS = (25344, 6304)  # the microbenchmark's M, and a multiple of no row tile
 MICROBENCH = ("xla_bf16", "xla_int8", "pallas_bf16", "pallas_int8", "pallas_sweep", "bw",
               "floor")
@@ -2808,6 +2849,286 @@ def clip_phase(torch, cfg, counters, dev, card, tmp):
     return readings
 
 
+# the bundle's consumer in a fresh process: serve_artifact.consumer_check on
+# argv[2:5] (the bundle, a JSON of image paths and captions, the features'
+# npz) with argv[5] sequential one-image /embed requests
+BUNDLE_CONSUMER = ("import sys; sys.path.insert(0, sys.argv[1]); "
+                   "from tools_torch.serve_artifact import consumer_check; "
+                   "consumer_check(*sys.argv[2:5], latency_n=int(sys.argv[5]))")
+
+
+def run_tools(calls, timeout=900, ok_codes=(0,)):
+    """Each (name, args) of ``calls`` as tools_torch/<name>.py in a subprocess
+    of its own (sys.executable, the repo root as the working directory), all
+    started together; fails the run on another exit code, after stopping
+    the others; -> [(rc, stdout)] in the order of ``calls``."""
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    running = []
+    try:
+        for name, args in calls:
+            out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+            running.append((name, args, out, err, subprocess.Popen(
+                [sys.executable, str(root / "tools_torch" / f"{name}.py"), *args],
+                stdout=out, stderr=err, text=True, cwd=root)))
+        results = []
+        for name, args, out, err, proc in running:
+            rc = proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+            out.seek(0)
+            err.seek(0)
+            stdout, stderr = out.read(), err.read()
+            if rc not in ok_codes:
+                tail = "\n".join(stdout.splitlines()[-20:] + stderr.splitlines()[-30:])
+                fail(f"tools {name} {' '.join(args)}: exit code {rc}\n{tail}")
+            print(f"tools {name} ({time.perf_counter() - t0:.1f} s, exit {rc})")
+            results.append((rc, stdout))
+        return results
+    finally:
+        for *_, proc in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def run_tool(name, args, timeout=900, ok_codes=(0,)):
+    """tools_torch/<name>.py in a subprocess (``run_tools``); -> (rc, stdout)."""
+    return run_tools([(name, args)], timeout, ok_codes)[0]
+
+
+def json_line(stdout: str, key: str):
+    """The payload of the last stdout line that is a JSON object {key: ...}."""
+    for line in reversed(stdout.splitlines()):
+        if line.startswith("{") and f'"{key}"' in line:
+            return json.loads(line)[key]
+    fail(f"no {key!r} JSON line in the tool's output:\n{stdout[-2000:]}")
+
+
+def tools_phase(torch, cfg, counters, dev, card, tmp, live_p50):
+    """The measuring tools and the serving artifact at full width on the
+    card (phase 4h, see the module docstring), each tool in a subprocess of
+    its own, as a user runs it; fails the run on any failed check and
+    returns the readings (4h (a)'s device ms are held against phase 5 in
+    main).  ``tmp``: the scratch directory of phases 4c-4g; ``live_p50``: phase
+    4f's p50 of one served image (ms), printed beside the bundle's."""
+    import glob
+
+    import numpy as np
+
+    from prcv2025reid_tpu_torch.ops import library  # noqa: F401 (registers the ops)
+    from prcv2025reid_tpu_torch.ops.kernel_math import LN_EPS
+    from prcv2025reid_tpu_torch.utils.trace_table import PORT_KERNELS
+
+    t_phase = time.perf_counter()
+    out = os.path.join(tmp, "H")
+    os.makedirs(out)
+    L = cfg.vision_layers
+    readings = {}
+
+    # ---- (a) trace_embed.py at BATCH under TRACE_PATHS
+    expect_launches = {"fused": {"fused_ln_qkv": L - 1, "fused_out_mlp": L - 1},
+                       "splash": {"fused_mha": L - 1, "splash_attention_bshd": L - 1}}
+    expect_pallas = {"fused": ("ln_rows_kernel", "hgemm::gemm_kernel"),
+                     "splash": ("attn_fwd_kernel",)}
+    traced = {}
+    for name, flags in TRACE_PATHS.items():
+        _, stdout = run_tool("trace_embed", ["--batch", str(BATCH), "--iters", str(TRACE_ITERS),
+                                             "--out", os.path.join(out, f"te_{name}"), *flags])
+        r = json_line(stdout, "trace_embed")
+        total, table = sum(r["rollup"].values()), r["table_ms"]
+        pallas = r["kernels_by_bucket"].get("pallas", [])
+        port_in_matmul = [n for n in r["kernels_by_bucket"].get("matmul", [])
+                          if any(k in n for k in PORT_KERNELS)]
+        launches = {k: round(v) for k, v in r["launches_per_step"].items()}
+        print(f"tools (a) trace_embed {name} ({card}): rollup "
+              + json.dumps({k: round(v, 3) for k, v in r["rollup"].items()})
+              + f" = {total:.3f} ms of the table's {table:.3f}; CUDA events {r['device_ms']:.3f} ms; "
+              f"launches a step {launches}; pallas kernels {len(pallas)}")
+        if abs(total - table) > 0.01 * table or table <= 0:
+            fail(f"trace_embed {name}: rollup {total} != table {table} within 1%")
+        if launches != expect_launches[name]:
+            fail(f"trace_embed {name}: launches a step {launches} != {expect_launches[name]}")
+        missing = [k for k in expect_pallas[name] if not any(k in n for n in pallas)]
+        if missing or port_in_matmul:
+            fail(f"trace_embed {name}: pallas bucket {pallas} lacks {missing}, or the port's "
+                 f"kernels in matmul: {port_in_matmul}")
+        traced[name] = r
+    readings["trace_embed"] = {n: dict(device_ms=r["device_ms"], profiler_ms=r["profiler_ms"],
+                                       rollup=r["rollup"]) for n, r in traced.items()}
+
+    # ---- (d) bench_host_pipeline.py
+    _, stdout = run_tool("bench_host_pipeline", ["--samples", str(HOST_SAMPLES)])
+    lines = [ln for ln in stdout.splitlines() if ln.startswith(
+        ("host:", "get_sample rate", "native=True failed", "gallery get_query_sample", "budget:",
+         "overlap:"))]
+    print("tools (d) bench_host_pipeline: " + " | ".join(lines))
+    for prefix in ("get_sample rate (native_decode=False)", "budget:", "overlap:"):
+        if not any(ln.startswith(prefix) for ln in lines):
+            fail(f"bench_host_pipeline: no {prefix!r} line: {stdout[-2000:]}")
+    if not any(ln.startswith(("native=True failed: unavailable",
+                              "get_sample rate (native_decode=True)")) for ln in lines):
+        fail(f"bench_host_pipeline: no native leg line: {stdout[-2000:]}")
+    readings["host_pipeline"] = lines
+
+    # ---- (f) toolchain_watch.py --fast: 0 (unchanged) or 2 (changed)
+    rc, stdout = run_tool("toolchain_watch", ["--fast"], ok_codes=(0, 2))
+    report = stdout[stdout.find("== train-step probe"):]
+    print(f"tools (f) toolchain_watch --fast: exit {rc}\n{report}")
+    diff = stdout[stdout.find("== probe diff"):]
+    if "FAILED" in diff or "train_8x4: FAILED" in stdout:
+        fail(f"toolchain_watch: a probe read None:\n{diff}")
+    readings["toolchain_watch"] = dict(rc=rc, report=report.strip().splitlines())
+
+    # ---- (g) the serving artifact from 4d's best/ (a fused-stream checkpoint)
+    a_ckpt = os.path.join(tmp, "A", "ckpt", "best")
+    # the same weights under block_impl="fused": the fused-stream trunk refuses
+    # the block plans, so its copy's config takes use_fused_resln off
+    f_ckpt = os.path.join(out, "ckpt_fused_block", "best")
+    os.makedirs(f_ckpt)
+    os.symlink(os.path.join(a_ckpt, "state.pt"), os.path.join(f_ckpt, "state.pt"))
+    with open(os.path.join(a_ckpt, "host_state.json")) as f:
+        host = json.load(f)
+    host["config"] = json.dumps({**json.loads(host["config"]), "use_fused_resln": False}) \
+        if isinstance(host["config"], str) else {**host["config"], "use_fused_resln": False}
+    with open(os.path.join(f_ckpt, "host_state.json"), "w") as f:
+        json.dump(host, f)
+    bundle, fbundle = os.path.join(out, "bundle"), os.path.join(out, "bundle_fused")
+    # both exports at once: each is host work (tracing, writing the file)
+    # and nothing of it is timed against the card
+    labels = {"fused_stream": (a_ckpt, bundle, ["--graphs", BUNDLE_GRAPHS]),
+              "block_fused": (f_ckpt, fbundle, ["--graphs", "gallery_vis", "--block_impl",
+                                                 "fused"])}
+    ran = run_tools([("export_serving", ["--model_path", ckpt, "--out_dir", bdir,
+                                         "--batch_size", str(BUNDLE_BATCH), *extra])
+                     for ckpt, bdir, extra in labels.values()])
+    exports = {}
+    for label, (_, stdout) in zip(labels, ran):
+        for line in stdout.splitlines():
+            if line.startswith('{"exported"'):
+                e = json.loads(line)
+                exports[f"{label}/{e['exported']}"] = e
+    print(f"tools (g) export_serving ({card}): " + json.dumps(
+        {k: [e["bytes"], e["seconds"], e["ops"]] for k, e in exports.items()})
+          + " (bytes, export s, prcv_reid ops)")
+    trunk = {"fused_mha": L, "fused_mlp": L, "fused_residual_ln": 2 * L}
+    want_ops = {"fused_stream/gallery_vis": trunk, "fused_stream/text": {},
+                "block_fused/gallery_vis": {"fused_ln_qkv": L - 1, "fused_out_mlp": L - 1}}
+    for key, ops in want_ops.items():
+        if exports.get(key, {}).get("ops") != ops:
+            fail(f"export_serving {key}: graph ops {exports.get(key)} != {ops}")
+    for key in ("fused_stream/quad", "fused_stream/combo_nir+text"):
+        if not all(exports[key]["ops"].get(k, 0) >= n for k, n in trunk.items()):
+            fail(f"export_serving {key}: graph ops {exports[key]['ops']} lack the trunk's {trunk}")
+
+    root = os.path.join(tmp, "orbench")
+    with open(os.path.join(root, "text_annos.json")) as f:
+        captions = [a["caption"] for a in json.load(f)][:BUNDLE_N]
+    files = {m: sorted(glob.glob(os.path.join(root, m, "*", "*.jpg")))[:BUNDLE_N]
+             for m in ("vis", "nir")}
+    inputs = os.path.join(out, "inputs.json")
+    with open(inputs, "w") as f:
+        json.dump({**files, "captions": captions}, f)
+    feats_npz = os.path.join(out, "bundle_feats.npz")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", BUNDLE_CONSUMER,
+                           str(Path(__file__).resolve().parent), bundle, inputs, feats_npz,
+                           str(BUNDLE_LATENCY_N)],
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        fail(f"the bundle's consumer: exit code {proc.returncode}\n{proc.stderr[-4000:]}")
+    consumer = json_line(proc.stdout, "bundle_consumer")
+    consumer_s = time.perf_counter() - t0
+
+    # the live engine on the same inputs
+    from PIL import Image
+
+    serve = load_tool("serve_embed")
+    config, model = serve._load_model(a_ckpt, device=dev)
+    live = serve.make_engine(config, model, BUNDLE_BATCH)
+
+    def pil(path):
+        with Image.open(path) as im:
+            im.load()
+            return im.copy()
+
+    vis, nir = [pil(p) for p in files["vis"]], [pil(p) for p in files["nir"]]
+    want = {"vis": live.embed_pils(vis, "vis"), "text": live.embed_texts(captions),
+            "nir_text": live.embed_queries([{"nir": a, "text": c} for a, c in zip(nir, captions)]),
+            "quad": live.embed_queries([{"vis": v, "nir": a, "sk": a, "cp": a, "text": c}
+                                        for v, a, c in zip(vis, nir, captions)])}
+    with np.load(feats_npz) as z:
+        got = {k: z[k] for k in z.files}
+    agree = {k: dict(bits=bool(np.array_equal(got[k], want[k])),
+                     min_cos=float((got[k] * want[k]).sum(axis=1).min()),
+                     max_abs=float(np.abs(got[k] - want[k]).max())) for k in want}
+    del model, live
+    torch.cuda.empty_cache()
+    print(f"tools (g) bundle consumer ({consumer_s:.1f} s, load + warm {consumer['load_s']:.1f} s; "
+          f"{card}): model modules loaded {consumer['model_modules']}; one vis batch of "
+          f"{BUNDLE_BATCH} launches {consumer['one_vis_batch']}; against the live engine "
+          + json.dumps(agree) + f"; /embed one image p50 {consumer['p50_ms']:.3f} ms, p90 "
+          f"{consumer['p90_ms']:.3f} ms over {consumer['n']} sequential requests (the live "
+          f"server's in phase 4f: p50 {live_p50:.3f} ms); /search hits {consumer['search_hits']}")
+    if consumer["model_modules"]:
+        fail(f"the bundle's consumer loaded the model code: {consumer['model_modules']}")
+    if consumer["one_vis_batch"] != trunk:
+        fail(f"the bundle's vis batch launched {consumer['one_vis_batch']} != {trunk}")
+    if not consumer["embed_equals_engine"] or consumer["search_hits"] != 5 or \
+            consumer["store_hits"] != [5, 5] or consumer["embed_dim"] != config.fusion_dim:
+        fail(f"the bundle's server: {consumer}")
+    not_bits = [k for k, a in agree.items() if not a["bits"]]
+    if not_bits:
+        # the exported graph runs the same kernels on the same operands; where
+        # a graph re-orders an f32 reduction outside them the bits may move
+        print(f"tools (g) bundle features not bit for bit on {not_bits}: held at min-cosine "
+              f">= {BUNDLE_MIN_COSINE}")
+        if min(agree[k]["min_cos"] for k in not_bits) < BUNDLE_MIN_COSINE:
+            fail(f"the bundle's features against the live engine: {agree}")
+    readings["artifact"] = dict(exports=exports, consumer=consumer, agree=agree,
+                                consumer_s=consumer_s, live_p50_ms=live_p50)
+
+    # ---- (h) the ops' host cost a call against the direct launch
+    from prcv2025reid_tpu_torch.ops.fused_resln import fused_residual_ln
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n_rows, D = BUNDLE_BATCH * (cfg.num_patches + 1), cfg.vision_hidden_dim
+    x = torch.randn(n_rows, D, generator=gen, device=dev).bfloat16()
+    br = torch.randn(n_rows, D, generator=gen, device=dev).bfloat16()
+    sc, bi = torch.ones(D, device=dev), torch.zeros(D, device=dev)
+
+    def host_us(fn):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DISPATCH_CALLS):
+            fn()
+        t = (time.perf_counter() - t0) / DISPATCH_CALLS * 1e6
+        torch.cuda.synchronize()
+        return t
+
+    with torch.no_grad():
+        ways = {"direct": lambda: fused_residual_ln(x, br, sc, bi),
+                "op": lambda: torch.ops.prcv_reid.fused_residual_ln(x, br, sc, bi, LN_EPS)}
+        same = all(torch.equal(a, b) for a, b in zip(ways["direct"](), ways["op"]()))
+        dispatch = {}
+        for rnd in range(3):
+            for name in (list(ways) if rnd % 2 == 0 else list(ways)[::-1]):
+                dispatch.setdefault(name, []).append(host_us(ways[name]))
+    dispatch = {k: statistics.median(v) for k, v in dispatch.items()}
+    for counter in counters.values():
+        counter.launches = 0
+    print(f"tools (h) fused_residual_ln [{n_rows}, {D}] host us a call ({card}; median of 3 "
+          f"rounds of {DISPATCH_CALLS}): direct {dispatch['direct']:.2f}, through "
+          f"torch.ops.prcv_reid {dispatch['op']:.2f}; same output {same}")
+    if not same:
+        fail("the fused_residual_ln op's output differs from the direct launch's")
+    readings["dispatch_us"] = dispatch
+    readings["seconds"] = time.perf_counter() - t_phase
+    return readings
+
+
 def main() -> int:
     import torch
 
@@ -3349,6 +3670,12 @@ def main() -> int:
         clip = clip_phase(torch, cfg, counters, dev, card, tmp)
         print(f"clip phase: {time.perf_counter() - t0:.1f} s")
 
+        # ---- 4h. the measuring tools and the serving artifact, on 4c-4g's files
+        t0 = time.perf_counter()
+        tools = tools_phase(torch, cfg, counters, dev, card, tmp,
+                            serving["f"]["latency_ms"]["embed_vis"]["p50"])
+        print(f"tools phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- 5. timing
     import torch.nn.functional as Fn
 
@@ -3580,6 +3907,15 @@ def main() -> int:
               f"{len(events)} kernels: "
               + json.dumps([[e.key[:60], e.count, round(device_time(e) / 1e3, 4)] for e in top]))
 
+    # 4h (a): trace_embed.py's CUDA events against this process's reading
+    for name, r in tools["trace_embed"].items():
+        ref = device_ms[name]
+        print(f"tools (a) trace_embed {name}: CUDA events {r['device_ms']:.3f} ms in its own "
+              f"process against phase 5's {ref:.3f} ms")
+        if not abs(r["device_ms"] - ref) <= TOOL_DEVICE_SPREAD * ref:
+            fail(f"trace_embed {name}: device ms {r['device_ms']} outside "
+                 f"{TOOL_DEVICE_SPREAD:.0%} of phase 5's {ref}")
+
     # ---- 6. the microbenchmark's entry point: the card's own rates
     pmb = load_tool("perf_microbench")
     bench = pmb.Bench("cuda")
@@ -3603,6 +3939,7 @@ def main() -> int:
         "eval_cli_phase": eval_cli,
         "serving_phase": serving,
         "clip_phase": clip,
+        "tools_phase": tools,
         "kernels_at_token_reduced_shapes": reduced_rows,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     for r in rows:

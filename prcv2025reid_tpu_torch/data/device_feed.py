@@ -33,7 +33,9 @@ def normalize_images_device(images: torch.Tensor) -> torch.Tensor:
     if images.dtype != torch.uint8:
         return images
     x = images.to(torch.float32) / 255.0
-    mean, std = _mean_std(images.device)
+    # torch.export traces with tensors of its own: none may enter the cache
+    mean, std = (_mean_std.__wrapped__ if torch.compiler.is_exporting() else _mean_std)(
+        images.device)
     return (x - mean) / std
 
 

@@ -40,16 +40,7 @@ from prcv2025reid_tpu_torch.training.train_step import (  # noqa: F401 (entry po
     make_embed_step,
     make_train_step,
 )
-
-
-def resolve_device(device: Union[str, torch.device]) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' explicitly to run "
-            "the plain versions on the CPU"
-        )
-    return dev
+from prcv2025reid_tpu_torch.utils.device import resolve_device  # noqa: F401 (re-exported)
 
 
 def build_model(config: TrainingConfig,

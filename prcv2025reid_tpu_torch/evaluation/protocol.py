@@ -30,7 +30,6 @@ of ``rerank_orders``' top_n, k1, k2, lam) re-ranks each query's head with
 """
 from __future__ import annotations
 
-import contextlib
 import fnmatch
 import hashlib
 import itertools
@@ -43,7 +42,8 @@ import torch
 
 from prcv2025reid_tpu_torch.data.dataset import MultiModalDataset
 from prcv2025reid_tpu_torch.data.pipeline import collate
-from prcv2025reid_tpu_torch.engine import resolve_device
+from prcv2025reid_tpu_torch.evaluation.similarity import _full_f32, similarity  # noqa: F401 (re-exported)
+from prcv2025reid_tpu_torch.utils.device import resolve_device
 
 NONVIS = ("nir", "sk", "cp", "text")
 KIND_NAME = {1: "single", 2: "double", 3: "triple", 4: "quad"}
@@ -76,23 +76,6 @@ def filter_plans(
         for name, mods in plans
         if any(fnmatch.fnmatch(name, pat) for pat in include_patterns)
     ]
-
-
-@contextlib.contextmanager
-def _full_f32():
-    """f32 products in full f32 (no TF32) inside the scope."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
-def similarity(q: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """q [Nq, D] @ g [Ng, D].T in full f32 (no TF32)."""
-    with _full_f32():
-        return q @ g.T
 
 
 def _chunk_stats(q, q_pids, g, g_pids, exclude, excl_idx, boost_idx, topk_cmc):

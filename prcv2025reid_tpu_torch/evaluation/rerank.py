@@ -36,7 +36,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from prcv2025reid_tpu_torch.engine import resolve_device
+from prcv2025reid_tpu_torch.utils.device import resolve_device
 from prcv2025reid_tpu_torch.evaluation.protocol import _full_f32, _single_device, similarity
 
 # distance of a masked-out candidate: exp(-_BIG) is exactly 0.0 in f32 (no

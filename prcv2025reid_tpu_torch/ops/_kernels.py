@@ -104,6 +104,17 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def export_op(name: str):
+    """``torch.ops.prcv_reid.<name>`` while ``torch.export`` traces (the
+    wrapper then calls the op, so the graph holds it), else None: eager calls
+    launch directly and pay no dispatcher overhead (``ops/library.py``)."""
+    if not torch.compiler.is_exporting():
+        return None
+    from prcv2025reid_tpu_torch.ops import library  # noqa: F401 (registers the ops)
+
+    return getattr(torch.ops.prcv_reid, name)
+
+
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)

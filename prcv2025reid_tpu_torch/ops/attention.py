@@ -93,7 +93,8 @@ def splash_attention_bshd(q, k, v) -> torch.Tensor:
     _kernels.require(Dh == HEAD_DIM, f"splash_attention_bshd: the kernel takes Dh={HEAD_DIM} "
                      f"(a power-of-two scale), got {Dh}")
     out = fused_mha(*(t.permute(0, 2, 1, 3) for t in (q, k, v)))
-    splash_attention_bshd.launches += 1
+    if not torch.compiler.is_exporting():  # an exported graph holds fused_mha's op
+        splash_attention_bshd.launches += 1
     return out.permute(0, 2, 1, 3)
 
 

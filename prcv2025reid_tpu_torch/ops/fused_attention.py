@@ -72,8 +72,16 @@ def mha_backward(q, k, v, g, causal: bool = False):
 
 
 def _mha_forward(q, k, v, causal):
+    op = _kernels.export_op("fused_mha")
+    if op is not None:
+        return op(q, k, v, causal)
     if not q.is_cuda:
         return mha_plain(q, k, v, causal)
+    return mha_launch(q, k, v, causal)
+
+
+def mha_launch(q, k, v, causal):
+    """The kernel's launch on CUDA tensors (``ops/library.py``'s op runs it)."""
     B, H, S, Dh = q.shape
     _kernels.require(Dh == HEAD_DIM, f"fused_mha: the kernel takes Dh={HEAD_DIM}, got {Dh}")
     _kernels.require(0 < S <= MAX_SEQ, f"fused_mha: the kernel takes 0 < S <= {MAX_SEQ}, got {S}")

@@ -170,8 +170,16 @@ def out_mlp_backward(attn, x, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2, g):
 
 
 def _ln_qkv_forward(x, ln_scale, ln_bias, w, b):
+    op = _kernels.export_op("fused_ln_qkv")
+    if op is not None:
+        return op(x, ln_scale, ln_bias, w, b)
     if not x.is_cuda:
         return ln_qkv_plain(x, ln_scale, ln_bias, w, b)
+    return ln_qkv_launch(x, ln_scale, ln_bias, w, b)
+
+
+def ln_qkv_launch(x, ln_scale, ln_bias, w, b):
+    """#3's launches on CUDA tensors (``ops/library.py``'s op runs them)."""
     fn = "fused_ln_qkv"
     G, T, D = x.shape
     O = w.shape[-1]
@@ -195,8 +203,16 @@ def _ln_qkv_forward(x, ln_scale, ln_bias, w, b):
 
 
 def _out_mlp_forward(attn, x, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2):
+    op = _kernels.export_op("fused_out_mlp")
+    if op is not None:
+        return op(attn, x, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2)
     if not x.is_cuda:
         return out_mlp_plain(attn, x, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2)
+    return out_mlp_launch(attn, x, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2)
+
+
+def out_mlp_launch(attn, x, wo, bo, ln_scale, ln_bias, w1, b1, w2, b2):
+    """#5's launches on CUDA tensors (``ops/library.py``'s op runs them)."""
     fn = "fused_out_mlp"
     G, T, D = x.shape
     F = w1.shape[-1]
@@ -324,10 +340,18 @@ def fused_ln_qkv_int8(x, ln_scale, ln_bias, wq, ws, b):
     x [G,T,D] bf16; wq int8 [G,D,O] (K-major), ws [G,1,O]; b [G,O] ->
     [G,T,O] bf16.  On the card: one row pass (LN1 in f32, per-row int8
     quantization), then the int8 GEMM; one launch of the fused kernel."""
-    fn = "fused_ln_qkv_int8"
-    _no_autograd(fn, x, ln_scale, ln_bias, ws, b)
+    _no_autograd("fused_ln_qkv_int8", x, ln_scale, ln_bias, ws, b)
+    op = _kernels.export_op("fused_ln_qkv_int8")
+    if op is not None:
+        return op(x, ln_scale, ln_bias, wq, ws, b)
     if not x.is_cuda:
         return ln_qkv_int8_plain(x, ln_scale, ln_bias, wq, ws, b)
+    return ln_qkv_int8_launch(x, ln_scale, ln_bias, wq, ws, b)
+
+
+def ln_qkv_int8_launch(x, ln_scale, ln_bias, wq, ws, b):
+    """#4's launches on CUDA tensors (``ops/library.py``'s op runs them)."""
+    fn = "fused_ln_qkv_int8"
     G, T, D = x.shape
     O = wq.shape[-1]
     _kernels.require(D % 16 == 0 and O % 8 == 0 and D <= MAX_LN_WIDTH,
@@ -385,11 +409,20 @@ def fused_out_mlp_int8(attn, x, woq, wos, bo, ln_scale, ln_bias, w1q, w1s, b1,
     rows, out-proj GEMM (x2 = (x + proj) + bo in f32), LN2 + quantize, fc1
     GEMM (f32 GELU and the row max of |h|), quantize h, fc2 GEMM
     ((x2 + o) + b2); one launch of the fused kernel."""
-    fn = "fused_out_mlp_int8"
-    _no_autograd(fn, attn, x, wos, bo, ln_scale, ln_bias, w1s, b1, w2s, b2)
+    args = (attn, x, woq, wos, bo, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2)
+    _no_autograd("fused_out_mlp_int8", attn, x, wos, bo, ln_scale, ln_bias, w1s, b1, w2s, b2)
+    op = _kernels.export_op("fused_out_mlp_int8")
+    if op is not None:
+        return op(*args)
     if not x.is_cuda:
-        return out_mlp_int8_plain(attn, x, woq, wos, bo, ln_scale, ln_bias, w1q, w1s, b1,
-                                  w2q, w2s, b2)
+        return out_mlp_int8_plain(*args)
+    return out_mlp_int8_launch(*args)
+
+
+def out_mlp_int8_launch(attn, x, woq, wos, bo, ln_scale, ln_bias, w1q, w1s, b1,
+                        w2q, w2s, b2):
+    """#6's launches on CUDA tensors (``ops/library.py``'s op runs them)."""
+    fn = "fused_out_mlp_int8"
     G, T, D = x.shape
     _kernels.bf16_operand(fn, "attn", attn, (G, T, D))
     _kernels.bf16_operand(fn, "x", x, (G, T, D))
@@ -413,11 +446,20 @@ def fused_out_mlp_int8mlp(attn, x, wo, bo, ln_scale, ln_bias, w1q, w1s, b1,
     csrc/fused_block.cu::out_proj), fc1 and fc2 int8 as in
     :func:`fused_out_mlp_int8`.  wo [G,D,D] bf16; w1q/w2q int8 pairs; one
     launch of the fused kernel."""
-    fn = "fused_out_mlp_int8mlp"
-    _no_autograd(fn, attn, x, wo, bo, ln_scale, ln_bias, w1s, b1, w2s, b2)
+    args = (attn, x, wo, bo, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2)
+    _no_autograd("fused_out_mlp_int8mlp", attn, x, wo, bo, ln_scale, ln_bias, w1s, b1, w2s, b2)
+    op = _kernels.export_op("fused_out_mlp_int8mlp")
+    if op is not None:
+        return op(*args)
     if not x.is_cuda:
-        return out_mlp_int8mlp_plain(attn, x, wo, bo, ln_scale, ln_bias, w1q, w1s, b1,
-                                     w2q, w2s, b2)
+        return out_mlp_int8mlp_plain(*args)
+    return out_mlp_int8mlp_launch(*args)
+
+
+def out_mlp_int8mlp_launch(attn, x, wo, bo, ln_scale, ln_bias, w1q, w1s, b1,
+                           w2q, w2s, b2):
+    """#7's launches on CUDA tensors (``ops/library.py``'s op runs them)."""
+    fn = "fused_out_mlp_int8mlp"
     G, T, D = x.shape
     _kernels.bf16_operand(fn, "attn", attn, (G, T, D))
     _kernels.bf16_operand(fn, "x", x, (G, T, D))

@@ -48,8 +48,16 @@ def resln_backward(xn, scale, g_xn, g_y, eps: float = LN_EPS):
 
 
 def _resln_forward(x, branch, scale, bias, eps):
+    op = _kernels.export_op("fused_residual_ln")
+    if op is not None:
+        return op(x, branch, scale, bias, eps)
     if not x.is_cuda:
         return resln_plain(x, branch, scale, bias, eps)
+    return resln_launch(x, branch, scale, bias, eps)
+
+
+def resln_launch(x, branch, scale, bias, eps):
+    """The kernel's launch on CUDA tensors (``ops/library.py``'s op runs it)."""
     fn = "fused_residual_ln"
     _kernels.require(x.dim() == 2, f"{fn}: x must be [N, D], got {tuple(x.shape)}")
     N, D = x.shape

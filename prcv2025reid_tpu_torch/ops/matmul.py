@@ -14,6 +14,8 @@ computed.  The int8 weight must be stored K-major (an [K, N] view of [N, K]
 storage, as ``fused_block.quantize_weight`` writes it): 8-bit ``wgmma``
 reads both operands K-major only.  Like the JAX tool's kernel it has no
 backward: it raises under autograd rather than return a result without one.
+It lies on no exported serving graph, so it is no ``torch.library`` op (the
+other kernels are, ``ops/library.py``): it stays a plain ctypes launch.
 """
 from __future__ import annotations
 

@@ -1108,3 +1108,55 @@ def test_clip_weights_on_the_card_match_the_cpu(cuda, tmp_path):
     cpu = build_model(cfg.replace(compute_dtype="float32"), flat, device="cpu")
     want = make_combo_embed_step(cpu, ("vis",))(images, mask)
     assert (got * want).sum(dim=1).min().item() >= 0.999
+
+
+def test_serving_bundle_on_the_card_matches_the_live_engine(cuda, tmp_path):
+    """tools_torch/export_serving.py on the card (a fused-stream checkpoint:
+    the graph holds the prcv_reid ops of #1, #8 and #9), loaded by
+    tools_torch/serve_artifact.py: a vis embed equals the live engine's on
+    the same images, and one batch launches the kernels as the live trunk."""
+    import importlib.util
+    from pathlib import Path
+
+    from PIL import Image
+
+    from prcv2025reid_tpu_torch import init_train_state
+    from prcv2025reid_tpu_torch.ops import library
+    from prcv2025reid_tpu_torch.training.checkpoint import save_checkpoint
+
+    def load(name):
+        spec = importlib.util.spec_from_file_location(
+            f"port_{name}_cuda", Path(__file__).resolve().parents[1] / "tools_torch" / f"{name}.py")
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return module
+
+    export_serving, serve_artifact, serve_embed = (
+        load(n) for n in ("export_serving", "serve_artifact", "serve_embed"))
+    cfg = TrainingConfig(**{**TRAIN_TINY, "inference_batch_size": 4, "use_pallas_attention": True,
+                            "use_fused_mlp": True, "use_fused_resln": True})
+    model = build_model(cfg, device="cpu", num_classes=5, seed=2)
+    save_checkpoint(str(tmp_path), model, init_train_state(model, cfg, 3, seed=1),
+                    {"epoch": 1, "num_classes": 5, "config": cfg.to_json()}, name="best")
+    manifest = export_serving.main([f"--model_path={tmp_path / 'best'}",
+                                    f"--out_dir={tmp_path / 'bundle'}", "--graphs=gallery_vis"],
+                                   device="cuda")
+    assert manifest["graphs"]["gallery_vis"]["device"] == "cuda"
+    L = cfg.vision_layers
+    ep = torch.export.load(str(tmp_path / "bundle" / "gallery_vis.pt2"))
+    assert export_serving.graph_ops(ep) == {"fused_mha": L, "fused_mlp": L,
+                                            "fused_residual_ln": 2 * L}
+    rng = np.random.default_rng(5)
+    imgs = [Image.fromarray(rng.integers(0, 256, (40, 30, 3), dtype=np.uint8)) for _ in range(6)]
+    shim, graphs = serve_artifact.load_bundle(str(tmp_path / "bundle"))
+    bundle = serve_artifact.make_artifact_engine(shim, graphs)
+    before = library.launch_counts()
+    got = bundle.embed_pils(imgs[:4], "vis")
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in library.launch_counts().items() if v != before[k]}
+    assert launched == {"fused_mha": L, "fused_mlp": L, "fused_residual_ln": 2 * L}
+    config, live_model = serve_embed._load_model(str(tmp_path / "best"), device=cuda)
+    live = serve_embed.make_engine(config, live_model, 4)
+    got, want = bundle.embed_pils(imgs, "vis"), live.embed_pils(imgs, "vis")
+    assert got.shape == want.shape == (6, cfg.fusion_dim)
+    assert (got * want).sum(axis=1).min() >= 0.99999

@@ -357,7 +357,7 @@ class GalleryStore:
 
         import numpy as np
 
-        from prcv2025reid_tpu_torch.engine import resolve_device
+        from prcv2025reid_tpu_torch.utils.device import resolve_device
 
         self.dim = int(dim)
         self.path = path
@@ -463,8 +463,8 @@ class GalleryStore:
         import numpy as np
         import torch
 
-        from prcv2025reid_tpu_torch.evaluation.protocol import similarity
         from prcv2025reid_tpu_torch.evaluation.rerank import _rerank_full, stable_topk
+        from prcv2025reid_tpu_torch.evaluation.similarity import similarity
 
         g, ids, n = self._snap  # a consistent snapshot, no lock
         nq = int(np.asarray(query_feats).shape[0])
