@@ -177,7 +177,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      val, --sample_ratio of the run, no same-image exclusion, as the
      trainer's evaluation): every aggregate within CLI_METRIC_TOL of epoch
      2's row of eval_history.csv; its --submission CSV one row a query of
-     unique gallery ids of the split.  (c) --fusion_mode weighted: the cache
+     unique gallery ids of the split.  (c) --fusion_mode weighted (E_SAMPLE of
+     each plan's queries): the cache
      tag is (b)'s with _w after the weights' fingerprint; one MM-3 batch
      through make_weighted_embed_step launches one stacked trunk and holds
      the weighted sum of the per-modality make_combo_embed_step features at
@@ -282,6 +283,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      one-image /embed requests.  (h) The host us a call of
      fused_residual_ln through torch.ops.prcv_reid against the direct
      launch (the eager paths keep the direct launch);
+  4i. data parallel over a process group, DP_PROCS processes sharing the
+     card over gloo (NCCL refuses two ranks on one device), on 4c's tree.
+     (a) tools_torch/dp_dryrun.py's step leg: its 3 global-batch train
+     steps at full width (the 8x4 recipe, use_pallas_attention, drop-path
+     0.1, every process its contiguous slice of each seeded batch)
+     against the one-process step on the whole batch in this process, from
+     the same init_params state: each step's losses on both sides and their
+     largest relative difference (<= DP_LOSS_REL), the processes'
+     parameters and optimizer state the same bits, #1 L-1 launches a step on
+     each process and in this process's reference steps (the counters
+     zeroed before them, read after), each process's device ms a step (CUDA
+     events) and the ms its all-reduces took.  (b) In the same processes, sharded_topk of
+     1,024 queries against a 45,113 x 512 gallery split over them, top
+     100, on small-integer features (every product exact, so the
+     order is the arithmetic's, ties by index): the indices equal to
+     stable_topk over the whole gallery.  (c) tools_torch/train.py launched
+     as DP_PROCS processes (--distributed=on, a file:// rendezvous,
+     --dist_backend=gloo) at full width: 1 epoch of DP_CLI_STEPS steps and
+     the final evaluation on the fused-stream trunk of the config's plans;
+     both exit 0, each process's launches (#1 L-1 a train step and L a
+     vision forward, #8 L, #9 2L), training.log, the history and latest/
+     from process 0 alone; then this process evaluates latest/ as the
+     trainer does: every aggregate mAP within RANK_MAX_MAP_DELTA of the
+     two-process final evaluation's;
   5. time every kernel, its plain version and (where one PyTorch call
      computes the same function) that call with CUDA events, median of
      TIMED_RUNS after warm-up queued behind a spin kernel (device time
@@ -390,7 +415,7 @@ NO_RANDOMNESS = dict(drop_path=0.0, dropout_rate=0.0, fusion_dropout=0.0, sdm_dr
 # pipeline alone times PIPE_BATCHES batches after its workers are warm; the
 # fed train step runs FEED_STEPS steps, timed after FEED_WARMUP
 DATA_IDS, DATA_ANCHORS, DATA_IMG = 256, 4, 256
-PIPE_BATCHES, FEED_STEPS, FEED_WARMUP = 32, 20, 2
+PIPE_BATCHES, FEED_STEPS, FEED_WARMUP = 16, 20, 2
 # the trainer phase: 2 epochs of TRAINER_STEPS steps through the command
 # line; the resumed run against the uninterrupted one: the per-epoch losses
 # within TRAINER_LOSS_REL, each trainable group's parameters at cosine >=
@@ -428,7 +453,7 @@ RR_SAME_ROWS, RR_MAP_TOL = 0.99, 1e-4
 # bench_query.py's calls a timed round; --images against embed_samples: bit
 # for bit, or SERVE_MIN_COSINE with the cause found
 SERVE_RR = dict(top_n=100, k1=20, k2=6, lam=0.3)
-SERVE_QUERIES, SERVE_CONCURRENT, SERVE_LATENCY_N, SERVE_BQ_ITERS = 256, 32, 100, 5
+SERVE_QUERIES, SERVE_CONCURRENT, SERVE_LATENCY_N, SERVE_BQ_ITERS = 256, 32, 50, 5
 MM_SERVE_COMBOS = (("nir", "text"), ("sk", "cp", "text"), ("nir", "sk", "cp"),
                    ("nir", "sk", "cp", "text"))
 SERVE_MIN_COSINE = 0.9999
@@ -451,9 +476,25 @@ TRACE_PATHS = {"fused": ["--block-impl", "fused"], "splash": ["--attn-backend", 
 TRACE_ITERS, TOOL_DEVICE_SPREAD = 2, 0.10
 HOST_SAMPLES = 50
 BUNDLE_GRAPHS, BUNDLE_BATCH, BUNDLE_N = "gallery_vis,text,quad,combo_nir+text", 8, 64
-BUNDLE_LATENCY_N = 100
+BUNDLE_LATENCY_N = 50
 BUNDLE_MIN_COSINE = 0.99999
 DISPATCH_CALLS = 500
+# phase 4i, data parallel: DP_PROCS processes share the one card over gloo
+# (NCCL refuses two ranks on a device).  (a) tools_torch/dp_dryrun.py's
+# global-batch steps of the 8x4 recipe (pallas_attention, drop-path 0.1)
+# against the one-process step, the metrics within DP_LOSS_REL (bf16; the
+# products' M differs between the runs); (b) its sharded_topk, 1,024
+# queries against a 45,113 x 512 gallery split over the processes, top 100;
+# (c) tools_torch/train.py as DP_PROCS processes, 1 epoch of DP_CLI_STEPS
+# steps and the final evaluation, whose aggregate mAPs this process's
+# evaluation of the saved checkpoint holds within RANK_MAX_MAP_DELTA; each
+# group within DP_TIMEOUT seconds
+DP_PROCS, DP_LOSS_REL, DP_CLI_STEPS, DP_TIMEOUT = 2, 2e-3, 2, 600
+# a tools_torch/train.py process that prints its launch counts when it ends
+DP_CLI = ("import json, runpy, sys; ns = runpy.run_path(sys.argv[1], run_name='train_cli'); "
+          "ns['main'](sys.argv[2:]); "
+          "from prcv2025reid_tpu_torch.ops.library import launch_counts; "
+          "print('launches ' + json.dumps(launch_counts()))")
 MATMUL_ROWS = (25344, 6304)  # the microbenchmark's M, and a multiple of no row tile
 MICROBENCH = ("xla_bf16", "xla_int8", "pallas_bf16", "pallas_int8", "pallas_sweep", "bw",
               "floor")
@@ -1778,7 +1819,8 @@ def eval_cli_phase(torch, cfg, params, counters, dev, card, tmp):
 
     # ---- (c) the weighted fusion: one stacked trunk, its own cache tag
     res_c, readings["c"] = drive("(c) --fusion_mode weighted", base + [
-        f"--cache_dir={out}/cache_c", "--fusion_mode=weighted"], trunk)
+        f"--cache_dir={out}/cache_c", "--fusion_mode=weighted", f"--sample_ratio={E_SAMPLE}"],
+        trunk)
     name_a, name_c = (os.path.basename(cache_file(d)) for d in ("cache_a", "cache_c"))
     fp = re.search(r"_st\d+_([0-9a-f]{10})", name_a).group(1)
     tag_ok = name_c == name_a.replace(f"_{fp}", f"_{fp}_w", 1)
@@ -1801,8 +1843,8 @@ def eval_cli_phase(torch, cfg, params, counters, dev, card, tmp):
     print(f"eval cli (c) cache files {name_a} -> {name_c}: weighted tag {tag_ok}; one MM-3 "
           f"batch of {len(mm3_idx)}: launches {one_batch} (one stacked trunk: #1 {L}, #8 {L}); "
           f"encode_weighted against the weighted sum of encode_subset((m,)): min-cosine "
-          f"{w_cos:.6f} (>= {MIN_COSINE}); map_avg2 weighted {res_c['map_avg2']:.6f}, model "
-          f"fusion {res_b['map_avg2']:.6f}")
+          f"{w_cos:.6f} (>= {MIN_COSINE}); map_avg2 weighted {res_c['map_avg2']:.6f} (on "
+          f"{E_SAMPLE} of the queries), model fusion {res_b['map_avg2']:.6f}")
     if not tag_ok or w_cos < MIN_COSINE or one_batch != {n: trunk.get(n, 0) for n in counters}:
         fail(f"eval cli (c): tag {tag_ok}, min-cosine {w_cos}, launches {one_batch}")
     readings["c"].update(min_cosine=w_cos, one_batch_launches=one_batch)
@@ -3129,6 +3171,146 @@ def tools_phase(torch, cfg, counters, dev, card, tmp, live_p50):
     return readings
 
 
+def parallel_phase(torch, cfg, counters, dev, card, tmp):
+    """Data parallel over a process group on the one card (see the module
+    docstring, phase 4i); fails the run on any failed check and returns the
+    readings.  ``tmp``: the scratch directory whose ``orbench`` tree phase 4c
+    wrote."""
+    from prcv2025reid_tpu_torch import engine
+    from prcv2025reid_tpu_torch.data.split import create_split_datasets
+    from prcv2025reid_tpu_torch.data.tokenizer import build_tokenizer
+    from prcv2025reid_tpu_torch.evaluation.protocol import evaluate_protocol
+
+    L = cfg.vision_layers
+    out = {}
+    # (a) the global-batch step and (b) the sharded ranking, in the same
+    # DP_PROCS processes; the one-process step runs first, in this process
+    dry = load_tool("dp_dryrun")
+    for counter in counters.values():
+        counter.launches = 0
+    t0 = time.perf_counter()
+    dp = dry.launch(["--legs", "step,ranking", "--out", os.path.join(tmp, "dp_dryrun")])
+    print(f"dp (a)+(b) {time.perf_counter() - t0:.1f} s (one process {dp.get('single_s', 0):.1f} "
+          f"s, {DP_PROCS} processes {dp.get('children_s', 0):.1f} s)")
+    if not dp["ok"]:
+        fail("data parallel (a)/(b): " + "; ".join(dp["failures"]))
+    for row in dp["steps"]:
+        print(f"dp (a) step {row['step']} ({card}): one process {json.dumps(row['single'])}, "
+              f"{DP_PROCS} processes {json.dumps(row['multi'])}, max rel {row['max_rel']:.3e} "
+              f"(<= {DP_LOSS_REL}); #1 launches a rank {row['fused_mha']} (one process "
+              f"{row['single_fused_mha']}); device ms a rank "
+              f"{[round(x, 3) for x in row['device_ms']]} (one process "
+              f"{row['single_device_ms']:.3f}); collectives ms a rank "
+              f"{[round(x, 3) for x in row['collective_ms']]} in {row['collective_calls']} "
+              "all-reduces")
+        if any(n != L - 1 for n in row["fused_mha"] + [row["single_fused_mha"]]) \
+                or row["max_rel"] > DP_LOSS_REL:
+            fail(f"dp (a) step {row['step']}: #1 launches a rank {row['fused_mha']}, one process "
+                 f"{row['single_fused_mha']} (expected {L - 1}), max rel {row['max_rel']} "
+                 f"(<= {DP_LOSS_REL})")
+    print(f"dp (a) ranks bit-identical: {dp['ranks_bit_identical']}")
+    rk = dp["ranking"]
+    print(f"dp (b) sharded_topk {rk['queries']} x {rk['gallery']} x {rk['dim']} top {rk['topk']} "
+          f"(small-integer features: exact products, ties by index) over {DP_PROCS} processes: "
+          f"indices equal to stable_topk over the whole gallery {rk['indices_equal']}; ms a rank "
+          f"{[round(x, 1) for x in rk['ms']]}")
+    # this process's one-process steps (the reference) launched #1 too
+    here = {n: f.launches for n, f in counters.items()}
+    print(f"dp (a) one-process reference, {len(dp['steps'])} steps in this process: launches "
+          + json.dumps(here))
+    if here != {n: (L - 1) * len(dp["steps"]) if n == "fused_mha" else 0 for n in counters}:
+        fail(f"dp (a): the one-process steps launched {here}, expected #1 {L - 1} a step only")
+    out["step"], out["ranking"], out["reference_launches"] = dp["steps"], rk, here
+
+    # (c) tools_torch/train.py as DP_PROCS processes on 4c's tree
+    run = os.path.join(tmp, "DP")
+    rdv = os.path.join(run, "rdv")
+    os.makedirs(run, exist_ok=True)
+    # the evaluation of the config's plans only (JAX's default whitelist), for time
+    base = trainer_argv(cfg, tmp, "DP", num_epochs=1, steps_per_epoch=DP_CLI_STEPS,
+                        eval_every_n_epoch=2, num_workers=2,
+                        eval_include_patterns=",".join(cfg.eval_include_patterns))
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for r in range(DP_PROCS):
+            argv = base + ["--distributed=on", f"--num_processes={DP_PROCS}", f"--process_id={r}",
+                           f"--coordinator_address=file://{rdv}", "--dist_backend=gloo"]
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", DP_CLI, str(root / "tools_torch" / "train.py"), *argv],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=root))
+        logs_out = [p.communicate(timeout=DP_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    codes = [p.returncode for p in procs]
+    print(f"dp (c) tools_torch/train.py x {DP_PROCS} ({TRAIN_P}x{TRAIN_K}, 1 epoch x "
+          f"{DP_CLI_STEPS} steps, the final evaluation): {wall:.1f} s, exit codes {codes}")
+    if any(codes):
+        fail("dp (c): a train.py process failed:\n" + "\n".join(
+            o[-3000:] for o, c in zip(logs_out, codes) if c))
+    launches = [json.loads(next(line for line in o.splitlines()
+                                if line.startswith("launches "))[len("launches "):])
+                for o in logs_out]
+    for r, n in enumerate(launches):
+        mha, mlp, resln = n["fused_mha"], n["fused_mlp"], n["fused_residual_ln"]
+        vision = mlp // L  # vision forwards on the fused-stream trunk: the smoke test + eval
+        print(f"dp (c) process {r} launches: {json.dumps(n)} (#1 {L - 1} a train step x "
+              f"{DP_CLI_STEPS} + {L} a vision forward x {vision}; #8 {L}, #9 {2 * L} a forward)")
+        if mlp % L or vision < 2 or resln != 2 * mlp or mha != (L - 1) * DP_CLI_STEPS + mlp:
+            fail(f"dp (c) process {r}: launches {n} are not {DP_CLI_STEPS} train steps and "
+                 "whole fused-stream forwards")
+    logs, ckpt = os.path.join(run, "logs"), os.path.join(run, "ckpt")
+    log_text = Path(logs, "training.log").read_text()
+    have = {n: os.path.exists(os.path.join(d, n)) for d, names in (
+        (logs, ("train_history.csv", "training.log")),
+        (ckpt, ("latest/state.pt", "latest/host_state.json"))) for n in names}
+    only0 = ("process 0 of 2" in log_text and "process 1 of 2" not in log_text
+             and log_text.count("training done") == 1)
+    print(f"dp (c) artifacts {have}; training.log holds process 0 only: {only0}; "
+          f"{sorted(os.listdir(ckpt))}")
+    if not all(have.values()) or not only0 or sorted(os.listdir(ckpt)) != ["latest"]:
+        fail("dp (c): the artifacts are not process 0's alone")
+    final = json.loads(log_text.split("training done: ", 1)[1].splitlines()[0])["final"]
+
+    # this process evaluates the saved checkpoint as the trainer's final eval does
+    t0 = time.perf_counter()
+    config, model, state, _ = engine.load_checkpoint_model(os.path.join(ckpt, "latest"), dev)
+    _, val_ds, _ = create_split_datasets(config)
+    tok = build_tokenizer(config.tokenizer_vocab_path, config.text_vocab_size,
+                          config.text_context_length)
+    steps = {}
+
+    def factory(mods):
+        if mods not in steps:
+            steps[mods] = engine.make_combo_embed_step(model, mods)
+        return steps[mods]
+
+    single = evaluate_protocol(
+        None, val_ds, tok, batch_size=config.eval_batch_size,
+        include_patterns=config.eval_include_patterns, sample_ratio=1.0, seed=config.seed,
+        embed_factory=factory, device=dev)
+    keys = sorted(k for k in final if k.startswith(("map", "mm")))
+    delta = {k: abs(single[k] - final[k]) for k in keys}
+    worst = max(delta.values())
+    print(f"dp (c) one-process evaluation of latest/ ({time.perf_counter() - t0:.1f} s) against "
+          f"the {DP_PROCS}-process final evaluation: "
+          + ", ".join(f"{k} {single[k]:.4f} / {final[k]:.4f}" for k in keys)
+          + f"; largest |dmAP| {worst:.6f} (<= {RANK_MAX_MAP_DELTA})")
+    if worst > RANK_MAX_MAP_DELTA:
+        fail(f"dp (c): |dmAP| {worst} between one process and {DP_PROCS} (> "
+             f"{RANK_MAX_MAP_DELTA})")
+    out["cli"] = {"wall_s": wall, "launches": launches, "final": final,
+                  "single": {k: single[k] for k in keys}, "max_map_delta": worst}
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3676,6 +3858,11 @@ def main() -> int:
                             serving["f"]["latency_ms"]["embed_vis"]["p50"])
         print(f"tools phase: {time.perf_counter() - t0:.1f} s")
 
+        # ---- 4i. data parallel over a process group, on 4c's tree
+        t0 = time.perf_counter()
+        parallel = parallel_phase(torch, cfg, counters, dev, card, tmp)
+        print(f"parallel phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- 5. timing
     import torch.nn.functional as Fn
 
@@ -3940,6 +4127,7 @@ def main() -> int:
         "serving_phase": serving,
         "clip_phase": clip,
         "tools_phase": tools,
+        "parallel_phase": parallel,
         "kernels_at_token_reduced_shapes": reduced_rows,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     for r in rows:

@@ -360,16 +360,13 @@ class TrainingConfig:
                 "test device; the port runs the plain version for CPU tensors "
                 f"— use block_impl={impl!r}"
             )
-        multi = {"distributed": (self.distributed, "off"), "mesh_shape": (self.mesh_shape, ()),
-                 "num_processes": (self.num_processes, None),
-                 "process_id": (self.process_id, None),
-                 "coordinator_address": (self.coordinator_address, None)}
-        for name, (value, default) in multi.items():
-            if value != default:
-                raise NotImplementedError(
-                    f"{name}={value!r} is not ported yet: ROADMAP.md §1, the item "
-                    "'Parallel and multi-process' (the port runs one process on one device)"
-                )
+        # data parallelism over a process group is ported (parallel/mesh.py);
+        # a 2-D ('data', 'model') mesh is tensor parallelism
+        if len(self.mesh_shape) > 1 or ("model" in self.mesh_axis_names and self.mesh_shape):
+            raise NotImplementedError(
+                f"mesh_shape={self.mesh_shape!r}, mesh_axis_names={self.mesh_axis_names!r} is "
+                "not ported yet: ROADMAP.md §1, the item 'Tensor parallelism' (item 8b; the "
+                "port's mesh is the 1-D ('data',) one over the process group)")
 
 
 # ----- model presets (the CLIP families the encoder supports) -----

@@ -266,6 +266,7 @@ class MultiModalDataset:
         idx: int,
         query_modalities: Sequence[str],
         rng: np.random.Generator,
+        decode: bool = True,
     ) -> Dict:
         """Eval-protocol sample restricted to the given modalities with a
         shared target view (reference: datasets/dataset.py:615-678).
@@ -273,7 +274,10 @@ class MultiModalDataset:
         The shared view is drawn at random per query and sk/cp fall straight
         from it to the flat pool — exactly the reference's
         ``get_multimodal_query`` (dataset.py:634,651-659), NOT the train
-        path's view->any-view->flat chain."""
+        path's view->any-view->flat chain.  ``decode=False`` draws from
+        ``rng`` as a decoding call does but reads no file (zero images):
+        a data-parallel embed keeps the sample stream of the whole batch
+        while each process decodes only its own rows."""
         rec = self.records[idx]
         S = self.config.image_size
         target_view = VIEWS[int(rng.integers(0, len(VIEWS)))]
@@ -287,6 +291,8 @@ class MultiModalDataset:
                 rec, mod, target_view, rng, any_view_fallback=False
             )
             if path is None:
+                continue
+            if not decode:
                 continue
             try:
                 images[mi] = self._load_image(path, None)

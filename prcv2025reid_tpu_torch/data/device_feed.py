@@ -109,17 +109,23 @@ def prefetch_to_device(iterator: Iterable[Mapping[str, np.ndarray]], size: int =
     makes the host wait for the device (a pinned buffer is reused only after
     its earlier copy's event has completed).  ``device="cpu"`` yields the
     batches as CPU tensors.  There is no CPU fallback when a CUDA device was
-    asked for and none is present: that raises."""
-    if mesh is not None or sharding is not None:
-        raise NotImplementedError(
-            "mesh= / sharding=: a batch-sharded feed is not ported yet (ROADMAP.md §1, "
-            "the item 'Parallel and multi-process')")
+    asked for and none is present: that raises.
+
+    Data parallel (a ``parallel/mesh.py::Mesh``): with ``mesh`` the batches
+    are this process's slices of the global batch (``HostPipeline`` makes
+    them) and go to this process's ``device`` as they are, the slice the
+    data-parallel step takes; with ``sharding`` each batch is the global
+    batch, and only this process's rows are copied."""
     if size < 1:
         raise ValueError(f"size={size} must be >= 1")
     from prcv2025reid_tpu_torch.engine import resolve_device  # engine imports the models
+    from prcv2025reid_tpu_torch.parallel.mesh import shard_batch, spanning
 
     dev = resolve_device(device)
     it = iter(iterator)
+    spanning(mesh)  # a mesh of N processes outside a group of N raises
+    if spanning(sharding) is not None:
+        it = (shard_batch(b, sharding) for b in it)
     if dev.type == "cuda":
         return _feed_cuda(it, size, dev)
     return ({k: torch.as_tensor(np.asarray(v), device=dev) for k, v in b.items()} for b in it)

@@ -1,7 +1,6 @@
 """Batch collation + multiprocess host pipeline (own copy of the JAX
 package's ``data/pipeline.py``: ``collate``, ``resolve_num_workers``,
-``HostPipeline``, and its own ``pad_batch_to``, the JAX package's
-``parallel/mesh.py::pad_batch_to``).
+``HostPipeline``; ``pad_batch_to`` is ``parallel/mesh.py``'s, as in JAX).
 
 Reference counterparts:
 - ``collate``: compatible_collate_fn (datasets/dataset.py:1467-1606) — stacks
@@ -29,6 +28,8 @@ import numpy as np
 
 from prcv2025reid_tpu_torch.data.dataset import MultiModalDataset
 from prcv2025reid_tpu_torch.data.sampler import PKBatchSampler
+from prcv2025reid_tpu_torch.parallel.mesh import pad_batch_to  # noqa: F401 (re-exported)
+from prcv2025reid_tpu_torch.utils import distributed
 
 
 def collate(samples: Sequence[Dict], tokenizer) -> Dict[str, np.ndarray]:
@@ -113,9 +114,8 @@ class HostPipeline:
     contiguous slice of each global batch; a slice that the global batch
     does not fill is padded (zero masks, label and pid -1).  Single process
     is the degenerate pc=1 path — one code path.  ``process_index`` and
-    ``process_count`` default to 0 and 1 (the JAX package asks its runtime
-    for them); the multi-process feed of the global batch is not ported yet
-    (ROADMAP.md §1, 'Parallel and multi-process').
+    ``process_count`` default to the ``torch.distributed`` group's (0 and 1
+    without one), as JAX's ask its runtime.
     """
 
     def __init__(
@@ -127,8 +127,8 @@ class HostPipeline:
         prefetch: int = 2,
         seed: int = 0,
         modality_dropout: Optional[float] = None,
-        process_index: int = 0,
-        process_count: int = 1,
+        process_index: Optional[int] = None,
+        process_count: Optional[int] = None,
     ):
         self.dataset = dataset
         self.sampler = sampler
@@ -139,6 +139,10 @@ class HostPipeline:
         self.epoch = 0
         self.modality_dropout = modality_dropout
         self._pool: Optional[ProcessPoolExecutor] = None
+        if process_index is None:
+            process_index = distributed.process_index()
+        if process_count is None:
+            process_count = distributed.process_count()
         self.process_index = int(process_index)
         self.process_count = max(1, int(process_count))
 
@@ -249,22 +253,3 @@ class HostPipeline:
             )
             next_pos += 1
 
-
-def pad_batch_to(batch: Dict, size: int) -> Dict:
-    """Pad every array's batch dim to ``size`` with zeros; padded rows carry
-    zero masks and label -1 so every loss/metric ignores them (own copy of
-    the JAX package's ``parallel/mesh.py::pad_batch_to``)."""
-    b = next(iter(batch.values())).shape[0]
-    if b == size:
-        return batch
-    pad = size - b
-
-    def _pad(name, x):
-        widths = [(0, pad)] + [(0, 0)] * (x.ndim - 1)
-        # labels AND pids pad with -1: -1 labels are loss-masked, and every
-        # pid consumer treats negatives as padding — a 0 fill would conflate
-        # padding with a real identity 0
-        fill = -1 if name in ("labels", "pids") else 0
-        return np.pad(np.asarray(x), widths, constant_values=fill)
-
-    return {k: _pad(k, v) for k, v in batch.items()}

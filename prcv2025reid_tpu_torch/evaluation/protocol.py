@@ -22,11 +22,19 @@ position, as ``jnp.argsort`` and ``jax.lax.top_k`` order them.
 weights and takes ``(images, image_mask, text_tokens, text_mask)`` (the
 port's ``make_combo_embed_step`` and ``make_embed_step``), so
 ``embed_samples``, ``evaluate_protocol`` and ``export_submission_csv`` take
-no ``variables``.  Single device and single process: the JAX ``mesh`` and
-``sharding`` arguments, and the multi-process gallery cache, raise
-(ROADMAP.md §1, the item 'Parallel and multi-process').  ``rerank`` (a dict
-of ``rerank_orders``' top_n, k1, k2, lam) re-ranks each query's head with
-``evaluation/rerank.py``.
+no ``variables``.  ``rerank`` (a dict of ``rerank_orders``' top_n, k1, k2,
+lam) re-ranks each query's head with ``evaluation/rerank.py``.
+
+**Data parallel.**  ``mesh`` and ``sharding`` are a ``parallel/mesh.py``
+``Mesh`` (the port has no sharding object apart from it), and every process
+of the group makes the same calls.  ``sharding``: each embed batch is split
+over the processes, each embeds its rows on its device and ``fetch_global``
+joins the features on every process.  ``mesh``: the ranking is
+query-sharded (each process ranks its rows of a query chunk; every
+per-query statistic is row-independent) and the submission's top-k runs
+through ``parallel/ranking.py::sharded_topk``.  The gallery cache's process
+0 is the authority: it alone reads and writes the files, and its hits are
+broadcast.
 """
 from __future__ import annotations
 
@@ -43,19 +51,13 @@ import torch
 from prcv2025reid_tpu_torch.data.dataset import MultiModalDataset
 from prcv2025reid_tpu_torch.data.pipeline import collate
 from prcv2025reid_tpu_torch.evaluation.similarity import _full_f32, similarity  # noqa: F401 (re-exported)
+from prcv2025reid_tpu_torch.parallel.collectives import data_parallel
+from prcv2025reid_tpu_torch.parallel.mesh import spanning
+from prcv2025reid_tpu_torch.utils import distributed
 from prcv2025reid_tpu_torch.utils.device import resolve_device
 
 NONVIS = ("nir", "sk", "cp", "text")
 KIND_NAME = {1: "single", 2: "double", 3: "triple", 4: "quad"}
-
-
-def _single_device(**kw) -> None:
-    """Raise for a JAX mesh / sharding argument: not ported yet."""
-    given = [k for k, v in kw.items() if v is not None]
-    if given:
-        raise NotImplementedError(
-            f"{', '.join(given)}: sharded ranking and embedding are not ported yet "
-            "(ROADMAP.md §1, the item 'Parallel and multi-process')")
 
 
 def build_query_plans(k_values: Sequence[int] = (1, 2, 3, 4)) -> List[Tuple[str, Tuple[str, ...]]]:
@@ -148,8 +150,12 @@ def compute_retrieval_metrics(
     device: Union[str, torch.device] = "cuda",
 ) -> Dict[str, float]:
     """mAP / top-1 / CMC, computed on ``device`` in query chunks (device
-    memory O(query_chunk x Ng)).  Inputs are numpy arrays or tensors."""
-    _single_device(mesh=mesh)
+    memory O(query_chunk x Ng)).  Inputs are numpy arrays or tensors.  With
+    a ``mesh`` of N processes (each passing the same inputs) every chunk is
+    padded to a multiple of N rows, each process ranks its contiguous share
+    and the per-query statistics are gathered: the same numbers on every
+    process."""
+    mesh = spanning(mesh)
     dev = resolve_device(device)
     topk_cmc = tuple(topk_cmc)
     q = torch.as_tensor(q_feats, dtype=torch.float32, device=dev)
@@ -166,10 +172,19 @@ def compute_retrieval_metrics(
     for start in range(0, Nq, query_chunk):
         sl = slice(start, min(start + query_chunk, Nq))
         n_real = sl.stop - sl.start
-        pad = _chunk_rows(n_real, query_chunk) - n_real
+        rows = _chunk_rows(n_real, query_chunk)
+        if mesh is not None:
+            rows = -(-rows // mesh.size) * mesh.size
+        pad = rows - n_real
         qc, qp = _pad_rows(q[sl], pad), _pad_rows(q_p_all[sl], pad)
         ex = None if ex_all is None else _pad_rows(ex_all[sl], pad)
         bi = None if bi_all is None else _pad_rows(bi_all[sl], pad)
+        if mesh is not None:  # this process's share of the chunk's rows
+            per = rows // mesh.size
+            mine = slice(mesh.rank * per, (mesh.rank + 1) * per)
+            qc, qp = qc[mine], qp[mine]
+            ex = None if ex is None else ex[mine]
+            bi = None if bi is None else bi[mine]
         ap, hr, t1, cmc_hits = _chunk_stats(
             qc, qp, g, g_p,
             None if excl_is_idx else ex,
@@ -177,11 +192,14 @@ def compute_retrieval_metrics(
             bi,
             topk_cmc,
         )
-        ap_l.append(ap[:n_real].cpu().numpy())
-        hr_l.append(hr[:n_real].cpu().numpy())
-        t1_l.append(t1[:n_real].cpu().numpy())
-        for k, h in zip(topk_cmc, cmc_hits):
-            cmc_l[k].append(h[:n_real].cpu().numpy())
+        # [rows, 3 + len(topk_cmc)]: one fetch (a gather over the mesh)
+        stats = torch.stack([ap, hr, t1, *cmc_hits], dim=1)
+        stats = (stats.cpu().numpy() if mesh is None else distributed.fetch_global(stats))[:n_real]
+        ap_l.append(stats[:, 0])
+        hr_l.append(stats[:, 1])
+        t1_l.append(stats[:, 2])
+        for j, k in enumerate(topk_cmc):
+            cmc_l[k].append(stats[:, 3 + j])
 
     ap = np.concatenate(ap_l)
     has_rel = np.concatenate(hr_l)
@@ -281,8 +299,20 @@ def embed_samples(
     decoded here, in the calling process, one after another, and the next
     batch's decode runs while the current embed runs on the device; its
     features come back by a non-blocking copy into pinned memory that the
-    host reads only after the next batch is dispatched."""
-    _single_device(sharding=sharding)
+    host reads only after the next batch is dispatched.
+
+    ``sharding`` (a ``Mesh`` of N processes, ``batch_size`` a multiple of
+    N): every process draws every record's sample, so the sample stream is
+    the one process's, decodes and embeds only its contiguous share of each
+    batch (under the mesh's collectives, so the fusion's batch-coupled
+    rescue reads the whole batch), and ``fetch_global`` joins the features:
+    the same arrays on every process."""
+    mesh = spanning(sharding)
+    if mesh is not None and batch_size % mesh.size:
+        raise ValueError(f"batch_size={batch_size} does not divide over the {mesh.size}-process "
+                         "mesh")
+    per = batch_size if mesh is None else batch_size // mesh.size
+    lo = 0 if mesh is None else mesh.rank * per
     rng = np.random.default_rng(seed)
     feats_out: List[np.ndarray] = []
     pids_out: List[np.ndarray] = []
@@ -291,25 +321,37 @@ def embed_samples(
 
     def _collect(p):
         host, done, n_real, pids = p
-        if done is not None:
-            done.synchronize()
-        feats_out.append(host.numpy()[:n_real])
+        if mesh is not None:
+            feats_out.append(distributed.fetch_global(host)[:n_real])
+        else:
+            if done is not None:
+                done.synchronize()
+            feats_out.append(host.numpy()[:n_real])
         pids_out.append(pids[:n_real])
 
     for start in range(0, len(indices), batch_size):
         chunk = list(indices[start : start + batch_size])
         n_real = len(chunk)
-        samples = [dataset.get_query_sample(i, mods, rng) for i in chunk]
+        # this process decodes its own rows, and the last real record when
+        # its rows hold the tail's padding (copies of that record)
+        mine = range(lo, lo + per)
+        samples = [dataset.get_query_sample(i, mods, rng, decode=j in mine or (
+            j == n_real - 1 and lo + per > n_real)) for j, i in enumerate(chunk)]
         # pad the tail batch by REUSING the last decoded sample (rows past
         # n_real are discarded)
         samples.extend(samples[-1:] * (batch_size - n_real))
-        batch = collate(samples, tokenizer)
-        feats = embed_fn(batch["images"], batch["image_mask"], batch["text_tokens"],
-                         batch["text_mask"])  # enqueued on the device
-        host, done = _fetch_async(feats.float())
+        batch = collate(samples[lo:lo + per], tokenizer)
+        with data_parallel(mesh):
+            feats = embed_fn(batch["images"], batch["image_mask"], batch["text_tokens"],
+                             batch["text_mask"])  # enqueued on the device
+        pids = np.asarray([s["pid"] for s in samples], np.int32)
+        if mesh is not None:  # joined in _collect, after the next batch is dispatched
+            host, done = feats.float(), None
+        else:
+            host, done = _fetch_async(feats.float())
         if pending is not None:
             _collect(pending)
-        pending = (host, done, n_real, np.asarray(batch["pids"]))
+        pending = (host, done, n_real, pids)
     if pending is not None:
         _collect(pending)
     if not feats_out:
@@ -364,27 +406,25 @@ class GalleryCache:
 
     ``keep_newest`` bounds the directory: each save evicts the oldest
     gallery npz beyond the limit (the just-written file is always retained).
-    Single process: ``process_count > 1`` raises (the JAX package makes
-    process 0 the authority and broadcasts its hits)."""
+    Several processes (``process_count``, default the group's): process 0
+    is the authority.  It alone reads and writes the files; ``load``
+    broadcasts its verdict, and on a hit its features and pids (f32,
+    int64), so that every process takes the same branch into the collective
+    embed (a split verdict on shared storage would hang it)."""
 
-    def __init__(self, cache_dir: str, tag: str, keep_newest: int = 4, process_count: int = 1):
+    def __init__(self, cache_dir: str, tag: str, keep_newest: int = 4,
+                 process_count: Optional[int] = None):
         self.cache_dir = cache_dir
         self.tag = tag
         self.keep_newest = keep_newest
-        self.process_count = process_count
-
-    def _single_process(self) -> None:
-        if self.process_count > 1:
-            raise NotImplementedError(
-                f"process_count={self.process_count}: the multi-process gallery cache is not "
-                "ported yet (ROADMAP.md §1, the item 'Parallel and multi-process')")
+        self.process_count = (distributed.process_count() if process_count is None
+                              else process_count)
 
     def _path(self, indices: Sequence[int]) -> str:
         h = hashlib.md5(np.asarray(indices, np.int64).tobytes()).hexdigest()[:12]
         return os.path.join(self.cache_dir, f"gallery_{self.tag}_{len(indices)}_{h}.npz")
 
-    def load(self, indices) -> Optional[Tuple[np.ndarray, np.ndarray]]:
-        self._single_process()
+    def _load_local(self, indices) -> Optional[Tuple[np.ndarray, np.ndarray]]:
         try:
             with np.load(self._path(indices)) as z:
                 return z["feats"], z["pids"]
@@ -393,8 +433,25 @@ class GalleryCache:
             # our check and the read — treat as a miss and re-embed
             return None
 
+    def load(self, indices) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        if self.process_count == 1:
+            return self._load_local(indices)
+        local = self._load_local(indices) if distributed.is_main_process() else None
+        hdr = (np.asarray([1, *local[0].shape], np.int64) if local is not None
+               else np.zeros(3, np.int64))
+        hdr = distributed.broadcast_one_to_all(hdr)
+        if hdr[0] == 0:
+            return None
+        n, d = int(hdr[1]), int(hdr[2])
+        feats = (np.asarray(local[0], np.float32) if local is not None
+                 else np.zeros((n, d), np.float32))
+        pids = (np.asarray(local[1], np.int64) if local is not None
+                else np.zeros((n,), np.int64))
+        return distributed.broadcast_one_to_all(feats), distributed.broadcast_one_to_all(pids)
+
     def save(self, indices, feats: np.ndarray, pids: np.ndarray):
-        self._single_process()
+        if not distributed.is_main_process():
+            return  # one writer; the others read through load's broadcast
         os.makedirs(self.cache_dir, exist_ok=True)
         p = self._path(indices)
         # atomic: a concurrent reader must never observe a truncated npz
@@ -454,8 +511,8 @@ def evaluate_protocol(
     without it ``embed_fn`` embeds every plan.  With ``rerank`` each plan's
     head is re-ranked (with the same-image exclusion when it is on), and
     its ``detail`` entry gains ``mAP_plain``, the cosine ranking's mAP.  The
-    ranking runs on ``device``."""
-    _single_device(sharding=sharding, mesh=mesh)
+    ranking runs on ``device``.  ``sharding`` splits the embedding and
+    ``mesh`` the ranking over a process group (module docstring)."""
     gallery_indices = [i for i, r in enumerate(dataset.records) if r.vis]
 
     def _fn(mods: Tuple[str, ...]) -> Callable:
@@ -464,7 +521,7 @@ def evaluate_protocol(
     g = cache.load(gallery_indices) if cache else None
     if g is None:
         g_feats, g_pids = embed_samples(_fn(("vis",)), dataset, gallery_indices, tokenizer,
-                                        batch_size)
+                                        batch_size, sharding=sharding)
         if cache:
             cache.save(gallery_indices, g_feats, g_pids)
     else:
@@ -483,7 +540,7 @@ def evaluate_protocol(
         if not q_indices:
             continue
         q_feats, q_pids = embed_samples(_fn(mods), dataset, q_indices, tokenizer, batch_size,
-                                        modalities=mods, seed=seed)
+                                        modalities=mods, seed=seed, sharding=sharding)
         exclude = None
         if exclude_same_image:
             # a query must not retrieve the gallery entry built from the very
@@ -493,14 +550,15 @@ def evaluate_protocol(
         if rerank is not None:
             from prcv2025reid_tpu_torch.evaluation.rerank import rerank_orders
 
-            boost = rerank_orders(q_feats, g_feats, excl_idx=exclude, device=device, **rerank)
+            boost = rerank_orders(q_feats, g_feats, excl_idx=exclude, mesh=mesh, device=device,
+                                  **rerank)
             detail[name] = compute_retrieval_metrics(q_feats, q_pids, g_feats, g_pids, exclude,
-                                                     boost_idx=boost, device=device)
+                                                     mesh=mesh, boost_idx=boost, device=device)
             detail[name]["mAP_plain"] = compute_retrieval_metrics(
-                q_feats, q_pids, g_feats, g_pids, exclude, device=device)["mAP"]
+                q_feats, q_pids, g_feats, g_pids, exclude, mesh=mesh, device=device)["mAP"]
         else:
             detail[name] = compute_retrieval_metrics(q_feats, q_pids, g_feats, g_pids, exclude,
-                                                     device=device)
+                                                     mesh=mesh, device=device)
 
     singles = [detail[f"single/{m}"]["mAP"] for m in NONVIS if f"single/{m}" in detail]
     map_single = float(np.mean(singles)) if singles else 0.0
@@ -551,15 +609,20 @@ def export_submission_csv(
     similarities, so ties go to the lower gallery index as JAX's
     ``lax.top_k`` orders them (``torch.topk`` defines no order among ties
     on CUDA).  With ``rerank`` the rows are the re-ranked heads, re-ranked
-    at least ``top_k`` deep."""
-    _single_device(mesh=mesh, sharding=sharding)
+    at least ``top_k`` deep.  With a ``mesh`` of several processes the top-k
+    is ``sharded_topk``'s (the same order: ties to the lower index) and
+    process 0 writes the file; ``sharding`` splits the embedding."""
+    from prcv2025reid_tpu_torch.parallel.ranking import sharded_topk
+
+    mesh = spanning(mesh)
     dev = resolve_device(device)
 
     def _fn(mods: Tuple[str, ...]) -> Callable:
         return embed_factory(mods) if embed_factory is not None else embed_fn
 
     gallery_indices = [i for i, r in enumerate(dataset.records) if r.vis]
-    g_feats, _ = embed_samples(_fn(("vis",)), dataset, gallery_indices, tokenizer, batch_size)
+    g_feats, _ = embed_samples(_fn(("vis",)), dataset, gallery_indices, tokenizer, batch_size,
+                               sharding=sharding)
     g_ids = [os.path.splitext(os.path.basename(dataset.records[i].anchor_vis))[0]
              for i in gallery_indices]
     g = torch.as_tensor(g_feats, dtype=torch.float32, device=dev)
@@ -571,13 +634,18 @@ def export_submission_csv(
         if not q_indices:
             continue
         q_feats, _ = embed_samples(_fn(mods), dataset, q_indices, tokenizer, batch_size,
-                                   modalities=mods, seed=seed)
+                                   modalities=mods, seed=seed, sharding=sharding)
         if rerank is not None:
             from prcv2025reid_tpu_torch.evaluation.rerank import rerank_orders
 
             rr = dict(rerank)
             rr["top_n"] = max(rr.get("top_n", k_eff), k_eff)  # at least as deep as the rows
-            order = rerank_orders(q_feats, g_feats, device=dev, **rr)[:, :k_eff]
+            order = rerank_orders(q_feats, g_feats, mesh=mesh, device=dev, **rr)[:, :k_eff]
+        elif mesh is not None:
+            order = np.concatenate([
+                sharded_topk(q, g, k_eff, mesh, device=dev)[1].cpu().numpy()
+                for q in torch.as_tensor(q_feats, dtype=torch.float32, device=dev).split(1024)
+            ])
         else:
             order = np.concatenate([
                 torch.argsort(-similarity(q, g), dim=1, stable=True)[:, :k_eff].cpu().numpy()
@@ -589,9 +657,11 @@ def export_submission_csv(
             query_key = f"{rec.pid}|{'+'.join(mods)}|{stem}"
             rows.append((query_key, " ".join(g_ids[j] for j in order[qi])))
 
-    os.makedirs(os.path.dirname(os.path.abspath(output_path)), exist_ok=True)
-    with open(output_path, "w") as f:
-        f.write("query_key,ranked_gallery_ids\n")
-        for key, ranked in rows:
-            f.write(f"{key},{ranked}\n")
+    if distributed.is_main_process():
+        os.makedirs(os.path.dirname(os.path.abspath(output_path)), exist_ok=True)
+        with open(output_path, "w") as f:
+            f.write("query_key,ranked_gallery_ids\n")
+            for key, ranked in rows:
+                f.write(f"{key},{ranked}\n")
+    distributed.barrier("submission-written")
     return len(rows)

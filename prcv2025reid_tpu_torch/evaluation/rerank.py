@@ -26,8 +26,10 @@ local product.  The two are the same dot product summed in another order
 the plain cosine order exactly, as JAX's docstring promises, on every
 device; the local product still builds the neighbourhoods.
 
-Single device: ``mesh`` raises (ROADMAP.md §1, the item 'Parallel and
-multi-process').
+With a ``mesh`` of several processes (each passing the same inputs), each
+query chunk is split over the processes, each re-ranks its rows, and the
+orders are gathered to every process: the rows are independent, so the
+result is the one process's.
 """
 from __future__ import annotations
 
@@ -37,7 +39,9 @@ import numpy as np
 import torch
 
 from prcv2025reid_tpu_torch.utils.device import resolve_device
-from prcv2025reid_tpu_torch.evaluation.protocol import _full_f32, _single_device, similarity
+from prcv2025reid_tpu_torch.evaluation.protocol import _full_f32, similarity
+from prcv2025reid_tpu_torch.parallel.mesh import spanning
+from prcv2025reid_tpu_torch.utils import distributed
 
 # distance of a masked-out candidate: exp(-_BIG) is exactly 0.0 in f32 (no
 # Gaussian weight) and any lam-blend of it sorts after every real distance
@@ -46,19 +50,26 @@ _BIG = 1e6
 Array = Union[np.ndarray, torch.Tensor]
 
 
+def ordered_topk(scores: torch.Tensor, index: torch.Tensor, k: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, index) of the k best entries of each row of f32 ``scores``,
+    ordered by (score descending, ``index`` ascending): ``torch.topk`` on
+    unique int64 keys, the f32 bits mapped onto an order-preserving int32 in
+    the high word, the complement of the index in the low word."""
+    bits = (scores.float() + 0.0).contiguous().view(torch.int32)  # + 0.0: -0.0 -> +0.0
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
+    keys = ordered * (1 << 32) + ((1 << 32) - 1 - index.long())
+    pos = torch.topk(keys, k, dim=-1).indices
+    return torch.gather(scores, -1, pos), torch.gather(index, -1, pos)
+
+
 def stable_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(values, indices) of the k largest entries of each row of an f32
     [R, C] tensor, highest first and equal values in index order, as
-    ``jax.lax.top_k`` gives them.  ``torch.topk`` defines no order among ties
-    on CUDA, so it runs here on unique int64 keys: the f32 bits mapped onto
-    an order-preserving int32 in the high word, the complement of the column
-    index in the low word."""
-    bits = (scores.float() + 0.0).contiguous().view(torch.int32)  # + 0.0: -0.0 -> +0.0
-    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
+    ``jax.lax.top_k`` gives them (``torch.topk`` defines no order among ties
+    on CUDA)."""
     cols = torch.arange(scores.shape[-1], device=scores.device, dtype=torch.int64)
-    keys = ordered * (1 << 32) + ((1 << 32) - 1 - cols)
-    idx = (1 << 32) - 1 - (torch.topk(keys, k, dim=-1).values & 0xFFFFFFFF)
-    return torch.gather(scores, -1, idx), idx
+    return ordered_topk(scores, cols.expand_as(scores), k)
 
 
 def _rerank_core(qf: torch.Tensor, cf: torch.Tensor, cos: torch.Tensor, lam: float, k1: int,
@@ -181,8 +192,9 @@ def rerank_orders(
     same-image exclusion), so it never appears: with exclusion the head is
     ``min(top_n, Ng - 1)`` wide.  k1 is clamped to the head's width and k2
     to k1 + 1.  ``lam`` weighs the cosine distance ((1 - lam) the Jaccard
-    term); ``lam=1.0`` gives the plain cosine order."""
-    _single_device(mesh=mesh)
+    term); ``lam=1.0`` gives the plain cosine order.  ``mesh``: the chunks'
+    rows are split over its processes (module docstring)."""
+    mesh = spanning(mesh)
     dev = resolve_device(device)
     Nq = q_feats.shape[0]
     n_gal = int(g_feats.shape[0])
@@ -198,7 +210,18 @@ def rerank_orders(
     out = np.zeros((Nq, n_eff), np.int32)
     for start in range(0, Nq, query_chunk):
         sl = slice(start, min(start + query_chunk, Nq))
-        ranked, _ = _rerank_full(q_all[sl], g, None if ex_all is None else ex_all[sl], None,
-                                 lam, k1, k2, n_eff)
-        out[sl] = ranked.cpu().numpy()
+        if mesh is not None:  # this process's contiguous share of the chunk
+            n = sl.stop - sl.start
+            per = -(-n // mesh.size)
+            sl_all, sl = sl, slice(min(sl.start + mesh.rank * per, sl.stop),
+                                   min(sl.start + (mesh.rank + 1) * per, sl.stop))
+        if sl.stop > sl.start:
+            ranked, _ = _rerank_full(q_all[sl], g, None if ex_all is None else ex_all[sl],
+                                     None, lam, k1, k2, n_eff)
+        else:  # a chunk of fewer rows than processes: none here
+            ranked = torch.zeros((0, n_eff), dtype=torch.int64, device=dev)
+        if mesh is not None:
+            out[sl_all] = distributed.fetch_global(ranked.to(torch.int32))
+        else:
+            out[sl] = ranked.cpu().numpy()
     return out

@@ -37,6 +37,7 @@ from prcv2025reid_tpu_torch.ops.attention import (
 from prcv2025reid_tpu_torch.ops.fused_block import fused_ln_qkv, fused_out_mlp, quantize_weight
 from prcv2025reid_tpu_torch.ops.fused_mlp import fused_mlp
 from prcv2025reid_tpu_torch.ops.kernel_math import LN_EPS, gelu_poly_bf16, gelu_stored, ln_f32
+from prcv2025reid_tpu_torch.parallel.collectives import uniform_rows
 
 
 BLOCK_IMPLS = ("xla", "fused", "fused_int8", "fused_int8_mlp", "fused_qkv")
@@ -148,14 +149,16 @@ def drop_path(x: torch.Tensor, rate: float, deterministic: bool,
         return x
     if mask is None:
         mask = keep_mask(x.shape[:2] + (1,) * (x.ndim - 2), 1.0 - rate, generator,
-                         x.dtype, x.device)
+                         x.dtype, x.device, batch_dim=1)
     return x * mask / (1.0 - rate)
 
 
 def keep_mask(shape, keep: float, generator: Optional[torch.Generator], dtype,
-              device) -> torch.Tensor:
-    """0/1 mask of ``shape`` in ``dtype``, each entry 1 with probability keep."""
-    u = torch.rand(shape, generator=generator, device=device)
+              device, batch_dim: int = 0) -> torch.Tensor:
+    """0/1 mask of ``shape`` in ``dtype``, each entry 1 with probability keep.
+    ``shape[batch_dim]`` counts samples: under a data-parallel step this
+    process keeps its rows of the global batch's draw."""
+    u = uniform_rows(shape, generator, device, batch_dim)
     return (u < keep).to(dtype)
 
 
@@ -457,7 +460,8 @@ class MERBlock(nn.Module):
             return None, None
         keep = 1.0 - self.drop_path_rate
         shape = x.shape[:2] + (1,) * (x.ndim - 2)
-        return tuple(keep_mask(shape, keep, generator, x.dtype, x.device) for _ in range(2))
+        return tuple(keep_mask(shape, keep, generator, x.dtype, x.device, batch_dim=1)
+                     for _ in range(2))
 
     def train_forward(self, x: torch.Tensor, expert_ids: Sequence[int],
                       mask1: Optional[torch.Tensor] = None,
@@ -497,8 +501,8 @@ class MERBlock(nn.Module):
         dp1 = dp2 = None
         if not deterministic and self.drop_path_rate > 0:
             keep = 1.0 - self.drop_path_rate
-            dp1, dp2 = (keep_mask((G, B, 1), keep, generator, x.dtype, x.device) / keep
-                        for _ in range(2))
+            dp1, dp2 = (keep_mask((G, B, 1), keep, generator, x.dtype, x.device,
+                                  batch_dim=1) / keep for _ in range(2))
         return folded_block_tail(attn, x[:, :, 0], w_out, b_out, *self.ln2.params(),
                                  w1, b1, w2, b2, self.mlp.gelu_impl if deterministic else "erf",
                                  dp1, dp2)

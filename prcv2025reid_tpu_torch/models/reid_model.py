@@ -28,6 +28,7 @@ from prcv2025reid_tpu_torch.ops.losses import (
     multimodal_sdm_loss_batched,
     scalar_f32,
 )
+from prcv2025reid_tpu_torch.parallel.collectives import global_sum, process_count, uniform_rows
 
 Generators = Optional[Mapping[str, torch.Generator]]
 
@@ -39,7 +40,7 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool,
     if deterministic or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    kept = uniform_rows(x.shape, generator, x.device) < keep  # dim 0: the samples
     return torch.where(kept, x / keep, torch.zeros_like(x))
 
 
@@ -105,11 +106,12 @@ class FeatureFusion(nn.Module):
         hd = D // H
         masks = masks.to(feats.dtype)
 
-        # all-masked rescue
+        # all-masked rescue; the mean is the global batch's under a
+        # data-parallel step (global_sum: the identity otherwise)
         all_masked = masks.sum(dim=1) == 0
         any_valid = (~all_masked).to(feats.dtype)
-        denom = torch.clamp(any_valid.sum() * M, min=1.0)
-        global_mean = (feats * any_valid[:, None, None]).sum(dim=(0, 1)) / denom
+        denom = torch.clamp(global_sum(any_valid.sum()) * M, min=1.0)
+        global_mean = global_sum((feats * any_valid[:, None, None]).sum(dim=(0, 1))) / denom
         slot0 = torch.arange(M, device=feats.device) == 0
         feats = torch.where((all_masked[:, None] & slot0[None, :])[..., None],
                             global_mean[None, None, :], feats)
@@ -159,10 +161,17 @@ class _TorchBatchNorm(nn.Module):
         """Training: (output on the batch statistics, new running mean, new
         running var).  The buffers are left as they are: the caller writes
         the new statistics (the train step keeps the old ones on a skipped
-        step)."""
+        step).  Under a data-parallel step the statistics are the global
+        batch's, as JAX's ``axis_name`` branch takes them: the mean over the
+        processes of each one's mean and mean of squares (a differentiable
+        all-reduce), and the global n in the unbiased variance."""
         n = x.shape[0]
-        mean = x.mean(dim=0)
-        var = torch.clamp((x * x).mean(dim=0) - mean * mean, min=0.0)
+        mean, mean2 = x.mean(dim=0), (x * x).mean(dim=0)
+        procs = process_count()
+        if procs > 1:
+            mean, mean2 = global_sum(mean) / procs, global_sum(mean2) / procs
+            n *= procs
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
         m = self.momentum
         with torch.no_grad():
             new_mean = m * self.mean + (1.0 - m) * mean
@@ -348,7 +357,10 @@ class MultiModalReIDModel(nn.Module):
             keep[0] = 1.0  # never drop 'vis'
             dropped = masks * keep[None, :]
             sample_ok = (dropped.sum(dim=1) > 0) | (masks.sum(dim=1) == 0)
-            safe = sample_ok.all() & (keep.sum() >= cfg.min_modalities)
+            # every sample of the global batch (the coin is drawn alike on
+            # every process of a data-parallel step)
+            bad = global_sum((~sample_ok).sum())
+            safe = (bad == 0) & (keep.sum() >= cfg.min_modalities)
             eff_masks = torch.where(safe, dropped, masks)
         fused = self.fusion(sem, eff_masks, not train, gens.get("dropout"))
         bn_features, logits, stats = self.bn_neck.head(fused, train, gens.get("dropout"))

@@ -20,6 +20,13 @@ a crash between the renames).  ``block=False`` copies every tensor to the
 host synchronously and writes in a background thread; its sidecar and swap
 land in ``finalize_pending_saves``, which also raises what the thread
 raised.  At most one save is in flight.
+
+Several processes (a data-parallel run: the state is replicated): process
+0 cleans the staging directory, writes the state and the sidecar and swaps
+(the others write nothing), each step behind a barrier; the verdict of
+``latest_checkpoint_exists`` is process 0's, broadcast (a split verdict on
+shared storage would send some processes into a restore and the rest into
+training); every process restores the replicated state itself.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import json
 import os
 import shutil
 import threading
+import time
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -34,7 +42,12 @@ import torch
 
 from prcv2025reid_tpu_torch.training.param_groups import OptState
 from prcv2025reid_tpu_torch.training.train_step import TrainState
-from prcv2025reid_tpu_torch.utils.distributed import barrier, is_main_process
+from prcv2025reid_tpu_torch.utils.distributed import (
+    barrier,
+    broadcast_one_to_all,
+    is_main_process,
+    process_count,
+)
 
 HOST_STATE_FILE = "host_state.json"
 STATE_FILE = "state.pt"
@@ -138,7 +151,8 @@ def finalize_pending_saves():
     so the previous checkpoint keeps serving."""
     while _PENDING:
         thread, errors, staging, path, host_state = _PENDING.pop(0)
-        thread.join()
+        if thread is not None:  # None: a process that writes nothing
+            thread.join()
         if errors:
             raise errors[0]
         _commit(staging, path, host_state)
@@ -152,16 +166,23 @@ def save_checkpoint(directory: str, model: torch.nn.Module, state: TrainState,
     finalize_pending_saves()  # order saves; at most one in flight
     path = os.path.abspath(os.path.join(directory, name))
     staging = path + ".tmp"
-    if is_main_process() and os.path.isdir(staging):
+    main = is_main_process()
+    if main and os.path.isdir(staging):
         shutil.rmtree(staging)
     barrier("ckpt-staging-clean")
-    os.makedirs(staging)
-    payload = _state_payload(model, state)
     host_state = dict(host_state)
     # the writer's ring shapes: a reader with another steps_per_epoch or
     # clip window restores these leaves at the saved shapes, and stays
     # strict on every other shape
-    host_state["ring_shapes"] = {leaf: list(payload[leaf].shape) for leaf in RING_LEAVES}
+    host_state["ring_shapes"] = {leaf: list(getattr(state, leaf).shape) for leaf in RING_LEAVES}
+    if not main:  # the state is replicated: process 0 writes it
+        if block:
+            _commit(staging, path, host_state)
+        else:
+            _PENDING.append((None, [], staging, path, host_state))
+        return
+    os.makedirs(staging)
+    payload = _state_payload(model, state)
     if block:
         torch.save(payload, os.path.join(staging, STATE_FILE))
         _commit(staging, path, host_state)
@@ -205,6 +226,8 @@ def restore_checkpoint(directory: str, model: torch.nn.Module, state: TrainState
     if is_main_process():
         _recover_interrupted_swap(path)
     barrier("ckpt-recovered")
+    if not is_main_process():
+        _await_visible(path)
     with open(os.path.join(path, HOST_STATE_FILE)) as f:
         host_state = json.load(f)
     dev = torch.device(device) if device is not None else model.null_tokens.device
@@ -238,6 +261,15 @@ def restore_checkpoint(directory: str, model: torch.nn.Module, state: TrainState
     return restored, host_state
 
 
+def _await_visible(path: str, timeout: float = 60.0) -> None:
+    """On a process other than 0: wait (bounded) until process 0's
+    checkpoint is visible here, as a shared filesystem may lag; on expiry
+    the read that follows raises the informative error."""
+    deadline = time.monotonic() + timeout
+    while not _is_complete(path) and time.monotonic() < deadline:
+        time.sleep(0.5)
+
+
 def latest_checkpoint_exists(directory: str, name: str = "latest") -> bool:
     path = os.path.abspath(os.path.join(directory, name))
     try:
@@ -246,4 +278,11 @@ def latest_checkpoint_exists(directory: str, name: str = "latest") -> bool:
     except OSError:
         pass
     barrier("ckpt-exists")
-    return _is_complete(path)
+    if process_count() == 1:
+        return _is_complete(path)
+    # process 0 is the authority: every process takes its verdict
+    verdict = np.asarray(1 if is_main_process() and _is_complete(path) else 0, np.int64)
+    exists = bool(broadcast_one_to_all(verdict))
+    if exists and not is_main_process():
+        _await_visible(path)
+    return exists

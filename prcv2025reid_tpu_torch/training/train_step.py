@@ -15,6 +15,16 @@ state is a :class:`TrainState`.  Randomness (drop-path, dropout, modality
 dropout) comes from one ``torch.Generator`` per purpose on the model's
 device, seeded from (state seed, step) as the JAX step folds its key with
 the step: the same state and batch give the same step.
+
+Data parallel (``make_train_step(..., mesh=)`` with a mesh of N processes):
+each process feeds its contiguous slice of the global batch, and the step
+is the one-process step on the global batch, as JAX's GSPMD step is.  The
+model's batch-coupled parts (BNNeck's statistics, the fusion's all-masked
+rescue, the modality-dropout guard, every random mask) read the global
+batch through ``parallel/collectives.py``; the loss and the metrics are
+computed on the gathered outputs, the same on every process; the
+gradients are summed over the processes, so every process applies the same
+update and the parameters stay bit-identical.
 """
 from __future__ import annotations
 
@@ -28,6 +38,13 @@ import torch
 from prcv2025reid_tpu_torch.configs import TrainingConfig
 from prcv2025reid_tpu_torch.models.reid_model import MultiModalReIDModel, compute_loss
 from prcv2025reid_tpu_torch.ops.losses import Scalar
+from prcv2025reid_tpu_torch.parallel.collectives import (
+    active,
+    all_reduce_grads,
+    data_parallel,
+    global_rows,
+)
+from prcv2025reid_tpu_torch.parallel.mesh import Mesh, spanning
 from prcv2025reid_tpu_torch.training.param_groups import OptState, build_optimizer
 
 # the per-step metric ring's channels (one row per step, fetched by the host
@@ -41,6 +58,11 @@ RING_CHANNELS = (
     "bn_feat_norm_s0",
 )
 RNG_PURPOSES = ("dropout", "droppath", "moddrop")
+# the batch dim of each output of the training forward, and the batch keys
+# the loss and the metrics read: gathered to the global batch under a mesh
+OUTPUT_BATCH_DIM = {"features": 0, "raw_modality_features": 1, "modality_features": 1,
+                    "feature_masks": 1, "effective_masks": 1, "bn_features": 0, "logits": 0}
+METRIC_BATCH_KEYS = ("labels", "pids", "image_mask", "text_mask")
 
 
 @dataclass
@@ -122,13 +144,19 @@ def loss_and_grads(model: MultiModalReIDModel, config: TrainingConfig,
     """The step's forward, loss and gradients: (losses, outputs,
     new_batch_stats, grads), one gradient per tensor of ``params`` (zeros
     where it does not reach the loss).  ``batch`` holds tensors on the
-    model's device."""
+    model's device.  Under an active data-parallel mesh the outputs and the
+    labels are the global batch's (gathered, differentiably) and each
+    gradient is this process's share of the global one."""
     with torch.enable_grad():
         outputs, new_stats = model(batch["images"], batch["image_mask"], batch["text_tokens"],
                                    batch["text_mask"], train=True,
                                    enable_modality_dropout=enable_modality_dropout,
                                    generators=generators)
-        losses = compute_loss(outputs, batch["labels"], ce_weight=config.ce_weight,
+        labels = batch["labels"]
+        if active() is not None:
+            outputs = {k: global_rows(v, OUTPUT_BATCH_DIM[k]) for k, v in outputs.items()}
+            labels = global_rows(labels)
+        losses = compute_loss(outputs, labels, ce_weight=config.ce_weight,
                               sdm_weight=sdm_weight, sdm_tau=sdm_tau,
                               label_smoothing=config.label_smoothing, sdm_impl=config.sdm_impl)
         grads = torch.autograd.grad(losses["total_loss"], list(params), allow_unused=True)
@@ -142,13 +170,17 @@ def _keep_old(ok: torch.Tensor, new: Sequence[torch.Tensor],
 
 
 def make_train_step(model: MultiModalReIDModel, config: TrainingConfig,
-                    steps_per_epoch: int) -> Callable:
+                    steps_per_epoch: int, mesh: Optional[Mesh] = None) -> Callable:
     """Build ``train_step(state, batch, sdm_weight, sdm_tau,
     enable_modality_dropout=False) -> (state, metrics)`` on the model's
     device.  ``batch``: ``images`` uint8 [B, Mv, H, W, 3] (or normalized
     float), ``image_mask`` [B, Mv], ``text_tokens`` [B, S] int, ``text_mask``
     [B], ``labels`` [B] and optionally ``pids`` [B].  ``metrics`` holds the
-    JAX step's eleven values as device tensors."""
+    JAX step's eleven values as device tensors.  With a ``mesh`` of N
+    processes, ``batch`` is this process's slice (every process's of one
+    size) of the global batch and the step is the global batch's (see the
+    module docstring): the same metrics, update and state on every
+    process."""
     if config.sdm_semantic_dim != config.fusion_dim:
         raise ValueError(f"sdm_semantic_dim={config.sdm_semantic_dim} must equal "
                          f"fusion_dim={config.fusion_dim}: the SDM features feed the fusion")
@@ -156,14 +188,19 @@ def make_train_step(model: MultiModalReIDModel, config: TrainingConfig,
     params = [p for _, p in trainable]
     bn = model.bn_neck.bn
     dev = model.null_tokens.device
+    dp = spanning(mesh)
 
     def train_step(state: TrainState, batch: Mapping[str, object], sdm_weight: Scalar,
                    sdm_tau: Scalar, enable_modality_dropout: bool = False
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        losses, outputs, new_stats, grads = loss_and_grads(
-            model, config, params, b, sdm_weight, sdm_tau, enable_modality_dropout,
-            step_generators(state.seed, state.step, dev))
+        with data_parallel(dp):
+            losses, outputs, new_stats, grads = loss_and_grads(
+                model, config, params, b, sdm_weight, sdm_tau, enable_modality_dropout,
+                step_generators(state.seed, state.step, dev))
+            if dp is not None:  # the global batch's, for the metrics
+                b = {k: global_rows(b[k]) for k in METRIC_BATCH_KEYS if k in b}
+        grads = all_reduce_grads(grads, dp)
         with torch.no_grad():
             return _apply(state, b, outputs, new_stats, losses, grads)
 

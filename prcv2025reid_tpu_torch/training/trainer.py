@@ -13,6 +13,13 @@ the device.
 The model holds its weights and the train step updates them in place, so
 the embed steps that ``evaluate`` builds (``embed_factory``) read the live
 parameters: the trainer evaluates the module it trains.
+
+Data parallel: ``mesh`` (default ``create_mesh(config)``, the process group
+the command line joined; one process without one).  Every process builds
+the same model from the same seed, its pipeline feeds its slice of each
+global batch, the step is the global batch's, the evaluation embeds and
+ranks sharded over the processes, and only process 0 writes the
+histories, the TensorBoard files, the checkpoints and the gallery cache.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ from prcv2025reid_tpu_torch.evaluation.protocol import (
     checkpoint_cache_tag,
     evaluate_protocol,
 )
+from prcv2025reid_tpu_torch.parallel.mesh import Mesh, create_mesh, data_axis_size
 from prcv2025reid_tpu_torch.params import init_params
 from prcv2025reid_tpu_torch.tools.convert_clip import (
     clip_source,
@@ -75,9 +83,11 @@ logger = logging.getLogger(__name__)
 
 
 class Trainer:
-    def __init__(self, config: TrainingConfig, device: Union[str, torch.device] = "cuda"):
+    def __init__(self, config: TrainingConfig, device: Union[str, torch.device] = "cuda",
+                 mesh: Optional[Mesh] = None):
         self.config = config
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else create_mesh(config)
         os.makedirs(config.save_dir, exist_ok=True)
         os.makedirs(config.log_dir, exist_ok=True)
 
@@ -108,7 +118,8 @@ class Trainer:
         self.pipeline = HostPipeline(self.train_ds, self.sampler, self.tokenizer,
                                      num_workers=config.num_workers,
                                      prefetch=config.prefetch_batches, seed=config.seed,
-                                     modality_dropout=0.0)
+                                     modality_dropout=0.0, process_index=self.mesh.rank,
+                                     process_count=self.mesh.size)
 
         # --- model, optimizer state and step ---
         # JAX's initial values: zero lora_B and biases, unit scales, BN
@@ -127,7 +138,7 @@ class Trainer:
                         config.batch_size, config.accum_steps,
                         config.batch_size * config.accum_steps, config.target_effective_batch)
         self.state = init_train_state(self.model, config, steps_per_epoch, seed=config.seed + 1)
-        self.train_step = make_train_step(self.model, config, steps_per_epoch)
+        self.train_step = make_train_step(self.model, config, steps_per_epoch, mesh=self.mesh)
         self._embed_cache: Dict = {}
         logger.info("param groups: %s", count_trainable(
             self.model, config.freeze_backbone, config.freeze_text_backbone))
@@ -247,7 +258,7 @@ class Trainer:
 
         last = None
         for batch in prefetch_to_device(self._host_batches(epoch), size=cfg.prefetch_batches,
-                                        device=self.device):
+                                        device=self.device, mesh=self.mesh):
             self.state, metrics = self.train_step(self.state, batch, sdm_weight, sdm_tau,
                                                   enable_modality_dropout=enable_moddrop)
             n_steps += 1
@@ -316,15 +327,26 @@ class Trainer:
         (the final full-ratio eval after the last epoch's eval hits it)."""
         tag = checkpoint_cache_tag(self.model, self.config.eval_cache_tag,
                                    step=self.state.step, config=self.config)
-        return GalleryCache(self.config.eval_cache_dir, tag)
+        return GalleryCache(self.config.eval_cache_dir, tag, process_count=self.mesh.size)
 
     def evaluate(self, epoch: Optional[int] = None, sample_ratio: Optional[float] = None) -> Dict:
         cfg = self.config
+        # an embed batch splits evenly over the mesh: the batch rounds up to
+        # the next multiple of the process count (embed_samples pads the
+        # last batch anyway), as JAX's trainer rounds it to the devices
+        eval_bs = cfg.eval_batch_size
+        n_proc = data_axis_size(self.mesh)
+        if n_proc > 1 and eval_bs % n_proc:
+            eval_bs = -(-eval_bs // n_proc) * n_proc
+            logger.warning("eval_batch_size=%d does not divide the %d-process mesh — padded "
+                           "up to %d so the embed stays sharded", cfg.eval_batch_size, n_proc,
+                           eval_bs)
         result = evaluate_protocol(
-            None, self.val_ds, self.tokenizer, batch_size=cfg.eval_batch_size,
+            None, self.val_ds, self.tokenizer, batch_size=eval_bs,
             include_patterns=cfg.eval_include_patterns, cache=self._gallery_cache(),
             sample_ratio=sample_ratio if sample_ratio is not None else cfg.eval_sample_ratio,
-            seed=cfg.seed, embed_factory=self.embed_factory, device=self.device)
+            seed=cfg.seed, embed_factory=self.embed_factory, sharding=self.mesh,
+            mesh=self.mesh, device=self.device)
         if epoch is not None:
             logger.info("[EVAL] epoch=%d mAP(avg2)=%.4f single=%.4f quad=%.4f", epoch,
                         result["map_avg2"], result["map_single"], result["map_quad"])

@@ -37,13 +37,18 @@ ARGVS = {
 }
 
 UNPORTED = [
-    ({"distributed": "auto"}, "Parallel and multi-process"),
-    ({"distributed": "on"}, "Parallel and multi-process"),
-    ({"mesh_shape": (1,)}, "Parallel and multi-process"),
-    ({"mesh_shape": (4, 2), "mesh_axis_names": ("data", "model")}, "Parallel and multi-process"),
-    ({"num_processes": 2}, "Parallel and multi-process"),
-    ({"process_id": 0}, "Parallel and multi-process"),
-    ({"coordinator_address": "localhost:1234"}, "Parallel and multi-process"),
+    ({"mesh_shape": (4, 2), "mesh_axis_names": ("data", "model")}, "Tensor parallelism"),
+]
+# accepted since data parallelism came (parallel/mesh.py, utils/distributed.py):
+# each value and where it lands: initialize_from_config's init_process_group
+# keywords (None: no group is joined), or create_mesh's (one-process) mesh
+LIFTED = [
+    ({"distributed": "auto"}, None),
+    ({"distributed": "on"}, {"init_method": "env://"}),
+    ({"mesh_shape": (1,)}, "mesh"),
+    ({"num_processes": 2}, None),
+    ({"process_id": 0}, None),
+    ({"coordinator_address": "localhost:1234"}, None),
 ]
 # accepted since the CLIP loader came (tools/convert_clip.py): each value and
 # the checkpoint source the trainer resolves it to
@@ -123,6 +128,34 @@ def test_unported_values_name_their_roadmap_item(override, item):
     # a JAX run's config with it reads back into the port only to raise
     with pytest.raises(NotImplementedError, match=item):
         configs.TrainingConfig.from_json(jax_configs.TrainingConfig(**override).to_json())
+
+
+@pytest.mark.parametrize("override,lands", LIFTED, ids=[str(o) for o, _ in LIFTED])
+def test_lifted_multi_process_values_reach_the_runtime(override, lands, monkeypatch):
+    """Both packages accept them and read them back from JSON; in the port
+    they reach initialize_from_config (which joins a group only in its 'on'
+    mode or 'auto' with a coordinator, as JAX's) or create_mesh."""
+    import torch.distributed
+
+    from prcv2025reid_tpu_torch.parallel.mesh import create_mesh
+    from prcv2025reid_tpu_torch.utils import distributed
+
+    cfg = configs.TrainingConfig(**override)
+    assert fields(configs.TrainingConfig.from_json(cfg.to_json())) == fields(cfg)
+    assert json.loads(cfg.to_json()) == json.loads(jax_configs.TrainingConfig(**override).to_json())
+    for v in distributed._AUTO_ENV_VARS:
+        monkeypatch.delenv(v, raising=False)
+    joined = []
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda **kw: joined.append(kw))
+    monkeypatch.setattr(distributed, "_INITIALIZED", False)
+    assert distributed.initialize_from_config(cfg, backend="gloo") is (lands not in (None, "mesh"))
+    if isinstance(lands, dict):
+        assert joined == [{"backend": "gloo", **lands}]
+    else:
+        assert joined == []
+    mesh = create_mesh(cfg)
+    assert (mesh.size, mesh.rank, mesh.axis_names) == (1, 0, ("data",))
 
 
 def test_distributed_typo_raises_in_both():

@@ -402,10 +402,20 @@ def test_prefetch_to_device_on_cpu_yields_the_batches(tiny_data_config, monkeypa
         for g, w in zip(got, batches):
             assert all(isinstance(t, torch.Tensor) and t.device.type == "cpu" for t in g.values())
             assert_batches_equal({k: t.numpy() for k, t in g.items()}, w)
-    with pytest.raises(NotImplementedError, match="Parallel and multi-process"):
-        prefetch_to_device(iter(batches), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="Parallel and multi-process"):
-        prefetch_to_device(iter(batches), device="cpu", sharding=object())
+    # data parallel: with a mesh the batches are this process's slices and
+    # go to the device as they are; a sharding takes this process's rows of
+    # each global batch; a mesh of two processes outside a group raises
+    from prcv2025reid_tpu_torch.parallel.mesh import Mesh, shard_batch
+
+    for g, w in zip(prefetch_to_device(iter(batches), device="cpu", mesh=Mesh()), batches):
+        assert_batches_equal({k: t.numpy() for k, t in g.items()}, w)
+    for g, w in zip(prefetch_to_device(iter(batches), device="cpu", sharding=Mesh()), batches):
+        assert_batches_equal({k: t.numpy() for k, t in g.items()}, w)
+    half = shard_batch(batches[0], Mesh(size=2, rank=1))
+    assert half["labels"].shape[0] == batches[0]["labels"].shape[0] // 2
+    assert_batches_equal(half, {k: v[v.shape[0] // 2:] for k, v in batches[0].items()})
+    with pytest.raises(ValueError, match="join the group"):
+        prefetch_to_device(iter(batches), device="cpu", sharding=Mesh(size=2, rank=1))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         prefetch_to_device(iter(batches))

@@ -275,20 +275,26 @@ def test_export_submission_csv_matches_jax(tmp_path, datasets, tokenizers, jax_s
 
 
 def test_single_device_and_unported_options_raise(tmp_path, datasets, tokenizers, port_model):
+    """Data parallelism is ported (tests/test_torch_parallel.py runs it in
+    process groups): a one-process mesh or sharding gives the unsharded
+    results, a mesh of two processes outside a group raises, and the
+    multi-process gallery cache degenerates to the files in one process."""
+    from prcv2025reid_tpu_torch.parallel.mesh import Mesh
+
     ds, _ = datasets
     kw = dict(embed_factory=port_factory(port_model), device="cpu")
-    for bad in ({"mesh": object()}, {"sharding": object()}):
-        with pytest.raises(NotImplementedError, match="Parallel and multi-process"):
-            protocol.evaluate_protocol(None, ds, tokenizers[0], **kw, **bad)
-    # re-ranking is ported (tests/test_torch_rerank.py), on one device
-    with pytest.raises(NotImplementedError, match="Parallel and multi-process"):
-        protocol.evaluate_protocol(None, ds, tokenizers[0], rerank={"top_n": 5},
-                                   mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="Parallel and multi-process"):
+    plain = protocol.evaluate_protocol(None, ds, tokenizers[0], **kw)
+    for one in ({"mesh": Mesh()}, {"sharding": Mesh()}, {"mesh": Mesh(), "sharding": Mesh()}):
+        assert protocol.evaluate_protocol(None, ds, tokenizers[0], **kw, **one) == plain
+    for two in ({"mesh": Mesh(size=2)}, {"sharding": Mesh(size=2)}):
+        with pytest.raises(ValueError, match="join the group"):
+            protocol.evaluate_protocol(None, ds, tokenizers[0], **kw, **two)
+    with pytest.raises(ValueError, match="join the group"):
         protocol.export_submission_csv(None, ds, tokenizers[0], str(tmp_path / "x.csv"),
-                                       rerank={"top_n": 5}, mesh=object(), **kw)
+                                       rerank={"top_n": 5}, mesh=Mesh(size=2), **kw)
     cache = protocol.GalleryCache(str(tmp_path), "mp", process_count=2)
-    with pytest.raises(NotImplementedError, match="multi-process gallery cache"):
-        cache.load([0, 1])
-    with pytest.raises(NotImplementedError, match="multi-process gallery cache"):
-        cache.save([0, 1], np.zeros((2, 2), np.float32), np.zeros(2))
+    feats = np.arange(4, dtype=np.float32).reshape(2, 2)
+    cache.save([0, 1], feats, np.arange(2))
+    got = cache.load([0, 1])
+    np.testing.assert_array_equal(got[0], feats)
+    assert got[1].dtype == np.int64 and cache.load([1, 0]) is None

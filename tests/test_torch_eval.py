@@ -136,9 +136,17 @@ def test_fifteen_plans_eight_with_text():
 
 
 def test_mesh_and_missing_card_raise(retrieval_set, monkeypatch):
+    """A one-process mesh ranks as no mesh (tests/test_torch_parallel.py
+    ranks over process groups); a mesh of two processes outside a group
+    raises rather than rank a share alone."""
+    from prcv2025reid_tpu_torch.parallel.mesh import Mesh
+
     q, q_pids, g, g_pids = retrieval_set
-    with pytest.raises(NotImplementedError, match="sharded ranking"):
-        protocol.compute_retrieval_metrics(q, q_pids, g, g_pids, mesh=object(), device="cpu")
+    assert protocol.compute_retrieval_metrics(q, q_pids, g, g_pids, mesh=Mesh(), device="cpu") \
+        == protocol.compute_retrieval_metrics(q, q_pids, g, g_pids, device="cpu")
+    with pytest.raises(ValueError, match="join the group"):
+        protocol.compute_retrieval_metrics(q, q_pids, g, g_pids, mesh=Mesh(size=2),
+                                           device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         protocol.compute_retrieval_metrics(q, q_pids, g, g_pids)

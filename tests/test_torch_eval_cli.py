@@ -128,9 +128,30 @@ def test_submission_and_generate_submission_write_the_same_csv(cli, checkpoint, 
 
 @pytest.mark.parametrize("flag", ["--distributed=on", "--distributed=auto", "--num_processes=2",
                                   "--process_id=0", "--coordinator_address=localhost:1234"])
-def test_multi_process_flags_raise(flag, cli, checkpoint, jcfg, tmp_path):
-    with pytest.raises(NotImplementedError, match="Parallel and multi-process"):
-        cli.main(_argv(jcfg, checkpoint, tmp_path, flag), device="cpu")
+def test_multi_process_flags_raise(flag, cli, checkpoint, jcfg, tmp_path, monkeypatch):
+    """The flags reach initialize_from_config before the checkpoint loads:
+    only --distributed=on joins a group (env:// here); 'auto' without a
+    coordinator and the others under 'off' stay one process, as JAX's.
+    (tests/test_torch_parallel.py runs the CLI in a real group.)"""
+    import torch.distributed
+
+    from prcv2025reid_tpu_torch import engine
+    from prcv2025reid_tpu_torch.utils import distributed
+
+    for v in distributed._AUTO_ENV_VARS:
+        monkeypatch.delenv(v, raising=False)
+    monkeypatch.setattr(distributed, "_INITIALIZED", False)
+    joined = []
+    monkeypatch.setattr(torch.distributed, "init_process_group", lambda **kw: joined.append(kw))
+
+    def stop(*a, **kw):
+        raise RuntimeError("checkpoint load reached")
+
+    monkeypatch.setattr(engine, "load_checkpoint_model", stop)
+    with pytest.raises(RuntimeError, match="checkpoint load reached"):
+        cli.main(_argv(jcfg, checkpoint, tmp_path, flag, "--dist_backend=gloo"), device="cpu")
+    want = [{"backend": "gloo", "init_method": "env://"}] if flag == "--distributed=on" else []
+    assert joined == want
 
 
 @pytest.mark.parametrize("override", ["--block_impl=fused", "--token_keep=2"])

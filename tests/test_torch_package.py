@@ -94,7 +94,10 @@ def test_build_model_raises_without_cuda(monkeypatch):
 @pytest.mark.parametrize("override", [
     {"block_impl": "fused_interpret"},
     {"block_impl": "fused_int8_interpret"},
-    {"distributed": "on"},  # token reduction is ported (tests/test_torch_token_reduce.py)
+    # token reduction (tests/test_torch_token_reduce.py) and data parallelism
+    # (tests/test_torch_config.py::test_lifted_multi_process_values_reach_the_runtime)
+    # are ported; tensor parallelism is not
+    {"mesh_shape": (2, 2), "mesh_axis_names": ("data", "model")},
 ])
 def test_unported_values_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP.md|interpret"):

@@ -156,8 +156,15 @@ def test_the_mesh_cases_shapes_in_chunks(rng, query_chunk):
     q = _unit(rng.normal(size=(37, 16))).astype(np.float32)
     g = _unit(rng.normal(size=(50, 16))).astype(np.float32)
     hold_orders(q, g, dict(top_n=16, k1=6, k2=3, lam=0.3), query_chunk=query_chunk)
-    with pytest.raises(NotImplementedError, match="Parallel and multi-process"):
-        rerank.rerank_orders(q, g, mesh=object(), device="cpu")
+    # a one-process mesh re-ranks as none (tests/test_torch_parallel.py:
+    # process groups); a mesh of two outside a group raises
+    from prcv2025reid_tpu_torch.parallel.mesh import Mesh
+
+    kw = dict(top_n=16, k1=6, k2=3, lam=0.3, query_chunk=query_chunk, device="cpu")
+    np.testing.assert_array_equal(rerank.rerank_orders(q, g, mesh=Mesh(), **kw),
+                                  rerank.rerank_orders(q, g, **kw))
+    with pytest.raises(ValueError, match="join the group"):
+        rerank.rerank_orders(q, g, mesh=Mesh(size=2), **kw)
 
 
 def test_improves_map_on_clustered_data():

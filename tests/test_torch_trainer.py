@@ -225,14 +225,22 @@ def test_entry_points_raise_without_cuda(trainer_config, monkeypatch, tmp_path, 
 
 
 def test_multi_process_raises(monkeypatch):
+    """One process: the main process, no barrier to wait for.  In a group of
+    two (faked here; tests/test_torch_distributed.py runs real ones) the
+    second process is not the main one and a barrier is the group's."""
     assert distributed.is_main_process() is True
     distributed.barrier("x")
     monkeypatch.setattr(torch.distributed, "is_available", lambda: True)
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    for call in (distributed.is_main_process, distributed.barrier):
-        with pytest.raises(NotImplementedError, match="Parallel and multi-process"):
-            call()
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda: 1)
+    monkeypatch.setattr(torch.distributed, "get_backend", lambda: "gloo")
+    waited = []
+    monkeypatch.setattr(torch.distributed, "barrier", lambda: waited.append(1))
+    assert distributed.is_main_process() is False
+    assert (distributed.process_index(), distributed.process_count()) == (1, 2)
+    distributed.barrier("x")
+    assert waited == [1]
 
 
 def test_trainer_modules_import_no_jax():

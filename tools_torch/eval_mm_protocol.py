@@ -20,9 +20,15 @@ them (the JAX tool passes none, so its ``--eval_split val`` numbers are
 not the trainer's).  A compute-path override that the checkpoint's config
 cannot run raises ``ValueError`` (``use_fused_resln`` with ``--block_impl
 fused`` or ``--token_keep``; JAX runs the fused-stream trunk without the
-override while the cache tag names it).  The multi-process settings raise
-``NotImplementedError`` (ROADMAP.md §1, the item 'Parallel and
-multi-process').
+override while the cache tag names it).
+
+Data parallel over N processes, one device each: launch N copies with
+``--distributed=on --num_processes=N --process_id=R
+--coordinator_address=host:port`` (``--dist_backend=gloo`` for processes
+sharing one card).  The embedding splits each batch over the processes and
+the ranking splits the queries (``--batch_size`` rounds up to a multiple of
+N); every process prints the same JSON, process 0 writes the gallery cache
+and the submission CSV.
 """
 from __future__ import annotations
 
@@ -76,7 +82,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--exclude_same_image", action=argparse.BooleanOptionalAction, default=True,
                     help="--no-exclude_same_image disables the anchor-exclusion protocol")
     ap.add_argument("--distributed", choices=("off", "auto", "on"), default="off",
-                    help="multi-process evaluation: not ported (raises unless 'off')")
+                    help="multi-process evaluation over a torch.distributed group")
+    ap.add_argument("--dist_backend", choices=("nccl", "gloo"), default=None,
+                    help="the group's backend (default: NCCL with CUDA, else gloo; gloo for "
+                         "processes that share one card)")
     ap.add_argument("--coordinator_address", default=None)
     ap.add_argument("--num_processes", type=int, default=None)
     ap.add_argument("--process_id", type=int, default=None)
@@ -99,16 +108,16 @@ def main(argv=None, device="cuda"):
         export_submission_csv,
     )
 
+    from prcv2025reid_tpu_torch.parallel.mesh import create_mesh
+    from prcv2025reid_tpu_torch.utils.distributed import initialize_from_config
+
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    multi = {"distributed": (args.distributed, "off"),
-             "coordinator_address": (args.coordinator_address, None),
-             "num_processes": (args.num_processes, None), "process_id": (args.process_id, None)}
-    for name, (value, default) in multi.items():
-        if value != default:
-            raise NotImplementedError(
-                f"--{name}={value}: multi-process evaluation is not ported yet: ROADMAP.md §1, "
-                "the item 'Parallel and multi-process' (the port runs one process on one device)")
+    # the process group before any device use; the argparse namespace has
+    # the fields the helper reads
+    initialize_from_config(args, backend=args.dist_backend)
+    mesh = create_mesh()
+    batch_size = -(-args.batch_size // mesh.size) * mesh.size
     dev = engine.resolve_device(device)
 
     # compute-path overrides (the same parameters); checkpoint_cache_tag keys
@@ -159,18 +168,18 @@ def main(argv=None, device="cuda"):
         rerank = {"top_n": args.rerank_top_n, "k1": args.rerank_k1, "k2": args.rerank_k2,
                   "lam": args.rerank_lambda}
     result = evaluate_protocol(
-        None, dataset, tokenizer, batch_size=args.batch_size,
+        None, dataset, tokenizer, batch_size=batch_size,
         include_patterns=None,  # the full MM-1..4 protocol
         exclude_same_image=args.exclude_same_image, cache=GalleryCache(args.cache_dir, tag),
         sample_ratio=args.sample_ratio, seed=config.seed, embed_factory=embed_factory,
-        rerank=rerank, device=dev)
+        sharding=mesh, mesh=mesh, rerank=rerank, device=dev)
     print(json.dumps(result, indent=2, default=float))
 
     if args.submission:
         n = export_submission_csv(
-            None, dataset, tokenizer, args.submission, batch_size=args.batch_size,
+            None, dataset, tokenizer, args.submission, batch_size=batch_size,
             top_k=args.topk if args.topk is not None else config.rank_topk, seed=config.seed,
-            embed_factory=embed_factory, rerank=rerank, device=dev)
+            embed_factory=embed_factory, mesh=mesh, sharding=mesh, rerank=rerank, device=dev)
         logging.info("submission: %d rows -> %s", n, args.submission)
     return result
 
