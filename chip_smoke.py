@@ -36,7 +36,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      reduction's shapes (phase 4e: S_RED tokens after the reduction, 128
      images of them = 12,288 rows) attention at S_RED and S_RED - 1 ('prune')
      and the LN1 + QKV (bf16, int8), out-projection + MLP (bf16, int8) and
-     fused MLP kernels at 12,288 rows;
+     fused MLP kernels at 12,288 rows; at tensor parallelism's shapes (phase
+     4i (d): a process's H / TP_MODEL heads and F / TP_MODEL MLP columns)
+     attention at 6 heads and the fused MLP at F = 1,536 with a zero b2;
      then the gradients: each bf16 wrapper (fused_mha also causal, the
      splash core, fused_ln_qkv, fused_out_mlp, fused_mlp at G=1,
      fused_residual_ln) at the same shapes with every input requiring grad,
@@ -306,12 +308,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      vision forward, #8 L, #9 2L), training.log, the history and latest/
      from process 0 alone; then this process evaluates latest/ as the
      trainer does: every aggregate mAP within RANK_MAX_MAP_DELTA of the
-     two-process final evaluation's;
+     two-process final evaluation's.  (d) tensor parallelism in (a)'s
+     processes (dp_dryrun.py's tp leg) on the (1, TP_MODEL) mesh: the same
+     STEPS steps from the same state, the model sharded by
+     parallel/tp.py::shard_state, against the one-process step: metrics
+     within DP_LOSS_REL, the replicated leaves the same bits on both
+     processes, the gathered sharded leaves against the one-process state
+     (frozen ones bit for bit; the trained ones' update cosine printed
+     beside a rounding control's), step 1's gradient cosine by LR group >=
+     0.99 (4b's bar between two paths), each
+     sharded leaf half of the whole, #1 L-1 a step a process at H /
+     TP_MODEL heads, device ms, peak memory and the model all-reduces' count
+     and ms printed; then the fused-stream embed (use_pallas_attention,
+     use_fused_mlp, use_fused_resln) of a seeded uint8 batch of BATCH under
+     (1, TP_MODEL) against one process: min-cosine >= 0.999, #1 L, #8 L
+     and #9 2L a process;
   5. time every kernel, its plain version and (where one PyTorch call
      computes the same function) that call with CUDA events, median of
      TIMED_RUNS after warm-up queued behind a spin kernel (device time
      only), beside the least time the card could take (attention and the
-     fused MLP also at token reduction's shapes);
+     fused MLP also at token reduction's and tensor parallelism's shapes);
      time end-to-end embeds/s per configuration (in turns, median of
      E2E_ROUNDS rounds) and the device ms of one embed step of each from
      CUDA events, with torch.profiler's top kernels (its kernel sum, which
@@ -490,6 +506,11 @@ DISPATCH_CALLS = 500
 # evaluation of the saved checkpoint holds within RANK_MAX_MAP_DELTA; each
 # group within DP_TIMEOUT seconds
 DP_PROCS, DP_LOSS_REL, DP_CLI_STEPS, DP_TIMEOUT = 2, 2e-3, 2, 600
+# (d) tensor parallelism on the (1, DP_PROCS) mesh, in (a)'s processes
+# (tools_torch/dp_dryrun.py's tp leg): the model axis shards each block's
+# heads and MLP in two, so #1 runs at H / TP_MODEL heads and #8 at F /
+# TP_MODEL; phase 3 holds both kernels at those shapes, phase 5 times them
+TP_MODEL = DP_PROCS
 # a tools_torch/train.py process that prints its launch counts when it ends
 DP_CLI = ("import json, runpy, sys; ns = runpy.run_path(sys.argv[1], run_name='train_cli'); "
           "ns['main'](sys.argv[2:]); "
@@ -3183,17 +3204,18 @@ def parallel_phase(torch, cfg, counters, dev, card, tmp):
 
     L = cfg.vision_layers
     out = {}
-    # (a) the global-batch step and (b) the sharded ranking, in the same
-    # DP_PROCS processes; the one-process step runs first, in this process
+    # (a) the global-batch step, (b) the sharded ranking and (d) tensor
+    # parallelism, in the same DP_PROCS processes; the one-process step and
+    # embed run first, in this process
     dry = load_tool("dp_dryrun")
     for counter in counters.values():
         counter.launches = 0
     t0 = time.perf_counter()
-    dp = dry.launch(["--legs", "step,ranking", "--out", os.path.join(tmp, "dp_dryrun")])
-    print(f"dp (a)+(b) {time.perf_counter() - t0:.1f} s (one process {dp.get('single_s', 0):.1f} "
-          f"s, {DP_PROCS} processes {dp.get('children_s', 0):.1f} s)")
+    dp = dry.launch(["--legs", "step,ranking,tp", "--out", os.path.join(tmp, "dp_dryrun")])
+    print(f"dp (a)+(b)+(d) {time.perf_counter() - t0:.1f} s (one process "
+          f"{dp.get('single_s', 0):.1f} s, {DP_PROCS} processes {dp.get('children_s', 0):.1f} s)")
     if not dp["ok"]:
-        fail("data parallel (a)/(b): " + "; ".join(dp["failures"]))
+        fail("data / tensor parallel (a)/(b)/(d): " + "; ".join(dp["failures"]))
     for row in dp["steps"]:
         print(f"dp (a) step {row['step']} ({card}): one process {json.dumps(row['single'])}, "
               f"{DP_PROCS} processes {json.dumps(row['multi'])}, max rel {row['max_rel']:.3e} "
@@ -3214,13 +3236,44 @@ def parallel_phase(torch, cfg, counters, dev, card, tmp):
           f"(small-integer features: exact products, ties by index) over {DP_PROCS} processes: "
           f"indices equal to stable_topk over the whole gallery {rk['indices_equal']}; ms a rank "
           f"{[round(x, 1) for x in rk['ms']]}")
-    # this process's one-process steps (the reference) launched #1 too
+    tp = dp["tp"]
+    for row in tp["steps"]:
+        print(f"dp (d) tp step {row['step']} on the (1, {TP_MODEL}) mesh ({card}): max rel "
+              f"{row['max_rel']:.3e} from one process (<= {DP_LOSS_REL}); #1 launches a rank "
+              f"{row['fused_mha']} at heads {row['heads']}; device ms a rank "
+              f"{[round(x, 3) for x in row['device_ms']]} (one process "
+              f"{row['single_device_ms']:.3f}); model all-reduces a rank {row['model_calls']}, "
+              f"ms {[round(x, 3) for x in row['model_ms']]}")
+    lo, wh = tp["proj_numel"]
+    print(f"dp (d) tp ({card}): {tp['plan_leaves']} sharded leaves, each 1/{TP_MODEL} of the "
+          f"whole ({tp['sharded_numel'][0]} of {tp['sharded_numel'][1]} elements); projection "
+          f"parameters a process {lo} of one process's {wh} ({lo / wh:.4f}: the row biases, "
+          f"the column layers' lora_A and the row layers' lora_B stay whole); replicated "
+          f"leaves the same bits on both processes; gathered sharded leaves: frozen ones "
+          f"differing {tp['frozen_differ']}, the {tp['trained_leaves']} trained ones' update "
+          f"cosine to one process's {tp['update_cos']:.6f} (the rounding control, the one "
+          f"process on the einsum core: {tp['control_update_cos']:.6f}); step 1's gradient "
+          f"cosine by group {json.dumps(tp['grad_cos'])} (>= 0.99); peak GB a rank above "
+          f"what was allocated before the model {[round(x, 3) for x in tp['peak_gb']]} (one "
+          f"process {dp['single_peak_gb']:.3f})")
+    e = tp["embed"]
+    print(f"dp (d) tp fused-stream embed of {e['batch']} ({card}): min-cosine against one "
+          f"process {[round(x, 6) for x in e['min_cosine']]} (>= 0.999), the processes' "
+          f"features equal {e['ranks_equal']}; launches a rank {json.dumps(e['launches'])}, "
+          f"one process {json.dumps(e['single_launches'])}")
+    # this process's one-process references launched too: the steps, step
+    # 1's gradients, the control's steps on the einsum core (none) and the
+    # fused-stream embed
     here = {n: f.launches for n, f in counters.items()}
-    print(f"dp (a) one-process reference, {len(dp['steps'])} steps in this process: launches "
+    print(f"dp (a)+(d) one-process reference, {len(dp['steps'])} steps, step 1's gradients, "
+          "the control's steps and one fused-stream embed in this process: launches "
           + json.dumps(here))
-    if here != {n: (L - 1) * len(dp["steps"]) if n == "fused_mha" else 0 for n in counters}:
-        fail(f"dp (a): the one-process steps launched {here}, expected #1 {L - 1} a step only")
+    want = {"fused_mha": (L - 1) * (len(dp["steps"]) + 1) + L, "fused_mlp": L,
+            "fused_residual_ln": 2 * L}
+    if here != {n: want.get(n, 0) for n in counters}:
+        fail(f"dp (a)+(d): the one-process references launched {here}, expected {want}")
     out["step"], out["ranking"], out["reference_launches"] = dp["steps"], rk, here
+    out["tp"] = tp
 
     # (c) tools_torch/train.py as DP_PROCS processes on 4c's tree
     run = os.path.join(tmp, "DP")
@@ -3429,6 +3482,18 @@ def main() -> int:
             failures.append(f"fused_mha S={s_red}")
         if s_red == S_RED:
             red_qkv = (q_r, k_r, v_r)  # timed in phase 5
+    # tensor parallelism (phase 4i (d)): each process's H / TP_MODEL heads,
+    # strided views of its [..., 3 D / TP_MODEL] projection
+    H_TP = H // TP_MODEL
+    qkv_t = randn(BATCH, S, 3, H_TP, Dh).bfloat16()
+    tp_qkv = tuple(qkv_t[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    got = fused_mha(*tp_qkv)
+    torch.cuda.synchronize()
+    mx, rel, ok = errors(torch, got, mha_plain(*tp_qkv))
+    att_checks[f"H={H_TP}"] = (mx, rel)
+    print(f"check fused_mha H={H_TP}: max_abs {mx:.3e} rel {rel:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"fused_mha H={H_TP}")
 
     x = randn(1, T, D).bfloat16()
     attn = randn(1, T, D).bfloat16()
@@ -3474,6 +3539,11 @@ def main() -> int:
     x_r, attn_r = randn(1, T_RED, D).bfloat16(), randn(1, T_RED, D).bfloat16()
     tail_r = (lns, lnb, *q_w1, b1, *q_w2, b2)
     fmlp_r_args = (x_r, w1, b1.bfloat16(), w2, b2.bfloat16())
+    # tensor parallelism: fc1's F / TP_MODEL columns, fc2's rows; the
+    # kernel adds no bias to the partial sum (MERMlp adds b2 after the sum)
+    F_TP = F // TP_MODEL
+    fmlp_tp_args = (x, w1[:, :, :F_TP].contiguous(), b1[:, :F_TP].bfloat16(),
+                    w2[:, :F_TP].contiguous(), torch.zeros_like(b2).bfloat16())
     block_checks = {}
     for name, kern, plain, args in (
         ("fused_ln_qkv", fb.fused_ln_qkv, fb.ln_qkv_plain, qkv_args),
@@ -3504,6 +3574,7 @@ def main() -> int:
         (f"fused_out_mlp_int8 T={T_RED}", fb.fused_out_mlp_int8, fb.out_mlp_int8_plain,
          (attn_r, x_r, *q_wo, bo, *tail_r)),
         (f"fused_mlp T={T_RED}", fused_mlp, mlp_plain, fmlp_r_args),
+        (f"fused_mlp F={F_TP}", fused_mlp, mlp_plain, fmlp_tp_args),
     ):
         got = kern(*args)
         torch.cuda.synchronize()
@@ -3912,7 +3983,8 @@ def main() -> int:
         name="fused_mlp", route="cuda", source="prcv2025reid_tpu_torch/csrc/fused_mlp.cu",
         replaces="prcv2025reid_tpu/ops/fused_mlp.py:43",
         launches=launches["fused_trunk"]["fused_mlp"],
-        max_abs_err=max(block_checks["fused_mlp"][0], block_checks[f"fused_mlp T={T_RED}"][0]),
+        max_abs_err=max(block_checks["fused_mlp"][0], block_checks[f"fused_mlp T={T_RED}"][0],
+                        block_checks[f"fused_mlp F={F_TP}"][0]),
         ms=time_ms(torch, lambda: fused_mlp(*fmlp_args)),
         plain_ms=time_ms(torch, lambda: mlp_plain(*fmlp_args), runs=20),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -4005,6 +4077,29 @@ def main() -> int:
         bound_ms=b_ms, bound_by=b_by, library_ms=None))
     for r in reduced_rows:
         print(f"kernel {r['name']} at token reduction's shape {r['shape']} ({card}): "
+              f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']})")
+    # #1 and #8 at tensor parallelism's shapes (phase 4i (d): each process's
+    # H / TP_MODEL heads and F / TP_MODEL), beside their bounds
+    b_ms, b_by = bound_ms([(4 * BATCH * H_TP * S * S * Dh, PEAK_BF16_FLOPS)],
+                          4 * BATCH * H_TP * S * Dh * 2)
+    tp_rows = [dict(
+        name="fused_mha", shape=f"B={BATCH} S={S} H={H_TP} Dh={Dh}",
+        max_abs_err=att_checks[f"H={H_TP}"][0],
+        ms=time_ms(torch, lambda: fused_mha(*tp_qkv)),
+        plain_ms=time_ms(torch, lambda: mha_plain(*tp_qkv)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, lambda: Fn.scaled_dot_product_attention(*tp_qkv)))]
+    b_ms, b_by = bound_ms([(4 * T * D * F_TP, PEAK_BF16_FLOPS)],
+                          2 * T * D * 2 + 2 * D * F_TP * 2 + (F_TP + D) * 2)
+    tp_rows.append(dict(
+        name="fused_mlp", shape=f"T={T} D={D} F={F_TP}",
+        max_abs_err=block_checks[f"fused_mlp F={F_TP}"][0],
+        ms=time_ms(torch, lambda: fused_mlp(*fmlp_tp_args)),
+        plain_ms=time_ms(torch, lambda: mlp_plain(*fmlp_tp_args), runs=20),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    for r in tp_rows:
+        print(f"kernel {r['name']} at tensor parallelism's shape {r['shape']} ({card}): "
               f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']})")
     # the microbenchmark's tiled matmul at M = 25,344, K = 768, N = 3072: each
@@ -4129,6 +4224,7 @@ def main() -> int:
         "tools_phase": tools,
         "parallel_phase": parallel,
         "kernels_at_token_reduced_shapes": reduced_rows,
+        "kernels_at_tensor_parallel_shapes": tp_rows,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     for r in rows:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "

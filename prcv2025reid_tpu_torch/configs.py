@@ -352,7 +352,7 @@ class TrainingConfig:
             )
 
     def _reject_unported(self):
-        """Values the JAX package runs but this port does not have yet."""
+        """Values the JAX package runs that have no counterpart in the port."""
         impl = self.block_impl.removesuffix("_interpret")
         if impl != self.block_impl:
             raise NotImplementedError(
@@ -360,13 +360,6 @@ class TrainingConfig:
                 "test device; the port runs the plain version for CPU tensors "
                 f"— use block_impl={impl!r}"
             )
-        # data parallelism over a process group is ported (parallel/mesh.py);
-        # a 2-D ('data', 'model') mesh is tensor parallelism
-        if len(self.mesh_shape) > 1 or ("model" in self.mesh_axis_names and self.mesh_shape):
-            raise NotImplementedError(
-                f"mesh_shape={self.mesh_shape!r}, mesh_axis_names={self.mesh_axis_names!r} is "
-                "not ported yet: ROADMAP.md §1, the item 'Tensor parallelism' (item 8b; the "
-                "port's mesh is the 1-D ('data',) one over the process group)")
 
 
 # ----- model presets (the CLIP families the encoder supports) -----

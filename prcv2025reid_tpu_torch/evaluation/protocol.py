@@ -52,7 +52,7 @@ from prcv2025reid_tpu_torch.data.dataset import MultiModalDataset
 from prcv2025reid_tpu_torch.data.pipeline import collate
 from prcv2025reid_tpu_torch.evaluation.similarity import _full_f32, similarity  # noqa: F401 (re-exported)
 from prcv2025reid_tpu_torch.parallel.collectives import data_parallel
-from prcv2025reid_tpu_torch.parallel.mesh import spanning
+from prcv2025reid_tpu_torch.parallel.mesh import fetch_global, spanning
 from prcv2025reid_tpu_torch.utils import distributed
 from prcv2025reid_tpu_torch.utils.device import resolve_device
 
@@ -194,7 +194,7 @@ def compute_retrieval_metrics(
         )
         # [rows, 3 + len(topk_cmc)]: one fetch (a gather over the mesh)
         stats = torch.stack([ap, hr, t1, *cmc_hits], dim=1)
-        stats = (stats.cpu().numpy() if mesh is None else distributed.fetch_global(stats))[:n_real]
+        stats = (stats.cpu().numpy() if mesh is None else fetch_global(stats, mesh))[:n_real]
         ap_l.append(stats[:, 0])
         hr_l.append(stats[:, 1])
         t1_l.append(stats[:, 2])
@@ -322,7 +322,7 @@ def embed_samples(
     def _collect(p):
         host, done, n_real, pids = p
         if mesh is not None:
-            feats_out.append(distributed.fetch_global(host)[:n_real])
+            feats_out.append(fetch_global(host, mesh)[:n_real])
         else:
             if done is not None:
                 done.synchronize()

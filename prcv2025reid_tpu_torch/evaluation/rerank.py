@@ -40,8 +40,7 @@ import torch
 
 from prcv2025reid_tpu_torch.utils.device import resolve_device
 from prcv2025reid_tpu_torch.evaluation.protocol import _full_f32, similarity
-from prcv2025reid_tpu_torch.parallel.mesh import spanning
-from prcv2025reid_tpu_torch.utils import distributed
+from prcv2025reid_tpu_torch.parallel.mesh import fetch_global, spanning
 
 # distance of a masked-out candidate: exp(-_BIG) is exactly 0.0 in f32 (no
 # Gaussian weight) and any lam-blend of it sorts after every real distance
@@ -221,7 +220,7 @@ def rerank_orders(
         else:  # a chunk of fewer rows than processes: none here
             ranked = torch.zeros((0, n_eff), dtype=torch.int64, device=dev)
         if mesh is not None:
-            out[sl_all] = distributed.fetch_global(ranked.to(torch.int32))
+            out[sl_all] = fetch_global(ranked.to(torch.int32), mesh)
         else:
             out[sl] = ranked.cpu().numpy()
     return out

@@ -17,6 +17,16 @@ the last block's CLS-only call stays folded in training too, as in JAX.
 Parameters keep the JAX tree's names and layouts (kernels ``[in, out]``,
 ``lora_A [M, in, r]``, ``lora_B [M, r, out]``), so a module's state-dict key
 is its flax path with ``/`` replaced by ``.`` (see ``params.py``).
+
+Tensor parallelism (``parallel/tp.py::shard_variables``): a sharded
+attention or MLP holds this process's Megatron shard of each projection
+and its mesh in ``tp``; it starts with ``copy_to_model``, runs its
+column products and its core on the local outputs (``H/m`` heads), and its
+row projection (``tp_row``) sums the partial products over the model group
+before adding the bias.  The folded weights of a shard are the shard of the
+folded weights, so the eval forward folds locally; the ``block_impl``
+kernel plans fuse across the row boundary, so they gather the folded
+weights whole and run as one process does.
 """
 from __future__ import annotations
 
@@ -37,7 +47,12 @@ from prcv2025reid_tpu_torch.ops.attention import (
 from prcv2025reid_tpu_torch.ops.fused_block import fused_ln_qkv, fused_out_mlp, quantize_weight
 from prcv2025reid_tpu_torch.ops.fused_mlp import fused_mlp
 from prcv2025reid_tpu_torch.ops.kernel_math import LN_EPS, gelu_poly_bf16, gelu_stored, ln_f32
-from prcv2025reid_tpu_torch.parallel.collectives import uniform_rows
+from prcv2025reid_tpu_torch.parallel.collectives import (
+    copy_to_model,
+    model_all_gather,
+    reduce_from_model,
+    uniform_rows,
+)
 
 
 BLOCK_IMPLS = ("xla", "fused", "fused_int8", "fused_int8_mlp", "fused_qkv")
@@ -121,18 +136,20 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def folded_block_tail(attn, x_res, w_out, b_out, ln2_s, ln2_b, w1, b1, w2, b2,
-                      gelu_impl: str = "erf", dp1=None, dp2=None):
+                      gelu_impl: str = "erf", dp1=None, dp2=None, attn_tp=None, mlp_tp=None):
     """The folded post-attention half of a pre-LN block, plain form:
     out-proj + residual + LN2 + MLP + residual; grouped leading dim.
     ``dp1`` / ``dp2``: optional per-sample drop-path keep masks, already
-    scaled by 1/keep, on the attention and MLP branches."""
-    proj = grouped_matmul(attn, w_out) + b_out
+    scaled by 1/keep, on the attention and MLP branches.  ``attn_tp`` /
+    ``mlp_tp``: the meshes of a sharded attention / MLP, whose row products
+    are partial sums (``w_out``, ``w2`` hold this process's input rows)."""
+    proj = reduce_from_model(grouped_matmul(attn, w_out), attn_tp) + b_out
     if dp1 is not None:
         proj = proj * dp1
     x2 = x_res.to(proj.dtype) + proj
-    y = ln_apply(x2, ln2_s, ln2_b)
+    y = copy_to_model(ln_apply(x2, ln2_s, ln2_b), mlp_tp)
     h = apply_gelu(grouped_matmul(y, w1) + b1, gelu_impl)
-    mlp_out = grouped_matmul(h, w2) + b2
+    mlp_out = reduce_from_model(grouped_matmul(h, w2), mlp_tp) + b2
     if dp2 is not None:
         mlp_out = mlp_out * dp2
     return x2 + mlp_out
@@ -165,7 +182,11 @@ def keep_mask(shape, keep: float, generator: Optional[torch.Generator], dtype,
 class Dense(nn.Module):
     """flax ``nn.Dense`` with a compute dtype: inputs, kernel and bias are
     cast to ``dtype`` and multiplied there.  Also the shared trunk of a MER
-    projection (the ``shared/{kernel,bias}`` path)."""
+    projection (the ``shared/{kernel,bias}`` path).  ``tp_row``: the mesh
+    of a row-parallel shard, whose product is summed over the model group
+    before the bias."""
+
+    tp_row = None
 
     def __init__(self, in_dim: int, features: int, use_bias: bool = True, device=None):
         super().__init__()
@@ -173,7 +194,7 @@ class Dense(nn.Module):
         self.bias = _param(features, device=device) if use_bias else None
 
     def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
-        y = torch.matmul(x.to(dtype), self.kernel.to(dtype))
+        y = reduce_from_model(torch.matmul(x.to(dtype), self.kernel.to(dtype)), self.tp_row)
         return y if self.bias is None else y + self.bias.to(dtype)
 
 
@@ -210,7 +231,13 @@ class LNParams(nn.Module):
 class MERDense(nn.Module):
     """Grouped MER linear: x [G, ..., in] + static expert ids -> [G, ..., out].
     ``enable=False`` (config.enable_mer) computes the shared trunk only; the
-    adapter parameters stay so checkpoints are interchangeable."""
+    adapter parameters stay so checkpoints are interchangeable.  Under
+    tensor parallelism ``tp_col`` / ``tp_row`` hold the mesh of a column /
+    row shard: a row shard's product is summed over the model group before
+    the bias."""
+
+    tp_col = None
+    tp_row = None
 
     def __init__(self, in_dim: int, features: int, num_experts: int, rank: int = 4,
                  alpha: float = 1.0, dtype=torch.float32, enable: bool = True,
@@ -222,8 +249,10 @@ class MERDense(nn.Module):
         self.lora_A = _param(num_experts, in_dim, rank, device=device)
         self.lora_B = _param(num_experts, rank, features, device=device)
 
-    def folded(self, expert_ids: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(w_eff [G, in, out], bias) in the compute dtype."""
+    def folded(self, expert_ids: Sequence[int],
+               whole: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(w_eff [G, in, out], bias) in the compute dtype; of a shard, the
+        shard's (``whole=True``: gathered whole over the model group)."""
         dt = self.dtype
         kernel = self.shared.kernel
         if self.enable:
@@ -231,7 +260,12 @@ class MERDense(nn.Module):
                                   self.alpha / self.rank, dt)
         else:
             w = kernel.to(dt)[None].expand(len(expert_ids), *kernel.shape)
-        return w, self.shared.bias.to(dt)
+        b = self.shared.bias.to(dt)
+        if whole and self.tp_col is not None:
+            w, b = model_all_gather(w, 2, self.tp_col), model_all_gather(b, 0, self.tp_col)
+        elif whole and self.tp_row is not None:
+            w = model_all_gather(w, 1, self.tp_row)
+        return w, b
 
     def thin(self, expert_ids: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
         """(A [G, in, r], B [G, r, out]) of the group experts in the compute dtype."""
@@ -251,7 +285,7 @@ class MERDense(nn.Module):
             a, b = self.thin(expert_ids)
             y = torch.matmul(xa, self.shared.kernel.to(dt))
             y = y + grouped_matmul(grouped_matmul(xa, a), b) * (self.alpha / self.rank)
-        return y + self.shared.bias.to(dt)
+        return reduce_from_model(y, self.tp_row) + self.shared.bias.to(dt)
 
 
 class MERAttention(nn.Module):
@@ -270,7 +304,10 @@ class MERAttention(nn.Module):
     'auto' (the serving cores are eval-only, as in JAX);
     ``attn_bwd="remat"`` recomputes that core in the backward
     (``torch.utils.checkpoint``) instead of storing its [N, H, S, S]
-    probabilities."""
+    probabilities.  ``tp``: the mesh of a tensor-parallel shard (H/m heads
+    here; see the module docstring)."""
+
+    tp = None
 
     def __init__(self, dim: int, num_heads: int, num_experts: int, rank: int = 4,
                  alpha: float = 1.0, dtype=torch.float32, attn_impl: str = "xla",
@@ -290,19 +327,25 @@ class MERAttention(nn.Module):
         self.v_proj = MERDense(dim, dim, **mer)
         self.out_proj = MERDense(dim, dim, **mer)
 
-    def folded(self, expert_ids: Sequence[int]):
-        """(w_qkv [G, D, 3D], b_qkv [3D], w_out [G, D, D], b_out [D])."""
-        parts = [p.folded(expert_ids) for p in (self.q_proj, self.k_proj, self.v_proj)]
+    def local_heads(self) -> int:
+        """The heads this process runs: H, or H / m of a shard."""
+        return self.num_heads // (1 if self.tp is None else self.tp.model_size)
+
+    def folded(self, expert_ids: Sequence[int], whole: bool = False):
+        """(w_qkv [G, D, 3D], b_qkv [3D], w_out [G, D, D], b_out [D]); of a
+        shard [G, D, 3D/m], [3D/m], [G, D/m, D], [D] (``whole=True``:
+        gathered whole)."""
+        parts = [p.folded(expert_ids, whole) for p in (self.q_proj, self.k_proj, self.v_proj)]
         w_qkv = torch.cat([w for w, _ in parts], dim=2)
         b_qkv = torch.cat([b for _, b in parts], dim=0)
-        return (w_qkv, b_qkv, *self.out_proj.folded(expert_ids))
+        return (w_qkv, b_qkv, *self.out_proj.folded(expert_ids, whole))
 
     def _thin_qkv(self, x: torch.Tensor, expert_ids: Sequence[int]) -> torch.Tensor:
         """The training QKV projection [G, B, S, 3D]: x @ W_pack + b, plus
         (x @ A_pack) split in three, each @ its B, times alpha / r."""
         projs = (self.q_proj, self.k_proj, self.v_proj)
         dt = self.dtype
-        xa = x.to(dt)
+        xa = copy_to_model(x, self.tp).to(dt)
         w_pack = torch.cat([p.shared.kernel.to(dt) for p in projs], dim=1)
         b_qkv = torch.cat([p.shared.bias.to(dt) for p in projs], dim=0)
         qkv = torch.matmul(xa, w_pack) + b_qkv
@@ -317,11 +360,12 @@ class MERAttention(nn.Module):
     def forward(self, x: torch.Tensor, expert_ids: Sequence[int],
                 fold: bool = True) -> torch.Tensor:
         G, B, S, D = x.shape
-        H = self.num_heads
-        Dh = D // H
+        Dh = D // self.num_heads
+        H = self.local_heads()
+        D = H * Dh  # this process's outputs
         if fold:
             w_qkv, b_qkv, _, _ = self.folded(expert_ids)
-            qkv = grouped_matmul(x.to(self.dtype), w_qkv) + b_qkv
+            qkv = grouped_matmul(copy_to_model(x, self.tp).to(self.dtype), w_qkv) + b_qkv
             # free-reshape unstack: q/k/v are strided views of the projection
             qkv5 = qkv.reshape(G, B, S, 3, H, Dh)
             q, k, v = qkv5[..., 0, :, :], qkv5[..., 1, :, :], qkv5[..., 2, :, :]
@@ -365,7 +409,10 @@ class MERMlp(nn.Module):
     Training (``fold=False``) takes the two thin-LoRA products around the
     exact erf GELU whatever ``impl`` and ``gelu_impl`` say;
     ``gelu_bwd="stored"`` saves the forward's erf for the backward
-    (:func:`gelu_stored`), "remat" recomputes it."""
+    (:func:`gelu_stored`), "remat" recomputes it.  ``tp``: the mesh of a
+    tensor-parallel shard (fc1's F/m outputs, fc2's F/m inputs)."""
+
+    tp = None
 
     def __init__(self, dim: int, mlp_dim: int, num_experts: int, rank: int = 4,
                  alpha: float = 1.0, dtype=torch.float32, impl: str = "xla",
@@ -385,12 +432,14 @@ class MERMlp(nn.Module):
         self.fc1 = MERDense(dim, mlp_dim, **mer)
         self.fc2 = MERDense(mlp_dim, dim, **mer)
 
-    def folded(self, expert_ids: Sequence[int]):
-        """(w1 [G, D, F], b1 [F], w2 [G, F, D], b2 [D])."""
-        return (*self.fc1.folded(expert_ids), *self.fc2.folded(expert_ids))
+    def folded(self, expert_ids: Sequence[int], whole: bool = False):
+        """(w1 [G, D, F], b1 [F], w2 [G, F, D], b2 [D]); of a shard F/m
+        (``whole=True``: gathered whole)."""
+        return (*self.fc1.folded(expert_ids, whole), *self.fc2.folded(expert_ids, whole))
 
     def forward(self, x: torch.Tensor, expert_ids: Sequence[int],
                 fold: bool = True) -> torch.Tensor:
+        x = copy_to_model(x, self.tp)
         if not fold:
             h = self.fc1(x, expert_ids, fold=False)
             h = gelu_stored(h) if self.gelu_bwd == "stored" else gelu_erf(h)
@@ -400,8 +449,13 @@ class MERMlp(nn.Module):
             return self.fc2(apply_gelu(self.fc1(x, expert_ids), self.gelu_impl), expert_ids)
         G, B, S, D = x.shape
         w1, b1, w2, b2 = self.folded(expert_ids)
+        # a shard's fc2 makes a partial sum: the kernel adds no bias, which
+        # comes once after the sum
+        b2k = b2 if self.tp is None else torch.zeros_like(b2)
         out = fused_mlp(x.to(self.dtype).reshape(G, B * S, D), w1.contiguous(),
-                        b1[None].expand(G, -1), w2.contiguous(), b2[None].expand(G, -1))
+                        b1[None].expand(G, -1), w2.contiguous(), b2k[None].expand(G, -1))
+        if self.tp is not None:
+            out = reduce_from_model(out, self.tp) + b2
         return out.reshape(G, B, S, D)
 
 
@@ -485,11 +539,12 @@ class MERBlock(nn.Module):
         and per-sample drop-path masks [G, B, 1] on the CLS row's two
         residual branches."""
         G, B, S, D = x.shape
-        H = self.num_heads
-        Dh = D // H
+        Dh = D // self.num_heads
+        H = self.attn.local_heads()
+        D = H * Dh  # this process's outputs
         w_qkv, b_qkv, w_out, b_out = self.attn.folded(expert_ids)
         w1, b1, w2, b2 = self.mlp.folded(expert_ids)
-        h = ln_apply(x, *self.ln1.params())
+        h = copy_to_model(ln_apply(x, *self.ln1.params()), self.attn.tp)
         kv = grouped_matmul(h, w_qkv[:, :, D:]) + b_qkv[D:]
         q = grouped_matmul(h[:, :, 0], w_qkv[:, :, :D]) + b_qkv[:D]
         k, v = kv[..., :D], kv[..., D:]
@@ -505,7 +560,7 @@ class MERBlock(nn.Module):
                                   batch_dim=1) / keep for _ in range(2))
         return folded_block_tail(attn, x[:, :, 0], w_out, b_out, *self.ln2.params(),
                                  w1, b1, w2, b2, self.mlp.gelu_impl if deterministic else "erf",
-                                 dp1, dp2)
+                                 dp1, dp2, attn_tp=self.attn.tp, mlp_tp=self.mlp.tp)
 
     def _core(self) -> str:
         """The [B, S, H, Dh] core of ``cls_only_call`` and ``_fused_call``:
@@ -517,12 +572,15 @@ class MERBlock(nn.Module):
         """LN1+QKV kernel -> einsum attention core -> out-proj+residual+LN2+
         MLP+residual kernel, in the block plan's ``quant``.  The int8 plans
         quantize the folded compute-dtype weights on every call, as JAX does:
-        'fused_int8' all four projections, 'fused_int8_mlp' fc1 and fc2."""
+        'fused_int8' all four projections, 'fused_int8_mlp' fc1 and fc2.  The
+        kernels fuse across the row boundary, so a shard's folded weights are
+        gathered whole and every process of the model group runs the block
+        as one process does."""
         G, B, S, D = x.shape
         H = self.num_heads
         quant = {"fused_int8": "int8", "fused_int8_mlp": "int8_mlp"}.get(self.block_impl, "bf16")
-        w_qkv, b_qkv, w_out, b_out = self.attn.folded(expert_ids)
-        w1, b1, w2, b2 = self.mlp.folded(expert_ids)
+        w_qkv, b_qkv, w_out, b_out = self.attn.folded(expert_ids, whole=True)
+        w1, b1, w2, b2 = self.mlp.folded(expert_ids, whole=True)
         w_qkv, w_out, w1, w2 = (w.contiguous() for w in (w_qkv, w_out, w1, w2))
 
         def per_group(b):

@@ -20,6 +20,7 @@ from torch import nn
 
 from prcv2025reid_tpu_torch.models.mer import Dense, LayerNorm, _param
 from prcv2025reid_tpu_torch.ops.attention import xla_attention
+from prcv2025reid_tpu_torch.parallel.collectives import copy_to_model
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -30,7 +31,13 @@ class TextBlock(nn.Module):
     """Pre-LN causal transformer block (HF ``CLIPEncoderLayer``).  No padding
     mask: under the causal mask position i sees only positions <= i, and the
     pooled output is read at the EOT token, the last real one, so padding
-    (all after it) never reaches it."""
+    (all after it) never reaches it.  Under tensor parallelism ``tp_attn`` /
+    ``tp_mlp`` hold the mesh of a sharded attention (H/m heads) / MLP (F/m):
+    each section starts with ``copy_to_model``, and its row projection sums
+    its partial products over the model group (``Dense.tp_row``)."""
+
+    tp_attn = None
+    tp_mlp = None
 
     def __init__(self, width: int, num_heads: int, mlp_dim: int, dtype=torch.float32,
                  device=None):
@@ -45,16 +52,16 @@ class TextBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, S, D = x.shape
-        H, dt = self.num_heads, self.dtype
+        Dh, dt = D // self.num_heads, self.dtype
 
-        def split(t):
-            return t.reshape(B, S, H, D // H).permute(0, 2, 1, 3)
+        def split(t):  # H heads, or H / m of a shard
+            return t.reshape(B, S, -1, Dh).permute(0, 2, 1, 3)
 
-        h = self.ln1(x, dt)
+        h = copy_to_model(self.ln1(x, dt), self.tp_attn)
         q, k, v = (split(getattr(self, n)(h, dt)) for n in ("q_proj", "k_proj", "v_proj"))
-        attn = xla_attention(q, k, v, causal=True).permute(0, 2, 1, 3).reshape(B, S, D)
+        attn = xla_attention(q, k, v, causal=True).permute(0, 2, 1, 3).reshape(B, S, -1)
         x = x + self.out_proj(attn, dt)
-        h = quick_gelu(self.fc1(self.ln2(x, dt), dt))
+        h = quick_gelu(self.fc1(copy_to_model(self.ln2(x, dt), self.tp_mlp), dt))
         return x + self.fc2(h, dt)
 
 

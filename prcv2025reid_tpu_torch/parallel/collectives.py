@@ -1,8 +1,10 @@
-"""The collectives of the data-parallel train step, and the step's mesh.
+"""The collectives of the parallel train step and evaluation: the data
+axis's and the model axis's.
 
 Under GSPMD, JAX's sharded step is the one-device step on the global batch.
-The port's processes each hold a contiguous slice of it, so every place
-where samples couple is made global here, explicitly:
+The port's processes each hold a contiguous slice of it (one a data index),
+so every place where samples couple is made global here, explicitly, over
+the mesh's data group (the processes with this model index):
 
 - :func:`global_rows`: the global batch's rows of a per-sample tensor, on
   every process, differentiable.  Forward: an all-reduce of a zeroed
@@ -22,10 +24,23 @@ where samples couple is made global here, explicitly:
   gradient is its rows' share of the global-batch gradient, so their SUM is
   that gradient (not a mean: dividing by N would give 1/N of it).
 
-The step makes them active with :func:`data_parallel`; outside it (one
-process, or no mesh) each is the identity, or the local draw.  The gather
-assumes equal shards (the host pipeline pads the global batch to a
-multiple of the process count), so no size crosses to the host.
+The step makes them active with :func:`data_parallel`; outside it (a data
+axis of one, or no mesh) each is the identity, or the local draw.  The
+gather assumes equal shards (the host pipeline pads the global batch to a
+multiple of the data size), so no size crosses to the host.
+
+The model axis (tensor parallelism, ``parallel/tp.py``) has the two Megatron
+operators, over the mesh's model group (the processes with this data
+index), which the sharded blocks call themselves:
+
+- :func:`copy_to_model`: identity forward, all-reduce backward; at the input
+  of a column-parallel section, whose processes each compute their outputs
+  from the whole input, so the input's gradient is the sum of theirs.
+- :func:`reduce_from_model`: all-reduce forward, identity backward; after a
+  row-parallel product, whose processes each hold a partial sum.  Its
+  backward is the identity (unlike :func:`global_sum`'s all-reduce): every
+  process of the group computes the same loss from the reduced output, so
+  each holds the whole gradient already.
 
 Every collective is an ``all_reduce``, which gloo runs on CUDA tensors as
 well as CPU ones; a backend that refuses a tensor raises.
@@ -44,10 +59,12 @@ from prcv2025reid_tpu_torch.parallel.mesh import Mesh
 # the mesh whose collectives are active (the step's; per thread and task)
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar("data_parallel_mesh", default=None)
 
-# wall seconds and calls spent in the step's collectives; ``timed`` makes
-# each call synchronise the device before and after, so that the seconds
-# are the collective's own
+# wall seconds and calls spent in the data axis's (``stats``) and the model
+# axis's (``model_stats``) collectives; ``timed`` makes each call
+# synchronise the device before and after, so that the seconds are the
+# collective's own
 stats = {"calls": 0, "seconds": 0.0}
+model_stats = {"calls": 0, "seconds": 0.0}
 timed = False
 
 
@@ -66,18 +83,38 @@ def active() -> Optional[Mesh]:
     return _ACTIVE.get()
 
 
-def _all_reduce(t: torch.Tensor) -> torch.Tensor:
+def _all_reduce(t: torch.Tensor, group=None, counter=None) -> torch.Tensor:
+    """``t`` summed in place over ``group`` (None: the whole group), counted
+    in ``counter`` (default ``stats``)."""
     import torch.distributed as dist
 
     if timed and t.is_cuda:
         torch.cuda.synchronize(t.device)
     t0 = time.perf_counter()
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=group)
     if timed and t.is_cuda:
         torch.cuda.synchronize(t.device)
-    stats["calls"] += 1
-    stats["seconds"] += time.perf_counter() - t0
+    counter = stats if counter is None else counter
+    counter["calls"] += 1
+    counter["seconds"] += time.perf_counter() - t0
     return t
+
+
+def model_all_reduce(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``t`` summed in place over ``mesh``'s model group (no autograd)."""
+    return _all_reduce(t, mesh.model_group, model_stats)
+
+
+def model_all_gather(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    """The whole tensor of which each process of ``mesh``'s model group
+    holds an equal slice along ``dim``, in model order (no autograd): an
+    all-reduce of a zeroed buffer holding this process's slice."""
+    n = t.shape[dim]
+    shape = list(t.shape)
+    shape[dim] = n * mesh.model_size
+    out = t.new_zeros(shape)
+    out.narrow(dim, mesh.model_rank * n, n).copy_(t)
+    return model_all_reduce(out, mesh)
 
 
 def _gather(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
@@ -85,7 +122,7 @@ def _gather(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
     b = moved.shape[0]
     out = torch.zeros((mesh.size * b,) + tuple(moved.shape[1:]), dtype=x.dtype, device=x.device)
     out[mesh.rank * b:(mesh.rank + 1) * b] = moved
-    return _all_reduce(out).movedim(0, dim)
+    return _all_reduce(out, mesh.data_group).movedim(0, dim)
 
 
 class _GlobalRows(torch.autograd.Function):
@@ -102,12 +139,54 @@ class _GlobalRows(torch.autograd.Function):
 
 class _GlobalSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
-        return _all_reduce(x.clone())
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x.clone(), group)
 
     @staticmethod
     def backward(ctx, grad):
-        return _all_reduce(grad.clone())
+        return _all_reduce(grad.clone(), ctx.group), None
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return model_all_reduce(grad.clone(), ctx.mesh), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return model_all_reduce(x.clone(), mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The input of a column-parallel section: ``x`` itself, whose gradient
+    is summed over ``mesh``'s model group.  ``x`` itself without a model
+    axis, or without autograd."""
+    if mesh is None or mesh.model_size == 1 or not x.requires_grad:
+        return x
+    return _CopyToModel.apply(x, mesh)
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """A row-parallel product's partial sums, summed over ``mesh``'s model
+    group; the gradient passes through unchanged.  ``x`` itself without a
+    model axis."""
+    if mesh is None or mesh.model_size == 1:
+        return x
+    if x.requires_grad:
+        return _ReduceFromModel.apply(x, mesh)
+    return model_all_reduce(x.detach().clone(), mesh)
 
 
 def global_rows(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -124,15 +203,16 @@ def global_rows(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
 def global_sum(x: torch.Tensor) -> torch.Tensor:
     """``x`` summed over the processes, differentiable; ``x`` itself without
     an active mesh."""
-    if _ACTIVE.get() is None:
+    mesh = _ACTIVE.get()
+    if mesh is None:
         return x
     if x.requires_grad:
-        return _GlobalSum.apply(x)
-    return _all_reduce(x.detach().clone())
+        return _GlobalSum.apply(x, mesh.data_group)
+    return _all_reduce(x.detach().clone(), mesh.data_group)
 
 
 def process_count() -> int:
-    """The active mesh's size (1 without one)."""
+    """The active mesh's data size (1 without one)."""
     mesh = _ACTIVE.get()
     return 1 if mesh is None else mesh.size
 
@@ -153,18 +233,23 @@ def uniform_rows(shape: Sequence[int], generator: Optional[torch.Generator],
     return u.narrow(batch_dim, mesh.rank * b, b).contiguous()
 
 
-def all_reduce_grads(grads: Sequence[torch.Tensor], mesh: Optional[Mesh]) -> List[torch.Tensor]:
-    """The gradients summed over ``mesh``'s processes, through one flat
-    buffer a dtype; the list itself without a mesh of more than one."""
+def all_reduce_grads(grads: Sequence[torch.Tensor], mesh: Optional[Mesh],
+                     axis: str = "data") -> List[torch.Tensor]:
+    """The gradients summed over ``mesh``'s data group (``axis="model"``:
+    its model group), through one flat buffer a dtype; the list itself
+    without more than one process along the axis."""
     grads = list(grads)
-    if mesh is None or mesh.size == 1 or not grads:
+    n = 1 if mesh is None else (mesh.size if axis == "data" else mesh.model_size)
+    if n == 1 or not grads:
         return grads
+    group, counter = ((mesh.data_group, stats) if axis == "data"
+                      else (mesh.model_group, model_stats))
     out: List[Optional[torch.Tensor]] = [None] * len(grads)
     by_dtype = {}
     for i, g in enumerate(grads):
         by_dtype.setdefault(g.dtype, []).append(i)
     for idx in by_dtype.values():
-        flat = _all_reduce(torch.cat([grads[i].reshape(-1) for i in idx]))
+        flat = _all_reduce(torch.cat([grads[i].reshape(-1) for i in idx]), group, counter)
         for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
             out[i] = part.view_as(grads[i])
     return out

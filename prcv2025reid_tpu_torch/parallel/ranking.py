@@ -1,7 +1,7 @@
 """Sharded gallery ranking: Q x G cosine similarity and a distributed top-k
 (counterpart of the JAX package's ``parallel/ranking.py``).
 
-The gallery dimension is split over the mesh's processes: each takes the
+The gallery dimension is split over the mesh's data axis: each takes the
 top-k of its own shard (k << G / shard), the k x N candidates are gathered
 to every process, and one small top-k merges them, ordered by (-score,
 gallery index).  The traffic is O(Q * k * N) instead of O(Q * G).
@@ -28,13 +28,15 @@ def sharded_topk(q_feats: Array, g_feats: Array, k: int, mesh: Optional[Mesh],
                  device: Union[str, torch.device] = "cuda"
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k gallery indices per query over a gallery split across ``mesh``'s
-    processes -> (scores [Q, k], indices [Q, k]) on ``device``, the same on
+    data axis -> (scores [Q, k], indices [Q, k]) on ``device``, the same on
     every process.
 
     Every process passes the whole query set and gallery (as the ranking
     callers hold them after ``fetch_global``); process r ranks the rows
     [r * S, (r + 1) * S) of the gallery padded to N * S (the padding rows
-    score -inf).  ``mesh=None`` or one process: one shard."""
+    score -inf), r being the data index (the model axis holds copies, as
+    JAX's ``ranking.py`` shards the gallery over ``'data'``).  ``mesh=None``
+    or a data axis of one: one shard."""
     from prcv2025reid_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
@@ -55,8 +57,10 @@ def sharded_topk(q_feats: Array, g_feats: Array, k: int, mesh: Optional[Mesh],
     scores, idx = ordered_topk(sim, cols.expand_as(sim), k_eff)
     if n > 1:
         # [N, Q, k_eff] candidates on every process, concatenated by shard
-        scores = distributed.gather_rows(scores[None]).movedim(0, 1).reshape(q.shape[0], -1)
-        idx = distributed.gather_rows(idx[None]).movedim(0, 1).reshape(q.shape[0], -1)
+        grp = mesh.data_group
+        scores = distributed.gather_rows(scores[None], group=grp).movedim(0, 1).reshape(
+            q.shape[0], -1)
+        idx = distributed.gather_rows(idx[None], group=grp).movedim(0, 1).reshape(q.shape[0], -1)
         scores, idx = ordered_topk(scores, idx, min(k, scores.shape[1]))
     return scores, idx
 

@@ -27,6 +27,13 @@ Several processes (a data-parallel run: the state is replicated): process
 ``latest_checkpoint_exists`` is process 0's, broadcast (a split verdict on
 shared storage would send some processes into a restore and the rest into
 training); every process restores the replicated state itself.
+
+Tensor parallel (a model sharded by ``parallel/tp.py``): every process
+gathers each sharded leaf, and its moments, whole over its model group (a
+collective, so all of them build the payload), and process 0 writes the
+one-process layout; a restore slices each whole leaf to this process's
+shard.  So a tensor-parallel checkpoint loads in one process, and a
+one-process checkpoint resumes under tensor parallelism.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from prcv2025reid_tpu_torch.parallel import tp
 from prcv2025reid_tpu_torch.training.param_groups import OptState
 from prcv2025reid_tpu_torch.training.train_step import TrainState
 from prcv2025reid_tpu_torch.utils.distributed import (
@@ -106,19 +114,20 @@ def _host_copy(t: torch.Tensor) -> torch.Tensor:
 
 
 def _state_payload(model: torch.nn.Module, state: TrainState) -> Dict[str, Any]:
-    """What ``state.pt`` holds, every tensor copied to the host."""
+    """What ``state.pt`` holds, every tensor copied to the host; a sharded
+    model's leaves and moments whole (a collective over the model group)."""
     opt = state.opt_state
     return {
-        "model": {k: _host_copy(v) for k, v in model.state_dict().items()},
+        "model": {k: _host_copy(v) for k, v in tp.full_state_dict(model).items()},
         "step": int(state.step),
         "seed": int(state.seed),
         "opt_state": {
             "count": _host_copy(opt.count),
-            "mu": [_host_copy(t) for t in opt.mu],
-            "nu": [_host_copy(t) for t in opt.nu],
+            "mu": [_host_copy(t) for t in tp.full_list(model, opt.mu)],
+            "nu": [_host_copy(t) for t in tp.full_list(model, opt.nu)],
             "plateau_scale": _host_copy(opt.plateau_scale),
             "mini_step": _host_copy(opt.mini_step),
-            "acc": [_host_copy(t) for t in opt.acc],
+            "acc": [_host_copy(t) for t in tp.full_list(model, opt.acc)],
         },
         "grad_norm_hist": _host_copy(state.grad_norm_hist),
         "grad_norm_count": _host_copy(state.grad_norm_count),
@@ -176,6 +185,8 @@ def save_checkpoint(directory: str, model: torch.nn.Module, state: TrainState,
     # strict on every other shape
     host_state["ring_shapes"] = {leaf: list(getattr(state, leaf).shape) for leaf in RING_LEAVES}
     if not main:  # the state is replicated: process 0 writes it
+        if tp.is_sharded(model):
+            _state_payload(model, state)  # its gathers are collectives
         if block:
             _commit(staging, path, host_state)
         else:
@@ -239,7 +250,8 @@ def restore_checkpoint(directory: str, model: torch.nn.Module, state: TrainState
             f"unknown {sorted(set(saved['model']) - set(live))[:8]}")
     with torch.no_grad():
         for k, t in live.items():
-            t.copy_(_checked(f"model/{k}", saved["model"][k], t, t.device))
+            whole = saved["model"][k]
+            t.copy_(_checked(f"model/{k}", tp.local_shard(model, k, whole), t, t.device))
     ring_shapes = host_state.get("ring_shapes") or {}
     rings = {leaf: _checked(leaf, saved[leaf], getattr(state, leaf), dev,
                             ring_shapes.get(leaf)) for leaf in RING_LEAVES}
@@ -248,12 +260,12 @@ def restore_checkpoint(directory: str, model: torch.nn.Module, state: TrainState
         step=int(saved["step"]), seed=int(saved["seed"]),
         opt_state=OptState(
             count=_checked("opt_state/count", so["count"], opt.count, dev),
-            mu=_checked_list("opt_state/mu", so["mu"], opt.mu, dev),
-            nu=_checked_list("opt_state/nu", so["nu"], opt.nu, dev),
+            mu=_checked_list("opt_state/mu", tp.local_list(model, so["mu"]), opt.mu, dev),
+            nu=_checked_list("opt_state/nu", tp.local_list(model, so["nu"]), opt.nu, dev),
             plateau_scale=_checked("opt_state/plateau_scale", so["plateau_scale"],
                                    opt.plateau_scale, dev),
             mini_step=_checked("opt_state/mini_step", so["mini_step"], opt.mini_step, dev),
-            acc=_checked_list("opt_state/acc", so["acc"], opt.acc, dev)),
+            acc=_checked_list("opt_state/acc", tp.local_list(model, so["acc"]), opt.acc, dev)),
         grad_norm_count=_checked("grad_norm_count", saved["grad_norm_count"],
                                  state.grad_norm_count, dev),
         skipped_total=_checked("skipped_total", saved["skipped_total"], state.skipped_total, dev),

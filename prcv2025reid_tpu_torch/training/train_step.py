@@ -25,6 +25,15 @@ batch through ``parallel/collectives.py``; the loss and the metrics are
 computed on the gathered outputs, the same on every process; the
 gradients are summed over the processes, so every process applies the same
 update and the parameters stay bit-identical.
+
+Tensor parallel (a 2-D mesh, the model sharded by
+``parallel/tp.py::shard_state``): the data axis is as above, over the data
+group; the blocks all-reduce over the model group themselves; the replicated
+leaves whose gradients are partial sums (``tp.partial_grads``) are summed
+over the model group once; the global norm counts each sharded leaf's shards
+(their sums of squares summed over the model group) and each replicated leaf
+once, so the poisoned-step skip, the sanitising and the clip decide the same
+on every process; the AdamW update is elementwise, so it runs on each shard.
 """
 from __future__ import annotations
 
@@ -38,13 +47,15 @@ import torch
 from prcv2025reid_tpu_torch.configs import TrainingConfig
 from prcv2025reid_tpu_torch.models.reid_model import MultiModalReIDModel, compute_loss
 from prcv2025reid_tpu_torch.ops.losses import Scalar
+from prcv2025reid_tpu_torch.parallel import tp
 from prcv2025reid_tpu_torch.parallel.collectives import (
     active,
     all_reduce_grads,
     data_parallel,
     global_rows,
+    model_all_reduce,
 )
-from prcv2025reid_tpu_torch.parallel.mesh import Mesh, spanning
+from prcv2025reid_tpu_torch.parallel.mesh import Mesh, model_spanning, spanning
 from prcv2025reid_tpu_torch.training.param_groups import OptState, build_optimizer
 
 # the per-step metric ring's channels (one row per step, fetched by the host
@@ -132,9 +143,18 @@ def sanitize_grads(grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return [torch.nan_to_num(g, nan=0.0, posinf=0.0, neginf=0.0) for g in grads]
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every entry (optax.global_norm)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
+def global_norm(tensors: Sequence[torch.Tensor], sharded: Optional[torch.Tensor] = None,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every entry (optax.global_norm).  With
+    ``sharded`` (a 0/1 float per tensor: this process holds a shard of it),
+    under ``mesh``'s model axis: the shards' sums of squares summed over the
+    model group, each replicated tensor counted once."""
+    norms = torch.stack(torch._foreach_norm(list(tensors)))
+    if sharded is None:
+        return torch.linalg.vector_norm(norms)
+    sq = norms.float().square()
+    shard_sq = model_all_reduce((sq * sharded).sum(), mesh)
+    return torch.sqrt((sq * (1.0 - sharded)).sum() + shard_sq)
 
 
 def loss_and_grads(model: MultiModalReIDModel, config: TrainingConfig,
@@ -177,10 +197,13 @@ def make_train_step(model: MultiModalReIDModel, config: TrainingConfig,
     float), ``image_mask`` [B, Mv], ``text_tokens`` [B, S] int, ``text_mask``
     [B], ``labels`` [B] and optionally ``pids`` [B].  ``metrics`` holds the
     JAX step's eleven values as device tensors.  With a ``mesh`` of N
-    processes, ``batch`` is this process's slice (every process's of one
-    size) of the global batch and the step is the global batch's (see the
-    module docstring): the same metrics, update and state on every
-    process."""
+    processes, ``batch`` is this data index's slice (every one of one size)
+    of the global batch and the step is the global batch's (see the module
+    docstring): the same metrics, update and state on every process; a
+    mesh with a model axis needs the model sharded first
+    (``parallel/tp.py::shard_state``).  ``train_step.grads(state, batch,
+    sdm_weight, sdm_tau, enable_modality_dropout)`` runs the step's forward
+    and backward alone: (batch, losses, outputs, BN statistics, gradients)."""
     if config.sdm_semantic_dim != config.fusion_dim:
         raise ValueError(f"sdm_semantic_dim={config.sdm_semantic_dim} must equal "
                          f"fusion_dim={config.fusion_dim}: the SDM features feed the fusion")
@@ -189,10 +212,21 @@ def make_train_step(model: MultiModalReIDModel, config: TrainingConfig,
     bn = model.bn_neck.bn
     dev = model.null_tokens.device
     dp = spanning(mesh)
+    mp = model_spanning(mesh)
+    if mp is not None and not tp.is_sharded(model):
+        raise ValueError("a mesh with a model axis needs the model sharded first "
+                         "(parallel/tp.py::shard_state)")
+    names = [n for n, _ in trainable]
+    partial = [i for i, f in enumerate(tp.partial_grads(model, names)) if f]
+    sharded = (torch.tensor(tp.sharded_leaves(model, names), dtype=torch.float32, device=dev)
+               if mp is not None else None)
 
-    def train_step(state: TrainState, batch: Mapping[str, object], sdm_weight: Scalar,
-                   sdm_tau: Scalar, enable_modality_dropout: bool = False
-                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    def step_grads(state: TrainState, batch: Mapping[str, object], sdm_weight: Scalar,
+                   sdm_tau: Scalar, enable_modality_dropout: bool = False):
+        """The step's forward, loss and gradients, summed over the mesh:
+        (batch on the device, or the global batch's metric keys under a data
+        axis; losses; outputs; new BN statistics; one gradient per trainable
+        parameter, of this process's shard under a model axis)."""
         b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         with data_parallel(dp):
             losses, outputs, new_stats, grads = loss_and_grads(
@@ -201,6 +235,17 @@ def make_train_step(model: MultiModalReIDModel, config: TrainingConfig,
             if dp is not None:  # the global batch's, for the metrics
                 b = {k: global_rows(b[k]) for k in METRIC_BATCH_KEYS if k in b}
         grads = all_reduce_grads(grads, dp)
+        if partial:  # the replicated leaves whose gradients are partial sums
+            for i, g in zip(partial, all_reduce_grads([grads[i] for i in partial], mp,
+                                                      axis="model")):
+                grads[i] = g
+        return b, losses, outputs, new_stats, grads
+
+    def train_step(state: TrainState, batch: Mapping[str, object], sdm_weight: Scalar,
+                   sdm_tau: Scalar, enable_modality_dropout: bool = False
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        b, losses, outputs, new_stats, grads = step_grads(state, batch, sdm_weight, sdm_tau,
+                                                          enable_modality_dropout)
         with torch.no_grad():
             return _apply(state, b, outputs, new_stats, losses, grads)
 
@@ -209,10 +254,11 @@ def make_train_step(model: MultiModalReIDModel, config: TrainingConfig,
         # anywhere before sanitising, skips the whole update.  The norm runs
         # over the trainable leaves only; JAX's gradient tree holds zeros for
         # the frozen ones, so it is the same number
-        ok = torch.isfinite(losses["total_loss"]) & torch.isfinite(global_norm(grads))
+        ok = torch.isfinite(losses["total_loss"]) & torch.isfinite(
+            global_norm(grads, sharded, mp))
         grads = sanitize_grads(grads)
         # adaptive clip; a skipped step leaves the norm history alone
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, sharded, mp)
         hist, count = state.grad_norm_hist, state.grad_norm_count
         window = hist.shape[0]
         slot = torch.arange(window, device=dev) == count % window
@@ -277,6 +323,7 @@ def make_train_step(model: MultiModalReIDModel, config: TrainingConfig,
             metric_ring=ring)
         return new_state, {k: v.detach() for k, v in metrics.items()}
 
+    train_step.grads = step_grads
     return train_step
 
 

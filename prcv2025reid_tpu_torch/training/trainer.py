@@ -16,10 +16,15 @@ parameters: the trainer evaluates the module it trains.
 
 Data parallel: ``mesh`` (default ``create_mesh(config)``, the process group
 the command line joined; one process without one).  Every process builds
-the same model from the same seed, its pipeline feeds its slice of each
-global batch, the step is the global batch's, the evaluation embeds and
-ranks sharded over the processes, and only process 0 writes the
+the same model from the same seed, its pipeline feeds its data index's
+slice of each global batch, the step is the global batch's, the evaluation
+embeds and ranks sharded over the data axis, and only process 0 writes the
 histories, the TensorBoard files, the checkpoints and the gallery cache.
+Tensor parallel (``mesh_shape=(d, m)``, ``mesh_axis_names=("data",
+"model")``): after ``init_train_state`` the model and its optimizer state
+are sharded over the model axis (``parallel/tp.py::shard_state``, as JAX's
+trainer shards after init), and a resume slices the restored whole leaves
+to the shards.
 """
 from __future__ import annotations
 
@@ -51,6 +56,7 @@ from prcv2025reid_tpu_torch.evaluation.protocol import (
     evaluate_protocol,
 )
 from prcv2025reid_tpu_torch.parallel.mesh import Mesh, create_mesh, data_axis_size
+from prcv2025reid_tpu_torch.parallel.tp import shard_state
 from prcv2025reid_tpu_torch.params import init_params
 from prcv2025reid_tpu_torch.tools.convert_clip import (
     clip_source,
@@ -138,6 +144,7 @@ class Trainer:
                         config.batch_size, config.accum_steps,
                         config.batch_size * config.accum_steps, config.target_effective_batch)
         self.state = init_train_state(self.model, config, steps_per_epoch, seed=config.seed + 1)
+        self.state = shard_state(self.model, self.state, self.mesh)
         self.train_step = make_train_step(self.model, config, steps_per_epoch, mesh=self.mesh)
         self._embed_cache: Dict = {}
         logger.info("param groups: %s", count_trainable(
@@ -183,6 +190,9 @@ class Trainer:
     # ----- resume -----
 
     def maybe_resume(self) -> bool:
+        """Restore ``latest/``; under tensor parallelism the restore slices
+        each whole leaf to this process's shard (JAX's trainer re-places
+        after restoring)."""
         if not latest_checkpoint_exists(self.config.save_dir):
             return False
         self.state, host = restore_checkpoint(self.config.save_dir, self.model, self.state,
@@ -327,7 +337,9 @@ class Trainer:
         (the final full-ratio eval after the last epoch's eval hits it)."""
         tag = checkpoint_cache_tag(self.model, self.config.eval_cache_tag,
                                    step=self.state.step, config=self.config)
-        return GalleryCache(self.config.eval_cache_dir, tag, process_count=self.mesh.size)
+        # every process takes process 0's verdict (the model axis's processes
+        # embed together, so a split verdict would hang them too)
+        return GalleryCache(self.config.eval_cache_dir, tag, process_count=self.mesh.world)
 
     def evaluate(self, epoch: Optional[int] = None, sample_ratio: Optional[float] = None) -> Dict:
         cfg = self.config

@@ -160,35 +160,37 @@ def barrier(name: str = "") -> None:
         dist.barrier()
 
 
-def gather_rows(t, dim: int = 0):
+def gather_rows(t, dim: int = 0, group=None):
     """Every process's ``t`` concatenated along ``dim`` in process order, on
-    every process: an all-reduce of a zeroed buffer in which each process
-    writes its own rows.  Each process may hold a different number of rows.
-    No gradient (``parallel/collectives.py`` has the differentiable one)."""
+    every process of ``group`` (None: the whole group): an all-reduce of a
+    zeroed buffer in which each process writes its own rows.  Each process
+    may hold a different number of rows.  No gradient
+    (``parallel/collectives.py`` has the differentiable one)."""
     import torch
 
     dist = _dist()
-    if dist is None:
+    if dist is None or dist.get_world_size(group) == 1:
         return t
     if t.dtype == torch.bool:
-        return gather_rows(t.to(torch.uint8), dim).bool()
-    rank, world = dist.get_rank(), dist.get_world_size()
+        return gather_rows(t.to(torch.uint8), dim, group).bool()
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
     sizes = torch.zeros(world, dtype=torch.int64, device=t.device)
     sizes[rank] = t.shape[dim]
-    dist.all_reduce(sizes)
+    dist.all_reduce(sizes, group=group)
     sizes = sizes.tolist()
     moved = t.movedim(dim, 0)
     out = torch.zeros((sum(sizes),) + tuple(moved.shape[1:]), dtype=t.dtype, device=t.device)
     start = sum(sizes[:rank])
     out[start:start + sizes[rank]] = moved
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=group)
     return out.movedim(0, dim)
 
 
-def fetch_global(x) -> np.ndarray:
+def fetch_global(x, group=None) -> np.ndarray:
     """``np.asarray`` of a row-sharded value: this process's rows (a tensor
-    or an array) in, the global array in process order out, on every
-    process.  One process: the value itself as numpy."""
+    or an array) in, the global array in process order over ``group``
+    (None: the whole group) out, on every process.  One process: the value
+    itself as numpy."""
     import torch
 
     if _dist() is None:
@@ -196,7 +198,7 @@ def fetch_global(x) -> np.ndarray:
     t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
     if t.device.type == "cpu":
         t = t.to(_comm_device())
-    return gather_rows(t.detach()).cpu().numpy()
+    return gather_rows(t.detach(), group=group).cpu().numpy()
 
 
 def broadcast_one_to_all(x) -> np.ndarray:

@@ -1,8 +1,9 @@
 """The port's TrainingConfig against the JAX package's: the same 136 fields
 and defaults, ``to_json`` / ``from_json`` in both directions,
 ``apply_model_preset`` and ``apply_cli_overrides`` on the same argv, the
-values the port refuses with the ROADMAP.md item they wait for, and
-``clip_weights_path``, accepted and resolved as the trainer loads it."""
+multi-process and tensor-parallel values, accepted and reaching the
+runtime, and ``clip_weights_path``, accepted and resolved as the trainer
+loads it."""
 import dataclasses
 import json
 
@@ -36,8 +37,12 @@ ARGVS = {
     "str": ["--scheduler=plateau", "--save_dir=/x/ckpt"],
 }
 
-UNPORTED = [
-    ({"mesh_shape": (4, 2), "mesh_axis_names": ("data", "model")}, "Tensor parallelism"),
+# accepted since tensor parallelism came (parallel/tp.py): each 2-D mesh and
+# what create_mesh makes of it in one process (a mesh of 8 processes
+# raises outside a group of 8, as any mesh of another size)
+TENSOR_PARALLEL = [
+    ({"mesh_shape": (4, 2), "mesh_axis_names": ("data", "model")}, "8 devices over 1 process"),
+    ({"mesh_shape": (1, 1), "mesh_axis_names": ("data", "model")}, ("data", "model")),
 ]
 # accepted since data parallelism came (parallel/mesh.py, utils/distributed.py):
 # each value and where it lands: initialize_from_config's init_process_group
@@ -120,14 +125,22 @@ def test_unknown_preset_raises():
         configs.apply_model_preset(configs.TrainingConfig(), "clip-vit-huge")
 
 
-@pytest.mark.parametrize("override,item", UNPORTED, ids=[str(o) for o, _ in UNPORTED])
-def test_unported_values_name_their_roadmap_item(override, item):
-    jax_configs.TrainingConfig(**override)  # the JAX package runs it
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1, the item '{item}'"):
-        configs.TrainingConfig(**override)
-    # a JAX run's config with it reads back into the port only to raise
-    with pytest.raises(NotImplementedError, match=item):
-        configs.TrainingConfig.from_json(jax_configs.TrainingConfig(**override).to_json())
+@pytest.mark.parametrize("override,lands", TENSOR_PARALLEL,
+                         ids=[str(o) for o, _ in TENSOR_PARALLEL])
+def test_tensor_parallel_mesh_values_are_accepted(override, lands):
+    """Both packages accept a 2-D mesh and read it back from each other's
+    JSON; in the port it reaches create_mesh."""
+    from prcv2025reid_tpu_torch.parallel.mesh import create_mesh
+
+    jcfg, cfg = jax_configs.TrainingConfig(**override), configs.TrainingConfig(**override)
+    assert fields(configs.TrainingConfig.from_json(jcfg.to_json())) == fields(cfg)
+    assert json.loads(cfg.to_json()) == json.loads(jcfg.to_json())
+    if isinstance(lands, str):
+        with pytest.raises(ValueError, match=lands):
+            create_mesh(cfg)
+    else:
+        mesh = create_mesh(cfg)
+        assert (mesh.size, mesh.model_size, mesh.axis_names) == (1, 1, lands)
 
 
 @pytest.mark.parametrize("override,lands", LIFTED, ids=[str(o) for o, _ in LIFTED])

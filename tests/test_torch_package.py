@@ -94,10 +94,9 @@ def test_build_model_raises_without_cuda(monkeypatch):
 @pytest.mark.parametrize("override", [
     {"block_impl": "fused_interpret"},
     {"block_impl": "fused_int8_interpret"},
-    # token reduction (tests/test_torch_token_reduce.py) and data parallelism
+    # token reduction (tests/test_torch_token_reduce.py), data parallelism
     # (tests/test_torch_config.py::test_lifted_multi_process_values_reach_the_runtime)
-    # are ported; tensor parallelism is not
-    {"mesh_shape": (2, 2), "mesh_axis_names": ("data", "model")},
+    # and tensor parallelism (below; tests/test_torch_tp.py) are ported
 ])
 def test_unported_values_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP.md|interpret"):
@@ -107,16 +106,23 @@ def test_unported_values_raise(override):
 @pytest.mark.parametrize("override", [
     {"remat_blocks": True, "remat_policy": "dots"},
     {"clip_weights_path": "/weights/clip.npz"},
+    {"mesh_shape": (2, 2), "mesh_axis_names": ("data", "model")},
 ])
 def test_lifted_values_reach_the_model_and_the_trainer(override):
     """Values the port refused until it had them: remat_policy="dots" reaches
-    the trunk (tests/test_torch_remat.py holds its gradients), and
+    the trunk (tests/test_torch_remat.py holds its gradients),
     clip_weights_path reaches the trainer's loader, which names the file it
-    did not find (tests/test_torch_clip.py loads real ones)."""
+    did not find (tests/test_torch_clip.py loads real ones), and a 2-D mesh
+    reaches create_mesh, which wants its 4 processes (tests/test_torch_tp.py
+    runs them)."""
+    from prcv2025reid_tpu_torch.parallel.mesh import create_mesh
     from prcv2025reid_tpu_torch.tools import convert_clip
 
     cfg = TrainingConfig(**{**TINY, **override})
-    if "remat_policy" in override:
+    if "mesh_shape" in override:
+        with pytest.raises(ValueError, match="4 devices over 1 process"):
+            create_mesh(cfg)
+    elif "remat_policy" in override:
         vit = build_model(cfg, num_classes=3, device="cpu").encoder.vision
         assert vit.remat_blocks and vit.remat_policy == "dots"
     else:

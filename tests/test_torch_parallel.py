@@ -229,8 +229,13 @@ class TestMesh:
             mesh.create_mesh(n_devices=8)
 
     def test_model_axis_names_item_8b(self):
-        with pytest.raises(NotImplementedError, match="item 8b"):
+        """A model axis is accepted (tensor parallelism, item 8b): with its
+        size from mesh_shape, as JAX's; without one it raises, as JAX's."""
+        with pytest.raises(ValueError, match="mesh_shape=\\(d, m\\)"):
             mesh.create_mesh(TrainingConfig(mesh_axis_names=("data", "model")))
+        m = mesh.create_mesh(TrainingConfig(mesh_shape=(1, 1), mesh_axis_names=("data", "model")))
+        assert (m.size, m.rank, m.model_size, m.model_rank, m.axis_names) == (
+            1, 0, 1, 0, ("data", "model"))
         with pytest.raises(ValueError, match="must start with|supported meshes"):
             mesh.create_mesh(TrainingConfig(mesh_axis_names=("batch",)))
 

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Data-parallel dry run: two processes in a ``torch.distributed`` gloo
-group, each with one device, through the port's multi-process runtime (the
-counterpart of the JAX package's ``__graft_entry__.py::_two_process_leg``).
+"""Data- and tensor-parallel dry run: two processes in a
+``torch.distributed`` gloo group, each with one device, through the port's
+multi-process runtime (the counterpart of the JAX package's
+``__graft_entry__.py::_two_process_leg``).
 
-    python3 tools_torch/dp_dryrun.py --cpu [--legs runtime,step,ranking]
-    python3 tools_torch/dp_dryrun.py [--legs step,ranking] [--set key=value ...]
+    python3 tools_torch/dp_dryrun.py --cpu [--legs runtime,step,ranking,tp]
+    python3 tools_torch/dp_dryrun.py [--legs step,ranking,tp] [--set key=value ...]
 
 It launches two copies of itself (a ``file://`` rendezvous in ``--out``,
 each under TIMEOUT seconds) and checks what they return:
@@ -25,13 +26,31 @@ each under TIMEOUT seconds) and checks what they return:
 - ``ranking``: ``sharded_topk`` of the queries against a gallery split over
   the processes, against ``stable_topk`` over the whole gallery in this
   process (the indices exactly).  The features are small integers, so
-  every product is exact whatever the shard's shape, and ties are many.
+  every product is exact whatever the shard's shape, and ties are many;
+- ``tp``: tensor parallelism on the ``(1, 2)`` mesh (``parallel/tp.py``):
+  STEPS train steps from the same ``init_params`` state, sharded by
+  ``shard_state``, on the whole global batch, against the one-process step:
+  the metrics within RTOL; step 1's gradients, gathered whole, against the
+  one process's (on the CPU every leaf within TP_TOL; on the card each LR
+  group's cosine >= GRAD_COS); the replicated leaves the same bits on both
+  processes; the gathered sharded leaves against the one-process state (on
+  the CPU within TP_TOL; on the card the frozen ones bit for bit, and the
+  trained ones' update cosine printed beside a rounding control: the same
+  one-process steps with the other attention core, which move the update
+  by rounding alone); each sharded leaf 1/2 of the whole; on the card #1's
+  launches a step and their head counts, the device ms a step, the peak
+  memory above what was allocated before the model (and one process's) and
+  the model all-reduces' count and ms; then the fused-stream eval embed
+  (``use_pallas_attention``, ``use_fused_mlp``, ``use_fused_resln``) of a
+  seeded uint8 vis batch against one process (min-cosine >= MIN_COSINE),
+  and on the card its launches of #1, #8 and #9 a process.
 
 On the card: full ViT-B/16 width (``TrainingConfig()``, bf16,
 ``use_pallas_attention``, drop-path 0.1), the 8 x 4 batch, 1,024 queries
-against 45,113 x 512, top 100; the processes share one card, so the group
-is gloo's (NCCL wants a device a process).  ``--cpu``: the tiny widths in
-f32, a 4 x 2 batch, 5 x 37 x 8, top 5.  ``--set key=value`` overrides
+against 45,113 x 512, top 100, an eval batch of 128; the processes share one
+card, so the group is gloo's (NCCL wants a device a process).  ``--cpu``:
+the tiny widths in f32, a 4 x 2 batch, 5 x 37 x 8, top 5, an eval batch of
+8.  ``--set key=value`` overrides
 config fields.  The last line of the output is a JSON summary; the exit
 code is 0 only if every check passed.
 """
@@ -40,6 +59,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -60,12 +80,21 @@ TINY = dict(gradient_accumulation_steps=1, vision_hidden_dim=64, vision_layers=2
 NPROC, STEPS, SEED, DROP_PATH, TIMEOUT = 2, 3, 0, 0.1, 420
 STEPS_PER_EPOCH = 10
 SDM_WEIGHT, SDM_TAU = 0.1, 0.18
-LEGS = ("runtime", "step", "ranking")
+LEGS = ("runtime", "step", "ranking")  # and "tp", asked for by name
 # (card, --cpu): the P x K batch, the metrics' bar against one process (bf16
-# summed in another order on the card; f32 on the CPU), and the ranking's
-# queries, gallery rows, width and depth
+# summed in another order on the card; f32 on the CPU), the ranking's
+# queries, gallery rows, width and depth, and the tp leg's eval batch
 SIZES = {"pk": ((8, 4), (4, 2)), "rtol": (2e-3, 1e-4), "ranking": ((1024, 45113, 512, 100),
-                                                                   (5, 37, 8, 5))}
+                                                                   (5, 37, 8, 5)),
+         "eval_batch": (128, 8)}
+# the tp leg: the gathered leaves and gradients against one process on the
+# CPU (f32, JAX's bound for its TP step parameters), a trainable group's
+# gradient cosine on the card (bf16; chip_smoke.py's bar for one group's
+# gradient between two paths), the embed's min-cosine.  The state after the
+# steps has no bar on the card: Adam moves a leaf whose gradient is at
+# rounding level by a whole step in a random direction, on any path
+TP_TOL, GRAD_COS, MIN_COSINE = (2e-4, 2e-5), 0.99, 0.999
+EVAL_FLAGS = dict(use_pallas_attention=True, use_fused_mlp=True, use_fused_resln=True)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -129,15 +158,23 @@ def _digest(model, state) -> str:
     return h.hexdigest()
 
 
+_PARAMS: dict = {}  # the init_params draw of a config, which the eval flags do not change
+
+
 def _model(args, cfg, dev):
     from prcv2025reid_tpu_torch import build_model, init_params
+    from prcv2025reid_tpu_torch.configs import TrainingConfig
 
-    classes = size(args, "pk")[0]
-    return build_model(cfg, init_params(cfg, classes, SEED, perturb=True), device=dev)
+    key = cfg.replace(**{k: getattr(TrainingConfig(), k) for k in EVAL_FLAGS}).to_json()
+    if key not in _PARAMS:
+        _PARAMS[key] = init_params(cfg, size(args, "pk")[0], SEED, perturb=True)
+    return build_model(cfg, _PARAMS[key], device=dev)
 
 
-def run_steps(args, cfg, dev, mesh, save=None):
-    """The step leg on this process: (per-step records, model, state)."""
+def run_steps(args, cfg, dev, mesh, save=None, snapshot=None):
+    """The step leg on this process: (per-step records, model, state).
+    ``snapshot``: a dict that receives the initial state dict (``init``)
+    and step 1's gradients by name (``grads``) on the host."""
     import torch
 
     from prcv2025reid_tpu_torch import init_train_state, make_train_step
@@ -154,6 +191,12 @@ def run_steps(args, cfg, dev, mesh, save=None):
         b = global_batch(cfg, P, K, seed=100 + s)
         if mesh is not None and mesh.size > 1:
             b = shard_batch(b, mesh)
+        if snapshot is not None and s == 0:
+            snapshot["init"] = {k: v.detach().cpu().clone()
+                                for k, v in model.state_dict().items()}
+            names = [n for n, p in model.named_parameters() if p.requires_grad]
+            grads = step.grads(state, b, SDM_WEIGHT, SDM_TAU, True)[-1]
+            snapshot["grads"] = {n: g.cpu() for n, g in zip(names, grads)}
         launches0 = fused_mha.launches
         calls0, secs0 = collectives.stats["calls"], collectives.stats["seconds"]
         collectives.timed = dev.type == "cuda"
@@ -188,6 +231,138 @@ def _save_state(model, state, path):
                 "mu": [t.detach().cpu() for t in state.opt_state.mu],
                 "nu": [t.detach().cpu() for t in state.opt_state.nu],
                 "count": state.opt_state.count.detach().cpu()}, path)
+
+
+def _peak_from(dev):
+    """The device memory allocated now (the peak counter restarts here)."""
+    import torch
+
+    if dev.type != "cuda":
+        return None
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def _peak_gb(dev, base):
+    """GB of device memory at the peak since ``_peak_from`` above what was
+    allocated then (None on the CPU)."""
+    import torch
+
+    return None if base is None else (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+
+
+def eval_batch(args, cfg):
+    """The tp leg's seeded uint8 vis batch: (images, image_mask)."""
+    rng = np.random.default_rng(SEED + 7)
+    B, Mv, S = size(args, "eval_batch"), len(cfg.vision_modalities), cfg.image_size
+    return (rng.integers(0, 256, (B, Mv, S, S, 3), dtype=np.uint8),
+            np.ones((B, Mv), np.float32))
+
+
+def embed_once(args, cfg, dev, mesh=None):
+    """The fused-stream eval embed of :func:`eval_batch` (sharded over
+    ``mesh``'s model axis when it has one): (features, launches a wrapper)."""
+    from prcv2025reid_tpu_torch import make_combo_embed_step
+    from prcv2025reid_tpu_torch.ops.library import launch_counts
+    from prcv2025reid_tpu_torch.parallel import tp
+
+    ecfg = cfg.replace(**EVAL_FLAGS)
+    model = _model(args, ecfg, dev)
+    tp.shard_variables(model, mesh)
+    images, mask = eval_batch(args, ecfg)
+    before = launch_counts()
+    feats = make_combo_embed_step(model, ("vis",))(images, mask).cpu().numpy()
+    after = launch_counts()
+    return feats, {k: after[k] - before[k] for k in after}
+
+
+def tp_leg(args, cfg, dev, mesh, rank):
+    """The tp leg on this process (see the module docstring): its readings;
+    rank 0 also writes the gathered sharded leaves."""
+    import torch
+
+    from prcv2025reid_tpu_torch import init_train_state, make_train_step
+    from prcv2025reid_tpu_torch.ops import fused_attention
+    from prcv2025reid_tpu_torch.parallel import collectives, tp
+
+    P, K = size(args, "pk")
+    base = _peak_from(dev)
+    model = _model(args, cfg, dev)
+    state = init_train_state(model, cfg, STEPS_PER_EPOCH, seed=SEED + 1)
+    whole = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    state = tp.shard_state(model, state, mesh)
+    step = make_train_step(model, cfg, STEPS_PER_EPOCH, mesh=mesh)
+    plan = model.tp_plan
+    names = tp.trainable_names(model)
+    grads = tp.full_list(model, step.grads(state, global_batch(cfg, P, K, seed=100), SDM_WEIGHT,
+                                           SDM_TAU, True)[-1])
+    local = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    proj = [k for k in local if any(n in tp.path_keys(k) for n in ("q_proj", "k_proj", "v_proj",
+                                                                   "out_proj", "fc1", "fc2"))
+            and k.startswith("encoder.")]
+    out = {"plan_leaves": len(plan), "shapes": {k: [local[k], whole[k]] for k in plan},
+           "proj_numel": [sum(math.prod(local[k]) for k in proj),
+                          sum(math.prod(whole[k]) for k in proj)],
+           "sharded_numel": [sum(math.prod(local[k]) for k in plan),
+                             sum(math.prod(whole[k]) for k in plan)]}
+    heads = []
+    launch = fused_attention.mha_launch
+
+    def counted(q, *rest):  # the kernel's launch, its head count noted
+        heads.append(q.shape[1])
+        return launch(q, *rest)
+
+    fused_attention.mha_launch = counted
+    records = []
+    try:
+        for s in range(STEPS):
+            b = global_batch(cfg, P, K, seed=100 + s)  # a data axis of one: the whole batch
+            launches0, heads0 = fused_attention.fused_mha.launches, len(heads)
+            calls0, secs0 = collectives.model_stats["calls"], collectives.model_stats["seconds"]
+            collectives.timed = dev.type == "cuda"
+            device_ms = None
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            state, m = step(state, b, SDM_WEIGHT, SDM_TAU, enable_modality_dropout=True)
+            if dev.type == "cuda":
+                end.record()
+                torch.cuda.synchronize(dev)
+                device_ms = start.elapsed_time(end)
+            collectives.timed = False
+            records.append({"metrics": {k: float(v) for k, v in m.items()},
+                            "fused_mha": fused_attention.fused_mha.launches - launches0,
+                            "heads": sorted(set(heads[heads0:])), "device_ms": device_ms,
+                            "model_calls": collectives.model_stats["calls"] - calls0,
+                            "model_ms": (collectives.model_stats["seconds"] - secs0) * 1e3})
+    finally:
+        fused_attention.mha_launch = launch
+    out["steps"] = records
+    out["peak_gb"] = _peak_gb(dev, base)
+    opt = state.opt_state
+    h = hashlib.sha256()  # the replicated leaves' bits
+    replicated = [v for k, v in sorted(model.state_dict().items()) if k not in plan] + [
+        t for n, pair in zip(names, zip(opt.mu, opt.nu)) if n not in plan for t in pair]
+    for t in replicated + [opt.count]:
+        h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    out["replicated_digest"] = h.hexdigest()
+    full = tp.full_state_dict(model)
+    mu, nu = tp.full_list(model, opt.mu), tp.full_list(model, opt.nu)
+    if rank == 0:
+        torch.save({"model": {k: full[k].cpu() for k in plan},
+                    "mu": {n: t.cpu() for n, t in zip(names, mu) if n in plan},
+                    "nu": {n: t.cpu() for n, t in zip(names, nu) if n in plan},
+                    "grads": {n: t.cpu() for n, t in zip(names, grads)}},
+                   os.path.join(args.out, "tp_state.pt"))
+    del model, state, step, full, mu, nu, grads
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    feats, out["embed_launches"] = embed_once(args, cfg, dev, mesh)
+    np.save(os.path.join(args.out, f"tp_rank{rank}_embed.npy"), feats)
+    return out
 
 
 def runtime_leg(out_dir, model, state, rank, world):
@@ -259,6 +434,9 @@ def child(args) -> int:
     if "step" in legs:
         result["steps"], model, state = run_steps(args, cfg, dev, mesh)
         result["digest"] = _digest(model, state)
+    if "tp" in legs:
+        # a second mesh over the same group: (1, 2), the model axis over both
+        result["tp"] = tp_leg(args, cfg, dev, create_mesh(model_axis_size=NPROC), rank)
     if "ranking" in legs:
         from prcv2025reid_tpu_torch.parallel.ranking import sharded_topk
 
@@ -310,6 +488,7 @@ def launch(argv) -> dict:
 
     argv = [a for a in argv if not a.startswith("--rank=")]
     args = build_parser().parse_args(argv)
+    args.out = os.path.abspath(args.out)  # the rendezvous is a file:// URL
     legs = args.legs.split(",")
     os.makedirs(args.out, exist_ok=True)
     for name in os.listdir(args.out):  # the rendezvous file must be new
@@ -325,9 +504,23 @@ def launch(argv) -> dict:
     fail = summary["failures"].append
 
     ref = None
-    if "step" in legs:  # the one-process step on the global batch, first (the card alone)
+    if "step" in legs or "tp" in legs:  # the one-process step on the global batch, first
         t0 = time.perf_counter()
-        ref, model, _ = run_steps(args, cfg, dev, None)
+        snap = {}
+        base = _peak_from(dev)
+        ref, model, state = run_steps(args, cfg, dev, None, snapshot=snap)
+        summary["single_peak_gb"] = _peak_gb(dev, base)
+        if "tp" in legs:  # the one-process leaves, a rounding control, the embed
+            names = [n for n, p in model.named_parameters() if p.requires_grad]
+            ref_state = {"model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                         "mu": dict(zip(names, (t.cpu() for t in state.opt_state.mu))),
+                         "nu": dict(zip(names, (t.cpu() for t in state.opt_state.nu))),
+                         **snap}
+            del model, state
+            _, model, _ = run_steps(args, cfg.replace(
+                use_pallas_attention=not cfg.use_pallas_attention), dev, None)
+            ref_state["control"] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+            ref_embed, ref_launches = embed_once(args, cfg, dev)
         summary["single_s"] = time.perf_counter() - t0
         del model
         if dev.type == "cuda":
@@ -354,6 +547,9 @@ def launch(argv) -> dict:
     if summary["foreign_modules"]:
         fail(f"the processes imported {summary['foreign_modules']}")
 
+    if "tp" in legs:
+        summary["tp"] = check_tp(args, cfg, dev, [x["tp"] for x in ranks], ref, ref_state,
+                                 ref_embed, ref_launches, fail)
     if "step" in legs:
         rtol = size(args, "rtol")
         summary["ranks_bit_identical"] = len({x["digest"] for x in ranks}) == 1
@@ -402,6 +598,116 @@ def launch(argv) -> dict:
             fail(f"runtime checks failed: {bad}")
     summary["ok"] = not summary["failures"]
     return summary
+
+
+def _over_tol(got, want) -> float:
+    """max |got - want| / (atol + rtol |want|) at TP_TOL: above 1, out of it."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() / (TP_TOL[1] + TP_TOL[0] * want.abs())).max().item()
+
+
+def _cos(a, b) -> float:
+    import torch
+
+    return torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+
+
+def check_tp(args, cfg, dev, got, ref, ref_state, ref_embed, ref_launches, fail) -> dict:
+    """The tp leg's checks against the one-process readings; -> its
+    readings for the summary."""
+    import torch
+
+    rtol = size(args, "rtol")
+    L = cfg.vision_layers
+    heads = cfg.vision_heads // NPROC
+    out = {"plan_leaves": got[0]["plan_leaves"], "peak_gb": [x["peak_gb"] for x in got],
+           "proj_numel": got[0]["proj_numel"], "sharded_numel": got[0]["sharded_numel"]}
+    # each sharded leaf 1/NPROC of the whole along one dim
+    uneven = [k for k, (lo, wh) in got[0]["shapes"].items()
+              if math.prod(lo) * NPROC != math.prod(wh)]
+    if uneven or out["plan_leaves"] == 0:
+        fail(f"tp: {out['plan_leaves']} sharded leaves; not 1/{NPROC} of the whole: {uneven[:4]}")
+    if len({x["replicated_digest"] for x in got}) != 1:
+        fail("tp: the processes' replicated leaves differ")
+    rows = []
+    for s, want in enumerate(ref):
+        per = [x["steps"][s] for x in got]
+        if any(p["metrics"] != per[0]["metrics"] for p in per):
+            fail(f"tp step {s + 1}: the processes' metrics differ")
+        worst = max(abs(per[0]["metrics"][k] - v) / max(abs(v), 1e-6)
+                    for k, v in want["metrics"].items())
+        rows.append({"step": s + 1, "max_rel": worst, "fused_mha": [p["fused_mha"] for p in per],
+                     "heads": [p["heads"] for p in per], "device_ms": [p["device_ms"] for p in per],
+                     "model_ms": [p["model_ms"] for p in per],
+                     "model_calls": [p["model_calls"] for p in per],
+                     "single_device_ms": want["device_ms"]})
+        if worst > rtol:
+            fail(f"tp step {s + 1}: metrics {worst:.3e} from the one-process step (> {rtol})")
+        if dev.type == "cuda" and any(p["fused_mha"] != L - 1 or p["heads"] != [heads]
+                                      for p in per):
+            fail(f"tp step {s + 1}: #1 launches {[p['fused_mha'] for p in per]} at heads "
+                 f"{[p['heads'] for p in per]} (expected {L - 1} at {heads})")
+    out["steps"] = rows
+    # step 1's gradients, gathered whole, against the one process's
+    from prcv2025reid_tpu_torch.training.param_groups import label_for_path, param_key
+
+    mine = torch.load(os.path.join(args.out, "tp_state.pt"), weights_only=True)
+    want_g = ref_state["grads"]
+    worst_g = max(_over_tol(g, want_g[n]) for n, g in mine["grads"].items())
+    groups: dict = {}
+    for n, g in mine["grads"].items():
+        label = label_for_path(param_key(n), cfg.freeze_backbone, cfg.freeze_text_backbone)
+        groups.setdefault(label, ([], []))
+        groups[label][0].append(g.flatten().float())
+        groups[label][1].append(want_g[n].flatten().float())
+    out["grad_cos"] = {label: _cos(torch.cat(a), torch.cat(b)) for label, (a, b) in groups.items()}
+    out["grad_err_over_tol"] = worst_g
+    if set(mine["grads"]) != set(want_g):
+        fail("tp: the gradients' leaves differ from one process's")
+    if args.cpu and worst_g > 1.0:
+        fail(f"tp: step 1's gradients {worst_g:.3f} x the tolerance {TP_TOL} from one process")
+    low = {k: v for k, v in out["grad_cos"].items() if v < GRAD_COS}
+    if not args.cpu and low:
+        fail(f"tp: step 1's gradient cosine by group {low} < {GRAD_COS}")
+    # the gathered sharded leaves against the one process's state
+    worst, frozen_differ, moves = 0.0, [], ([], [], [])
+    for k, v in mine["model"].items():
+        w, w0 = ref_state["model"][k], ref_state["init"][k]
+        worst = max(worst, _over_tol(v, w))
+        if torch.equal(w, w0):  # a frozen leaf: the same bits
+            if not torch.equal(v, w):
+                frozen_differ.append(k)
+            continue
+        for i, t in enumerate((v, w, ref_state["control"][k])):
+            moves[i].append((t.float() - w0.float()).flatten())
+    for part in ("mu", "nu"):
+        for n, v in mine[part].items():
+            worst = max(worst, _over_tol(v, ref_state[part][n]))
+    moved = [torch.cat(m) if m else torch.zeros(1) for m in moves]
+    out.update(leaf_err_over_tol=worst, frozen_differ=len(frozen_differ),
+               trained_leaves=len(moves[0]), update_cos=_cos(moved[0], moved[1]),
+               control_update_cos=_cos(moved[2], moved[1]))
+    if frozen_differ:
+        fail(f"tp: frozen sharded leaves differ from one process: {frozen_differ[:4]}")
+    if args.cpu and worst > 1.0:
+        fail(f"tp: gathered leaves {worst:.3f} x the tolerance {TP_TOL} from one process")
+    # the fused-stream embed
+    feats = [np.load(os.path.join(args.out, f"tp_rank{r}_embed.npy")) for r in range(NPROC)]
+    cos = [float(((f * ref_embed).sum(1) / np.maximum(
+        np.linalg.norm(f, axis=1) * np.linalg.norm(ref_embed, axis=1), 1e-12)).min())
+        for f in feats]
+    out["embed"] = {"batch": int(ref_embed.shape[0]), "min_cosine": cos,
+                    "ranks_equal": bool(np.array_equal(feats[0], feats[1])),
+                    "launches": [x["embed_launches"] for x in got], "single_launches": ref_launches}
+    if min(cos) < MIN_COSINE:
+        fail(f"tp embed: min-cosine {min(cos):.6f} < {MIN_COSINE}")
+    if dev.type == "cuda":
+        want = {"fused_mha": L, "fused_mlp": L, "fused_residual_ln": 2 * L}
+        want = {k: want.get(k, 0) for k in ref_launches}
+        if any(x["embed_launches"] != want for x in got) or ref_launches != want:
+            fail(f"tp embed: launches {out['embed']['launches']}, one process {ref_launches}, "
+                 f"expected {want}")
+    return out
 
 
 def main(argv=None) -> int:

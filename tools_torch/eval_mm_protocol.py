@@ -28,7 +28,10 @@ Data parallel over N processes, one device each: launch N copies with
 sharing one card).  The embedding splits each batch over the processes and
 the ranking splits the queries (``--batch_size`` rounds up to a multiple of
 N); every process prints the same JSON, process 0 writes the gallery cache
-and the submission CSV.
+and the submission CSV.  ``--mesh_shape=d,m --mesh_axis_names=data,model``
+lays the N = d x m processes out as a (data, model) mesh: the model is
+sharded over the model axis (tensor parallelism, ``parallel/tp.py``) and
+the data axis splits the batches and queries as above.
 """
 from __future__ import annotations
 
@@ -89,6 +92,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--coordinator_address", default=None)
     ap.add_argument("--num_processes", type=int, default=None)
     ap.add_argument("--process_id", type=int, default=None)
+    ap.add_argument("--mesh_shape", type=lambda s: tuple(int(v) for v in s.split(",") if v),
+                    default=(), help="d,m with --mesh_axis_names=data,model: a (data, model) "
+                                     "mesh of d x m processes (tensor parallelism over m); "
+                                     "default: the 1-D data mesh over every process")
+    ap.add_argument("--mesh_axis_names", type=lambda s: tuple(s.split(",")), default=("data",),
+                    help="'data' (default) or 'data,model'")
     ap.add_argument("--eval_split", choices=("all", "val", "train"), default="all",
                     help="'all' evaluates every identity under dataset_root; 'val'/'train' "
                          "rebuild the trainer's ID-disjoint split from the checkpoint config "
@@ -109,6 +118,7 @@ def main(argv=None, device="cuda"):
     )
 
     from prcv2025reid_tpu_torch.parallel.mesh import create_mesh
+    from prcv2025reid_tpu_torch.parallel.tp import shard_variables
     from prcv2025reid_tpu_torch.utils.distributed import initialize_from_config
 
     args = build_parser().parse_args(argv)
@@ -116,7 +126,7 @@ def main(argv=None, device="cuda"):
     # the process group before any device use; the argparse namespace has
     # the fields the helper reads
     initialize_from_config(args, backend=args.dist_backend)
-    mesh = create_mesh()
+    mesh = create_mesh(args)  # the namespace has the config's two mesh fields
     batch_size = -(-args.batch_size // mesh.size) * mesh.size
     dev = engine.resolve_device(device)
 
@@ -137,6 +147,7 @@ def main(argv=None, device="cuda"):
         args.model_path, dev, data_root=args.dataset_root,
         json_file=args.json_file or os.path.join(args.dataset_root, "text_annos.json"),
         **overrides)
+    shard_variables(model, mesh)  # a model axis: each process its Megatron shards
 
     if args.eval_split == "all":
         dataset = MultiModalDataset(config, split="val")
