@@ -44,7 +44,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      fused_residual_ln) at the same shapes with every input requiring grad,
      its kernel forward and its autograd.Function's backward, against
      autograd through its plain version on the same values: every input
-     must get a finite gradient within GRAD_REL_TOL;
+     must get a finite gradient within GRAD_REL_TOL; at phase 4j's presets
+     (checked before the gradients): attention at B/32's 50 tokens and past
+     256 at L/14's 16 heads (257, and 577 at 336 px), causal and not,
+     through the kernel's two-pass long-sequence path, and its gradient at
+     257; the splash core at 257; #3-#9 at L/14's widths (D = 1,024, F =
+     4,096) on BATCH images of 257 tokens and on three groups of 32;
   4. build the full-width ViT-B/16 model (fusion_dim 512, 400 classes, bf16
      compute) from init_params(seed=0, perturb=True) and embed one seeded
      uint8 batch through the entry points (build_model,
@@ -111,7 +116,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      gradient cosine >= TRAIN_F32_GRAD_COS), and the card in bf16 against
      the CPU in f32 (losses within TRAIN_CPU_LOSS_REL, each group's gradient
      cosine within TRAIN_BF16_COS_SLACK of the CPU's own bf16 run's);
-  4c. the dataset path at full width through the entry points a user calls:
+  4c. (from here to 4g each evaluation dataset of this process decodes an
+     image file once, decode_once: the evaluations read one val split again
+     and again)
+     the dataset path at full width through the entry points a user calls:
      a synthetic ORBench tree (make_synthetic_orbench: DATA_IDS ids x
      DATA_ANCHORS anchors, DATA_IMG px JPEGs, in a temporary directory that
      phase 4d trains on too)
@@ -323,11 +331,35 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      use_fused_mlp, use_fused_resln) of a seeded uint8 batch of BATCH under
      (1, TP_MODEL) against one process: min-cosine >= 0.999, #1 L, #8 L
      and #9 2L a process;
+  4j. the CLIP ViT-L/14 and ViT-B/32 presets at full width
+     (apply_model_preset: L/14 24 blocks of 1,024, 16 heads, MLP 4,096,
+     patch 14, 257 tokens at 224 px; text 768 x 12; fusion 768; the SDM
+     module at the fusion width, 768, where the preset leaves 512: neither
+     package trains the preset as it stands).  (a) The
+     L/14 model from init_params(seed=0, perturb=True), bf16, embeds one
+     seeded uint8 batch of BATCH vis images under PRESET_PATHS (xla,
+     use_pallas_attention, the fused-stream trunk, block_impl fused, splash,
+     fused_int8): min-cosine against xla >= 0.999 (fused_int8:
+     APPROX_MIN_COSINE), exact launch counts (#1 23, on the fused-stream
+     trunk 24; #8 24, #9 48; #3 and #5 23 under fused; splash 23 and #1 23;
+     #4 and #6 23), the device ms of a step (CUDA events), embeds/s and peak
+     memory a path.  (b) Phase 4b's 8x4 step at L/14 under
+     use_pallas_attention against xla: step-1 losses within TRAIN_LOSS_REL,
+     each group's gradient cosine >= TRAIN_GRAD_COS, #1 23 launches at S =
+     257 and no host synchronisation in a step; it/s, device ms and peak
+     memory of each.  (c) An HF-layout checkpoint at L/14's widths
+     (hf_clip_checkpoint) written as safetensors and loaded through
+     clip_weights_path as the trainer loads it, embedded on the fused-stream
+     trunk against clip_vision_oracle: min-cosine >= 0.999, #1 24, #8 24,
+     #9 48.  (d) The B/32 model (50 tokens: #1's shortest branch) under
+     B32_PATHS: min-cosine >= 0.999, exact launch counts;
   5. time every kernel, its plain version and (where one PyTorch call
      computes the same function) that call with CUDA events, median of
      TIMED_RUNS after warm-up queued behind a spin kernel (device time
      only), beside the least time the card could take (attention and the
-     fused MLP also at token reduction's and tensor parallelism's shapes);
+     fused MLP also at token reduction's and tensor parallelism's shapes;
+     #1, #11, #3, #5, #8 and #9 at the L/14 preset's, #1 also at 577
+     tokens, the launches a forward of 4j (a) beside each);
      time end-to-end embeds/s per configuration (in turns, median of
      E2E_ROUNDS rounds) and the device ms of one embed step of each from
      CUDA events, with torch.profiler's top kernels (its kernel sum, which
@@ -348,6 +380,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -376,7 +409,7 @@ F32_MIN_COSINE = 0.99
 TIMED_RUNS = 25
 WARMUP_RUNS = 3
 SPIN_CYCLES = 20_000_000  # ~10 ms at the H100's clock: the host enqueues the runs meanwhile
-E2E_ITERS = 10
+E2E_ITERS = 5
 E2E_ROUNDS = 3
 TOP_KERNELS = 8
 BATCH = 128
@@ -402,8 +435,8 @@ BOS, EOT = 49406, 49407  # CLIP's start and end tokens (EOT: the highest id)
 # the training phase: the 8x4 recipe (P ids x K instances, batch 32, no
 # accumulation), TRAIN_STEPS steps on one seeded batch; timing: TRAIN_ROUNDS
 # rounds of TRAIN_ITERS steps after TRAIN_WARMUP
-TRAIN_P, TRAIN_K, TRAIN_STEPS = 8, 4, 20
-TRAIN_ROUNDS, TRAIN_ITERS, TRAIN_WARMUP = 3, 10, 2
+TRAIN_P, TRAIN_K, TRAIN_STEPS = 8, 4, 10
+TRAIN_ROUNDS, TRAIN_ITERS, TRAIN_WARMUP = 2, 5, 2
 SDM_WEIGHT, SDM_TAU = 0.1, 0.18
 # step 1 of the kernel path against the plain one (the same bf16 model, the
 # same dropout masks): the losses, each trainable group's gradient, the norm
@@ -431,7 +464,7 @@ NO_RANDOMNESS = dict(drop_path=0.0, dropout_rate=0.0, fusion_dropout=0.0, sdm_dr
 # pipeline alone times PIPE_BATCHES batches after its workers are warm; the
 # fed train step runs FEED_STEPS steps, timed after FEED_WARMUP
 DATA_IDS, DATA_ANCHORS, DATA_IMG = 256, 4, 256
-PIPE_BATCHES, FEED_STEPS, FEED_WARMUP = 16, 20, 2
+PIPE_BATCHES, FEED_STEPS, FEED_WARMUP = 8, 10, 2
 # the trainer phase: 2 epochs of TRAINER_STEPS steps through the command
 # line; the resumed run against the uninterrupted one: the per-epoch losses
 # within TRAINER_LOSS_REL, each trainable group's parameters at cosine >=
@@ -469,7 +502,7 @@ RR_SAME_ROWS, RR_MAP_TOL = 0.99, 1e-4
 # bench_query.py's calls a timed round; --images against embed_samples: bit
 # for bit, or SERVE_MIN_COSINE with the cause found
 SERVE_RR = dict(top_n=100, k1=20, k2=6, lam=0.3)
-SERVE_QUERIES, SERVE_CONCURRENT, SERVE_LATENCY_N, SERVE_BQ_ITERS = 256, 32, 50, 5
+SERVE_QUERIES, SERVE_CONCURRENT, SERVE_LATENCY_N, SERVE_BQ_ITERS = 256, 32, 25, 5
 MM_SERVE_COMBOS = (("nir", "text"), ("sk", "cp", "text"), ("nir", "sk", "cp"),
                    ("nir", "sk", "cp", "text"))
 SERVE_MIN_COSINE = 0.9999
@@ -490,11 +523,11 @@ CLIP_PROBE_STEPS, CLIP_DRYRUN_STEPS = 10, 3
 # trace_train.py --no-trace here)
 TRACE_PATHS = {"fused": ["--block-impl", "fused"], "splash": ["--attn-backend", "splash"]}
 TRACE_ITERS, TOOL_DEVICE_SPREAD = 2, 0.10
-HOST_SAMPLES = 50
+HOST_SAMPLES = 25
 BUNDLE_GRAPHS, BUNDLE_BATCH, BUNDLE_N = "gallery_vis,text,quad,combo_nir+text", 8, 64
-BUNDLE_LATENCY_N = 50
+BUNDLE_LATENCY_N = 25
 BUNDLE_MIN_COSINE = 0.99999
-DISPATCH_CALLS = 500
+DISPATCH_CALLS = 250
 # phase 4i, data parallel: DP_PROCS processes share the one card over gloo
 # (NCCL refuses two ranks on a device).  (a) tools_torch/dp_dryrun.py's
 # global-batch steps of the 8x4 recipe (pallas_attention, drop-path 0.1)
@@ -519,6 +552,37 @@ DP_CLI = ("import json, runpy, sys; ns = runpy.run_path(sys.argv[1], run_name='t
 MATMUL_ROWS = (25344, 6304)  # the microbenchmark's M, and a multiple of no row tile
 MICROBENCH = ("xla_bf16", "xla_int8", "pallas_bf16", "pallas_int8", "pallas_sweep", "bw",
               "floor")
+# the embed paths of phase 4 (and those of 4j, by the same names): each one's
+# config overrides
+EMBED_PATHS = {
+    "xla": {},
+    "fused": dict(block_impl="fused"),
+    "pallas_attention": dict(use_pallas_attention=True),
+    "fused_mlp": dict(use_fused_mlp=True),
+    "fused_trunk": dict(use_fused_resln=True, use_fused_mlp=True, use_pallas_attention=True),
+    # the fused-stream trunk with the plain MLP: what the MLP kernel costs it
+    "fused_resln": dict(use_fused_resln=True, use_pallas_attention=True),
+    "fused_qkv": dict(block_impl="fused_qkv"),
+    "splash": dict(attn_backend="splash"),
+    "fused_int8": dict(block_impl="fused_int8"),
+    "fused_int8_mlp": dict(block_impl="fused_int8_mlp"),
+    "onesaug": dict(attn_backend="onesaug"),
+    "gelu_tanh": dict(gelu_impl="tanh"),
+    "gelu_poly": dict(gelu_impl="poly"),
+}
+# held at APPROX_MIN_COSINE, their 0.999 reading printed
+APPROX_PATHS = ("fused_int8", "fused_int8_mlp", "onesaug", "gelu_tanh", "gelu_poly")
+# phase 4j, the CLIP ViT-L/14 and ViT-B/32 presets at full width: (a) the L/14
+# embed of BATCH images under PRESET_PATHS, PRESET_ITERS embeds a path for
+# embeds/s; (b) phase 4b's 8x4 step at L/14, PRESET_TRAIN_ITERS timed steps a
+# path; (c) an HF-layout checkpoint at L/14's widths through
+# clip_weights_path; (d) the B/32 embed under B32_PATHS
+PRESET_L14, PRESET_B32 = "clip-vit-large-patch14", "clip-vit-base-patch32"
+PRESET_PATHS = ("xla", "pallas_attention", "fused_trunk", "fused", "splash", "fused_int8")
+B32_PATHS = ("xla", "pallas_attention", "fused_trunk")
+PRESET_ITERS, PRESET_TRAIN_ITERS = 3, 3
+# #1 past 256 tokens in phases 3 and 5: L/14 at 336 px beside 224 px's 257
+S_L14_336 = (336 // 14) ** 2 + 1
 
 
 def fail(msg: str) -> "NoReturn":  # noqa: F821
@@ -543,6 +607,76 @@ def bound_ms(work, nbytes: float):
     ...], and ``nbytes`` of traffic: the larger of the two times."""
     t_ops, t_bytes = sum(n / peak for n, peak in work), nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def path_launches(L: int):
+    """Each embed path's kernel launches in one forward of an L-block trunk:
+    blocks 0 .. L - 2 in full, the CLS-only last block on the plain path;
+    the fused-stream trunk runs all L in full."""
+    return {
+        "xla": {},
+        "fused": {"fused_ln_qkv": L - 1, "fused_out_mlp": L - 1},
+        "pallas_attention": {"fused_mha": L - 1},
+        "fused_mlp": {"fused_mlp": L - 1},
+        "fused_trunk": {"fused_mha": L, "fused_mlp": L, "fused_residual_ln": 2 * L},
+        "fused_resln": {"fused_mha": L, "fused_residual_ln": 2 * L},
+        "fused_qkv": {"fused_ln_qkv": L - 1},
+        # the splash core launches the attention kernel once per call
+        "splash": {"splash_attention_bshd": L - 1, "fused_mha": L - 1},
+        "fused_int8": {"fused_ln_qkv_int8": L - 1, "fused_out_mlp_int8": L - 1},
+        "fused_int8_mlp": {"fused_ln_qkv": L - 1, "fused_out_mlp_int8mlp": L - 1},
+        # the serving formulations are plain PyTorch
+        "onesaug": {},
+        "gelu_tanh": {},
+        "gelu_poly": {},
+    }
+
+
+def block_cases(torch, gen, dev, G, N, D, F):
+    """(name, kernel, plain version, operands) of #3-#9 on G groups of N rows
+    of width D, MLP width F: bf16 activations, weights scaled as the model's,
+    f32 LayerNorm parameters and biases (bf16 for the fused MLP, as the
+    model casts them), the int8 weights quantized as MERBlock does; the
+    residual+LN pass on the first group's rows.  The residual stream and the
+    attention output have std 0.5, so the outputs are of order 1, where
+    ABS_TOL is a few bf16 ulps: with unit inputs #5's output x + out-proj +
+    MLP has std 1.6 and, over 33.7M values, passes 8, where one bf16 ulp
+    (0.0625) is above ABS_TOL (an H100 read one such one-ulp flip, PERF.md)."""
+    from prcv2025reid_tpu_torch.ops import fused_block as fb
+    from prcv2025reid_tpu_torch.ops.fused_mlp import fused_mlp, mlp_plain
+    from prcv2025reid_tpu_torch.ops.fused_resln import fused_residual_ln, resln_plain
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    x, attn = randn(G, N, D, scale=0.5).bfloat16(), randn(G, N, D, scale=0.5).bfloat16()
+    lns, lnb = 1 + 0.1 * randn(D), 0.1 * randn(D)
+    wqkv, bqkv = randn(G, D, 3 * D, scale=D**-0.5).bfloat16(), 0.1 * randn(G, 3 * D)
+    wo, bo = randn(G, D, D, scale=D**-0.5).bfloat16(), 0.1 * randn(G, D)
+    w1, b1 = randn(G, D, F, scale=D**-0.5).bfloat16(), 0.1 * randn(G, F)
+    w2, b2 = randn(G, F, D, scale=F**-0.5).bfloat16(), 0.1 * randn(G, D)
+    q_wqkv, q_wo, q_w1, q_w2 = (fb.quantize_weight(w) for w in (wqkv, wo, w1, w2))
+    tail8 = (lns, lnb, *q_w1, b1, *q_w2, b2)
+    at = f"D={D} F={F}" + (f" G={G}" if G > 1 else f" T={N}")
+    cases = [
+        (f"fused_ln_qkv {at}", fb.fused_ln_qkv, fb.ln_qkv_plain, (x, lns, lnb, wqkv, bqkv)),
+        (f"fused_out_mlp {at}", fb.fused_out_mlp, fb.out_mlp_plain,
+         (attn, x, wo, bo, lns, lnb, w1, b1, w2, b2)),
+        (f"fused_mlp {at}", fused_mlp, mlp_plain, (x, w1, b1.bfloat16(), w2, b2.bfloat16())),
+        (f"fused_ln_qkv_int8 {at}", fb.fused_ln_qkv_int8, fb.ln_qkv_int8_plain,
+         (x, lns, lnb, *q_wqkv, bqkv)),
+        (f"fused_out_mlp_int8 {at}", fb.fused_out_mlp_int8, fb.out_mlp_int8_plain,
+         (attn, x, *q_wo, bo, *tail8)),
+        (f"fused_out_mlp_int8mlp {at}", fb.fused_out_mlp_int8mlp, fb.out_mlp_int8mlp_plain,
+         (attn, x, wo, bo, *tail8)),
+    ]
+    if G == 1:
+        resln = (x[0], attn[0], lns, lnb)
+        cases += [(f"fused_residual_ln xn {at}", lambda *a: fused_residual_ln(*a)[0],
+                   lambda *a: resln_plain(*a)[0], resln),
+                  (f"fused_residual_ln y {at}", lambda *a: fused_residual_ln(*a)[1],
+                   lambda *a: resln_plain(*a)[1], resln)]
+    return cases
 
 
 def time_ms(torch, fn, runs=TIMED_RUNS):
@@ -1267,6 +1401,9 @@ def dataset_phase(torch, cfg, params, counters, dev, card, resident, tmp):
     # calling process, one record after another, as JAX's
     full = {d: MultiModalDataset(dcfg.replace(use_native_decode=d == "native"), split="val")
             for d in decoders}
+    load = getattr(MultiModalDataset._load_image, "original", MultiModalDataset._load_image)
+    for ds in full.values():  # every read decodes (decode_once serves the evaluations)
+        ds._load_image = load.__get__(ds)
     step = make_combo_embed_step(trunk, ("vis",))
     readings["gallery_embed"] = {}
     for decode, ds in full.items():
@@ -1376,6 +1513,29 @@ def probe_trainer(torch, trainer_module):
             return result
 
     return Probe
+
+
+def decode_once(dataset_cls):
+    """Make every evaluation dataset of this process decode each image file
+    once: a later read of a path returns the first decode's array (the eval
+    transform has no randomness, and the callers copy the array).  Training
+    datasets (random augmentation) decode every time.  Phases 4c-4g evaluate
+    one val split many times, 15 query plans a pass, each reading the same
+    few hundred files again.  Returns the class's own loader."""
+    load = dataset_cls._load_image
+    cache = {}
+
+    def _load_image(self, path, rng):
+        if self.is_training:
+            return load(self, path, rng)
+        key = (path, self.config.image_size, self.config.use_native_decode)
+        if key not in cache:
+            cache[key] = load(self, path, rng)
+        return cache[key]
+
+    _load_image.original = load
+    dataset_cls._load_image = _load_image
+    return load
 
 
 def trainer_argv(cfg, tmp, run, **over):
@@ -3020,29 +3180,6 @@ def tools_phase(torch, cfg, counters, dev, card, tmp, live_p50):
     readings["trace_embed"] = {n: dict(device_ms=r["device_ms"], profiler_ms=r["profiler_ms"],
                                        rollup=r["rollup"]) for n, r in traced.items()}
 
-    # ---- (d) bench_host_pipeline.py
-    _, stdout = run_tool("bench_host_pipeline", ["--samples", str(HOST_SAMPLES)])
-    lines = [ln for ln in stdout.splitlines() if ln.startswith(
-        ("host:", "get_sample rate", "native=True failed", "gallery get_query_sample", "budget:",
-         "overlap:"))]
-    print("tools (d) bench_host_pipeline: " + " | ".join(lines))
-    for prefix in ("get_sample rate (native_decode=False)", "budget:", "overlap:"):
-        if not any(ln.startswith(prefix) for ln in lines):
-            fail(f"bench_host_pipeline: no {prefix!r} line: {stdout[-2000:]}")
-    if not any(ln.startswith(("native=True failed: unavailable",
-                              "get_sample rate (native_decode=True)")) for ln in lines):
-        fail(f"bench_host_pipeline: no native leg line: {stdout[-2000:]}")
-    readings["host_pipeline"] = lines
-
-    # ---- (f) toolchain_watch.py --fast: 0 (unchanged) or 2 (changed)
-    rc, stdout = run_tool("toolchain_watch", ["--fast"], ok_codes=(0, 2))
-    report = stdout[stdout.find("== train-step probe"):]
-    print(f"tools (f) toolchain_watch --fast: exit {rc}\n{report}")
-    diff = stdout[stdout.find("== probe diff"):]
-    if "FAILED" in diff or "train_8x4: FAILED" in stdout:
-        fail(f"toolchain_watch: a probe read None:\n{diff}")
-    readings["toolchain_watch"] = dict(rc=rc, report=report.strip().splitlines())
-
     # ---- (g) the serving artifact from 4d's best/ (a fused-stream checkpoint)
     a_ckpt = os.path.join(tmp, "A", "ckpt", "best")
     # the same weights under block_impl="fused": the fused-stream trunk refuses
@@ -3057,14 +3194,43 @@ def tools_phase(torch, cfg, counters, dev, card, tmp, live_p50):
     with open(os.path.join(f_ckpt, "host_state.json"), "w") as f:
         json.dump(host, f)
     bundle, fbundle = os.path.join(out, "bundle"), os.path.join(out, "bundle_fused")
-    # both exports at once: each is host work (tracing, writing the file)
-    # and nothing of it is timed against the card
+    # both exports, (d) and (f) at once: the exports are host work (tracing,
+    # writing the file) and nothing of them is timed against the card; (d)
+    # and (f) read rates that the others' host work can lower (their checks
+    # are the lines they print and (f)'s exit code, 0 or 2)
     labels = {"fused_stream": (a_ckpt, bundle, ["--graphs", BUNDLE_GRAPHS]),
               "block_fused": (f_ckpt, fbundle, ["--graphs", "gallery_vis", "--block_impl",
                                                  "fused"])}
-    ran = run_tools([("export_serving", ["--model_path", ckpt, "--out_dir", bdir,
-                                         "--batch_size", str(BUNDLE_BATCH), *extra])
-                     for ckpt, bdir, extra in labels.values()])
+    (rc_d, stdout), (rc, watch), *ran = run_tools(
+        [("bench_host_pipeline", ["--samples", str(HOST_SAMPLES)]),
+         ("toolchain_watch", ["--fast"])]
+        + [("export_serving", ["--model_path", ckpt, "--out_dir", bdir,
+                               "--batch_size", str(BUNDLE_BATCH), *extra])
+           for ckpt, bdir, extra in labels.values()], ok_codes=(0, 2))
+    if rc_d != 0 or any(r != 0 for r, _ in ran):
+        fail(f"tools: bench_host_pipeline or export_serving exited {rc_d}, {[r for r, _ in ran]}")
+
+    # ---- (d) bench_host_pipeline.py
+    lines = [ln for ln in stdout.splitlines() if ln.startswith(
+        ("host:", "get_sample rate", "native=True failed", "gallery get_query_sample", "budget:",
+         "overlap:"))]
+    print("tools (d) bench_host_pipeline: " + " | ".join(lines))
+    for prefix in ("get_sample rate (native_decode=False)", "budget:", "overlap:"):
+        if not any(ln.startswith(prefix) for ln in lines):
+            fail(f"bench_host_pipeline: no {prefix!r} line: {stdout[-2000:]}")
+    if not any(ln.startswith(("native=True failed: unavailable",
+                              "get_sample rate (native_decode=True)")) for ln in lines):
+        fail(f"bench_host_pipeline: no native leg line: {stdout[-2000:]}")
+    readings["host_pipeline"] = lines
+
+    # ---- (f) toolchain_watch.py --fast: 0 (unchanged) or 2 (changed)
+    report = watch[watch.find("== train-step probe"):]
+    print(f"tools (f) toolchain_watch --fast: exit {rc}\n{report}")
+    diff = watch[watch.find("== probe diff"):]
+    if "FAILED" in diff or "train_8x4: FAILED" in watch:
+        fail(f"toolchain_watch: a probe read None:\n{diff}")
+    readings["toolchain_watch"] = dict(rc=rc, report=report.strip().splitlines())
+
     exports = {}
     for label, (_, stdout) in zip(labels, ran):
         for line in stdout.splitlines():
@@ -3364,6 +3530,203 @@ def parallel_phase(torch, cfg, counters, dev, card, tmp):
     return out
 
 
+def preset_phase(torch, counters, dev, card, tmp):
+    """The CLIP ViT-L/14 and ViT-B/32 presets at full width on the card
+    (phase 4j, see the module docstring); fails the run on any failed check
+    and returns the readings.  ``tmp``: a scratch directory."""
+    from prcv2025reid_tpu_torch import (
+        TrainingConfig,
+        build_model,
+        init_train_state,
+        make_combo_embed_step,
+        make_train_step,
+    )
+    from prcv2025reid_tpu_torch.configs import apply_model_preset
+    from prcv2025reid_tpu_torch.params import init_params
+    from prcv2025reid_tpu_torch.tools import convert_clip
+
+    readings, t_phase = {}, time.perf_counter()
+
+    def zero():
+        for counter in counters.values():
+            counter.launches = 0
+        torch.cuda.synchronize()
+
+    def counts(want):
+        got = {n: f.launches for n, f in counters.items()}
+        return got, {n: want.get(n, 0) for n in counters}
+
+    def embed_paths(preset, cfg, params, names):
+        """Each path's model in turn from ``params``: one counted embed of a
+        seeded uint8 batch of BATCH vis images, its device ms (CUDA events),
+        embeds/s over PRESET_ITERS steps and peak memory above what was
+        allocated before the model; min-cosine against the first path."""
+        expected = path_launches(cfg.vision_layers)
+        gen = torch.Generator(device=dev).manual_seed(20)
+        Mv = len(cfg.vision_modalities)
+        images = torch.randint(0, 256, (BATCH, Mv, cfg.image_size, cfg.image_size, 3),
+                               generator=gen, device=dev, dtype=torch.uint8)
+        mask = torch.ones(BATCH, Mv, device=dev)
+        out, ref = {}, None
+        for name in names:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            model = build_model(cfg.replace(**EMBED_PATHS[name]), params, device=dev)
+            step = make_combo_embed_step(model, ("vis",))
+            zero()
+            e = step(images, mask)
+            torch.cuda.synchronize()
+            got, want = counts(expected[name])
+            if e.shape != (BATCH, cfg.fusion_dim) or not torch.isfinite(e).all() or \
+                    (e.norm(dim=1) - 1).abs().max().item() > 1e-3:
+                fail(f"{preset} {name}: embedding not finite/unit-norm of shape "
+                     f"{(BATCH, cfg.fusion_dim)}")
+            if got != want:
+                fail(f"{preset} {name}: launch counts {got} != {want}")
+            device_ms = device_reading(torch, lambda: step(images, mask), f"{preset} {name}")[0]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(PRESET_ITERS):
+                step(images, mask)
+            torch.cuda.synchronize()
+            rate = BATCH * PRESET_ITERS / (time.perf_counter() - t1)
+            ref = e if ref is None else ref
+            cos = (e * ref).sum(dim=1).min().item()
+            bar = APPROX_MIN_COSINE if name in APPROX_PATHS else MIN_COSINE
+            peak = (torch.cuda.max_memory_allocated() - resident) / 1e9
+            out[name] = dict(launches={n: c for n, c in got.items() if c}, min_cosine=cos,
+                             device_ms=device_ms, embeds_per_s=rate, peak_mem_gb=peak)
+            print(f"{preset} (a) {name} ({card}): launches {out[name]['launches']}; min-cosine "
+                  f"vs {names[0]} {cos:.6f} (>= {bar}); device {device_ms:.3f} ms a step of "
+                  f"{BATCH}, {rate:.1f} embeds/s, peak memory {peak:.2f} GB")
+            if cos < bar:
+                fail(f"{preset} {name}: min-cosine {cos} < {bar}")
+            del model, step, e
+        return out
+
+    # ---- (a) the L/14 embed at full width under PRESET_PATHS.  The SDM
+    # features feed the fusion in training, so they take its width: the
+    # preset keeps the default sdm_semantic_dim 512 against fusion_dim 768,
+    # with which the JAX package's train forward raises (flax's
+    # ScopeParamShapeError at fusion/q_proj) and make_train_step refuses.  The
+    # phase sets it to 768 throughout; no eval path reads the SDM module
+    l14 = apply_model_preset(TrainingConfig(), PRESET_L14)
+    l14 = l14.replace(sdm_semantic_dim=l14.fusion_dim)
+    L = l14.vision_layers
+    t0 = time.perf_counter()
+    params = init_params(l14, NUM_CLASSES, seed=0, perturb=True)
+    print(f"{PRESET_L14}: {L} blocks of {l14.vision_hidden_dim}, {l14.vision_heads} heads, MLP "
+          f"{l14.vision_mlp_dim}, {l14.num_patches + 1} tokens; text {l14.text_hidden_dim} x "
+          f"{l14.text_layers}; fusion {l14.fusion_dim}; init_params "
+          f"{time.perf_counter() - t0:.1f} s, {sum(a.size for a in params.values())} values")
+    readings["l14_embed"] = embed_paths(PRESET_L14, l14, params, PRESET_PATHS)
+
+    print(f"{PRESET_L14} (a): {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- (b) phase 4b's 8x4 step at L/14: pallas_attention against xla
+    t0 = time.perf_counter()
+    tcfg = l14.replace(num_ids_per_batch=TRAIN_P, instances_per_id=TRAIN_K)
+    batch = train_batch(torch, tcfg, dev, TRAIN_P, TRAIN_K, seed=21)
+    first, train = {}, {}
+    for name, over in (("xla", {}), ("pallas_attention", EMBED_PATHS["pallas_attention"])):
+        pcfg = tcfg.replace(**over)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        model = build_model(pcfg, params, device=dev)
+        first[name] = group_grads(torch, model, pcfg, batch)
+        state = init_train_state(model, pcfg, 1, seed=0)
+        step = make_train_step(model, pcfg, 1)
+        state, _ = counted_step(torch, counters, f"{PRESET_L14} {name}", step, state, batch,
+                                path_launches(L)[name])
+        held = [state]
+
+        def one_step():
+            held[0], _ = step(held[0], batch, SDM_WEIGHT, SDM_TAU)
+
+        device_ms = device_reading(torch, one_step, f"{PRESET_L14} train {name}")[0]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(PRESET_TRAIN_ITERS):
+            one_step()
+        torch.cuda.synchronize()
+        it_s = PRESET_TRAIN_ITERS / (time.perf_counter() - t1)
+        peak = (torch.cuda.max_memory_allocated() - resident) / 1e9
+        train[name] = dict(it_per_s=it_s, device_ms=device_ms, peak_mem_gb=peak,
+                           remat_blocks=pcfg.remat_blocks, step1=first[name][0])
+        print(f"{PRESET_L14} (b) train {name} ({card}): {it_s:.3f} it/s, device {device_ms:.3f} "
+              f"ms a step, peak memory {peak:.2f} GB (remat_blocks {pcfg.remat_blocks}), step-1 "
+              f"losses {json.dumps(first[name][0])}")
+        if not all(math.isfinite(v) for v in first[name][0].values()):
+            fail(f"{PRESET_L14} train {name}: a non-finite step-1 loss")
+        del model, state, step, held
+    (l_x, g_x), (l_p, g_p) = first["xla"], first["pallas_attention"]
+    loss_rel = {k: abs(l_p[k] - l_x[k]) / abs(l_x[k]) for k in l_x}
+    cos, rel, norm = compare_grads(torch, g_p, g_x)
+    print(f"{PRESET_L14} (b) train step 1 pallas_attention vs xla: loss rel "
+          f"{json.dumps(loss_rel)} (<= {TRAIN_LOSS_REL}); gradient cosine by group "
+          f"{json.dumps(cos)} (>= {TRAIN_GRAD_COS}); global norm ratio {norm:.5f}")
+    if max(loss_rel.values()) > TRAIN_LOSS_REL or min(cos.values()) < TRAIN_GRAD_COS:
+        fail(f"{PRESET_L14} train step 1: pallas_attention disagrees with xla")
+    train["pallas_vs_xla"] = dict(loss_rel=loss_rel, grad_cos=cos, grad_rel=rel, norm_ratio=norm)
+    readings["l14_train"] = train
+    del params, first, batch
+    torch.cuda.empty_cache()
+    print(f"{PRESET_L14} (b): {time.perf_counter() - t0:.1f} s")
+
+    # ---- (c) CLIP weights at L/14's widths through clip_weights_path, as the
+    # trainer loads them: the file's leaves into init_params(perturb=False)
+    t0 = time.perf_counter()
+    hf = hf_clip_checkpoint(l14, seed=22)
+    st_dir = os.path.join(tmp, "clip_l14")
+    os.makedirs(st_dir)
+    convert_clip.write_safetensors(os.path.join(st_dir, "model.safetensors"), hf)
+    ccfg = l14.replace(clip_weights_path=st_dir, **EMBED_PATHS["fused_trunk"])
+    flat = convert_clip.convert_clip_params(
+        convert_clip.load_hf_state_dict(convert_clip.clip_source(ccfg)),
+        init_params(ccfg, NUM_CLASSES, ccfg.seed, perturb=False), seed=ccfg.seed)
+    load_s = time.perf_counter() - t0
+    model = build_model(ccfg, flat, device=dev)
+    del flat
+    gen = torch.Generator(device=dev).manual_seed(22)
+    imgs = torch.randn(CLIP_ORACLE_BATCH, l14.image_size, l14.image_size, 3, generator=gen,
+                       device=dev)
+    zero()
+    with torch.inference_mode():
+        got = model.encoder.encode_vision(imgs, 0).float()
+    torch.cuda.synchronize()
+    launched, want = counts(dict(fused_mha=L, fused_mlp=L, fused_residual_ln=2 * L))
+    oracle = clip_vision_oracle(torch, hf, imgs, l14, dev)
+    cos = torch.nn.functional.cosine_similarity(got, oracle, dim=1).min().item()
+    readings["l14_clip"] = dict(values=sum(v.size for v in hf.values()), load_s=load_s,
+                                oracle_min_cosine=cos,
+                                launches={n: k for n, k in launched.items() if k})
+    print(f"{PRESET_L14} (c) an HF-layout checkpoint at its widths ({readings['l14_clip']['values']} "
+          f"values) written, loaded through clip_weights_path and converted in {load_s:.1f} s; "
+          f"the vis embedding of {CLIP_ORACLE_BATCH} images on the fused-stream trunk against the "
+          f"f32 oracle: min-cosine {cos:.6f} (>= {MIN_COSINE}); launches {launched} (expected "
+          f"{want})")
+    if cos < MIN_COSINE or not torch.isfinite(got).all():
+        fail(f"{PRESET_L14} clip: the loaded model's vis embedding against the oracle: {cos}")
+    if launched != want:
+        fail(f"{PRESET_L14} clip embed: launch counts {launched} != {want}")
+    del model, oracle, got, hf
+    torch.cuda.empty_cache()
+    print(f"{PRESET_L14} (c): {time.perf_counter() - t0:.1f} s")
+
+    # ---- (d) the B/32 embed (50 tokens: #1's 4-chunk branch)
+    t0 = time.perf_counter()
+    b32 = apply_model_preset(TrainingConfig(), PRESET_B32)
+    readings["b32_embed"] = embed_paths(PRESET_B32, b32,
+                                        init_params(b32, NUM_CLASSES, seed=0, perturb=True),
+                                        B32_PATHS)
+    torch.cuda.empty_cache()
+    print(f"{PRESET_B32} (d): {time.perf_counter() - t0:.1f} s")
+    readings["seconds"] = time.perf_counter() - t_phase
+    return readings
+
+
 def main() -> int:
     import torch
 
@@ -3386,6 +3749,7 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
     from prcv2025reid_tpu_torch import TrainingConfig, build_model, make_combo_embed_step
+    from prcv2025reid_tpu_torch.configs import apply_model_preset
     from prcv2025reid_tpu_torch.evaluation.protocol import (
         build_query_plans,
         compute_retrieval_metrics,
@@ -3545,6 +3909,18 @@ def main() -> int:
     fmlp_tp_args = (x, w1[:, :, :F_TP].contiguous(), b1[:, :F_TP].bfloat16(),
                     w2[:, :F_TP].contiguous(), torch.zeros_like(b2).bfloat16())
     block_checks = {}
+
+    def check(name, kern, plain, args):
+        """The kernel against its plain version on the same operands."""
+        got = kern(*args)
+        torch.cuda.synchronize()
+        tols = (INT8_REL_TOL, INT8_ABS_TOL) if "int8" in name else (REL_TOL, ABS_TOL)
+        mx, rel, ok = errors(torch, got, plain(*args), *tols)
+        block_checks[name] = (mx, rel)
+        print(f"check {name}: max_abs {mx:.3e} rel {rel:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(name)
+
     for name, kern, plain, args in (
         ("fused_ln_qkv", fb.fused_ln_qkv, fb.ln_qkv_plain, qkv_args),
         ("fused_ln_qkv G=3", fb.fused_ln_qkv, fb.ln_qkv_plain, qkv3_args),
@@ -3576,14 +3952,7 @@ def main() -> int:
         (f"fused_mlp T={T_RED}", fused_mlp, mlp_plain, fmlp_r_args),
         (f"fused_mlp F={F_TP}", fused_mlp, mlp_plain, fmlp_tp_args),
     ):
-        got = kern(*args)
-        torch.cuda.synchronize()
-        tols = (INT8_REL_TOL, INT8_ABS_TOL) if "int8" in name else (REL_TOL, ABS_TOL)
-        mx, rel, ok = errors(torch, got, plain(*args), *tols)
-        block_checks[name] = (mx, rel)
-        print(f"check {name}: max_abs {mx:.3e} rel {rel:.3e} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            failures.append(name)
+        check(name, kern, plain, args)
     # the microbenchmark's tiled matmul: x [M, 768] @ w [768, 3072]; the bf16
     # weight scaled as the model's (outputs of order 1, where ABS_TOL is a few
     # bf16 ulps), the int8 weight K-major, as the kernel takes it
@@ -3620,6 +3989,42 @@ def main() -> int:
           f" {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("fused_mha text S=77 H=8 causal")
+
+    # the presets of phase 4j: #1 at ViT-B/32's 50 tokens (12 heads) and past
+    # 256 at L/14's 16 heads (257 tokens at 224 px, 577 at 336 px), causal and
+    # not; #11 at 257; the block kernels at L/14's widths (D = 1,024, F =
+    # 4,096: the 192-column tiles end in a ragged 64 at N = 1,024) on BATCH
+    # images of 257 tokens and on the MM-3 query's three groups of 32
+    l14 = apply_model_preset(TrainingConfig(), PRESET_L14)
+    b32 = apply_model_preset(TrainingConfig(), PRESET_B32)
+    D14, H14, F14 = l14.vision_hidden_dim, l14.vision_heads, l14.vision_mlp_dim
+    S14 = l14.num_patches + 1
+    T14, N14 = BATCH * S14, 32 * S14
+    l14_qkv = {}
+    for s_len, heads in ((b32.num_patches + 1, b32.vision_heads), (S14, H14),
+                         (S_L14_336, H14)):
+        qkv_p = randn(BATCH, s_len, 3, heads, Dh).bfloat16()
+        views = tuple(qkv_p[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+        for causal in (False, True):
+            got = fused_mha(*views, causal=causal)
+            torch.cuda.synchronize()
+            mx, rel, ok = errors(torch, got, mha_plain(*views, causal))
+            att_checks[f"S={s_len} H={heads} causal={causal}"] = (mx, rel)
+            print(f"check fused_mha S={s_len} H={heads} causal={causal}: max_abs {mx:.3e} "
+                  f"rel {rel:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"fused_mha S={s_len} H={heads} causal={causal}")
+        l14_qkv[s_len] = (qkv_p, views)
+    del got
+    l14_views = l14_qkv[S14][1]
+    l14_splash = tuple(l14_qkv[S14][0][:, :, i] for i in range(3))  # [B, S, H, Dh] views
+    l14_cases = (block_cases(torch, gen, dev, 1, T14, D14, F14)
+                 + block_cases(torch, gen, dev, 3, N14, D14, F14))
+    for name, kern, plain, args in l14_cases + [
+            (f"splash_attention_bshd S={S14} H={H14}", att.splash_attention_bshd,
+             att.splash_plain, l14_splash)]:
+        check(name, kern, plain, args)
+    l14_fns = {name: (kern, plain, args) for name, kern, plain, args in l14_cases}
     if failures:
         fail(f"kernel disagrees with its plain version: {failures}")
 
@@ -3643,6 +4048,8 @@ def main() -> int:
         ("fused_mha", fused_mha, mha_plain, (q, k, v), cotangent(q)),
         ("fused_mha causal", lambda *a: fused_mha(*a, causal=True),
          lambda *a: mha_plain(*a, True), (q, k, v), cotangent(q)),
+        (f"fused_mha S={S14} H={H14}", fused_mha, mha_plain, l14_views,
+         cotangent(l14_views[0])),
         ("splash_attention_bshd", att.splash_attention_bshd, att.splash_plain, splash_args,
          cotangent(splash_args[0])),
         ("fused_ln_qkv", fb.fused_ln_qkv, fb.ln_qkv_plain, qkv_args,
@@ -3671,25 +4078,7 @@ def main() -> int:
     params = init_params(cfg, NUM_CLASSES, seed=0, perturb=True)
     print(f"init_params: {time.perf_counter() - t0:.1f} s, {sum(a.size for a in params.values())} values")
     L = cfg.vision_layers
-    configs = {
-        "xla": cfg,
-        "fused": cfg.replace(block_impl="fused"),
-        "pallas_attention": cfg.replace(use_pallas_attention=True),
-        "fused_mlp": cfg.replace(use_fused_mlp=True),
-        "fused_trunk": cfg.replace(use_fused_resln=True, use_fused_mlp=True,
-                                   use_pallas_attention=True),
-        # the fused-stream trunk with the plain MLP: what the MLP kernel costs it
-        "fused_resln": cfg.replace(use_fused_resln=True, use_pallas_attention=True),
-        "fused_qkv": cfg.replace(block_impl="fused_qkv"),
-        "splash": cfg.replace(attn_backend="splash"),
-        "fused_int8": cfg.replace(block_impl="fused_int8"),
-        "fused_int8_mlp": cfg.replace(block_impl="fused_int8_mlp"),
-        "onesaug": cfg.replace(attn_backend="onesaug"),
-        "gelu_tanh": cfg.replace(gelu_impl="tanh"),
-        "gelu_poly": cfg.replace(gelu_impl="poly"),
-    }
-    # held at APPROX_MIN_COSINE, their 0.999 reading printed
-    approx_paths = ("fused_int8", "fused_int8_mlp", "onesaug", "gelu_tanh", "gelu_poly")
+    configs = {name: cfg.replace(**over) for name, over in EMBED_PATHS.items()}
     counters = {"fused_mha": fused_mha, "fused_ln_qkv": fb.fused_ln_qkv,
                 "fused_out_mlp": fb.fused_out_mlp, "fused_mlp": fused_mlp,
                 "fused_residual_ln": fused_residual_ln,
@@ -3698,23 +4087,7 @@ def main() -> int:
                 "fused_out_mlp_int8mlp": fb.fused_out_mlp_int8mlp,
                 "splash_attention_bshd": att.splash_attention_bshd,
                 "tiled_matmul": tiled_matmul}
-    expected = {  # launches per forward
-        "xla": {},
-        "fused": {"fused_ln_qkv": L - 1, "fused_out_mlp": L - 1},
-        "pallas_attention": {"fused_mha": L - 1},
-        "fused_mlp": {"fused_mlp": L - 1},
-        "fused_trunk": {"fused_mha": L, "fused_mlp": L, "fused_residual_ln": 2 * L},
-        "fused_resln": {"fused_mha": L, "fused_residual_ln": 2 * L},
-        "fused_qkv": {"fused_ln_qkv": L - 1},
-        # the splash core launches the attention kernel once per call
-        "splash": {"splash_attention_bshd": L - 1, "fused_mha": L - 1},
-        "fused_int8": {"fused_ln_qkv_int8": L - 1, "fused_out_mlp_int8": L - 1},
-        "fused_int8_mlp": {"fused_ln_qkv": L - 1, "fused_out_mlp_int8mlp": L - 1},
-        # the serving formulations are plain PyTorch
-        "onesaug": {},
-        "gelu_tanh": {},
-        "gelu_poly": {},
-    }
+    expected = path_launches(L)  # launches per forward
     Mv = len(cfg.vision_modalities)
     images = torch.randint(0, 256, (BATCH, Mv, cfg.image_size, cfg.image_size, 3),
                            generator=gen, device=dev, dtype=torch.uint8)
@@ -3753,9 +4126,9 @@ def main() -> int:
         if name == "xla":
             continue
         gate[name] = (embeds[name] * embeds["xla"]).sum(dim=1).min().item()
-        bar = APPROX_MIN_COSINE if name in approx_paths else MIN_COSINE
+        bar = APPROX_MIN_COSINE if name in APPROX_PATHS else MIN_COSINE
         promo = (f"; promotion gate {MIN_COSINE}: "
-                 f"{'met' if gate[name] >= MIN_COSINE else 'missed'}") if name in approx_paths else ""
+                 f"{'met' if gate[name] >= MIN_COSINE else 'missed'}") if name in APPROX_PATHS else ""
         print(f"gate {name} vs xla: min-cosine {gate[name]:.6f} (>= {bar}){promo}")
         if gate[name] < bar:
             fail(f"{name}: min-cosine {gate[name]} < {bar}")
@@ -3798,8 +4171,8 @@ def main() -> int:
         print(f"rank gate {name} vs xla: top-100 overlap {r['top_overlap']:.4f} "
               f"(>= {RANK_MIN_OVERLAP}), |dmAP| {r['map_delta']:.6f} (<= {RANK_MAX_MAP_DELTA}), "
               f"mAP {r['map_ref']:.6f} -> {r['map_test']:.6f}: {'PASS' if ok else 'FAIL'}"
-              f"{'' if name not in approx_paths else ' (read, not required)'}")
-        if not ok and name not in approx_paths:
+              f"{'' if name not in APPROX_PATHS else ' (read, not required)'}")
+        if not ok and name not in APPROX_PATHS:
             fail(f"{name}: fails the ranking gate against xla: {r}")
     del probe
     print(f"rank gate: {RANK_IDS} ids x {RANK_PER_ID} gallery, {RANK_QUERIES} queries, "
@@ -3897,7 +4270,13 @@ def main() -> int:
 
     import tempfile
 
+    from prcv2025reid_tpu_torch.data.dataset import MultiModalDataset
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+        # 4c-4g: each evaluation dataset of this process decodes a file once
+        # (their evaluate and CLI seconds then hold no repeated decode; 4c's
+        # gallery embeds/s keeps datasets that decode every read)
+        own_loader = decode_once(MultiModalDataset)
         # ---- 4c. the host data path and the dataset evaluation at full width
         t0 = time.perf_counter()
         data = dataset_phase(torch, cfg, params, counters, dev, card, train, tmp)
@@ -3922,6 +4301,7 @@ def main() -> int:
         t0 = time.perf_counter()
         clip = clip_phase(torch, cfg, counters, dev, card, tmp)
         print(f"clip phase: {time.perf_counter() - t0:.1f} s")
+        MultiModalDataset._load_image = own_loader
 
         # ---- 4h. the measuring tools and the serving artifact, on 4c-4g's files
         t0 = time.perf_counter()
@@ -3933,6 +4313,11 @@ def main() -> int:
         t0 = time.perf_counter()
         parallel = parallel_phase(torch, cfg, counters, dev, card, tmp)
         print(f"parallel phase: {time.perf_counter() - t0:.1f} s")
+
+        # ---- 4j. the CLIP ViT-L/14 and ViT-B/32 presets at full width
+        t0 = time.perf_counter()
+        presets = preset_phase(torch, counters, dev, card, tmp)
+        print(f"preset phase: {time.perf_counter() - t0:.1f} s")
 
     # ---- 5. timing
     import torch.nn.functional as Fn
@@ -4102,6 +4487,58 @@ def main() -> int:
         print(f"kernel {r['name']} at tensor parallelism's shape {r['shape']} ({card}): "
               f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']})")
+    # #1, #11, #3, #5, #8 and #9 at the L/14 preset's shapes (phase 4j (a): B =
+    # BATCH images of S14 tokens, T14 rows of D14, F14; #1 also at 336 px's
+    # S_L14_336 tokens), beside their bounds; launches: per forward in 4j (a)
+    l14_launch = {n: r["launches"] for n, r in presets["l14_embed"].items()}
+    l14_rows = []
+    for s_len in (S14, S_L14_336):
+        views = l14_qkv[s_len][1]
+        b_ms, b_by = bound_ms([(4 * BATCH * H14 * s_len * s_len * Dh, PEAK_BF16_FLOPS)],
+                              4 * BATCH * H14 * s_len * Dh * 2)
+        l14_rows.append(dict(
+            name="fused_mha", shape=f"B={BATCH} S={s_len} H={H14} Dh={Dh}",
+            launches=l14_launch["pallas_attention"].get("fused_mha", 0) if s_len == S14 else 0,
+            max_abs_err=att_checks[f"S={s_len} H={H14} causal=False"][0],
+            ms=time_ms(torch, lambda v=views: fused_mha(*v)),
+            plain_ms=time_ms(torch, lambda v=views: mha_plain(*v), runs=10),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(torch, lambda v=views: Fn.scaled_dot_product_attention(*v))))
+    b_ms, b_by = bound_ms([(4 * BATCH * H14 * S14 * S14 * Dh, PEAK_BF16_FLOPS)],
+                          4 * BATCH * H14 * S14 * Dh * 2)
+    l14_rows.append(dict(
+        name="splash_attention_bshd", shape=f"B={BATCH} S={S14} H={H14} Dh={Dh}",
+        launches=l14_launch["splash"].get("splash_attention_bshd", 0),
+        max_abs_err=block_checks[f"splash_attention_bshd S={S14} H={H14}"][0],
+        ms=time_ms(torch, lambda: att.splash_attention_bshd(*l14_splash)),
+        plain_ms=time_ms(torch, lambda: att.splash_plain(*l14_splash), runs=10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=l14_rows[0]["library_ms"]))
+    O14, at14 = 3 * D14, f"D={D14} F={F14} T={T14}"
+    for name, path, work, nbytes in (
+            ("fused_ln_qkv", "fused", [(2 * T14 * D14 * O14, PEAK_BF16_FLOPS)],
+             T14 * D14 * 2 + D14 * O14 * 2 + O14 * 4 + 2 * D14 * 4 + T14 * O14 * 2),
+            ("fused_out_mlp", "fused", [(2 * T14 * D14 * (D14 + 2 * F14), PEAK_BF16_FLOPS)],
+             3 * T14 * D14 * 2 + (D14 * D14 + 2 * D14 * F14) * 2 + (2 * D14 + F14) * 4
+             + 2 * D14 * 4),
+            ("fused_mlp", "fused_trunk", [(4 * T14 * D14 * F14, PEAK_BF16_FLOPS)],
+             2 * T14 * D14 * 2 + 2 * D14 * F14 * 2 + (F14 + D14) * 2),
+            ("fused_residual_ln", "fused_trunk", [(8 * T14 * D14, PEAK_F32_FLOPS)],
+             4 * T14 * D14 * 2 + 2 * D14 * 4)):
+        kern, plain, args = l14_fns[f"{name} y {at14}" if name == "fused_residual_ln"
+                                    else f"{name} {at14}"]
+        b_ms, b_by = bound_ms(work, nbytes)
+        l14_rows.append(dict(
+            name=name, shape=f"T={T14} D={D14} F={F14}",
+            launches=l14_launch[path].get(name, 0),
+            max_abs_err=max(v[0] for n, v in block_checks.items()
+                            if n.startswith(name + " ") and f"D={D14}" in n),
+            ms=time_ms(torch, lambda k=kern, a=args: k(*a)),
+            plain_ms=time_ms(torch, lambda p=plain, a=args: p(*a), runs=10),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    for r in l14_rows:
+        print(f"kernel {r['name']} at the L/14 preset's shape {r['shape']} ({card}): "
+              f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']}); {r['launches']} a forward")
     # the microbenchmark's tiled matmul at M = 25,344, K = 768, N = 3072: each
     # input read once, the output written once; no model path launches it
     Mm = MATMUL_ROWS[0]
@@ -4223,8 +4660,10 @@ def main() -> int:
         "clip_phase": clip,
         "tools_phase": tools,
         "parallel_phase": parallel,
+        "preset_phase": presets,
         "kernels_at_token_reduced_shapes": reduced_rows,
         "kernels_at_tensor_parallel_shapes": tp_rows,
+        "kernels_at_l14_shapes": l14_rows,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     for r in rows:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "

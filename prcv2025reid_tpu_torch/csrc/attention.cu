@@ -38,6 +38,29 @@
 //     the inputs need no padding; the strip's output goes through its own Q
 //     rows in shared memory and leaves as whole 128-byte rows.
 // q/k/v/out are addressed through element strides (batch, head, sequence).
+//
+// Sequences past 256 tokens (ViT-L/14 at 224 px: 257; at 336 px: 577) take a
+// second kernel, attn_long_kernel, since a strip's scores for all keys no
+// longer fit in registers.  Bound at the L/14 gallery shape (B=128, H=16,
+// S=257): 34.6 GFLOP against 269.5 MB of q/k/v/out, memory-bound (~80 us).
+// Design:
+//   - one block a (batch, head, 64-row query tile), the tiles of a pair
+//     adjacent in the grid, so the pair's K and V, read by every tile, come
+//     from L2 after the first; four consumer warps own a 16-row strip each
+//     and one producer warp's lane 0 issues every TMA load;
+//   - the tile's Q is staged once; K (and V) stream in blocks of 64 keys
+//     (sequence coordinate kb * 64 of the same 4-d maps, rows >= S zero
+//     filled) through a ring of three stages: a `full` mbarrier a stage
+//     counts the bytes, an `empty` one the consumer warps' releases;
+//   - two passes over the keys: the first takes each row's f32 max and sum
+//     (online), the second recomputes the scores and casts the normalised P
+//     to bf16 for PV.  A one-pass online softmax casts P before the
+//     normalisation, which moves its bf16 rounding off the TPU kernel's: a
+//     difference of the size of P's own bf16 rounding against the plain
+//     version, the order of chip_smoke.py's REL_TOL; the second QK^T costs
+//     half as many products again;
+//   - causal: a tile reads keys up to its last row only, and a strip skips
+//     the blocks wholly above its diagonal (it still releases them).
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -304,6 +327,243 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, 
   return cudaGetLastError();
 }
 
+// ---- S > 256: a query tile a block, the keys streamed twice
+
+constexpr int LONG_WARPS = 4;                         // consumer warps: 16 query rows each
+constexpr int LONG_THREADS = (LONG_WARPS + 1) * 32;   // + one producer warp
+constexpr int KB = 64;                                // keys a block
+constexpr int LONG_STAGES = 3;
+constexpr int MAX_S = 4096;  // the longest tests/test_torch_cuda.py holds on the card
+
+struct LongCfg {
+  static constexpr int QROWS = 16 * LONG_WARPS;
+  static constexpr int QTILE = QROWS * DH * 2;
+  static constexpr int KTILE = KB * DH * 2;
+  static constexpr int STAGE = 2 * KTILE;  // k, v
+  static constexpr int SMEM = QTILE + LONG_STAGES * STAGE + (1 + 2 * LONG_STAGES) * 8 + 1024;
+};
+
+// TMA coordinates of rows s0.. of a head's box (the sequence lies in the
+// dim that neither the head nor the batch takes)
+__device__ __forceinline__ void seq_coords(int slots, int h, int b, int s0, int& c1, int& c2,
+                                           int& c3) {
+  head_coords(slots, h, b, c1, c2, c3);
+  const int ss = 6 - (slots & 3) - ((slots >> 2) & 3);
+  if (ss == 1) c1 += s0;
+  if (ss == 2) c2 += s0;
+  if (ss == 3) c3 += s0;
+}
+
+// a strip's scores against key block kb (KB keys in sK), masked by index
+__device__ __forceinline__ void score_block(float (&s)[KB / 8][4], const uint32_t (&qf)[DH / 16][4],
+                                            const unsigned char* sK, int kb, int S, int causal,
+                                            int row0, int row1, int lane) {
+  const int k0 = kb * KB, t = lane % 4;
+#pragma unroll
+  for (int nb = 0; nb < KB / 8; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
+#pragma unroll
+  for (int jj = 0; jj < KB / 16; ++jj) {
+#pragma unroll
+    for (int kc = 0; kc < DH / 16; ++kc) {
+      uint32_t kf[4];
+      ldmatrix_x4(kf, sK + swz(jj * 16 + lane % 8 + (lane / 16) * 8, kc * 2 + (lane / 8) % 2));
+      mma_bf16(s[2 * jj], qf[kc], kf[0], kf[1]);
+      mma_bf16(s[2 * jj + 1], qf[kc], kf[2], kf[3]);
+    }
+  }
+  if (causal || k0 + KB > S) {  // the same branch for the whole warp
+#pragma unroll
+    for (int nb = 0; nb < KB / 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + nb * 8 + 2 * t + (e & 1);
+        if (col >= S || (causal && col > (e < 2 ? row0 : row1))) s[nb][e] = -1e30f;
+      }
+    }
+  }
+}
+
+// The ring's items: 0 .. nkb - 1 bring K block i (pass 1), nkb .. 2 nkb - 1
+// K and V block i - nkb (pass 2).  Pass 1 takes each row's max and sum
+// (online: the sum rescaled when the max moves); pass 2 recomputes the
+// scores and feeds P = 2^(s c - m c) / l, normalised in f32 and only then
+// cast to bf16 as on the short path and in the TPU kernel, to PV.
+__global__ void __launch_bounds__(LONG_THREADS, 3)
+attn_long_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v, int slots, bf16* __restrict__ o,
+                 Strides os, int H, int S, int qtiles, float scale_log2, int causal) {
+  using C = LongCfg;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = sQ + C::QTILE;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(ring + LONG_STAGES * C::STAGE);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + LONG_STAGES;
+  const int p = blockIdx.x / qtiles, q0 = (blockIdx.x - p * qtiles) * C::QROWS;
+  const int b = p / H, h = p - b * H;
+  const int rows = S - q0 < C::QROWS ? S - q0 : C::QROWS;
+  const int active = (rows + 15) / 16;                       // consumer warps with rows
+  const int nkb = ((causal ? q0 + rows : S) + KB - 1) / KB;  // key blocks the tile reads
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < LONG_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], active);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  int c1, c2, c3;
+  if (warp == LONG_WARPS) {  // the producer
+    if (lane == 0) {
+      mbar_arrive_expect_tx(qbar, C::QTILE);
+      seq_coords(slots, h, b, q0, c1, c2, c3);
+      tma_load_4d(sQ, &map_q, qbar, 0, c1, c2, c3);
+      for (int i = 0; i < 2 * nkb; ++i) {
+        const int st = i % LONG_STAGES, kb = i < nkb ? i : i - nkb;
+        if (i >= LONG_STAGES) mbar_wait(&empty[st], (i / LONG_STAGES - 1) & 1);
+        unsigned char* dst = ring + st * C::STAGE;
+        mbar_arrive_expect_tx(&full[st], i < nkb ? C::KTILE : C::STAGE);
+        seq_coords(slots >> 4, h, b, kb * KB, c1, c2, c3);
+        tma_load_4d(dst, &map_k, &full[st], 0, c1, c2, c3);
+        if (i >= nkb) {
+          seq_coords(slots >> 8, h, b, kb * KB, c1, c2, c3);
+          tma_load_4d(dst + C::KTILE, &map_v, &full[st], 0, c1, c2, c3);
+        }
+      }
+    }
+    return;
+  }
+  if (warp >= active) return;
+
+  const int g = lane / 4, t = lane % 4;
+  const int lr0 = warp * 16, row0 = q0 + lr0 + g, row1 = row0 + 8;
+  // causal: the strip's last row is q0 + lr0 + 15; later blocks are all masked
+  const int mine = causal ? (q0 + lr0 + 15) / KB + 1 : nkb;
+  mbar_wait(qbar, 0);
+  uint32_t qf[DH / 16][4];
+#pragma unroll
+  for (int kc = 0; kc < DH / 16; ++kc)
+    ldmatrix_x4(qf[kc], sQ + swz(lr0 + lane % 16, kc * 2 + lane / 16));
+
+  // pass 1: each row's max m and sum l (this lane's partial sums until the end)
+  float m0 = -3.0e38f, m1 = -3.0e38f, l0 = 0.f, l1 = 0.f;
+  float s[KB / 8][4];
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int st = kb % LONG_STAGES;
+    mbar_wait(&full[st], (kb / LONG_STAGES) & 1);
+    if (kb < mine) {
+      score_block(s, qf, ring + st * C::STAGE, kb, S, causal, row0, row1, lane);
+      float n0 = m0, n1 = m1;
+#pragma unroll
+      for (int nb = 0; nb < KB / 8; ++nb) {
+        n0 = fmaxf(n0, fmaxf(s[nb][0], s[nb][1]));
+        n1 = fmaxf(n1, fmaxf(s[nb][2], s[nb][3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off *= 2) {
+        n0 = fmaxf(n0, __shfl_xor_sync(0xffffffffu, n0, off));
+        n1 = fmaxf(n1, __shfl_xor_sync(0xffffffffu, n1, off));
+      }
+      // block 0 holds key 0, which every row reads: the max is finite after it
+      const float nc0 = n0 * scale_log2, nc1 = n1 * scale_log2;
+      float r0 = 0.f, r1 = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < KB / 8; ++nb) {
+        r0 += ex2(fmaf(s[nb][0], scale_log2, -nc0)) + ex2(fmaf(s[nb][1], scale_log2, -nc0));
+        r1 += ex2(fmaf(s[nb][2], scale_log2, -nc1)) + ex2(fmaf(s[nb][3], scale_log2, -nc1));
+      }
+      l0 = fmaf(l0, ex2((m0 - n0) * scale_log2), r0);
+      l1 = fmaf(l1, ex2((m1 - n1) * scale_log2), r1);
+      m0 = n0;
+      m1 = n1;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);  // the stage's reads are done
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off *= 2) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  const float mc0 = m0 * scale_log2, mc1 = m1 * scale_log2;
+
+  // pass 2: the normalised P, cast to bf16, against V
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < DH / 8; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int i = nkb + kb, st = i % LONG_STAGES;
+    mbar_wait(&full[st], (i / LONG_STAGES) & 1);
+    if (kb < mine) {
+      const unsigned char* sK = ring + st * C::STAGE;
+      score_block(s, qf, sK, kb, S, causal, row0, row1, lane);
+#pragma unroll
+      for (int jj = 0; jj < KB / 16; ++jj) {
+        uint32_t pa[4];
+        pa[0] = pack_bf16(ex2(fmaf(s[2 * jj][0], scale_log2, -mc0)) * inv0,
+                          ex2(fmaf(s[2 * jj][1], scale_log2, -mc0)) * inv0);
+        pa[1] = pack_bf16(ex2(fmaf(s[2 * jj][2], scale_log2, -mc1)) * inv1,
+                          ex2(fmaf(s[2 * jj][3], scale_log2, -mc1)) * inv1);
+        pa[2] = pack_bf16(ex2(fmaf(s[2 * jj + 1][0], scale_log2, -mc0)) * inv0,
+                          ex2(fmaf(s[2 * jj + 1][1], scale_log2, -mc0)) * inv0);
+        pa[3] = pack_bf16(ex2(fmaf(s[2 * jj + 1][2], scale_log2, -mc1)) * inv1,
+                          ex2(fmaf(s[2 * jj + 1][3], scale_log2, -mc1)) * inv1);
+#pragma unroll
+        for (int dp = 0; dp < DH / 16; ++dp) {
+          uint32_t vf[4];
+          ldmatrix_x4_trans(vf, sK + C::KTILE +
+                                    swz(jj * 16 + lane % 8 + ((lane / 8) % 2) * 8, dp * 2 + lane / 16));
+          mma_bf16(acc[2 * dp], pa, vf[0], vf[1]);
+          mma_bf16(acc[2 * dp + 1], pa, vf[2], vf[3]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  // the strip's output through its own Q rows, then out as 128-byte rows
+#pragma unroll
+  for (int nb = 0; nb < DH / 8; ++nb) {
+    *reinterpret_cast<uint32_t*>(sQ + swz(lr0 + g, nb) + 4 * t) = pack_bf16(acc[nb][0], acc[nb][1]);
+    *reinterpret_cast<uint32_t*>(sQ + swz(lr0 + g + 8, nb) + 4 * t) = pack_bf16(acc[nb][2], acc[nb][3]);
+  }
+  __syncwarp();
+  bf16* ob = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const int lr = lr0 + it * 4 + lane / 8, c = lane % 8;
+    if (q0 + lr < S)
+      *reinterpret_cast<uint4*>(ob + (q0 + lr) * os.s + c * 8) =
+          *reinterpret_cast<const uint4*>(sQ + swz(lr, c));
+  }
+}
+
+cudaError_t launch_long(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H,
+                        int S, Strides qs, Strides ks, Strides vs, Strides os, int causal,
+                        cudaStream_t stream) {
+  using C = LongCfg;
+  CUtensorMap map_q, map_k, map_v;
+  int sq = 0, sk = 0, sv = 0;
+  cudaError_t e = head_map(&map_q, q, B, H, S, qs, C::QROWS, &sq);
+  if (e == cudaSuccess) e = head_map(&map_k, k, B, H, S, ks, KB, &sk);
+  if (e == cudaSuccess) e = head_map(&map_v, v, B, H, S, vs, KB, &sv);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(attn_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return e;
+  const int qtiles = (S + C::QROWS - 1) / C::QROWS;
+  const long long blocks = static_cast<long long>(B) * H * qtiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(DH));
+  attn_long_kernel<<<static_cast<unsigned>(blocks), LONG_THREADS, C::SMEM, stream>>>(
+      map_q, map_k, map_v, sq | (sk << 4) | (sv << 8), o, os, H, S, qtiles, scale_log2, causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v, o: [B, H, S, 64] bf16 addressed through element strides (batch,
@@ -330,6 +590,8 @@ extern "C" int attn_fwd(const void* q, const void* k, const void* v, void* o,
     e = launch<13>(q_, k_, v_, o_, B, H, S, qs, ks, vs, os, causal, st);
   else if (S <= 256)
     e = launch<16>(q_, k_, v_, o_, B, H, S, qs, ks, vs, os, causal, st);
+  else if (S <= MAX_S)
+    e = launch_long(q_, k_, v_, o_, B, H, S, qs, ks, vs, os, causal, st);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

@@ -3,8 +3,10 @@
 
 ``fused_mha`` launches the hand-written Hopper kernel (csrc/attention.cu) for
 CUDA tensors and runs :func:`mha_plain`, the same arithmetic in plain
-PyTorch, for CPU tensors.  A CUDA tensor the kernel does not take raises; it
-never falls back.  Both run inside one ``torch.autograd.Function`` whose
+PyTorch, for CPU tensors.  The kernel takes 0 < S <= ``MAX_SEQ`` (up to 256
+tokens a (batch, head)'s scores stay in registers; longer sequences stream
+the keys with an online softmax).  A CUDA tensor the kernel does not take
+raises; it never falls back.  Both run inside one ``torch.autograd.Function`` whose
 backward, :func:`mha_backward`, is the JAX op's f32 recompute in plain
 PyTorch on every device (the JAX backward is XLA, not a Pallas kernel).
 """
@@ -17,7 +19,7 @@ import torch
 from prcv2025reid_tpu_torch.ops import _kernels
 
 HEAD_DIM = 64
-MAX_SEQ = 256
+MAX_SEQ = 4096
 
 
 def _causal_fill(logits: torch.Tensor) -> torch.Tensor:

@@ -49,7 +49,55 @@ def test_attention_kernel(cuda, S, H, causal):
     assert _rel(out, mha_plain(q, k, v, causal)) < 1e-2
 
 
-@pytest.mark.parametrize("S", [197, 64])
+# past 256 tokens: ViT-L/14 at 224 px (257) and 336 px (577), B/16 at 256 px
+# (257), a length no 64-key block divides, the longest the kernel takes
+LONG_SEQ = [257, 300, 577, 1024, 1025, 4096]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S", [50] + LONG_SEQ)
+def test_attention_kernel_long_and_short_sequences(cuda, S, causal):
+    """#1 against its plain version as the model hands it its operands
+    (views of one [B, S, 3, H, Dh] projection), at phase 3's tolerances of
+    chip_smoke.py: the two-pass path past 256 tokens normalises P before
+    its bf16 cast, as the short path and the plain version do."""
+    B, H = (2, 3) if S <= 1025 else (1, 2)
+    g = torch.Generator(device=cuda).manual_seed(S)
+    qkv = torch.randn(B, S, 3, H, 64, generator=g, device=cuda).bfloat16()
+    q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    before = fused_mha.launches
+    out = fused_mha(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = mha_plain(q, k, v, causal)
+    assert fused_mha.launches == before + 1 and out.shape == (B, H, S, 64)
+    assert _rel(out, want) < 2e-3
+    assert (out.float() - want.float()).abs().max().item() < 5e-2
+
+
+def test_attention_kernel_long_sequence_gradient(cuda):
+    """At S = 257 every input gets a finite gradient through FusedMhaFn
+    within bf16 rounding of autograd through the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    qkv = [torch.randn(2, 4, 257, 64, generator=g, device=cuda).bfloat16() for _ in range(3)]
+    cot = torch.randn(2, 4, 257, 64, generator=g, device=cuda).bfloat16()
+    _, got = _grads(fused_mha, qkv, cot)
+    _, want = _grads(mha_plain, qkv, cot)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a.float()).all() and _rel(a, b) < 1e-2
+
+
+def test_attention_kernel_refuses_past_its_longest_sequence(cuda):
+    z = torch.zeros(1, 1, 4097, 64, device=cuda, dtype=torch.bfloat16)
+    before = fused_mha.launches
+    with pytest.raises(ValueError, match="S <= 4096"):
+        fused_mha(z, z, z)
+    with pytest.raises(ValueError, match="S <= 4096"):
+        zs = z.permute(0, 2, 1, 3)  # [B, S, H, Dh]
+        att.splash_attention_bshd(zs, zs, zs)
+    assert fused_mha.launches == before
+
+
+@pytest.mark.parametrize("S", [197, 64, 577])
 def test_attention_kernel_strided_views_wrap(cuda, S):
     """q/k/v as views of one [B, S, 3, H, Dh] projection (rows 4,608 bytes
     apart), with 40 x 12 = 480 (batch, head) pairs: more than the resident
@@ -81,7 +129,10 @@ def _block_operands(cuda, G, T, D, F):
 # G in {1, 3} (the MM-3 query's groups); T = 1, 77, 300 and 6,304 rows (a
 # multiple of no tile); D = 96 and F = 208 are multiples of none of the 192-
 # and 256-column tiles or the 64-value (bf16) and 128-value (int8) k-tiles
-BLOCK_SHAPES = [(300, 128, 512), (1, 128, 512), (77, 96, 208), (6304, 768, 3072)]
+# the last: ViT-L/14's widths (D = 1,024, F = 4,096; the 192-column tiles end
+# in a ragged 64 at N = 1,024) on 16 images of 257 tokens
+BLOCK_SHAPES = [(300, 128, 512), (1, 128, 512), (77, 96, 208), (6304, 768, 3072),
+                (4112, 1024, 4096)]
 
 
 @pytest.mark.parametrize("G", [1, 3])
@@ -101,7 +152,8 @@ def test_block_kernels(cuda, G, T, D, F):
 
 @pytest.mark.parametrize("G,T,D,F", [(2, 77, 128, 256), (2, 1000, 768, 3072), (1, 300, 96, 208),
                                      (3, 1, 96, 208), (3, 77, 96, 208), (1, 6304, 768, 3072),
-                                     (3, 6304, 768, 3072)])
+                                     (3, 6304, 768, 3072), (1, 4112, 1024, 4096),
+                                     (3, 4112, 1024, 4096)])
 def test_int8_block_kernels(cuda, G, T, D, F):
     """#4, #6 and #7.  T not a multiple of the 128-row tile; D = 96 and F =
     208 not multiples of the column tiles or the k-tiles."""
@@ -470,7 +522,7 @@ def test_splash_core(cuda, S):
 
 @pytest.mark.parametrize("G", [1, 3])
 @pytest.mark.parametrize("N,D,F", [(77, 128, 200), (131, 256, 64), (300, 768, 3072),
-                                   (6304, 768, 3072), (1, 96, 40)])
+                                   (6304, 768, 3072), (1, 96, 40), (4112, 1024, 4096)])
 def test_fused_mlp_kernel(cuda, G, N, D, F):
     """N a multiple of no 128-row tile (so each group's last tile is ragged
     and must not touch the next group's rows), F a multiple of 8 but not of
@@ -490,7 +542,7 @@ def test_fused_mlp_kernel(cuda, G, N, D, F):
     assert _rel(out, mlp_plain(x, w1, b1, w2, b2)) < 1e-2
 
 
-@pytest.mark.parametrize("N,D", [(77, 200), (1000, 768)])
+@pytest.mark.parametrize("N,D", [(77, 200), (1000, 768), (4112, 1024)])
 def test_fused_resln_kernel(cuda, N, D):
     g = torch.Generator(device=cuda).manual_seed(0)
     x, branch = (torch.randn(N, D, generator=g, device=cuda).bfloat16() for _ in range(2))

@@ -229,7 +229,7 @@ def test_quant_values_are_checked(data):
                           d["b1"], d["w2"], d["b2"], quant="fp8")
 
 
-@pytest.mark.parametrize("S,Dh", [(21, 16), (197, 64)])
+@pytest.mark.parametrize("S,Dh", [(21, 16), (197, 64), (257, 64)])
 def test_splash_plain_matches_jax_core(S, Dh):
     """Mosaic splash cannot run on a CPU; it computes the exact softmax
     attention of JAX's einsum core on the pre-scaled q, which at these

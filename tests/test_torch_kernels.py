@@ -33,9 +33,13 @@ def _t(a):
 
 
 @pytest.mark.parametrize("version", [1, 2])
-# the vision shape, a small causal one, and the text tower's causal shape (S = 77, H = 8)
+# the vision shape, a small causal one, the text tower's causal shape (S = 77,
+# H = 8), and past 256 tokens: ViT-L/14 at 224 px (257, JAX pads to 384) and
+# at 336 px (577, padded to 640), causal and not
 @pytest.mark.parametrize("shape,causal", [((2, 4, 197, 64), False), ((1, 2, 33, 16), True),
-                                          ((2, 8, 77, 64), True)])
+                                          ((2, 8, 77, 64), True), ((1, 2, 257, 64), False),
+                                          ((1, 2, 257, 64), True), ((1, 2, 577, 64), False),
+                                          ((1, 2, 577, 64), True)])
 def test_fused_mha_matches_pallas(shape, causal, version):
     rng = np.random.default_rng(1)
     q, k, v = (rng.normal(size=shape).astype(np.float32) for _ in range(3))
