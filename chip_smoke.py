@@ -47,9 +47,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      must get a finite gradient within GRAD_REL_TOL; at phase 4j's presets
      (checked before the gradients): attention at B/32's 50 tokens and past
      256 at L/14's 16 heads (257, and 577 at 336 px), causal and not,
-     through the kernel's two-pass long-sequence path, and its gradient at
-     257; the splash core at 257; #3-#9 at L/14's widths (D = 1,024, F =
-     4,096) on BATCH images of 257 tokens and on three groups of 32;
+     through the kernel's register-held path, at that path's longest
+     length REG_MAX_SEQ and one past it (the two-pass path), and its
+     gradient at 257; the splash core at 257; #3-#9 at L/14's widths (D =
+     1,024, F = 4,096) on BATCH images of 257 tokens and on three groups of
+     32, and #5 there on unit-variance residual and attention operands,
+     its largest error in bf16 ulps of the output element printed, and
+     held to UNIT_MAX_ULPS at outputs of magnitude UNIT_GATE_MIN and up;
   4. build the full-width ViT-B/16 model (fusion_dim 512, 400 classes, bf16
      compute) from init_params(seed=0, perturb=True) and embed one seeded
      uint8 batch through the entry points (build_model,
@@ -343,7 +347,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      APPROX_MIN_COSINE), exact launch counts (#1 23, on the fused-stream
      trunk 24; #8 24, #9 48; #3 and #5 23 under fused; splash 23 and #1 23;
      #4 and #6 23), the device ms of a step (CUDA events), embeds/s and peak
-     memory a path.  (b) Phase 4b's 8x4 step at L/14 under
+     memory a path.  (a') The same embed at 336 px (577 tokens; the position
+     embeddings drawn anew at 577 rows) of a batch of PRESET_336_BATCH
+     under PRESET_336_PATHS (xla, use_pallas_attention, the fused-stream
+     trunk): min-cosine against xla >= 0.999, exact launch counts (#1 23,
+     24), device ms and peak memory.  (b) Phase 4b's 8x4 step at L/14 under
      use_pallas_attention against xla: step-1 losses within TRAIN_LOSS_REL,
      each group's gradient cosine >= TRAIN_GRAD_COS, #1 23 launches at S =
      257 and no host synchronisation in a step; it/s, device ms and peak
@@ -359,7 +367,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      only), beside the least time the card could take (attention and the
      fused MLP also at token reduction's and tensor parallelism's shapes;
      #1, #11, #3, #5, #8 and #9 at the L/14 preset's, #1 also at 577
-     tokens, the launches a forward of 4j (a) beside each);
+     tokens, the launches a forward of 4j (a) and (a') beside each; #1's
+     register-held kernel at 257 and 577 tokens also in the kernels line);
      time end-to-end embeds/s per configuration (in turns, median of
      E2E_ROUNDS rounds) and the device ms of one embed step of each from
      CUDA events, with torch.profiler's top kernels (its kernel sum, which
@@ -404,6 +413,12 @@ INT8_ABS_TOL = 0.125  # two bf16 ulps at |out| in [4, 8)
 # back through them (and the JAX backwards keep h and P in f32 with the
 # exact erf): a few 1e-3 of relative Frobenius error
 GRAD_REL_TOL = 1e-2
+# #5 at L/14's widths with unit-variance operands (phase 3): its largest
+# error in bf16 ulps of the output element, at outputs of magnitude
+# UNIT_GATE_MIN and up (below, an output is a cancellation of order-1 terms)
+UNIT_MAX_ULPS, UNIT_GATE_MIN = 2, 1.0
+# the batch of the register-held attention kernel's edge lengths in phase 3
+REG_EDGE_BATCH = 16
 MIN_COSINE = 0.999
 F32_MIN_COSINE = 0.99
 TIMED_RUNS = 25
@@ -581,6 +596,8 @@ PRESET_L14, PRESET_B32 = "clip-vit-large-patch14", "clip-vit-base-patch32"
 PRESET_PATHS = ("xla", "pallas_attention", "fused_trunk", "fused", "splash", "fused_int8")
 B32_PATHS = ("xla", "pallas_attention", "fused_trunk")
 PRESET_ITERS, PRESET_TRAIN_ITERS = 3, 3
+# (a') the L/14 embed at 336 px (577 tokens)
+PRESET_336_PATHS, PRESET_336_BATCH = ("xla", "pallas_attention", "fused_trunk"), 32
 # #1 past 256 tokens in phases 3 and 5: L/14 at 336 px beside 224 px's 257
 S_L14_336 = (336 // 14) ** 2 + 1
 
@@ -728,6 +745,16 @@ def device_reading(torch, fn, label: str):
     print(f"device ms {label}: CUDA events {events_ms:.4f}, torch.profiler's kernel sum "
           f"{prof_ms:.4f} ({len(kernels)} kernels)")
     return events_ms, prof_ms, kernels, rows
+
+
+def bf16_ulps(torch, got, want):
+    """|got - want| in bf16 ulps of each element of ``want`` (a bf16 tensor):
+    the spacing of bf16 values at |want|, 2^(e - 8) for |want| in
+    [2^(e - 1), 2^e) (2^-8 where want is 0)."""
+    w = want.float()
+    _, e = torch.frexp(w)
+    ulp = torch.ldexp(torch.ones_like(w), (e - 8).clamp(min=-133))
+    return (got.float() - w).abs() / ulp
 
 
 def errors(torch, got, want, rel_tol=REL_TOL, abs_tol=ABS_TOL):
@@ -1149,22 +1176,23 @@ def dataset_phase(torch, cfg, params, counters, dev, card, resident, tmp):
           f"val {len(val_ds)} records of {len(val_ds.person_ids)} ids, {len(pid2label)} labels")
 
     # the native libraries: a failed build fails the run, except a
-    # machine without jpeglib.h, where the host decodes with PIL
+    # machine without jpeglib.h, where the host decodes with PIL.  A library
+    # that is built but does not load (a _build/ copied from another host)
+    # is rebuilt once by the load; that rebuild's error is the one read
     img_lib, bpe_lib = native_image.build_library(), native_tokenizer.build_library()
+    img_ok = img_lib is not None and native_image.available()
     img_err = native_build.build_errors.get("libimage_decode.so", "")
-    print(f"native: image decode {img_lib or 'NOT built'}; BPE tokenizer "
-          f"{bpe_lib or 'NOT built'} (g++ into {native_build.cache_dir()})")
+    print(f"native: image decode {img_lib or 'NOT built'} ({'loads' if img_ok else 'NOT loaded'});"
+          f" BPE tokenizer {bpe_lib or 'NOT built'} (g++ into {native_build.cache_dir()})")
     if bpe_lib is None:
         fail(f"the native BPE tokenizer did not build: "
              f"{native_build.build_errors.get('libclip_bpe.so')}")
-    if img_lib is None and "jpeglib.h" not in img_err:
-        fail(f"the native image decode did not build: {img_err}")
-    if img_lib is None:
+    if not img_ok and "jpeglib.h" not in img_err:
+        fail(f"the native image decode did not build or load: {img_lib}: {img_err}")
+    if not img_ok:
         print("native: jpeglib.h is missing on this machine: the host decodes with PIL "
               "only (a fallback on the host, as the JAX package's; the device path is the "
               "same)")
-    elif not native_image.available():
-        fail(f"the native image decode built but does not load: {img_lib}")
     else:
         decoders["native"] = create_split_datasets(dcfg.replace(use_native_decode=True))
 
@@ -3542,7 +3570,9 @@ def preset_phase(torch, counters, dev, card, tmp):
         make_train_step,
     )
     from prcv2025reid_tpu_torch.configs import apply_model_preset
-    from prcv2025reid_tpu_torch.params import init_params
+    import numpy as np
+
+    from prcv2025reid_tpu_torch.params import init_params, param_shapes
     from prcv2025reid_tpu_torch.tools import convert_clip
 
     readings, t_phase = {}, time.perf_counter()
@@ -3556,17 +3586,17 @@ def preset_phase(torch, counters, dev, card, tmp):
         got = {n: f.launches for n, f in counters.items()}
         return got, {n: want.get(n, 0) for n in counters}
 
-    def embed_paths(preset, cfg, params, names):
+    def embed_paths(preset, cfg, params, names, batch=BATCH):
         """Each path's model in turn from ``params``: one counted embed of a
-        seeded uint8 batch of BATCH vis images, its device ms (CUDA events),
-        embeds/s over PRESET_ITERS steps and peak memory above what was
-        allocated before the model; min-cosine against the first path."""
+        seeded uint8 batch of ``batch`` vis images, its device ms (CUDA
+        events), embeds/s over PRESET_ITERS steps and peak memory above what
+        was allocated before the model; min-cosine against the first path."""
         expected = path_launches(cfg.vision_layers)
         gen = torch.Generator(device=dev).manual_seed(20)
         Mv = len(cfg.vision_modalities)
-        images = torch.randint(0, 256, (BATCH, Mv, cfg.image_size, cfg.image_size, 3),
+        images = torch.randint(0, 256, (batch, Mv, cfg.image_size, cfg.image_size, 3),
                                generator=gen, device=dev, dtype=torch.uint8)
-        mask = torch.ones(BATCH, Mv, device=dev)
+        mask = torch.ones(batch, Mv, device=dev)
         out, ref = {}, None
         for name in names:
             torch.cuda.empty_cache()
@@ -3578,10 +3608,10 @@ def preset_phase(torch, counters, dev, card, tmp):
             e = step(images, mask)
             torch.cuda.synchronize()
             got, want = counts(expected[name])
-            if e.shape != (BATCH, cfg.fusion_dim) or not torch.isfinite(e).all() or \
+            if e.shape != (batch, cfg.fusion_dim) or not torch.isfinite(e).all() or \
                     (e.norm(dim=1) - 1).abs().max().item() > 1e-3:
                 fail(f"{preset} {name}: embedding not finite/unit-norm of shape "
-                     f"{(BATCH, cfg.fusion_dim)}")
+                     f"{(batch, cfg.fusion_dim)}")
             if got != want:
                 fail(f"{preset} {name}: launch counts {got} != {want}")
             device_ms = device_reading(torch, lambda: step(images, mask), f"{preset} {name}")[0]
@@ -3590,7 +3620,7 @@ def preset_phase(torch, counters, dev, card, tmp):
             for _ in range(PRESET_ITERS):
                 step(images, mask)
             torch.cuda.synchronize()
-            rate = BATCH * PRESET_ITERS / (time.perf_counter() - t1)
+            rate = batch * PRESET_ITERS / (time.perf_counter() - t1)
             ref = e if ref is None else ref
             cos = (e * ref).sum(dim=1).min().item()
             bar = APPROX_MIN_COSINE if name in APPROX_PATHS else MIN_COSINE
@@ -3599,7 +3629,8 @@ def preset_phase(torch, counters, dev, card, tmp):
                              device_ms=device_ms, embeds_per_s=rate, peak_mem_gb=peak)
             print(f"{preset} (a) {name} ({card}): launches {out[name]['launches']}; min-cosine "
                   f"vs {names[0]} {cos:.6f} (>= {bar}); device {device_ms:.3f} ms a step of "
-                  f"{BATCH}, {rate:.1f} embeds/s, peak memory {peak:.2f} GB")
+                  f"{batch} at {cfg.image_size} px, {rate:.1f} embeds/s, peak memory "
+                  f"{peak:.2f} GB")
             if cos < bar:
                 fail(f"{preset} {name}: min-cosine {cos} < {bar}")
             del model, step, e
@@ -3623,6 +3654,24 @@ def preset_phase(torch, counters, dev, card, tmp):
     readings["l14_embed"] = embed_paths(PRESET_L14, l14, params, PRESET_PATHS)
 
     print(f"{PRESET_L14} (a): {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- (a') the L/14 embed at 336 px (577 tokens: #1's register-held
+    # kernel at the preset's longer length) of a batch of PRESET_336_BATCH
+    # under PRESET_336_PATHS, from the same weights but the position
+    # embeddings, drawn anew at 577 rows as init_params draws them
+    t0 = time.perf_counter()
+    l14_336 = l14.replace(image_size=336)
+    shapes = param_shapes(l14_336, NUM_CLASSES)
+    rng = np.random.default_rng(23)
+    redrawn = sorted(k for k, v in params.items() if v.shape != shapes[k])
+    if not redrawn or any(not k.endswith("/pos_embed") for k in redrawn):
+        fail(f"{PRESET_L14} at 336 px: the leaves that change shape are {redrawn}")
+    params_336 = {k: rng.normal(0.0, 0.02, shapes[k]).astype(np.float32) if k in redrawn else v
+                  for k, v in params.items()}
+    readings["l14_336_embed"] = embed_paths(f"{PRESET_L14} 336 px", l14_336, params_336,
+                                            PRESET_336_PATHS, batch=PRESET_336_BATCH)
+    del params_336
+    print(f"{PRESET_L14} (a') 336 px: {time.perf_counter() - t0:.1f} s")
 
     # ---- (b) phase 4b's 8x4 step at L/14: pallas_attention against xla
     t0 = time.perf_counter()
@@ -3759,7 +3808,7 @@ def main() -> int:
     from prcv2025reid_tpu_torch.ops import _kernels
     from prcv2025reid_tpu_torch.ops import attention as att
     from prcv2025reid_tpu_torch.ops import fused_block as fb
-    from prcv2025reid_tpu_torch.ops.fused_attention import fused_mha, mha_plain
+    from prcv2025reid_tpu_torch.ops.fused_attention import REG_MAX_SEQ, fused_mha, mha_plain
     from prcv2025reid_tpu_torch.ops.fused_mlp import fused_mlp, mlp_plain
     from prcv2025reid_tpu_torch.ops.fused_resln import fused_residual_ln, resln_plain
     from prcv2025reid_tpu_torch.ops.matmul import BLOCK_ROWS, matmul_plain, tiled_matmul
@@ -4015,7 +4064,20 @@ def main() -> int:
             if not ok:
                 failures.append(f"fused_mha S={s_len} H={heads} causal={causal}")
         l14_qkv[s_len] = (qkv_p, views)
-    del got
+    # the register-held kernel's longest sequence and the two-pass kernel's
+    # shortest, one call each at L/14's heads
+    for s_len in (REG_MAX_SEQ, REG_MAX_SEQ + 1):
+        qkv_p = randn(REG_EDGE_BATCH, s_len, 3, H14, Dh).bfloat16()
+        views = tuple(qkv_p[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+        got = fused_mha(*views)
+        torch.cuda.synchronize()
+        mx, rel, ok = errors(torch, got, mha_plain(*views))
+        att_checks[f"S={s_len} H={H14} causal=False"] = (mx, rel)
+        print(f"check fused_mha S={s_len} H={H14} B={REG_EDGE_BATCH}: max_abs {mx:.3e} "
+              f"rel {rel:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"fused_mha S={s_len} H={H14}")
+    del got, qkv_p, views
     l14_views = l14_qkv[S14][1]
     l14_splash = tuple(l14_qkv[S14][0][:, :, i] for i in range(3))  # [B, S, H, Dh] views
     l14_cases = (block_cases(torch, gen, dev, 1, T14, D14, F14)
@@ -4025,6 +4087,35 @@ def main() -> int:
              att.splash_plain, l14_splash)]:
         check(name, kern, plain, args)
     l14_fns = {name: (kern, plain, args) for name, kern, plain, args in l14_cases}
+    # #5 at L/14's widths with unit-variance residual and attention operands
+    # (block_cases takes std 0.5): its outputs pass 8, where one bf16 ulp is
+    # above ABS_TOL, so the reading is in ulps of each output element.  An
+    # output near 0 is the difference of a residual and an MLP output of
+    # order 1 whose bf16 intermediates (LN2, h) round in either version, so
+    # there its error is of their ulp, many of its own: the gate holds the
+    # outputs of magnitude UNIT_GATE_MIN and up to UNIT_MAX_ULPS
+    wo14 = l14_fns[f"fused_out_mlp D={D14} F={F14} T={T14}"][2][2:]
+    unit = (randn(1, T14, D14).bfloat16(), randn(1, T14, D14).bfloat16(), *wo14)
+    got = fb.fused_out_mlp(*unit)
+    torch.cuda.synchronize()
+    want = fb.out_mlp_plain(*unit)
+    ulps = bf16_ulps(torch, got, want)
+    gated = ulps[want.float().abs() >= UNIT_GATE_MIN]
+    unit_ulps = dict(max=ulps.max().item(), over_1=int((ulps > 1).sum().item()),
+                     elements=ulps.numel(), max_abs=(got.float() - want.float()).abs().max().item(),
+                     gated_max=gated.max().item(), gated_over_1=int((gated > 1).sum().item()),
+                     gated_elements=gated.numel())
+    ok = unit_ulps["gated_max"] <= UNIT_MAX_ULPS
+    print(f"check fused_out_mlp D={D14} F={F14} T={T14} unit-variance operands: max "
+          f"{unit_ulps['max']:.2f} bf16 ulps of the output element, {unit_ulps['over_1']} of "
+          f"{unit_ulps['elements']} elements more than 1 ulp off, max_abs "
+          f"{unit_ulps['max_abs']:.3e}; at |out| >= {UNIT_GATE_MIN}: max "
+          f"{unit_ulps['gated_max']:.2f} ulps, {unit_ulps['gated_over_1']} of "
+          f"{unit_ulps['gated_elements']} more than 1 ulp off (<= {UNIT_MAX_ULPS}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"fused_out_mlp D={D14} unit-variance operands")
+    del got, want, ulps, gated, unit
     if failures:
         fail(f"kernel disagrees with its plain version: {failures}")
 
@@ -4490,7 +4581,9 @@ def main() -> int:
     # #1, #11, #3, #5, #8 and #9 at the L/14 preset's shapes (phase 4j (a): B =
     # BATCH images of S14 tokens, T14 rows of D14, F14; #1 also at 336 px's
     # S_L14_336 tokens), beside their bounds; launches: per forward in 4j (a)
+    # (at S_L14_336: in 4j (a'))
     l14_launch = {n: r["launches"] for n, r in presets["l14_embed"].items()}
+    l14_336_launch = {n: r["launches"] for n, r in presets["l14_336_embed"].items()}
     l14_rows = []
     for s_len in (S14, S_L14_336):
         views = l14_qkv[s_len][1]
@@ -4498,7 +4591,8 @@ def main() -> int:
                               4 * BATCH * H14 * s_len * Dh * 2)
         l14_rows.append(dict(
             name="fused_mha", shape=f"B={BATCH} S={s_len} H={H14} Dh={Dh}",
-            launches=l14_launch["pallas_attention"].get("fused_mha", 0) if s_len == S14 else 0,
+            launches=(l14_launch if s_len == S14 else l14_336_launch)["pallas_attention"].get(
+                "fused_mha", 0),
             max_abs_err=att_checks[f"S={s_len} H={H14} causal=False"][0],
             ms=time_ms(torch, lambda v=views: fused_mha(*v)),
             plain_ms=time_ms(torch, lambda v=views: mha_plain(*v), runs=10),
@@ -4539,6 +4633,15 @@ def main() -> int:
         print(f"kernel {r['name']} at the L/14 preset's shape {r['shape']} ({card}): "
               f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']}); {r['launches']} a forward")
+    # the register-held kernel (#1 past 256 tokens) in the kernels line, at
+    # the two lengths the L/14 preset's embeds of 4j run it at
+    for r in l14_rows[:2]:
+        rows.append(dict(
+            name=f"fused_mha attn_reg_kernel {r['shape']}", route="cuda",
+            source="prcv2025reid_tpu_torch/csrc/attention.cu",
+            replaces="prcv2025reid_tpu/ops/pallas_attention.py:115",
+            **{k: r[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")}))
     # the microbenchmark's tiled matmul at M = 25,344, K = 768, N = 3072: each
     # input read once, the output written once; no model path launches it
     Mm = MATMUL_ROWS[0]

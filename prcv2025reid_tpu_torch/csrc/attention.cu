@@ -39,11 +39,56 @@
 //     rows in shared memory and leaves as whole 128-byte rows.
 // q/k/v/out are addressed through element strides (batch, head, sequence).
 //
-// Sequences past 256 tokens (ViT-L/14 at 224 px: 257; at 336 px: 577) take a
-// second kernel, attn_long_kernel, since a strip's scores for all keys no
-// longer fit in registers.  Bound at the L/14 gallery shape (B=128, H=16,
-// S=257): 34.6 GFLOP against 269.5 MB of q/k/v/out, memory-bound (~80 us).
-// Design:
+// Three ranges of S, each keeping the TPU kernel's rounding point (P
+// normalised in f32, then cast to bf16 for PV):
+//   - S <= 256: attn_fwd_kernel, above;
+//   - 256 < S <= REG_MAX_S (656; ViT-L/14 at 224 px: 257, at 336 px: 577):
+//     attn_reg_kernel, a 64-row query tile's scores for all keys held in the
+//     registers of two consumer warpgroups;
+//   - REG_MAX_S < S <= MAX_S (4,096): attn_long_kernel, the keys streamed
+//     twice.
+// Bound at the L/14 gallery shape (B=128, H=16, S=257): 34.6 GFLOP against
+// 269.5 MB of q/k/v/out, memory-bound (~80 us); at S=577 174.5 GFLOP
+// against 605 MB (~181 us).  What binds the kernels there is the softmax:
+// with Dh = 64 a score costs 256 flops of products and one exponential, and
+// the H100 runs its exponentials (16 a clock an SM) about 250 times slower
+// than its bf16 products, so one exponential a score costs as much as both
+// products.  attn_reg_kernel's design:
+//   - a persistent block an SM walks the (batch, head) pairs; a pair's K and
+//     V (keys >= S zero filled, padded to 2 NW keys, NW a multiple of 8) are
+//     staged once by TMA (64-row boxes of the same 4-d maps, so the model's
+//     strided views need no copy) and stay while the pair's query tiles
+//     pass, so each byte of K and V crosses device memory once; Q tiles come
+//     through two stages.  A producer warpgroup's one thread issues every
+//     load (full / empty mbarriers for K, V and each Q stage); the next
+//     pair's K loads once the last tile's QK^T are done, under that tile's
+//     softmax and PV, and its V once the PV are done;
+//   - consumer warpgroup w holds the tile's f32 scores against keys
+//     w NW .. w NW + NW - 1 (QK^T on wgmma, Q and K from shared memory, NW/2
+//     accumulators a thread: 148 at S = 577), so each score takes ONE QK^T
+//     and ONE exponential; each row's exact max and then its exact sum are
+//     combined across the two warpgroups through shared memory (a named
+//     barrier each), and P = 2^(s c - m c) * (1 / l) is cast to bf16 in the
+//     registers it was computed in: the A operand of PV's wgmma, V (MN-major)
+//     from shared memory.  Both hand their partial outputs (f32) to shared
+//     memory; the producer warpgroup's three other warps add them and store
+//     the tile's rows < S as 16-byte runs, while the consumers go on to the
+//     next tile (two named barriers: the partials are in, the partials are
+//     read);
+//   - a tile whose last rows lie past S (S = 64 n + 1 leaves one row) still
+//     runs its 64-row products (a wgmma's M), but a warp whose 16 rows all
+//     lie past S skips their max, exponentials and sums: at S = 577 the
+//     tenth tile costs its products and a quarter of a tile's softmax;
+//   - causal: masked by index like keys >= S (no model path runs causal
+//     past 256 tokens: the text tower's S is 77);
+//   - REG_MAX_S: NW = 328 is the widest range that fits both the consumer
+//     threads' 232 registers without spills (ptxas -v) and shared memory (K
+//     and V at 704 rows, two Q stages, the two partials: 226 KB of 227);
+//   - what it cannot do: a tile's phases run in turn (QK^T, max, the
+//     exponentials, PV), since overlapping the next tile's QK^T with this
+//     one's PV needs both tiles' registers (at S = 577 a thread's 148
+//     scores, 74 of P and 32 of output: more than 232).
+// attn_long_kernel's design:
 //   - one block a (batch, head, 64-row query tile), the tiles of a pair
 //     adjacent in the grid, so the pair's K and V, read by every tile, come
 //     from L2 after the first; four consumer warps own a 16-row strip each
@@ -63,6 +108,7 @@
 //     the blocks wholly above its diagonal (it still releases them).
 #include "common.cuh"
 #include "hopper.cuh"
+#include "attention_wgmma.cuh"
 
 using namespace port;
 using namespace hopper;
@@ -564,6 +610,368 @@ cudaError_t launch_long(const bf16* q, const bf16* k, const bf16* v, bf16* o, in
   return cudaGetLastError();
 }
 
+
+// ---- 256 < S <= REG_MAX_S: a query tile's scores for all keys in registers
+
+constexpr int WG = 128;                            // threads a warpgroup
+constexpr int REG_CONS = 2;                        // consumer warpgroups: a key range each
+constexpr int REG_THREADS = (REG_CONS + 1) * WG;   // + the producer warpgroup
+constexpr int QT = 64;                             // query rows a tile: one wgmma M
+constexpr int KBOX = 64;                           // K / V rows a TMA box
+// the keys a consumer warpgroup holds, NW, by range of S: NW = REG_NW[i]
+// serves 2 REG_NW[i - 1] < S <= 2 NW (from 257 for the first)
+constexpr int REG_NW[] = {136, 216, 296, 328};
+constexpr int REG_MAX_S = 2 * REG_NW[3];  // S_reg, 656
+constexpr int reg_s_lo(int nw) {
+  int lo = 257;
+  for (int i = 0; i < 4 && REG_NW[i] < nw; ++i) lo = 2 * REG_NW[i] + 1;
+  return lo;
+}
+constexpr int EPI_THREADS = WG - 32;                // the producer warpgroup's warps 1..3
+// named barriers (0 is __syncthreads): the two consumer warpgroups' max and
+// sum exchanges; their partial outputs ready for the epilogue warps, and read
+constexpr int BAR_MAX = 1, BAR_SUM = 2, BAR_PART = 3, BAR_FREE = 4;
+constexpr int PART_THREADS = REG_CONS * WG + EPI_THREADS;
+static_assert(REG_CONS == 2, "the epilogue adds two partial outputs");
+
+// NW keys a consumer warpgroup (a multiple of 8), QK^T in at most two wgmma
+// of N0 + N1 = NW columns
+template <int NW>
+struct RegCfg {
+  static constexpr int N0 = NW <= 256 ? NW : (NW / 16) * 8 + (NW % 16 ? 8 : 0);
+  static constexpr int N1 = NW - N0;
+  static constexpr int KEYS = REG_CONS * NW;
+  // the first 8-key block of the last warpgroup that a key >= S can fall in,
+  // for the shortest S this NW serves
+  static constexpr int J_LO = reg_s_lo(NW) - NW - 7 <= 0 ? 0 : (reg_s_lo(NW) - NW) / 8;
+  static constexpr int PSTEPS = (NW + 15) / 16;  // PV's k16 steps; the last may be half
+  // rows staged: PV's half step past the last key reads 8 more (P = 0 there)
+  static constexpr int KROWS = (KEYS + 8 + KBOX - 1) / KBOX * KBOX;
+  static constexpr int KV = KROWS * DH * 2;
+  static constexpr int QTILE = QT * DH * 2;
+  static constexpr int OPART = QT * DH * 4;  // a warpgroup's partial output, f32
+  static constexpr int RED = 2 * REG_CONS * QT * 4;
+  static constexpr int SMEM = 2 * KV + 2 * QTILE + REG_CONS * OPART + RED + 8 * 8 + 1024;
+  static_assert(NW % 8 == 0 && N0 % 8 == 0 && N1 % 8 == 0 && N0 <= 256 && N1 <= 256, "widths");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// s[OFF ..] (+)= Q K^T for N keys: the wgmma of that width (FIRST: s[OFF ..] =)
+template <int N, int OFF, bool FIRST, int R>
+__device__ __forceinline__ void qk_mma(float (&s)[R], uint64_t da, uint64_t db) {
+  constexpr int sd = FIRST ? 0 : 1;
+  if constexpr (N == 136) wgmma_m64n136k16<OFF, FIRST>(s, da, db, sd);
+  else if constexpr (N == 144) wgmma_m64n144k16<OFF, FIRST>(s, da, db, sd);
+  else if constexpr (N == 152) wgmma_m64n152k16<OFF, FIRST>(s, da, db, sd);
+  else if constexpr (N == 160) wgmma_m64n160k16<OFF, FIRST>(s, da, db, sd);
+  else if constexpr (N == 168) wgmma_m64n168k16<OFF, FIRST>(s, da, db, sd);
+  else if constexpr (N == 216) wgmma_m64n216k16<OFF, FIRST>(s, da, db, sd);
+  else static_assert(N == 136, "no wgmma wrapper of this width (attention_wgmma.cuh)");
+}
+
+// the tile's scores against the warpgroup's NW keys (sK at its first key)
+template <int NW, int R>
+__device__ __forceinline__ void qk_tile(float (&s)[R], const unsigned char* sQ,
+                                        const unsigned char* sK) {
+  using C = RegCfg<NW>;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const uint64_t da = desc_sw128(sQ + 32 * kk, 16, 1024);
+    const uint64_t db0 = desc_sw128(sK + 32 * kk, 16, 1024);
+    const uint64_t db1 = desc_sw128(sK + C::N0 * 128 + 32 * kk, 16, 1024);
+    if (kk == 0) {
+      qk_mma<C::N0, 0, true>(s, da, db0);
+      if constexpr (C::N1 > 0) qk_mma<C::N1, C::N0 / 2, true>(s, da, db1);
+    } else {
+      qk_mma<C::N0, 0, false>(s, da, db0);
+      if constexpr (C::N1 > 0) qk_mma<C::N1, C::N0 / 2, false>(s, da, db1);
+    }
+  }
+}
+
+// One block an SM walks the (batch, head) pairs; a pair's K and V are staged
+// once and stay while its query tiles pass.  Warpgroup w in 0..1 holds the
+// tile's f32 scores against keys w NW .. w NW + NW - 1 in registers; the
+// exact row max and sum are combined across the two through shared memory,
+// so each score takes one QK^T and one exponential, and P = 2^(s c - m c) / l
+// is normalised in f32 before its bf16 cast, as on the short path and in the
+// TPU kernel.  Warpgroup 2 is the producer: one thread issues every TMA load,
+// and its other three warps sum the two partial outputs of each tile and store
+// it, off the consumers' path.
+template <int NW>
+__global__ void __launch_bounds__(REG_THREADS, 1)
+attn_reg_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v, int slots, bf16* __restrict__ o,
+                Strides os, int BH, int H, int S, float scale_log2, int causal) {
+  using C = RegCfg<NW>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sK = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sV = sK + C::KV;
+  unsigned char* sQ = sV + C::KV;  // two stages
+  // each consumer warpgroup's partial output [QT][DH] f32, row r's 8-column
+  // chunk c at chunk c ^ (r % 8)
+  float* sPart = reinterpret_cast<float*>(sQ + 2 * C::QTILE);
+  float* red_max = sPart + REG_CONS * QT * DH;  // [REG_CONS][QT]
+  float* red_sum = red_max + REG_CONS * QT;
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(red_sum + REG_CONS * QT);
+  uint64_t* kempty = kfull + 1;
+  uint64_t* vfull = kfull + 2;
+  uint64_t* vempty = kfull + 3;
+  uint64_t* qfull = kfull + 4;   // two
+  uint64_t* qempty = kfull + 6;  // two
+  const int qtiles = (S + QT - 1) / QT, nkb = (S + KBOX - 1) / KBOX;
+  const int wg = threadIdx.x / WG, tid = threadIdx.x % WG;
+  if (threadIdx.x == 0) {
+    mbar_init(kfull, 1);
+    mbar_init(vfull, 1);
+    mbar_init(kempty, REG_CONS);
+    mbar_init(vempty, REG_CONS);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&qfull[s], 1);
+      mbar_init(&qempty[s], REG_CONS);
+    }
+    fence_barrier_init();
+  }
+  // the staged rows no TMA box writes are zeros: PV multiplies them by P = 0
+  {
+    const int from = nkb * KBOX * DH * 2 / 16, to = C::KV / 16;
+    for (int i = from + threadIdx.x; i < to; i += blockDim.x) {
+      reinterpret_cast<uint4*>(sK)[i] = make_uint4(0, 0, 0, 0);
+      reinterpret_cast<uint4*>(sV)[i] = make_uint4(0, 0, 0, 0);
+    }
+    fence_proxy_async();  // before wgmma reads them
+  }
+  __syncthreads();
+
+  if (wg == REG_CONS) {  // the producer
+    setmaxnreg_dec<40>();
+    if (tid == 0) {
+      int c1, c2, c3, qi = 0, pi = 0;
+      for (int p = blockIdx.x; p < BH; p += gridDim.x, ++pi) {
+        const int b = p / H, h = p - b * H;
+        if (pi > 0) mbar_wait(kempty, (pi - 1) & 1);  // the last pair's QK^T are done
+        mbar_arrive_expect_tx(kfull, nkb * KBOX * DH * 2);
+        for (int kb = 0; kb < nkb; ++kb) {
+          seq_coords(slots >> 4, h, b, kb * KBOX, c1, c2, c3);
+          tma_load_4d(sK + kb * KBOX * DH * 2, &map_k, kfull, 0, c1, c2, c3);
+        }
+        for (int t = 0; t < qtiles; ++t, ++qi) {
+          const int st = qi & 1;
+          if (qi >= 2) mbar_wait(&qempty[st], ((qi >> 1) - 1) & 1);
+          mbar_arrive_expect_tx(&qfull[st], C::QTILE);
+          seq_coords(slots, h, b, t * QT, c1, c2, c3);
+          tma_load_4d(sQ + st * C::QTILE, &map_q, &qfull[st], 0, c1, c2, c3);
+          if (t == 0) {  // V after the pair's first Q: its QK^T and softmax come first
+            if (pi > 0) mbar_wait(vempty, (pi - 1) & 1);
+            mbar_arrive_expect_tx(vfull, nkb * KBOX * DH * 2);
+            for (int kb = 0; kb < nkb; ++kb) {
+              seq_coords(slots >> 8, h, b, kb * KBOX, c1, c2, c3);
+              tma_load_4d(sV + kb * KBOX * DH * 2, &map_v, vfull, 0, c1, c2, c3);
+            }
+          }
+        }
+      }
+    } else if (tid >= 32) {  // warps 1..3: each item's epilogue, the two partials added
+      const int et = tid - 32;
+      for (int p = blockIdx.x; p < BH; p += gridDim.x) {
+        const int b = p / H, h = p - b * H;
+        const bool last_pair = p + gridDim.x >= BH;
+        for (int t = 0; t < qtiles; ++t) {
+          named_barrier(BAR_PART, PART_THREADS);  // the item's partials are in sPart
+          const int q0 = t * QT;
+          bf16* ob = o + b * os.b + h * os.h + q0 * os.s;
+          for (int i = et; i < QT * DH / 8; i += EPI_THREADS) {
+            const int r = i / (DH / 8), c = i % (DH / 8);
+            const int off = r * DH + ((c ^ (r & 7)) * 8);
+            const float4* a = reinterpret_cast<const float4*>(sPart + off);
+            const float4* a2 = reinterpret_cast<const float4*>(sPart + QT * DH + off);
+            const float4 x0 = a[0], x1 = a[1], y0 = a2[0], y1 = a2[1];
+            uint4 out;
+            out.x = pack_bf16(x0.x + y0.x, x0.y + y0.y);
+            out.y = pack_bf16(x0.z + y0.z, x0.w + y0.w);
+            out.z = pack_bf16(x1.x + y1.x, x1.y + y1.y);
+            out.w = pack_bf16(x1.z + y1.z, x1.w + y1.w);
+            if (q0 + r < S) *reinterpret_cast<uint4*>(ob + r * os.s + c * 8) = out;
+          }
+          if (!(last_pair && t == qtiles - 1))
+            named_barrier_arrive(BAR_FREE, PART_THREADS);  // sPart may be written again
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int key0 = wg * NW;        // this warpgroup's keys: key0 .. key0 + NW - 1
+  const int lr0 = warp * 16 + g;   // this thread's rows of the tile: lr0, lr0 + 8
+  float* part = sPart + wg * QT * DH;  // this warpgroup's partial output
+  float s[NW / 2];
+  float acc[DH / 2];
+#pragma unroll
+  for (int e = 0; e < DH / 2; ++e) acc[e] = 0.f;
+  int qi = 0, pi = 0;  // the block's Q tiles and pairs so far
+  for (int p = blockIdx.x; p < BH; p += gridDim.x, ++pi) {
+    const unsigned char* kbuf = sK + key0 * 128;  // this warpgroup's keys
+    const unsigned char* vbuf = sV + key0 * 128;
+    for (int tile = 0; tile < qtiles; ++tile, ++qi) {
+      const int q0 = tile * QT, st = qi & 1;
+      const int row0 = q0 + lr0, row1 = row0 + 8;
+      const bool live = q0 + warp * 16 < S;  // the warp holds a row < S (warp-uniform)
+      mbar_wait(&qfull[st], (qi >> 1) & 1);
+      if (tile == 0) mbar_wait(kfull, pi & 1);
+
+      // S = Q K^T against this warpgroup's keys
+      wgmma_fence();
+      qk_tile<NW>(s, sQ + st * C::QTILE, kbuf);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      if (tid == 0) {
+        mbar_arrive(&qempty[st]);
+        if (tile == qtiles - 1) mbar_arrive(kempty);
+      }
+
+      // mask by index: causal, every element; else the keys >= S, which only
+      // the last warpgroup's blocks from J_LO on can hold in this NW's range of S
+      if (causal) {
+#pragma unroll
+        for (int i = 0; i < NW / 2; ++i) {
+          const int col = key0 + 8 * (i / 4) + 2 * t + (i & 1);
+          if (col >= S || col > ((i & 2) ? row1 : row0)) s[i] = -1e30f;
+        }
+      } else if (wg == REG_CONS - 1) {
+#pragma unroll
+        for (int i = 4 * C::J_LO; i < NW / 2; ++i) {
+          const int col = key0 + 8 * (i / 4) + 2 * t + (i & 1);
+          s[i] = col < S ? s[i] : -1e30f;
+        }
+      }
+      // each row's max: this thread's, its quad's, then the other warpgroup's
+      float m0 = -3.0e38f, m1 = -3.0e38f;
+      if (live) {
+#pragma unroll
+        for (int i = 0; i < NW / 8; ++i) {
+          m0 = fmaxf(m0, fmaxf(s[4 * i], s[4 * i + 1]));
+          m1 = fmaxf(m1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off *= 2) {
+        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+      }
+      if (t == 0) {
+        red_max[wg * QT + lr0] = m0;
+        red_max[wg * QT + lr0 + 8] = m1;
+      }
+      named_barrier(BAR_MAX, REG_CONS * WG);
+#pragma unroll
+      for (int w = 0; w < REG_CONS; ++w) {
+        m0 = fmaxf(m0, red_max[w * QT + lr0]);
+        m1 = fmaxf(m1, red_max[w * QT + lr0 + 8]);
+      }
+
+      // one exponential a score: 2^(s c - m c), c = log2(e) / sqrt(Dh); each row's sum
+      const float mc0 = m0 * scale_log2, mc1 = m1 * scale_log2;
+      float l0 = 0.f, l1 = 0.f;
+      if (live) {
+#pragma unroll
+        for (int i = 0; i < NW / 8; ++i) {
+          s[4 * i] = ex2(fmaf(s[4 * i], scale_log2, -mc0));
+          s[4 * i + 1] = ex2(fmaf(s[4 * i + 1], scale_log2, -mc0));
+          s[4 * i + 2] = ex2(fmaf(s[4 * i + 2], scale_log2, -mc1));
+          s[4 * i + 3] = ex2(fmaf(s[4 * i + 3], scale_log2, -mc1));
+          l0 += s[4 * i] + s[4 * i + 1];
+          l1 += s[4 * i + 2] + s[4 * i + 3];
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off *= 2) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      if (t == 0) {
+        red_sum[wg * QT + lr0] = l0;
+        red_sum[wg * QT + lr0 + 8] = l1;
+      }
+      named_barrier(BAR_SUM, REG_CONS * WG);
+      l0 = l1 = 0.f;
+#pragma unroll
+      for (int w = 0; w < REG_CONS; ++w) {
+        l0 += red_sum[w * QT + lr0];
+        l1 += red_sum[w * QT + lr0 + 8];
+      }
+      // a warp with no row < S feeds P = 0 (its rows are not stored)
+      const float inv0 = live ? 1.f / l0 : 0.f, inv1 = live ? 1.f / l1 : 0.f;
+
+      // P normalised in f32, then cast to bf16: PV's A operand, from registers
+      uint32_t pa[C::PSTEPS][4];
+#pragma unroll
+      for (int j = 0; j < C::PSTEPS; ++j) {
+        pa[j][0] = pack_bf16(s[8 * j] * inv0, s[8 * j + 1] * inv0);
+        pa[j][1] = pack_bf16(s[8 * j + 2] * inv1, s[8 * j + 3] * inv1);
+        if (8 * j + 4 < NW / 2) {
+          pa[j][2] = pack_bf16(s[8 * j + 4] * inv0, s[8 * j + 5] * inv0);
+          pa[j][3] = pack_bf16(s[8 * j + 6] * inv1, s[8 * j + 7] * inv1);
+        } else {  // the half step past the last key
+          pa[j][2] = pa[j][3] = 0u;
+        }
+      }
+      if (tile == 0) mbar_wait(vfull, pi & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < C::PSTEPS; ++j)
+        wgmma_m64n64k16_rs(acc, pa[j], desc_sw128(vbuf + 16 * j * 128, 8192, 1024), j);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+#pragma unroll
+      for (int j = 0; j < C::PSTEPS; ++j)  // read by the wgmma until the wait
+#pragma unroll
+        for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(pa[j][e]) :: "memory");
+      if (tid == 0 && tile == qtiles - 1) mbar_arrive(vempty);
+
+      // hand the partial output to the producer warpgroup's epilogue warps,
+      // once they have read the last item's
+      if (qi > 0) named_barrier(BAR_FREE, PART_THREADS);
+#pragma unroll
+      for (int nb = 0; nb < DH / 8; ++nb) {
+        const int off = lr0 * DH + ((nb ^ g) * 8) + 2 * t;  // lr0 % 8 == g
+        *reinterpret_cast<float2*>(part + off) = make_float2(acc[4 * nb], acc[4 * nb + 1]);
+        *reinterpret_cast<float2*>(part + off + 8 * DH) =
+            make_float2(acc[4 * nb + 2], acc[4 * nb + 3]);
+      }
+      named_barrier_arrive(BAR_PART, PART_THREADS);
+    }
+  }
+}
+
+template <int NW>
+cudaError_t launch_reg(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H, int S,
+                       Strides qs, Strides ks, Strides vs, Strides os, int causal,
+                       cudaStream_t stream) {
+  using C = RegCfg<NW>;
+  CUtensorMap map_q, map_k, map_v;
+  int sq = 0, sk = 0, sv = 0;
+  cudaError_t e = head_map(&map_q, q, B, H, S, qs, QT, &sq);
+  if (e == cudaSuccess) e = head_map(&map_k, k, B, H, S, ks, KBOX, &sk);
+  if (e == cudaSuccess) e = head_map(&map_v, v, B, H, S, vs, KBOX, &sv);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(attn_reg_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           C::SMEM);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return e;
+  const int BH = B * H;
+  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(DH));
+  attn_reg_kernel<NW><<<BH < sms ? BH : sms, REG_THREADS, C::SMEM, stream>>>(
+      map_q, map_k, map_v, sq | (sk << 4) | (sv << 8), o, os, BH, H, S, scale_log2, causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v, o: [B, H, S, 64] bf16 addressed through element strides (batch,
@@ -590,6 +998,14 @@ extern "C" int attn_fwd(const void* q, const void* k, const void* v, void* o,
     e = launch<13>(q_, k_, v_, o_, B, H, S, qs, ks, vs, os, causal, st);
   else if (S <= 256)
     e = launch<16>(q_, k_, v_, o_, B, H, S, qs, ks, vs, os, causal, st);
+  else if (S <= 2 * REG_NW[0])
+    e = launch_reg<REG_NW[0]>(q_, k_, v_, o_, B, H, S, qs, ks, vs, os, causal, st);
+  else if (S <= 2 * REG_NW[1])
+    e = launch_reg<REG_NW[1]>(q_, k_, v_, o_, B, H, S, qs, ks, vs, os, causal, st);
+  else if (S <= 2 * REG_NW[2])
+    e = launch_reg<REG_NW[2]>(q_, k_, v_, o_, B, H, S, qs, ks, vs, os, causal, st);
+  else if (S <= REG_MAX_S)
+    e = launch_reg<REG_NW[3]>(q_, k_, v_, o_, B, H, S, qs, ks, vs, os, causal, st);
   else if (S <= MAX_S)
     e = launch_long(q_, k_, v_, o_, B, H, S, qs, ks, vs, os, causal, st);
   else

@@ -120,6 +120,12 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
+// arrive at barrier `id` without waiting for it (its waiters use named_barrier);
+// this thread's earlier shared-memory writes are visible to them after it
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
 // ---- register budget moves between warpgroups (all four warps execute it)
 
 template <int REGS>

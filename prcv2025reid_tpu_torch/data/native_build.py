@@ -15,9 +15,15 @@ behaviors both bindings must share exactly:
   interrupted/timed-out build leaves no artifact behind.
 - **Guarded freshness check**: a built .so next to a missing or unreadable
   source file is used as-is instead of raising out of the data path.
+- **One rebuild of a library that does not load**: the freshness check
+  compares modification times only, so a ``_build/`` copied from another
+  host (another glibc or libjpeg) passes it and then fails ``ctypes.CDLL``;
+  :func:`load_shared_library` rebuilds such a library once and loads it
+  again.
 """
 from __future__ import annotations
 
+import ctypes
 import os
 import subprocess
 from typing import Dict, Optional, Sequence
@@ -73,3 +79,22 @@ def build_shared_library(
         except OSError:
             pass
         return None
+
+
+def load_shared_library(
+    src: str, so_name: str, extra_flags: Sequence[str] = ()
+) -> Optional[ctypes.CDLL]:
+    """The built library, loaded; None where it cannot be built.  A library
+    that is built but does not load is rebuilt once (``force=True``) and
+    loaded again; if that rebuild fails, or its load fails too, the load's
+    OSError propagates."""
+    path = build_shared_library(src, so_name, extra_flags)
+    if path is None:
+        return None
+    try:
+        return ctypes.CDLL(path)
+    except OSError:
+        path = build_shared_library(src, so_name, extra_flags, force=True)
+        if path is None:
+            raise
+        return ctypes.CDLL(path)

@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from prcv2025reid_tpu_torch.data.native_build import build_shared_library
+from prcv2025reid_tpu_torch.data.native_build import build_shared_library, load_shared_library
 
 _SRC = os.path.join(os.path.dirname(__file__), "native", "image_decode.cpp")
 _lock = threading.Lock()
@@ -42,12 +42,11 @@ def _load() -> Optional[ctypes.CDLL]:
     with _lock:
         if _lib is not None or _lib_failed:
             return _lib
-        path = build_library()
-        if path is None:
-            _lib_failed = True
-            return None
         try:
-            lib = ctypes.CDLL(path)
+            lib = load_shared_library(_SRC, "libimage_decode.so", extra_flags=("-ljpeg",))
+            if lib is None:
+                _lib_failed = True
+                return None
             lib.decode_info.restype = ctypes.c_int
             lib.decode_info.argtypes = [
                 ctypes.c_char_p, ctypes.c_long,

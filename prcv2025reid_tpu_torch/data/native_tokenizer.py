@@ -15,7 +15,11 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from prcv2025reid_tpu_torch.data.native_build import build_shared_library, cache_dir
+from prcv2025reid_tpu_torch.data.native_build import (
+    build_shared_library,
+    cache_dir,
+    load_shared_library,
+)
 
 _SRC = os.path.join(os.path.dirname(__file__), "native", "clip_bpe.cpp")
 
@@ -54,14 +58,14 @@ class NativeClipBPETokenizer:
     """Drop-in for ClipBPETokenizer backed by the C++ library."""
 
     def __init__(self, vocab_dir: str, context_length: int = 77):
-        so_path = build_library()
-        if so_path is None:
+        lib = load_shared_library(_SRC, "libclip_bpe.so")
+        if lib is None:
             raise RuntimeError("g++ build of clip_bpe.so failed")
         tsv = _prepare_vocab_tsv(vocab_dir)
         if tsv is None:
             raise FileNotFoundError(f"no vocab.json/merges.txt under {vocab_dir}")
 
-        self._lib = ctypes.CDLL(so_path)
+        self._lib = lib
         self._lib.bpe_create.restype = ctypes.c_void_p
         self._lib.bpe_create.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
         self._lib.bpe_encode.restype = ctypes.c_int

@@ -3,9 +3,13 @@
 
 ``fused_mha`` launches the hand-written Hopper kernel (csrc/attention.cu) for
 CUDA tensors and runs :func:`mha_plain`, the same arithmetic in plain
-PyTorch, for CPU tensors.  The kernel takes 0 < S <= ``MAX_SEQ`` (up to 256
-tokens a (batch, head)'s scores stay in registers; longer sequences stream
-the keys with an online softmax).  A CUDA tensor the kernel does not take
+PyTorch, for CPU tensors.  The kernel takes 0 < S <= ``MAX_SEQ`` in three
+ranges, each holding the TPU kernel's rounding point (P normalised in f32,
+then cast): up to 256 tokens a 16-row strip's scores for all keys stay in
+one warp's registers; up to ``REG_MAX_SEQ`` a 64-row tile's scores stay in
+two warpgroups' registers, split by key range, with one QK^T and one
+exponential a score; longer sequences stream the keys twice (each row's
+max and sum, then P against V).  A CUDA tensor the kernel does not take
 raises; it never falls back.  Both run inside one ``torch.autograd.Function`` whose
 backward, :func:`mha_backward`, is the JAX op's f32 recompute in plain
 PyTorch on every device (the JAX backward is XLA, not a Pallas kernel).
@@ -19,6 +23,7 @@ import torch
 from prcv2025reid_tpu_torch.ops import _kernels
 
 HEAD_DIM = 64
+REG_MAX_SEQ = 656  # csrc/attention.cu REG_MAX_S: the register-held kernel's longest
 MAX_SEQ = 4096
 
 

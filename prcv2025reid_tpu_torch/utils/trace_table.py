@@ -29,8 +29,8 @@ BUCKETS = ("matmul", "ln/reduce", "softmax/exp", "transpose/copy", "pallas", "ot
 # counterparts of the Pallas kernels JAX's "pallas" bucket holds.  They are
 # matched before the matmul patterns: the GEMM core's kernel
 # (hgemm::gemm_kernel) has "gemm" in its name, as cuBLAS's have.
-PORT_KERNELS = ("attn_fwd_kernel", "attn_long_kernel", "ln_rows_kernel", "row_quant_kernel",
-                "quant_h_kernel", "resln_kernel", "hgemm::gemm_kernel")
+PORT_KERNELS = ("attn_fwd_kernel", "attn_reg_kernel", "attn_long_kernel", "ln_rows_kernel",
+                "row_quant_kernel", "quant_h_kernel", "resln_kernel", "hgemm::gemm_kernel")
 _PATTERNS = (
     ("matmul", ("gemm", "matmul", "nvjet", "cutlass", "xmma", "conv", "dot", "splitkreduce")),
     ("ln/reduce", ("reduce", "norm")),

@@ -17,7 +17,7 @@ import torch
 from prcv2025reid_tpu_torch import TrainingConfig, build_model, make_combo_embed_step
 from prcv2025reid_tpu_torch.ops import attention as att
 from prcv2025reid_tpu_torch.ops import fused_block as fb
-from prcv2025reid_tpu_torch.ops.fused_attention import fused_mha, mha_plain
+from prcv2025reid_tpu_torch.ops.fused_attention import REG_MAX_SEQ, fused_mha, mha_plain
 from prcv2025reid_tpu_torch.ops.fused_mlp import fused_mlp, mlp_plain
 from prcv2025reid_tpu_torch.ops.fused_resln import fused_residual_ln, resln_plain
 from prcv2025reid_tpu_torch.ops.matmul import BLOCK_ROWS, matmul_plain, tiled_matmul
@@ -50,8 +50,11 @@ def test_attention_kernel(cuda, S, H, causal):
 
 
 # past 256 tokens: ViT-L/14 at 224 px (257) and 336 px (577), B/16 at 256 px
-# (257), a length no 64-key block divides, the longest the kernel takes
-LONG_SEQ = [257, 300, 577, 1024, 1025, 4096]
+# (257), a length no 64-key block divides, the longest the kernel takes; the
+# register-held kernel's edges: 264 and 265 (a multiple of its 8-key padding
+# and one past it), its longest, REG_MAX_SEQ, and the two-pass kernel's
+# shortest, REG_MAX_SEQ + 1
+LONG_SEQ = [257, 264, 265, 300, 577, REG_MAX_SEQ, REG_MAX_SEQ + 1, 1024, 1025, 4096]
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -59,8 +62,9 @@ LONG_SEQ = [257, 300, 577, 1024, 1025, 4096]
 def test_attention_kernel_long_and_short_sequences(cuda, S, causal):
     """#1 against its plain version as the model hands it its operands
     (views of one [B, S, 3, H, Dh] projection), at phase 3's tolerances of
-    chip_smoke.py: the two-pass path past 256 tokens normalises P before
-    its bf16 cast, as the short path and the plain version do."""
+    chip_smoke.py: past 256 tokens both the register-held kernel and the
+    two-pass one normalise P before its bf16 cast, as the short path and
+    the plain version do."""
     B, H = (2, 3) if S <= 1025 else (1, 2)
     g = torch.Generator(device=cuda).manual_seed(S)
     qkv = torch.randn(B, S, 3, H, 64, generator=g, device=cuda).bfloat16()

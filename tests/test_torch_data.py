@@ -12,6 +12,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -388,6 +389,68 @@ def test_native_libraries_build_into_the_port_build_dir(tmp_path):
     for lib, name in zip(built, ("libimage_decode.so", "libclip_bpe.so")):
         assert Path(lib) == Path(build_dir) / name and Path(lib).is_file()
     assert errors == "{}"
+
+
+def _plant_unloadable(monkeypatch, tmp_path, so_name):
+    """A ``_build/`` in tmp_path holding an ``so_name`` that is no ELF file,
+    newer than its source, as a build directory copied from another host."""
+    monkeypatch.setattr(native_build, "BUILD_DIR", str(tmp_path))
+    so = tmp_path / so_name
+    so.write_bytes(b"not a shared object")
+    later = os.path.getmtime(native_image._SRC) + 3600
+    os.utime(so, (later, later))
+    return so
+
+
+@pytest.mark.parametrize("which", ["image", "tokenizer"])
+def test_a_stale_library_that_does_not_load_is_rebuilt(monkeypatch, tmp_path, vocab_dir, request,
+                                                       which):
+    from prcv2025reid_tpu_torch.data import native_tokenizer
+
+    if which == "image":
+        request.getfixturevalue("native_decode")  # skips without g++ or libjpeg
+        so = _plant_unloadable(monkeypatch, tmp_path, "libimage_decode.so")
+        monkeypatch.setattr(native_image, "_lib", None)
+        monkeypatch.setattr(native_image, "_lib_failed", False)
+        assert native_image.available(), native_build.build_errors
+        assert so.read_bytes()[:4] == b"\x7fELF"  # rebuilt in place
+        import io
+
+        from PIL import Image
+
+        buf = io.BytesIO()
+        Image.new("RGB", (12, 8), (200, 40, 90)).save(buf, format="JPEG")
+        assert native_image.decode_info(buf.getvalue()) == (12, 8)
+        assert native_image.decode_crop_resize(buf.getvalue(), (4, 6)).shape == (4, 6, 3)
+    else:
+        if shutil.which("g++") is None:
+            pytest.skip("g++ unavailable: the native tokenizer cannot build")
+        so = _plant_unloadable(monkeypatch, tmp_path, "libclip_bpe.so")
+        port = native_tokenizer.NativeClipBPETokenizer(vocab_dir, 16)
+        assert so.read_bytes()[:4] == b"\x7fELF"
+        ref = jax_tokenizer.ClipBPETokenizer(vocab_dir, 16)
+        np.testing.assert_array_equal(port(TEXTS), ref(TEXTS))
+
+
+@pytest.mark.parametrize("which", ["image", "tokenizer"])
+def test_a_library_that_cannot_be_rebuilt_fails_as_before(monkeypatch, tmp_path, vocab_dir, which):
+    """With no source to rebuild from, the image path reports the library
+    unavailable (PIL decodes) and the tokenizer raises the load's OSError."""
+    from prcv2025reid_tpu_torch.data import native_tokenizer
+
+    missing = str(tmp_path / "absent.cpp")
+    if which == "image":
+        _plant_unloadable(monkeypatch, tmp_path, "libimage_decode.so")
+        monkeypatch.setattr(native_image, "_SRC", missing)
+        monkeypatch.setattr(native_image, "_lib", None)
+        monkeypatch.setattr(native_image, "_lib_failed", False)
+        assert not native_image.available()
+        assert native_image.decode_info(b"\xff\xd8") is None
+    else:
+        _plant_unloadable(monkeypatch, tmp_path, "libclip_bpe.so")
+        monkeypatch.setattr(native_tokenizer, "_SRC", missing)
+        with pytest.raises(OSError):
+            native_tokenizer.NativeClipBPETokenizer(vocab_dir, 16)
 
 
 # ----- the device feed, on the CPU -----

@@ -150,6 +150,44 @@ def test_encode_subset_matches_jax(path, active, preset, request):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL)
 
 
+@pytest.fixture(scope="module")
+def l14_336(tmp_path_factory):
+    """The L/14 preset at 336 px (577 tokens), cut as ``preset`` cuts it:
+    (JAX config, JAX variables, their npz file, a one-image batch)."""
+    jcfg = jax_config("clip-vit-large-patch14", image_size=336)
+    rng = np.random.default_rng(2)
+    images = rng.integers(0, 256, (B, 4, 336, 336, 3), dtype=np.uint8)
+    batch = (images, np.ones((B, 4), np.float32), token_rows(B, [5], seed=3),
+             np.ones((B,), np.float32))
+    flat = init_params(port_config(jcfg), NUM_CLASSES, seed=0)
+    variables = tu.unflatten_dict({tuple(k.split("/")): jnp.asarray(v) for k, v in flat.items()})
+    path = params_to_npz(str(tmp_path_factory.mktemp("l14_336") / "params"), variables)
+    return jcfg, variables, path, batch
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_l14_at_336_px_matches_jax(path, l14_336, request):
+    """L/14 at 336 px, where #1 runs 577 tokens (on the card its
+    register-held kernel): the vis embedding against JAX's, whose
+    ``use_pallas_attention`` path runs ``pallas_mha`` at 577 tokens in
+    interpret mode."""
+    jcfg, variables, npz, batch = l14_336
+    over = PATHS[path]
+    if path == "pallas_attention":
+        request.getfixturevalue("pallas_attention")
+        want = jax_encode(jcfg, variables, batch, ("vis",), over)
+    else:
+        if ("l14_336", "vis") not in _JAX_PLAIN:
+            _JAX_PLAIN["l14_336", "vis"] = jax_encode(jcfg, variables, batch, ("vis",), {})
+        want = _JAX_PLAIN["l14_336", "vis"]
+    model = build_model(port_config(jcfg).replace(**over), npz, device="cpu")
+    assert model.encoder.vision.pos_embed.shape[0] == 577
+    with torch.inference_mode():
+        got = model.encode_subset(*(torch.from_numpy(a) for a in batch), ("vis",))
+    assert got.dtype == torch.float32 and got.shape == (B, jcfg.fusion_dim)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL)
+
+
 class _Reads(dict):
     """A checkpoint that records the keys read from it."""
 

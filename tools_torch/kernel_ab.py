@@ -20,7 +20,8 @@ either):
 
   - attention (``fused_mha``) at the gallery embed's shape, B = 128 images,
     H = 12, S = 197, Dh = 64, on views of one [B, S, 3, H, Dh] projection,
-    and at the text tower's causal shape, B = 128, H = 8, S = 77;
+    at the text tower's causal shape, B = 128, H = 8, S = 77, and at the
+    ViT-L/14 preset's, B = 128, H = 16, S = 257 (224 px) and 577 (336 px);
   - the microbenchmark's tiled matmul, x [25,344, 768] @ w [768, 3072], in
     bf16 and in int8 (w stored K-major), for every block_rows;
   - the fused MLP (``fused_mlp``) at the gallery embed's G = 1, N = 25,216
@@ -50,11 +51,29 @@ the given texts (e.g. ``--only '#6'``).  Exits 1 without a CUDA device.
 --diagnostics builds variants of this tree's csrc/attention.cu, each with
 one part taken out by a text substitution (edit them with the kernel; a
 substitution that no longer matches raises), and times each against the
-kernel at the gallery shape, in the same order: ``loads_only`` (the TMA
-staging alone: no products, softmax or output), ``compute_only`` (no loads
-after a block's first two pairs: it computes on stale stages), ``no_softmax``
-(P = the raw scores: no max, exponential, sum or normalisation) and
-``no_store`` (no output written).  Their outputs are not the kernel's.
+kernel in the same order.  At the gallery shape (the short path):
+``loads_only`` (the TMA staging alone: no products, softmax or output),
+``compute_only`` (no loads after a block's first two pairs: it computes on
+stale stages), ``no_softmax`` (P = the raw scores: no max, exponential, sum
+or normalisation) and ``no_store`` (no output written).  At the L/14
+preset's 577 tokens (the register-held kernel): ``reg_no_exp`` (the
+exponentials' arguments in place of the exponentials), ``reg_no_qk`` (zero
+scores, no QK^T), ``reg_no_pv`` (no PV products), ``reg_no_mask_max`` (no
+mask or max loop), ``reg_no_softmax`` (no mask, max or exponentials' loop:
+P = the raw scores; the exchanges and their barriers stay, as they pace
+the two warpgroups), ``reg_no_pack`` (P's registers hold the raw scores'
+bits: no normalisation or bf16 cast), ``reg_no_epilogue`` (the epilogue
+warps neither add nor store: the partials are still handed over, as ptxas
+drops a product whose accumulators nothing reads), ``reg_loads_only`` (no
+products, softmax, packing or epilogue: the TMA staging and the barriers
+alone); and the design variants ``reg_pv_two_acc`` (PV's k steps
+alternate between two accumulators, summed after the wait),
+``reg_two_chain`` (each row's max and sum over a thread's values in two
+chains), ``reg_ragged_second`` (a pair's ragged last tile taken second, so
+its first and last tiles are whole) and ``reg_consumer_epilogue`` (also
+at 257 tokens: warpgroup 1 hands its partial to warpgroup 0, whose warps
+add, stage and store their rows).  Outputs other than the design
+variants' are not the kernel's.
 """
 from __future__ import annotations
 
@@ -120,19 +139,148 @@ def build_other(other: Path) -> dict:
     return libs
 
 
-# name -> [(text in csrc/attention.cu, replacement)]; "<cut>" removes
-# everything from the first text up to (not including) the second
+# name -> (the attention case it is timed at, [(text in csrc/attention.cu,
+# replacement)]); "<cut>" removes everything from the first text up to (not
+# including) the next occurrence of the second.  The first four take parts out of the short path
+# (attn_fwd_kernel), the "reg_" ones out of the register-held kernel
+# (attn_reg_kernel) at L/14's 577 tokens.
+GALLERY, L14_224, L14_336 = ("fused_mha B=128 H=12 S=197", "fused_mha B=128 H=16 S=257",
+                             "fused_mha B=128 H=16 S=577")
+_REG_EXPS = [(f"          s[4 * i{j}] = ex2(fmaf(", f"          s[4 * i{j}] = (fmaf(")
+             for j in ("", " + 1", " + 2", " + 3")]
+_REG_QK = [("      qk_tile<NW>(s, sQ + st * C::QTILE, kbuf);",
+            "#pragma unroll\n      for (int i = 0; i < NW / 2; ++i) s[i] = 0.f;")]
+_PV = "wgmma_m64n64k16_rs(acc, pa[j], desc_sw128(vbuf + 16 * j * 128, 8192, 1024), j);"
+_REG_PV = [("        " + _PV, "        acc[j % (DH / 2)] += __uint_as_float(pa[j][0]);")]
+# the mask and max loops, then also the exponentials' loop, off (the max
+# and sum exchange and their barriers stay: they pace the two warpgroups)
+_REG_MASK_MAX = [("      if (causal) {", "      if (false) {"),
+                 ("      } else if (wg == REG_CONS - 1) {", "      } else if (false) {"),
+                 ("      if (live) {", "      if (false) {")]
+_REG_SOFTMAX = _REG_MASK_MAX + [
+    ("      if (live) {", "      if (false) {"),
+    ("const float inv0 = live ? 1.f / l0 : 0.f, inv1 = live ? 1.f / l1 : 0.f;",
+     "const float inv0 = 1.f, inv1 = 1.f;")]
+_REG_PACK = [(f"pa[j][{e}] = pack_bf16(s[8 * j{o}] * inv{r}, s[8 * j + {i}] * inv{r});",
+              f"pa[j][{e}] = __float_as_uint(s[8 * j{o}]);")
+             for e, o, i, r in ((0, "", 1, 0), (1, " + 2", 3, 1), (2, " + 4", 5, 0),
+                                (3, " + 6", 7, 1))]
+_REG_PV_TWO_ACC = [
+    ("  float acc[DH / 2];\n", "  float acc[DH / 2], acc2[DH / 2];\n"),
+    ("        " + _PV, "        if (j % 2 == 0) " + _PV + "\n        else " + _PV.replace(
+        "acc,", "acc2,").replace(", j);", ", j > 1);")),
+    ("      fence_regs(acc);\n", "      fence_regs(acc);\n      fence_regs(acc2);\n#pragma unroll\n"
+     "      for (int e = 0; e < DH / 2; ++e) acc[e] += acc2[e];\n")]
+# the epilogue warps' sum and store off (the consumers still hand their
+# partials over, and the barriers stay: ptxas drops a product whose
+# accumulators nothing reads, so a variant keeps them read)
+_REG_EPILOGUE = [("          for (int i = et; i < QT * DH / 8; i += EPI_THREADS) {",
+                  "          for (int i = et; i < 0; i += EPI_THREADS) {")]
+# design variants: each row's max and sum in two chains of a thread's
+# values; the ragged tile second in each pair (a pair's first and last tiles
+# whole); the epilogue in the consumers (warpgroup 1 hands its partial to
+# warpgroup 0, whose warps add, stage and store their rows)
+_MAX1 = ("        for (int i = 0; i < NW / 8; ++i) {\n"
+         "          m0 = fmaxf(m0, fmaxf(s[4 * i], s[4 * i + 1]));\n"
+         "          m1 = fmaxf(m1, fmaxf(s[4 * i + 2], s[4 * i + 3]));\n"
+         "        }\n")
+_MAX2 = ("        float a0 = -3.0e38f, a1 = -3.0e38f;\n"
+         "        for (int i = 0; i < NW / 8; i += 2) {\n"
+         "          m0 = fmaxf(m0, fmaxf(s[4 * i], s[4 * i + 1]));\n"
+         "          m1 = fmaxf(m1, fmaxf(s[4 * i + 2], s[4 * i + 3]));\n"
+         "          if (i + 1 < NW / 8) {\n"
+         "            a0 = fmaxf(a0, fmaxf(s[4 * i + 4], s[4 * i + 5]));\n"
+         "            a1 = fmaxf(a1, fmaxf(s[4 * i + 6], s[4 * i + 7]));\n"
+         "          }\n"
+         "        }\n"
+         "        m0 = fmaxf(m0, a0);\n"
+         "        m1 = fmaxf(m1, a1);\n")
+_EXPS = "        for (int i = 0; i < NW / 8; ++i) {\n          s[4 * i] = ex2("
+_SUM1 = ("          l0 += s[4 * i] + s[4 * i + 1];\n"
+         "          l1 += s[4 * i + 2] + s[4 * i + 3];\n"
+         "        }\n")
+_SUM2 = ("          if (i % 2 == 0) {\n"
+         "            l0 += s[4 * i] + s[4 * i + 1];\n"
+         "            l1 += s[4 * i + 2] + s[4 * i + 3];\n"
+         "          } else {\n"
+         "            a0 += s[4 * i] + s[4 * i + 1];\n"
+         "            a1 += s[4 * i + 2] + s[4 * i + 3];\n"
+         "          }\n"
+         "        }\n"
+         "        l0 += a0;\n"
+         "        l1 += a1;\n")
+_REG_TWO_CHAIN = [(_MAX1, _MAX2), (_EXPS, "        float a0 = 0.f, a1 = 0.f;\n" + _EXPS),
+                  (_SUM1, _SUM2)]
+_REG_RAGGED_SECOND = [
+    ("// One block an SM walks the (batch, head) pairs;",
+     "__device__ __forceinline__ int tile_at(int i, int qtiles) {\n"
+     "  return i == 0 ? 0 : i == 1 ? qtiles - 1 : i - 1;\n}\n\n"
+     "// One block an SM walks the (batch, head) pairs;"),
+    ("          seq_coords(slots, h, b, t * QT, c1, c2, c3);",
+     "          seq_coords(slots, h, b, tile_at(t, qtiles) * QT, c1, c2, c3);"),
+    ("          const int q0 = t * QT;", "          const int q0 = tile_at(t, qtiles) * QT;"),
+    ("      const int q0 = tile * QT, st = qi & 1;",
+     "      const int q0 = tile_at(tile, qtiles) * QT, st = qi & 1;")]
+_REG_CONSUMER_EPILOGUE = [
+    ("    } else if (tid >= 32) {", "<cut>    }\n    return;\n  }\n\n  setmaxnreg_inc<232>();"),
+    ("      if (qi > 0) named_barrier(BAR_FREE, PART_THREADS);\n", "<cut>    }\n  }\n}\n\ntemplate <int NW>"),
+    ("    }\n  }\n}\n\ntemplate <int NW>", """      if (wg != 0) {
+#pragma unroll
+        for (int e = 0; e < DH / 2; ++e) sPart[e * WG + tid] = acc[e];
+        named_barrier_arrive(BAR_PART, REG_CONS * WG);
+      } else {
+        named_barrier(BAR_PART, REG_CONS * WG);
+        unsigned char* rows = reinterpret_cast<unsigned char*>(sPart + QT * DH) + warp * 16 * 128;
+#pragma unroll
+        for (int nb = 0; nb < DH / 8; ++nb) {
+          const float* w1 = sPart + 4 * nb * WG + tid;
+          *reinterpret_cast<uint32_t*>(rows + swz(g, nb) + 4 * t) =
+              pack_bf16(acc[4 * nb] + w1[0], acc[4 * nb + 1] + w1[WG]);
+          *reinterpret_cast<uint32_t*>(rows + swz(g + 8, nb) + 4 * t) =
+              pack_bf16(acc[4 * nb + 2] + w1[2 * WG], acc[4 * nb + 3] + w1[3 * WG]);
+        }
+        __syncwarp();
+        const int b = p / H, h = p - b * H;
+        bf16* ob = o + b * os.b + h * os.h + (q0 + warp * 16) * os.s;
+#pragma unroll
+        for (int it = 0; it < 4; ++it) {
+          const int r = it * 4 + lane / 8, c = lane % 8;
+          if (q0 + warp * 16 + r < S)
+            *reinterpret_cast<uint4*>(ob + r * os.s + c * 8) =
+                *reinterpret_cast<const uint4*>(rows + swz(r, c));
+        }
+        __syncwarp();
+      }
+    }
+  }
+}
+
+template <int NW>""")]
 DIAGNOSTICS = {
-    "loads_only": [("    uint32_t qf[DH / 16][4];",
-                    "<cut>    fence_proxy_async();  // these reads")],
-    "compute_only": [("          fill_stage<KCH>(sQ, &full[st], &map_q, &map_k, &map_v, slots, pn, H);",
-                      "          mbar_arrive(&full[st]);")],
-    "no_softmax": [("    float m0 = -3.0e38f, m1 = -3.0e38f;",
-                    "<cut>    // PV: the normalised scores"),
-                   ("    // PV: the normalised scores",
-                    "    const float inv0 = 1.f, inv1 = 1.f;\n    // PV: the normalised scores")],
-    "no_store": [("      if (r < S)\n        *reinterpret_cast<uint4*>",
-                  "      if (r < 0)\n        *reinterpret_cast<uint4*>")],
+    "loads_only": (GALLERY, [("    uint32_t qf[DH / 16][4];",
+                              "<cut>    fence_proxy_async();  // these reads")]),
+    "compute_only": (GALLERY, [(
+        "          fill_stage<KCH>(sQ, &full[st], &map_q, &map_k, &map_v, slots, pn, H);",
+        "          mbar_arrive(&full[st]);")]),
+    "no_softmax": (GALLERY, [("    float m0 = -3.0e38f, m1 = -3.0e38f;",
+                              "<cut>    // PV: the normalised scores"),
+                             ("    // PV: the normalised scores",
+                              "    const float inv0 = 1.f, inv1 = 1.f;\n    // PV: the normalised scores")]),
+    "no_store": (GALLERY, [("      if (r < S)\n        *reinterpret_cast<uint4*>",
+                            "      if (r < 0)\n        *reinterpret_cast<uint4*>")]),
+    "reg_no_exp": (L14_336, _REG_EXPS),
+    "reg_no_qk": (L14_336, _REG_QK),
+    "reg_no_pv": (L14_336, _REG_PV),
+    "reg_no_mask_max": (L14_336, _REG_MASK_MAX),
+    "reg_no_softmax": (L14_336, _REG_SOFTMAX),
+    "reg_no_pack": (L14_336, _REG_PACK),
+    "reg_no_epilogue": (L14_336, _REG_EPILOGUE),
+    "reg_loads_only": (L14_336, _REG_QK + _REG_SOFTMAX + _REG_PACK + _REG_PV + _REG_EPILOGUE),
+    "reg_pv_two_acc": (L14_336, _REG_PV_TWO_ACC),
+    "reg_two_chain": (L14_336, _REG_TWO_CHAIN),
+    "reg_ragged_second": (L14_336, _REG_RAGGED_SECOND),
+    "reg_consumer_epilogue": (L14_336, _REG_CONSUMER_EPILOGUE),
+    "reg_consumer_epilogue_257": (L14_224, _REG_CONSUMER_EPILOGUE),
 }
 
 
@@ -142,13 +290,14 @@ def build_diagnostics() -> dict:
     out_dir = _kernels.BUILD_DIR / "diagnostics"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, subs in DIAGNOSTICS.items():
+    for name, (_, subs) in DIAGNOSTICS.items():
         text = src
         for old, new in subs:
             if old not in text:
                 raise RuntimeError(f"diagnostic {name}: {old!r} is not in csrc/attention.cu")
             if new.startswith("<cut>"):
-                a, b = text.index(old), text.index(new[len("<cut>"):])
+                a = text.index(old)
+                b = text.index(new[len("<cut>"):], a)
                 text = text[:a] + text[b:]
             else:
                 text = text.replace(old, new, 1)
@@ -425,7 +574,9 @@ def main() -> int:
 
     cases = []
     for label, (B, S, H, causal) in (("fused_mha B=128 H=12 S=197", (128, 197, 12, False)),
-                                      ("fused_mha causal B=128 H=8 S=77", (128, 77, 8, True))):
+                                      ("fused_mha causal B=128 H=8 S=77", (128, 77, 8, True)),
+                                      ("fused_mha B=128 H=16 S=257", (128, 257, 16, False)),
+                                      ("fused_mha B=128 H=16 S=577", (128, 577, 16, False))):
         qkv = randn(B, S, 3, H, 64)
         q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
         cases.append((label, lambda lib, q=q, k=k, v=v, c=causal: attn_call(
@@ -433,14 +584,15 @@ def main() -> int:
             lambda q=q, k=k, v=v, c=causal: F.scaled_dot_product_attention(q, k, v, is_causal=c),
             "SDPA"))
     if args.diagnostics:
-        run_vision = cases[0][1]
+        runs = {label: run for label, run, _, _ in cases}
         for name, lib in build_diagnostics().items():
+            label = DIAGNOSTICS[name][0]
             ms = {"kernel": [], name: []}
             for who in ("kernel", name, name, "kernel"):
                 libs = this if who == "kernel" else {"attention": lib}
-                ms[who].append(time_ms(lambda libs=libs: run_vision(libs), args.runs))
-            print(json.dumps({"kernel": "fused_mha B=128 H=12 S=197", "variant": name,
-                              "kernel_ms": ms["kernel"], "variant_ms": ms[name], "card": card}))
+                ms[who].append(time_ms(lambda libs=libs: runs[label](libs), args.runs))
+            print(json.dumps({"kernel": label, "variant": name, "kernel_ms": ms["kernel"],
+                              "variant_ms": ms[name], "card": card}))
     if args.other is None:
         print(f"card: {card}")
         return 0
