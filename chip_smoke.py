@@ -54,6 +54,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      32, and #5 there on unit-variance residual and attention operands,
      its largest error in bf16 ulps of the output element printed, and
      held to UNIT_MAX_ULPS at outputs of magnitude UNIT_GATE_MIN and up;
+     #1 at every head width and length the TPU kernel takes: HEAD_WIDTHS
+     (every padded width 64, 128, 192, 256; the zero-padded 20; ViT-H's 80)
+     x ROUTE_EDGES (each route's edge lengths, causal at 77) on ATT_GRID_BH
+     pairs, and LONG_SEQS (4,097, 16,385) at LONG_SEQ_DH with B*H = 2,
+     causal and not; at phase 4k's ViT-H/14 widths #1 at BATCH images of
+     257 tokens, 16 heads of 80, the splash core there, and #3-#9 at D =
+     1,280, F = 5,120 on BATCH images' rows (#7 only here); the row passes
+     past 1,024 columns: #3-#9 at each of ROW_WIDTHS on ROW_ROWS rows (the
+     int8 plans at the multiples of 16);
   4. build the full-width ViT-B/16 model (fusion_dim 512, 400 classes, bf16
      compute) from init_params(seed=0, perturb=True) and embed one seeded
      uint8 batch through the entry points (build_model,
@@ -361,6 +370,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      trunk against clip_vision_oracle: min-cosine >= 0.999, #1 24, #8 24,
      #9 48.  (d) The B/32 model (50 tokens: #1's shortest branch) under
      B32_PATHS: min-cosine >= 0.999, exact launch counts;
+  4k. OpenCLIP ViT-H/14's widths at full depth (VIT_H: TrainingConfig
+     overrides, no preset: vision 32 blocks of 1,280, 16 heads of 80, MLP
+     5,120, patch 14, 257 tokens; text 1,024 x 24; fusion and SDM 1,024),
+     seeded weights from init_params(seed=0, perturb=True), bf16.  (a) The
+     embed of one seeded uint8 batch of BATCH vis images under PRESET_PATHS:
+     min-cosine against xla >= 0.999 (fused_int8: APPROX_MIN_COSINE), exact
+     launch counts (#1 31, on the fused-stream trunk 32; #8 32, #9 64; #3
+     and #5 31 under fused; splash 31 and #1 31; #4 and #6 31), device ms,
+     embeds/s and peak memory a path.  (b) Phase 4b's 8x4 step under
+     remat_blocks on VIT_H_TRAIN_PATHS (xla, pallas_attention): step 1's
+     losses and gradients finite, pallas_attention against xla within
+     TRAIN_LOSS_REL and TRAIN_GRAD_COS, #1 2L = 64 launches a step and no
+     host synchronisation in it; it/s, device ms and peak memory;
   5. time every kernel, its plain version and (where one PyTorch call
      computes the same function) that call with CUDA events, median of
      TIMED_RUNS after warm-up queued behind a spin kernel (device time
@@ -368,7 +390,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      fused MLP also at token reduction's and tensor parallelism's shapes;
      #1, #11, #3, #5, #8 and #9 at the L/14 preset's, #1 also at 577
      tokens, the launches a forward of 4j (a) and (a') beside each; #1's
-     register-held kernel at 257 and 577 tokens also in the kernels line);
+     register-held kernel at 257 and 577 tokens also in the kernels line;
+     #1 (beside SDPA), #3, #5, #8 and #9 at ViT-H/14's widths with 4k (a)'s
+     launches, #1 there also in the kernels line);
      time end-to-end embeds/s per configuration (in turns, median of
      E2E_ROUNDS rounds) and the device ms of one embed step of each from
      CUDA events, with torch.profiler's top kernels (its kernel sum, which
@@ -600,6 +624,31 @@ PRESET_ITERS, PRESET_TRAIN_ITERS = 3, 3
 PRESET_336_PATHS, PRESET_336_BATCH = ("xla", "pallas_attention", "fused_trunk"), 32
 # #1 past 256 tokens in phases 3 and 5: L/14 at 336 px beside 224 px's 257
 S_L14_336 = (336 // 14) ** 2 + 1
+# phase 4k: OpenCLIP ViT-H/14's widths (open_clip model_configs/ViT-H-14.json:
+# vision 1,280 wide, 32 layers, heads of 80, MLP 5,120, patch 14 at 224 px;
+# text 1,024 x 24, 16 heads; embed 1,024) as the TrainingConfig overrides a
+# user passes as flags, the SDM module at the fusion width so that it trains.
+# (a) the embed of BATCH vis images under PRESET_PATHS; (b) phase 4b's 8x4
+# step under remat_blocks on VIT_H_TRAIN_PATHS, VIT_H_TRAIN_ITERS timed
+# steps a path
+VIT_H = dict(vision_hidden_dim=1280, vision_layers=32, vision_heads=16, vision_mlp_dim=5120,
+             patch_size=14, image_size=224, text_hidden_dim=1024, text_layers=24,
+             text_heads=16, text_mlp_dim=4096, fusion_dim=1024, sdm_semantic_dim=1024)
+VIT_H_TRAIN_PATHS = ("xla", "pallas_attention")
+VIT_H_TRAIN_ITERS = 2
+# phase 3's grid of #1: every padded head width (64, 128, 192, 256), the
+# zero-padded widths (20: no multiple of 8), ViT-H/14's 80, ViT-bigG's 104;
+# each route's edge lengths (causal at the text tower's 77) on ATT_GRID_BH
+# (batch, head) pairs, and past 4,096 tokens at LONG_SEQ_DH
+HEAD_WIDTHS = (8, 16, 20, 40, 72, 80, 96, 104, 128, 200, 256)
+ROUTE_EDGES = ((1, False), (77, True), (197, False), (256, False), (257, False), (577, False),
+               (656, False), (657, False))
+ATT_GRID_BH = (2, 3)
+LONG_SEQS, LONG_SEQ_DH = (4097, 16385), (64, 128)
+# the row passes past 1,024 columns (#3-#9 on ROW_ROWS rows): a lane's 8
+# chunks (1,040 .. 2,048) and a block's row (2,056, 8,192); the int8 plans
+# take multiples of 16 only
+ROW_WIDTHS, ROW_ROWS = (1040, 1280, 1664, 2048, 2056, 8192), 300
 
 
 def fail(msg: str) -> "NoReturn":  # noqa: F821
@@ -3558,17 +3607,78 @@ def parallel_phase(torch, cfg, counters, dev, card, tmp):
     return out
 
 
+def zero_counts(torch, counters):
+    """Every launch counter to 0, the card idle."""
+    for counter in counters.values():
+        counter.launches = 0
+    torch.cuda.synchronize()
+
+
+def read_counts(counters, want):
+    """(the counters' readings, ``want`` over every counter)."""
+    got = {n: f.launches for n, f in counters.items()}
+    return got, {n: want.get(n, 0) for n in counters}
+
+
+def embed_paths(torch, counters, dev, card, preset, cfg, params, names, batch=BATCH):
+    """Each path's model in turn from ``params``: one counted embed of a
+    seeded uint8 batch of ``batch`` vis images, its device ms (CUDA
+    events), embeds/s over PRESET_ITERS steps and peak memory above what
+    was allocated before the model; min-cosine against the first path
+    (phases 4j and 4k)."""
+    from prcv2025reid_tpu_torch import build_model, make_combo_embed_step
+
+    expected = path_launches(cfg.vision_layers)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    Mv = len(cfg.vision_modalities)
+    images = torch.randint(0, 256, (batch, Mv, cfg.image_size, cfg.image_size, 3),
+                           generator=gen, device=dev, dtype=torch.uint8)
+    mask = torch.ones(batch, Mv, device=dev)
+    out, ref = {}, None
+    for name in names:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        model = build_model(cfg.replace(**EMBED_PATHS[name]), params, device=dev)
+        step = make_combo_embed_step(model, ("vis",))
+        zero_counts(torch, counters)
+        e = step(images, mask)
+        torch.cuda.synchronize()
+        got, want = read_counts(counters, expected[name])
+        if e.shape != (batch, cfg.fusion_dim) or not torch.isfinite(e).all() or \
+                (e.norm(dim=1) - 1).abs().max().item() > 1e-3:
+            fail(f"{preset} {name}: embedding not finite/unit-norm of shape "
+                 f"{(batch, cfg.fusion_dim)}")
+        if got != want:
+            fail(f"{preset} {name}: launch counts {got} != {want}")
+        device_ms = device_reading(torch, lambda: step(images, mask), f"{preset} {name}")[0]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(PRESET_ITERS):
+            step(images, mask)
+        torch.cuda.synchronize()
+        rate = batch * PRESET_ITERS / (time.perf_counter() - t1)
+        ref = e if ref is None else ref
+        cos = (e * ref).sum(dim=1).min().item()
+        bar = APPROX_MIN_COSINE if name in APPROX_PATHS else MIN_COSINE
+        peak = (torch.cuda.max_memory_allocated() - resident) / 1e9
+        out[name] = dict(launches={n: c for n, c in got.items() if c}, min_cosine=cos,
+                         device_ms=device_ms, embeds_per_s=rate, peak_mem_gb=peak)
+        print(f"{preset} (a) {name} ({card}): launches {out[name]['launches']}; min-cosine "
+              f"vs {names[0]} {cos:.6f} (>= {bar}); device {device_ms:.3f} ms a step of "
+              f"{batch} at {cfg.image_size} px, {rate:.1f} embeds/s, peak memory "
+              f"{peak:.2f} GB")
+        if cos < bar:
+            fail(f"{preset} {name}: min-cosine {cos} < {bar}")
+        del model, step, e
+    return out
+
+
 def preset_phase(torch, counters, dev, card, tmp):
     """The CLIP ViT-L/14 and ViT-B/32 presets at full width on the card
     (phase 4j, see the module docstring); fails the run on any failed check
     and returns the readings.  ``tmp``: a scratch directory."""
-    from prcv2025reid_tpu_torch import (
-        TrainingConfig,
-        build_model,
-        init_train_state,
-        make_combo_embed_step,
-        make_train_step,
-    )
+    from prcv2025reid_tpu_torch import TrainingConfig, build_model, init_train_state, make_train_step
     from prcv2025reid_tpu_torch.configs import apply_model_preset
     import numpy as np
 
@@ -3576,65 +3686,6 @@ def preset_phase(torch, counters, dev, card, tmp):
     from prcv2025reid_tpu_torch.tools import convert_clip
 
     readings, t_phase = {}, time.perf_counter()
-
-    def zero():
-        for counter in counters.values():
-            counter.launches = 0
-        torch.cuda.synchronize()
-
-    def counts(want):
-        got = {n: f.launches for n, f in counters.items()}
-        return got, {n: want.get(n, 0) for n in counters}
-
-    def embed_paths(preset, cfg, params, names, batch=BATCH):
-        """Each path's model in turn from ``params``: one counted embed of a
-        seeded uint8 batch of ``batch`` vis images, its device ms (CUDA
-        events), embeds/s over PRESET_ITERS steps and peak memory above what
-        was allocated before the model; min-cosine against the first path."""
-        expected = path_launches(cfg.vision_layers)
-        gen = torch.Generator(device=dev).manual_seed(20)
-        Mv = len(cfg.vision_modalities)
-        images = torch.randint(0, 256, (batch, Mv, cfg.image_size, cfg.image_size, 3),
-                               generator=gen, device=dev, dtype=torch.uint8)
-        mask = torch.ones(batch, Mv, device=dev)
-        out, ref = {}, None
-        for name in names:
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            resident = torch.cuda.memory_allocated()
-            model = build_model(cfg.replace(**EMBED_PATHS[name]), params, device=dev)
-            step = make_combo_embed_step(model, ("vis",))
-            zero()
-            e = step(images, mask)
-            torch.cuda.synchronize()
-            got, want = counts(expected[name])
-            if e.shape != (batch, cfg.fusion_dim) or not torch.isfinite(e).all() or \
-                    (e.norm(dim=1) - 1).abs().max().item() > 1e-3:
-                fail(f"{preset} {name}: embedding not finite/unit-norm of shape "
-                     f"{(batch, cfg.fusion_dim)}")
-            if got != want:
-                fail(f"{preset} {name}: launch counts {got} != {want}")
-            device_ms = device_reading(torch, lambda: step(images, mask), f"{preset} {name}")[0]
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            for _ in range(PRESET_ITERS):
-                step(images, mask)
-            torch.cuda.synchronize()
-            rate = batch * PRESET_ITERS / (time.perf_counter() - t1)
-            ref = e if ref is None else ref
-            cos = (e * ref).sum(dim=1).min().item()
-            bar = APPROX_MIN_COSINE if name in APPROX_PATHS else MIN_COSINE
-            peak = (torch.cuda.max_memory_allocated() - resident) / 1e9
-            out[name] = dict(launches={n: c for n, c in got.items() if c}, min_cosine=cos,
-                             device_ms=device_ms, embeds_per_s=rate, peak_mem_gb=peak)
-            print(f"{preset} (a) {name} ({card}): launches {out[name]['launches']}; min-cosine "
-                  f"vs {names[0]} {cos:.6f} (>= {bar}); device {device_ms:.3f} ms a step of "
-                  f"{batch} at {cfg.image_size} px, {rate:.1f} embeds/s, peak memory "
-                  f"{peak:.2f} GB")
-            if cos < bar:
-                fail(f"{preset} {name}: min-cosine {cos} < {bar}")
-            del model, step, e
-        return out
 
     # ---- (a) the L/14 embed at full width under PRESET_PATHS.  The SDM
     # features feed the fusion in training, so they take its width: the
@@ -3651,7 +3702,8 @@ def preset_phase(torch, counters, dev, card, tmp):
           f"{l14.vision_mlp_dim}, {l14.num_patches + 1} tokens; text {l14.text_hidden_dim} x "
           f"{l14.text_layers}; fusion {l14.fusion_dim}; init_params "
           f"{time.perf_counter() - t0:.1f} s, {sum(a.size for a in params.values())} values")
-    readings["l14_embed"] = embed_paths(PRESET_L14, l14, params, PRESET_PATHS)
+    readings["l14_embed"] = embed_paths(torch, counters, dev, card, PRESET_L14, l14, params,
+                                         PRESET_PATHS)
 
     print(f"{PRESET_L14} (a): {time.perf_counter() - t_phase:.1f} s")
 
@@ -3668,8 +3720,9 @@ def preset_phase(torch, counters, dev, card, tmp):
         fail(f"{PRESET_L14} at 336 px: the leaves that change shape are {redrawn}")
     params_336 = {k: rng.normal(0.0, 0.02, shapes[k]).astype(np.float32) if k in redrawn else v
                   for k, v in params.items()}
-    readings["l14_336_embed"] = embed_paths(f"{PRESET_L14} 336 px", l14_336, params_336,
-                                            PRESET_336_PATHS, batch=PRESET_336_BATCH)
+    readings["l14_336_embed"] = embed_paths(torch, counters, dev, card, f"{PRESET_L14} 336 px",
+                                            l14_336, params_336, PRESET_336_PATHS,
+                                            batch=PRESET_336_BATCH)
     del params_336
     print(f"{PRESET_L14} (a') 336 px: {time.perf_counter() - t0:.1f} s")
 
@@ -3741,11 +3794,11 @@ def preset_phase(torch, counters, dev, card, tmp):
     gen = torch.Generator(device=dev).manual_seed(22)
     imgs = torch.randn(CLIP_ORACLE_BATCH, l14.image_size, l14.image_size, 3, generator=gen,
                        device=dev)
-    zero()
+    zero_counts(torch, counters)
     with torch.inference_mode():
         got = model.encoder.encode_vision(imgs, 0).float()
     torch.cuda.synchronize()
-    launched, want = counts(dict(fused_mha=L, fused_mlp=L, fused_residual_ln=2 * L))
+    launched, want = read_counts(counters, dict(fused_mha=L, fused_mlp=L, fused_residual_ln=2 * L))
     oracle = clip_vision_oracle(torch, hf, imgs, l14, dev)
     cos = torch.nn.functional.cosine_similarity(got, oracle, dim=1).min().item()
     readings["l14_clip"] = dict(values=sum(v.size for v in hf.values()), load_s=load_s,
@@ -3767,13 +3820,124 @@ def preset_phase(torch, counters, dev, card, tmp):
     # ---- (d) the B/32 embed (50 tokens: #1's 4-chunk branch)
     t0 = time.perf_counter()
     b32 = apply_model_preset(TrainingConfig(), PRESET_B32)
-    readings["b32_embed"] = embed_paths(PRESET_B32, b32,
+    readings["b32_embed"] = embed_paths(torch, counters, dev, card, PRESET_B32, b32,
                                         init_params(b32, NUM_CLASSES, seed=0, perturb=True),
                                         B32_PATHS)
     torch.cuda.empty_cache()
     print(f"{PRESET_B32} (d): {time.perf_counter() - t0:.1f} s")
     readings["seconds"] = time.perf_counter() - t_phase
     return readings
+
+
+def vit_h_phase(torch, counters, dev, card):
+    """OpenCLIP ViT-H/14's widths at full depth on the card (phase 4k, see
+    the module docstring); fails the run on any failed check and returns
+    the readings."""
+    from prcv2025reid_tpu_torch import TrainingConfig, build_model, init_train_state, make_train_step
+    from prcv2025reid_tpu_torch.params import init_params
+
+    readings, t_phase = {}, time.perf_counter()
+    cfg = TrainingConfig().replace(**VIT_H)
+    L = cfg.vision_layers
+    t0 = time.perf_counter()
+    params = init_params(cfg, NUM_CLASSES, seed=0, perturb=True)
+    print(f"ViT-H/14 widths: {L} blocks of {cfg.vision_hidden_dim}, {cfg.vision_heads} heads of "
+          f"{cfg.vision_hidden_dim // cfg.vision_heads}, MLP {cfg.vision_mlp_dim}, "
+          f"{cfg.num_patches + 1} tokens; text {cfg.text_hidden_dim} x {cfg.text_layers}; fusion "
+          f"{cfg.fusion_dim}; init_params {time.perf_counter() - t0:.1f} s, "
+          f"{sum(a.size for a in params.values())} values")
+
+    # ---- (a) the embed under PRESET_PATHS: #1 at Dh = 80, S = 257, the row
+    # passes at D = 1,280
+    readings["embed"] = embed_paths(torch, counters, dev, card, "ViT-H/14 widths", cfg, params,
+                                    PRESET_PATHS)
+    print(f"ViT-H/14 widths (a): {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- (b) phase 4b's 8x4 step under remat_blocks (every block in full and
+    # recomputed: #1 2L a step on pallas_attention): step 1 against xla
+    t0 = time.perf_counter()
+    tcfg = cfg.replace(num_ids_per_batch=TRAIN_P, instances_per_id=TRAIN_K, remat_blocks=True)
+    batch = train_batch(torch, tcfg, dev, TRAIN_P, TRAIN_K, seed=24)
+    first, train = {}, {}
+    for name in VIT_H_TRAIN_PATHS:
+        pcfg = tcfg.replace(**EMBED_PATHS[name])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        model = build_model(pcfg, params, device=dev)
+        first[name] = group_grads(torch, model, pcfg, batch)
+        finite = all(math.isfinite(v) for v in first[name][0].values()) and all(
+            bool(torch.isfinite(g).all()) for g in first[name][1].values())
+        if not finite:
+            fail(f"ViT-H/14 widths train {name}: a non-finite step-1 loss or gradient")
+        state = init_train_state(model, pcfg, 1, seed=0)
+        step = make_train_step(model, pcfg, 1)
+        want = {"fused_mha": 2 * L} if name == "pallas_attention" else {}
+        state, _ = counted_step(torch, counters, f"ViT-H/14 widths {name} remat_blocks", step,
+                                state, batch, want)
+        held = [state]
+
+        def one_step():
+            held[0], _ = step(held[0], batch, SDM_WEIGHT, SDM_TAU)
+
+        device_ms = device_reading(torch, one_step, f"ViT-H/14 widths train {name}")[0]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(VIT_H_TRAIN_ITERS):
+            one_step()
+        torch.cuda.synchronize()
+        it_s = VIT_H_TRAIN_ITERS / (time.perf_counter() - t1)
+        peak = (torch.cuda.max_memory_allocated() - resident) / 1e9
+        train[name] = dict(it_per_s=it_s, device_ms=device_ms, peak_mem_gb=peak,
+                           launches=want, step1=first[name][0])
+        print(f"ViT-H/14 widths (b) train {name} ({card}): {it_s:.3f} it/s, device "
+              f"{device_ms:.3f} ms a step, peak memory {peak:.2f} GB (remat_blocks), launches "
+              f"{want} a step, step-1 losses {json.dumps(first[name][0])}, gradients finite")
+        del model, state, step, held
+    (l_x, g_x), (l_p, g_p) = first["xla"], first["pallas_attention"]
+    loss_rel = {k: abs(l_p[k] - l_x[k]) / abs(l_x[k]) for k in l_x}
+    cos, rel, norm = compare_grads(torch, g_p, g_x)
+    print(f"ViT-H/14 widths (b) train step 1 pallas_attention vs xla: loss rel "
+          f"{json.dumps(loss_rel)} (<= {TRAIN_LOSS_REL}); gradient cosine by group "
+          f"{json.dumps(cos)} (>= {TRAIN_GRAD_COS}); global norm ratio {norm:.5f}")
+    if max(loss_rel.values()) > TRAIN_LOSS_REL or min(cos.values()) < TRAIN_GRAD_COS:
+        fail("ViT-H/14 widths train step 1: pallas_attention disagrees with xla")
+    train["pallas_vs_xla"] = dict(loss_rel=loss_rel, grad_cos=cos, grad_rel=rel, norm_ratio=norm)
+    readings["train"] = train
+    del params, first, batch
+    torch.cuda.empty_cache()
+    print(f"ViT-H/14 widths (b): {time.perf_counter() - t0:.1f} s")
+    readings["seconds"] = time.perf_counter() - t_phase
+    return readings
+
+
+def block_kernel_rows(torch, fns, launch, T, D, F, block_checks):
+    """Phase 5's rows of #3, #5, #8 and #9 on T rows of width D, MLP width F
+    (``fns``: block_cases' name -> (kernel, plain, operands); ``launch``: a
+    path's launches a forward), each beside its bound."""
+    O, at = 3 * D, f"D={D} F={F} T={T}"
+    rows = []
+    for name, path, work, nbytes in (
+            ("fused_ln_qkv", "fused", [(2 * T * D * O, PEAK_BF16_FLOPS)],
+             T * D * 2 + D * O * 2 + O * 4 + 2 * D * 4 + T * O * 2),
+            ("fused_out_mlp", "fused", [(2 * T * D * (D + 2 * F), PEAK_BF16_FLOPS)],
+             3 * T * D * 2 + (D * D + 2 * D * F) * 2 + (2 * D + F) * 4 + 2 * D * 4),
+            ("fused_mlp", "fused_trunk", [(4 * T * D * F, PEAK_BF16_FLOPS)],
+             2 * T * D * 2 + 2 * D * F * 2 + (F + D) * 2),
+            ("fused_residual_ln", "fused_trunk", [(8 * T * D, PEAK_F32_FLOPS)],
+             4 * T * D * 2 + 2 * D * 4)):
+        kern, plain, args = fns[f"{name} y {at}" if name == "fused_residual_ln"
+                                else f"{name} {at}"]
+        b_ms, b_by = bound_ms(work, nbytes)
+        rows.append(dict(
+            name=name, shape=f"T={T} D={D} F={F}",
+            launches=launch[path].get(name, 0),
+            max_abs_err=max(v[0] for n, v in block_checks.items()
+                            if n.startswith(name + " ") and f"D={D}" in n),
+            ms=time_ms(torch, lambda k=kern, a=args: k(*a)),
+            plain_ms=time_ms(torch, lambda p=plain, a=args: p(*a), runs=10),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    return rows
 
 
 def main() -> int:
@@ -3808,7 +3972,12 @@ def main() -> int:
     from prcv2025reid_tpu_torch.ops import _kernels
     from prcv2025reid_tpu_torch.ops import attention as att
     from prcv2025reid_tpu_torch.ops import fused_block as fb
-    from prcv2025reid_tpu_torch.ops.fused_attention import REG_MAX_SEQ, fused_mha, mha_plain
+    from prcv2025reid_tpu_torch.ops.fused_attention import (
+        REG_MAX_SEQ,
+        attention_route,
+        fused_mha,
+        mha_plain,
+    )
     from prcv2025reid_tpu_torch.ops.fused_mlp import fused_mlp, mlp_plain
     from prcv2025reid_tpu_torch.ops.fused_resln import fused_residual_ln, resln_plain
     from prcv2025reid_tpu_torch.ops.matmul import BLOCK_ROWS, matmul_plain, tiled_matmul
@@ -4116,6 +4285,70 @@ def main() -> int:
     if not ok:
         failures.append(f"fused_out_mlp D={D14} unit-variance operands")
     del got, want, ulps, gated, unit
+
+    # #1 at every head width and length the TPU kernel takes: each padded
+    # width's route edges (HEAD_WIDTHS x ROUTE_EDGES) on ATT_GRID_BH pairs,
+    # then past 4,096 tokens; views of one [B, S, 3, H, Dh] projection
+    gb, gh = ATT_GRID_BH
+    for dh in HEAD_WIDTHS:
+        for s_len, causal in ROUTE_EDGES:
+            qkv_p = randn(gb, s_len, 3, gh, dh).bfloat16()
+            views = tuple(qkv_p[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+            got = fused_mha(*views, causal=causal)
+            torch.cuda.synchronize()
+            mx, rel, ok = errors(torch, got, mha_plain(*views, causal))
+            route = "/".join(map(str, attention_route(dh, s_len)))
+            att_checks[f"Dh={dh} S={s_len} causal={causal}"] = (mx, rel)
+            print(f"check fused_mha Dh={dh} S={s_len} causal={causal} ({route}): max_abs "
+                  f"{mx:.3e} rel {rel:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"fused_mha Dh={dh} S={s_len} causal={causal}")
+    for dh in LONG_SEQ_DH:
+        for s_len in LONG_SEQS:
+            for causal in (False, True):
+                views = tuple(randn(1, 2, s_len, dh).bfloat16() for _ in range(3))
+                got = fused_mha(*views, causal=causal)
+                torch.cuda.synchronize()
+                mx, rel, ok = errors(torch, got, mha_plain(*views, causal))
+                att_checks[f"Dh={dh} S={s_len} causal={causal}"] = (mx, rel)
+                print(f"check fused_mha Dh={dh} S={s_len} causal={causal} B*H=2: max_abs "
+                      f"{mx:.3e} rel {rel:.3e} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"fused_mha Dh={dh} S={s_len} causal={causal}")
+    del got, views, qkv_p
+    # phase 4k's ViT-H/14 widths: #1 at BATCH images of 257 tokens, 16 heads
+    # of 80 (attn_long_kernel at 128) and the splash core there (q pre-scaled:
+    # 80**-0.5 is no power of two); #3-#9 on BATCH images' rows of 1,280, MLP
+    # 5,120 (#7 only here: no path of 4k runs it)
+    vh = TrainingConfig().replace(**VIT_H)
+    DH, HH, FH = vh.vision_hidden_dim, vh.vision_heads, vh.vision_mlp_dim
+    DhH, SH = DH // HH, vh.num_patches + 1
+    TH = BATCH * SH
+    qkv_h = randn(BATCH, SH, 3, HH, DhH).bfloat16()
+    vit_h_views = tuple(qkv_h[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    got = fused_mha(*vit_h_views)
+    torch.cuda.synchronize()
+    mx, rel, ok = errors(torch, got, mha_plain(*vit_h_views))
+    att_checks[f"S={SH} H={HH} Dh={DhH}"] = (mx, rel)
+    print(f"check fused_mha S={SH} H={HH} Dh={DhH} B={BATCH}: max_abs {mx:.3e} rel {rel:.3e} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"fused_mha S={SH} H={HH} Dh={DhH}")
+    vit_h_cases = block_cases(torch, gen, dev, 1, TH, DH, FH)
+    vit_h_splash = tuple(qkv_h[:, :, i] for i in range(3))
+    for name, kern, plain, args in vit_h_cases + [
+            (f"splash_attention_bshd S={SH} H={HH} Dh={DhH}", att.splash_attention_bshd,
+             att.splash_plain, vit_h_splash)]:
+        check(name, kern, plain, args)
+    vit_h_fns = {name: (kern, plain, args) for name, kern, plain, args in vit_h_cases}
+    # the row passes past 1,024 columns on ROW_ROWS rows (MLP 4D, 2D at 8,192)
+    for width in ROW_WIDTHS:
+        for name, kern, plain, args in block_cases(torch, gen, dev, 1, ROW_ROWS, width,
+                                                   (2 if width > 4096 else 4) * width):
+            if "int8" in name and width % 16:
+                continue
+            check(name, kern, plain, args)
+    del got
     if failures:
         fail(f"kernel disagrees with its plain version: {failures}")
 
@@ -4410,6 +4643,11 @@ def main() -> int:
         presets = preset_phase(torch, counters, dev, card, tmp)
         print(f"preset phase: {time.perf_counter() - t0:.1f} s")
 
+    # ---- 4k. OpenCLIP ViT-H/14's widths at full depth
+    t0 = time.perf_counter()
+    vit_h = vit_h_phase(torch, counters, dev, card)
+    print(f"vit-h phase: {time.perf_counter() - t0:.1f} s")
+
     # ---- 5. timing
     import torch.nn.functional as Fn
 
@@ -4607,32 +4845,38 @@ def main() -> int:
         ms=time_ms(torch, lambda: att.splash_attention_bshd(*l14_splash)),
         plain_ms=time_ms(torch, lambda: att.splash_plain(*l14_splash), runs=10),
         bound_ms=b_ms, bound_by=b_by, library_ms=l14_rows[0]["library_ms"]))
-    O14, at14 = 3 * D14, f"D={D14} F={F14} T={T14}"
-    for name, path, work, nbytes in (
-            ("fused_ln_qkv", "fused", [(2 * T14 * D14 * O14, PEAK_BF16_FLOPS)],
-             T14 * D14 * 2 + D14 * O14 * 2 + O14 * 4 + 2 * D14 * 4 + T14 * O14 * 2),
-            ("fused_out_mlp", "fused", [(2 * T14 * D14 * (D14 + 2 * F14), PEAK_BF16_FLOPS)],
-             3 * T14 * D14 * 2 + (D14 * D14 + 2 * D14 * F14) * 2 + (2 * D14 + F14) * 4
-             + 2 * D14 * 4),
-            ("fused_mlp", "fused_trunk", [(4 * T14 * D14 * F14, PEAK_BF16_FLOPS)],
-             2 * T14 * D14 * 2 + 2 * D14 * F14 * 2 + (F14 + D14) * 2),
-            ("fused_residual_ln", "fused_trunk", [(8 * T14 * D14, PEAK_F32_FLOPS)],
-             4 * T14 * D14 * 2 + 2 * D14 * 4)):
-        kern, plain, args = l14_fns[f"{name} y {at14}" if name == "fused_residual_ln"
-                                    else f"{name} {at14}"]
-        b_ms, b_by = bound_ms(work, nbytes)
-        l14_rows.append(dict(
-            name=name, shape=f"T={T14} D={D14} F={F14}",
-            launches=l14_launch[path].get(name, 0),
-            max_abs_err=max(v[0] for n, v in block_checks.items()
-                            if n.startswith(name + " ") and f"D={D14}" in n),
-            ms=time_ms(torch, lambda k=kern, a=args: k(*a)),
-            plain_ms=time_ms(torch, lambda p=plain, a=args: p(*a), runs=10),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    l14_rows += block_kernel_rows(torch, l14_fns, l14_launch, T14, D14, F14, block_checks)
     for r in l14_rows:
         print(f"kernel {r['name']} at the L/14 preset's shape {r['shape']} ({card}): "
               f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']}); {r['launches']} a forward")
+    # #1, #3, #5, #8 and #9 at ViT-H/14's widths (phase 4k (a): B = BATCH
+    # images of SH tokens, 16 heads of 80; TH rows of DH, FH), beside their
+    # bounds and SDPA; launches: per forward in 4k (a)
+    vit_h_launch = {n: r["launches"] for n, r in vit_h["embed"].items()}
+    b_ms, b_by = bound_ms([(4 * BATCH * HH * SH * SH * DhH, PEAK_BF16_FLOPS)],
+                          4 * BATCH * HH * SH * DhH * 2)
+    vit_h_rows = [dict(
+        name="fused_mha", shape=f"B={BATCH} S={SH} H={HH} Dh={DhH}",
+        launches=vit_h_launch["pallas_attention"].get("fused_mha", 0),
+        max_abs_err=att_checks[f"S={SH} H={HH} Dh={DhH}"][0],
+        ms=time_ms(torch, lambda: fused_mha(*vit_h_views)),
+        plain_ms=time_ms(torch, lambda: mha_plain(*vit_h_views), runs=10),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, lambda: Fn.scaled_dot_product_attention(*vit_h_views)))]
+    vit_h_rows += block_kernel_rows(torch, vit_h_fns, vit_h_launch, TH, DH, FH, block_checks)
+    for r in vit_h_rows:
+        print(f"kernel {r['name']} at ViT-H/14's widths {r['shape']} ({card}): "
+              f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']}); {r['launches']} a forward")
+    # #1 at a padded head width of 128 (attn_long_kernel) in the kernels line,
+    # at the shape 4k's embeds run it at
+    rows.append(dict(
+        name=f"fused_mha attn_long_kernel {vit_h_rows[0]['shape']}", route="cuda",
+        source="prcv2025reid_tpu_torch/csrc/attention.cu",
+        replaces="prcv2025reid_tpu/ops/pallas_attention.py:115",
+        **{k: vit_h_rows[0][k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}))
     # the register-held kernel (#1 past 256 tokens) in the kernels line, at
     # the two lengths the L/14 preset's embeds of 4j run it at
     for r in l14_rows[:2]:
@@ -4764,9 +5008,11 @@ def main() -> int:
         "tools_phase": tools,
         "parallel_phase": parallel,
         "preset_phase": presets,
+        "vit_h_phase": vit_h,
         "kernels_at_token_reduced_shapes": reduced_rows,
         "kernels_at_tensor_parallel_shapes": tp_rows,
         "kernels_at_l14_shapes": l14_rows,
+        "kernels_at_vit_h_shapes": vit_h_rows,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     for r in rows:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "

@@ -10,10 +10,11 @@
 // 3.35 TB/s).  Design, so that each byte crosses device memory once and the
 // loads run under the compute:
 //   - a persistent grid walks the (batch, head) pairs; each pair's Q, K and V
-//     (S <= 16 KCH rows of 64 bf16, one 128-byte swizzled row each) are
-//     staged ONCE, by TMA (one 4-d box per operand, so the model's strided
-//     views of its fused QKV projection need no copies; rows >= S are zero
-//     filled), into one of two stages: the next pair's loads are in flight
+//     (S <= 16 KCH rows of DHP bf16, as DHP / 64 atoms of 128-byte swizzled
+//     rows) are staged ONCE, by TMA (one 4-d box per operand and atom, so the
+//     model's strided views of its fused QKV projection need no copies; rows
+//     >= S are zero filled), into one of two stages (one where two do not
+//     fit: DHP = 128 past 128 rows): the next pair's loads are in flight
 //     while the warps compute on this one (a `full` mbarrier per stage
 //     counts the bytes; the warp that finishes a pair's last strip refills
 //     its stage with the pair after next, so no wait-all comes before
@@ -23,9 +24,9 @@
 //     among the warps through one sequence of (pair, strip) items per block,
 //     so no warp idles at a pair's end and no strip stages K or V again.  A
 //     block has min(8, nstrips) warps, so every warp has an item in every
-//     pair: when it waits for pair i it has finished one of pair i - 2, so
-//     the stage's barrier is in pair i's phase and its parity bit cannot
-//     alias pair i - 2's;
+//     pair: when it waits for pair i it has finished one of pair i - 2 (i - 1
+//     with one stage), so the stage's barrier is in pair i's phase and its
+//     parity bit cannot alias that earlier pair's;
 //   - each warp keeps its strip's 16 rows of f32 scores for ALL keys in
 //     registers (S <= 256): scores, max-subtracted softmax and P never touch
 //     device memory.  QK^T and PV run on the tensor cores (mma.sync m16n8k16,
@@ -36,17 +37,27 @@
 //     P's bf16 rounding;
 //   - keys >= S (and above the diagonal when causal) are masked by index, so
 //     the inputs need no padding; the strip's output goes through its own Q
-//     rows in shared memory and leaves as whole 128-byte rows.
+//     rows in shared memory and leaves as 16-byte runs of its dh columns.
 // q/k/v/out are addressed through element strides (batch, head, sequence).
 //
-// Three ranges of S, each keeping the TPU kernel's rounding point (P
-// normalised in f32, then cast to bf16 for PV):
-//   - S <= 256: attn_fwd_kernel, above;
-//   - 256 < S <= REG_MAX_S (656; ViT-L/14 at 224 px: 257, at 336 px: 577):
-//     attn_reg_kernel, a 64-row query tile's scores for all keys held in the
-//     registers of two consumer warpgroups;
-//   - REG_MAX_S < S <= MAX_S (4,096): attn_long_kernel, the keys streamed
-//     twice.
+// Head widths: each kernel is instantiated at DHP, the head width rounded up
+// to 64-column atoms (64, 128, 192, 256).  A Q / K / V row is DHP / 64
+// atoms, each one 128-byte swizzled row of one TMA box; the tensor map's
+// inner dimension is the true width dh, so TMA fills the columns past it with
+// zeros: zero columns of Q and K leave QK^T as it is, V's give output columns
+// that are never stored, and no extra byte crosses device memory.  The maps'
+// strides need dh % 8 == 0 (the wrapper pads any other width with zeros); the
+// scale comes from the caller's true Dh, never from DHP.  Ranges (route()):
+//   - dh <= 64, S <= 256: attn_fwd_kernel, above;
+//   - dh <= 64, 256 < S <= REG_MAX_S (656; ViT-L/14 at 224 px: 257, at 336
+//     px: 577): attn_reg_kernel, a 64-row query tile's scores for all keys
+//     held in the registers of two consumer warpgroups;
+//   - dh <= 64, S > REG_MAX_S: attn_long_kernel, the keys streamed twice;
+//   - 64 < dh <= 128: attn_fwd_kernel at 128 up to 256 tokens, else
+//     attn_long_kernel at 128 (ViT-H/14: dh = 80, S = 257);
+//   - 128 < dh <= 256: attn_long_kernel at 192 or 256.
+// S may be anything from 1 to MAX_S (int32 coordinates: 2^31 - 64); the
+// element offsets are 64-bit.
 // Bound at the L/14 gallery shape (B=128, H=16, S=257): 34.6 GFLOP against
 // 269.5 MB of q/k/v/out, memory-bound (~80 us); at S=577 174.5 GFLOP
 // against 605 MB (~181 us).  What binds the kernels there is the softmax:
@@ -83,7 +94,8 @@
 //     past 256 tokens: the text tower's S is 77);
 //   - REG_MAX_S: NW = 328 is the widest range that fits both the consumer
 //     threads' 232 registers without spills (ptxas -v) and shared memory (K
-//     and V at 704 rows, two Q stages, the two partials: 226 KB of 227);
+//     and V at 704 rows, two Q stages, the two partials: 226 KB of 227); it
+//     grows as DHP (4 KROWS + 768) bytes, so the kernel stays at DHP = 64;
 //   - what it cannot do: a tile's phases run in turn (QK^T, max, the
 //     exponentials, PV), since overlapping the next tile's QK^T with this
 //     one's PV needs both tiles' registers (at S = 577 a thread's 148
@@ -95,8 +107,12 @@
 //     and one producer warp's lane 0 issues every TMA load;
 //   - the tile's Q is staged once; K (and V) stream in blocks of 64 keys
 //     (sequence coordinate kb * 64 of the same 4-d maps, rows >= S zero
-//     filled) through a ring of three stages: a `full` mbarrier a stage
-//     counts the bytes, an `empty` one the consumer warps' releases;
+//     filled) through a ring of stages (LongCfg: three at DHP 64 and 192,
+//     two at 128, for two blocks an SM, and at 256, where three do not fit):
+//     a `full` mbarrier a stage counts the bytes, an `empty` one the
+//     consumer warps' releases; past DHP = 128 a strip reads its Q fragments
+//     from the staged tile at each use, its registers held by the DHP / 8 x 4
+//     accumulators;
 //   - two passes over the keys: the first takes each row's f32 max and sum
 //     (online), the second recomputes the scores and casts the normalised P
 //     to bf16 for PV.  A one-pass online softmax casts P before the
@@ -116,24 +132,40 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int DH = 64;                      // head dim: one 128-byte row
+constexpr int DH = 64;      // attn_reg_kernel's head width (Dh <= 64 padded to it)
+constexpr int ATOM = 64;    // head-dim columns of one 128-byte swizzled row: one TMA box wide
+constexpr int MAX_DH = 256;
 constexpr int WARPS = 8;  // at most; a block has min(WARPS, ceil(S / 16))
 constexpr int THREADS = WARPS * 32;
+constexpr int SMEM_MAX = 232448;   // a block's shared memory
+constexpr int SM_SMEM = 233472;    // an SM's, with 1 KB reserved a block
 
 struct Strides {
   long long b, h, s;  // element strides; the head dim is contiguous
 };
 
-template <int KCH>  // rows staged in chunks of 16: S <= 16 * KCH
+// KCH: rows staged in chunks of 16 (S <= 16 * KCH); DHP: the head width
+// rounded up to 64-column atoms.  Two stages where two fit, else one.
+template <int KCH, int DHP>
 struct AttnCfg {
   static constexpr int ROWS = 16 * KCH;
-  static constexpr int TILE = ROWS * DH * 2;  // bytes of one operand
-  static constexpr int STAGE = 3 * TILE;      // q, k, v
-  static constexpr int SMEM = 2 * STAGE + 4 * 8 + 1024;  // + 2 mbarriers, 2 counters, alignment
+  static constexpr int ATOMS = DHP / ATOM;
+  static constexpr int TILE = ROWS * DHP * 2;  // bytes of one operand
+  static constexpr int STAGE = 3 * TILE;       // q, k, v
+  static constexpr int EXTRA = 4 * 8 + 1024;   // 2 mbarriers, 2 counters, alignment
+  static constexpr int STAGES = 2 * STAGE + EXTRA <= SMEM_MAX ? 2 : 1;
+  static constexpr int SMEM = STAGES * STAGE + EXTRA;
+  static_assert(DHP % ATOM == 0 && SMEM <= SMEM_MAX, "shared memory");
 };
 
 // byte offset of 16-byte chunk c of row r in a 128-byte-swizzled tile
 __device__ __forceinline__ uint32_t swz(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
+
+// the same for a tile of `rows` rows of DHP columns, held as DHP / 64 atoms
+// of [rows][128 bytes] (one TMA box each): chunk c lies in atom c / 8
+__device__ __forceinline__ uint32_t swz_a(int r, int c, int rows) {
+  return (c >> 3) * rows * 128 + swz(r, c & 7);
+}
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -151,31 +183,34 @@ __device__ __forceinline__ void head_coords(int slots, int h, int b, int& c1, in
 }
 
 // start the TMA fill of a stage (at dst, counted on its `full` barrier) with
-// pair p's q, k, v
-template <int KCH>
+// pair p's q, k, v: DHP / 64 boxes an operand, columns past Dh zero filled
+template <int KCH, int DHP>
 __device__ __forceinline__ void fill_stage(unsigned char* dst, uint64_t* full,
                                            const CUtensorMap* map_q, const CUtensorMap* map_k,
                                            const CUtensorMap* map_v, int slots, int p, int H) {
-  mbar_arrive_expect_tx(full, AttnCfg<KCH>::STAGE);
+  using C = AttnCfg<KCH, DHP>;
+  mbar_arrive_expect_tx(full, C::STAGE);
   const int b = p / H, h = p - b * H;
+  const CUtensorMap* maps[3] = {map_q, map_k, map_v};
   int c1, c2, c3;
-  head_coords(slots, h, b, c1, c2, c3);
-  tma_load_4d(dst, map_q, full, 0, c1, c2, c3);
-  head_coords(slots >> 4, h, b, c1, c2, c3);
-  tma_load_4d(dst + AttnCfg<KCH>::TILE, map_k, full, 0, c1, c2, c3);
-  head_coords(slots >> 8, h, b, c1, c2, c3);
-  tma_load_4d(dst + 2 * AttnCfg<KCH>::TILE, map_v, full, 0, c1, c2, c3);
+#pragma unroll
+  for (int op = 0; op < 3; ++op) {
+    head_coords(slots >> (4 * op), h, b, c1, c2, c3);
+#pragma unroll
+    for (int a = 0; a < C::ATOMS; ++a)
+      tma_load_4d(dst + op * C::TILE + a * C::ROWS * 128, maps[op], full, a * ATOM, c1, c2, c3);
+  }
 }
 
-template <int KCH>
+template <int KCH, int DHP>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                 const __grid_constant__ CUtensorMap map_v, int slots, bf16* __restrict__ o,
-                Strides os, int BH, int H, int S, float scale_log2, int causal) {
-  using C = AttnCfg<KCH>;
+                Strides os, int BH, int H, int S, int dh, float scale_log2, int causal) {
+  using C = AttnCfg<KCH, DHP>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* stages = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(stages + 2 * C::STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + C::STAGES * C::STAGE);
   int* done = reinterpret_cast<int*>(full + 2);  // strips finished in each stage
   const int nstrips = (S + 15) / 16;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
@@ -185,30 +220,31 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant
       done[s] = 0;
     }
     fence_barrier_init();
-    // this block's pairs 0 and 1 into stages 0 and 1
-    for (int s = 0; s < 2 && blockIdx.x + s * gridDim.x < BH; ++s)
-      fill_stage<KCH>(stages + s * C::STAGE, &full[s], &map_q, &map_k, &map_v, slots,
-                      blockIdx.x + s * gridDim.x, H);
+    // this block's first pairs into the stages
+    for (int s = 0; s < C::STAGES && blockIdx.x + s * gridDim.x < BH; ++s)
+      fill_stage<KCH, DHP>(stages + s * C::STAGE, &full[s], &map_q, &map_k, &map_v, slots,
+                           blockIdx.x + s * gridDim.x, H);
   }
   __syncthreads();
 
-  // item f = (pair i, strip j) of the block's sequence; pair i sits in stage i % 2
+  // item f = (pair i, strip j) of the block's sequence; pair i sits in stage
+  // i % STAGES, in that stage's (i / STAGES)-th fill
   const int g = lane / 4, t = lane % 4;
   for (int f = warp;; f += warps) {
     const int i = f / nstrips, j = f - i * nstrips;
     const int p = blockIdx.x + i * gridDim.x;
     if (p >= BH) break;
-    const int st = i & 1;
-    mbar_wait(&full[st], (i >> 1) & 1);
+    const int st = i % C::STAGES;
+    mbar_wait(&full[st], (i / C::STAGES) & 1);
     unsigned char* sQ = stages + st * C::STAGE;
     const unsigned char* sK = sQ + C::TILE;
     const unsigned char* sV = sQ + 2 * C::TILE;
     const int r0 = j * 16;
 
-    uint32_t qf[DH / 16][4];
+    uint32_t qf[DHP / 16][4];
 #pragma unroll
-    for (int kc = 0; kc < DH / 16; ++kc)
-      ldmatrix_x4(qf[kc], sQ + swz(r0 + lane % 16, kc * 2 + lane / 16));
+    for (int kc = 0; kc < DHP / 16; ++kc)
+      ldmatrix_x4(qf[kc], sQ + swz_a(r0 + lane % 16, kc * 2 + lane / 16, C::ROWS));
 
     // scores: n8 block nb covers keys nb*8 .. nb*8+7
     float s[2 * KCH][4];
@@ -217,9 +253,10 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant
 #pragma unroll
     for (int jj = 0; jj < KCH; ++jj) {
 #pragma unroll
-      for (int kc = 0; kc < DH / 16; ++kc) {
+      for (int kc = 0; kc < DHP / 16; ++kc) {
         uint32_t kf[4];
-        ldmatrix_x4(kf, sK + swz(jj * 16 + lane % 8 + (lane / 16) * 8, kc * 2 + (lane / 8) % 2));
+        ldmatrix_x4(kf, sK + swz_a(jj * 16 + lane % 8 + (lane / 16) * 8, kc * 2 + (lane / 8) % 2,
+                                   C::ROWS));
         mma_bf16(s[2 * jj], qf[kc], kf[0], kf[1]);
         mma_bf16(s[2 * jj + 1], qf[kc], kf[2], kf[3]);
       }
@@ -245,7 +282,7 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant
       m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
       m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
     }
-    // exp((s - m) / sqrt(Dh)) = 2^(s c - m c), c = log2(e) / sqrt(Dh); masked keys give 0
+    // exp((s - m) * scale) = 2^(s c - m c), c = log2(e) * scale; masked keys give 0
     const float mc0 = m0 * scale_log2, mc1 = m1 * scale_log2;
     float l0 = 0.f, l1 = 0.f;
 #pragma unroll
@@ -265,9 +302,9 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant
     const float inv0 = 1.f / l0, inv1 = 1.f / l1;
 
     // PV: the normalised scores of key chunk jj, cast to bf16, are the A fragment
-    float acc[DH / 8][4];
+    float acc[DHP / 8][4];
 #pragma unroll
-    for (int nb = 0; nb < DH / 8; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
+    for (int nb = 0; nb < DHP / 8; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
 #pragma unroll
     for (int jj = 0; jj < KCH; ++jj) {
       uint32_t pa[4];
@@ -276,30 +313,36 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant
       pa[2] = pack_bf16(s[2 * jj + 1][0] * inv0, s[2 * jj + 1][1] * inv0);
       pa[3] = pack_bf16(s[2 * jj + 1][2] * inv1, s[2 * jj + 1][3] * inv1);
 #pragma unroll
-      for (int dp = 0; dp < DH / 16; ++dp) {
+      for (int dp = 0; dp < DHP / 16; ++dp) {
         uint32_t vf[4];
-        ldmatrix_x4_trans(vf, sV + swz(jj * 16 + lane % 8 + ((lane / 8) % 2) * 8, dp * 2 + lane / 16));
+        ldmatrix_x4_trans(vf, sV + swz_a(jj * 16 + lane % 8 + ((lane / 8) % 2) * 8,
+                                         dp * 2 + lane / 16, C::ROWS));
         mma_bf16(acc[2 * dp], pa, vf[0], vf[1]);
         mma_bf16(acc[2 * dp + 1], pa, vf[2], vf[3]);
       }
     }
 
     // the strip's output through its own Q rows (no other warp reads them),
-    // then out as 128-byte rows
+    // then out as 16-byte runs of the dh / 8 chunks a row stores
 #pragma unroll
-    for (int nb = 0; nb < DH / 8; ++nb) {
-      *reinterpret_cast<uint32_t*>(sQ + swz(row0, nb) + 4 * t) = pack_bf16(acc[nb][0], acc[nb][1]);
-      *reinterpret_cast<uint32_t*>(sQ + swz(row1, nb) + 4 * t) = pack_bf16(acc[nb][2], acc[nb][3]);
+    for (int nb = 0; nb < DHP / 8; ++nb) {
+      *reinterpret_cast<uint32_t*>(sQ + swz_a(row0, nb, C::ROWS) + 4 * t) =
+          pack_bf16(acc[nb][0], acc[nb][1]);
+      *reinterpret_cast<uint32_t*>(sQ + swz_a(row1, nb, C::ROWS) + 4 * t) =
+          pack_bf16(acc[nb][2], acc[nb][3]);
     }
     __syncwarp();
     const int b = p / H, h = p - b * H;
     bf16* ob = o + b * os.b + h * os.h;
 #pragma unroll
     for (int it = 0; it < 4; ++it) {
-      const int r = r0 + it * 4 + lane / 8, c = lane % 8;
-      if (r < S)
-        *reinterpret_cast<uint4*>(ob + r * os.s + c * 8) =
-            *reinterpret_cast<const uint4*>(sQ + swz(r, c));
+#pragma unroll
+      for (int a = 0; a < C::ATOMS; ++a) {
+        const int r = r0 + it * 4 + lane / 8, c = a * 8 + lane % 8;
+        if (r < S && c < dh / 8)
+          *reinterpret_cast<uint4*>(ob + r * os.s + c * 8) =
+              *reinterpret_cast<const uint4*>(sQ + swz_a(r, c, C::ROWS));
+      }
     }
     fence_proxy_async();  // these reads and writes come before the stage's next TMA fill
     __syncwarp();
@@ -308,18 +351,19 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant
       if (atomicAdd(&done[st], 1) == nstrips - 1) {  // the pair's last strip: refill
         done[st] = 0;
         __threadfence_block();
-        const int pn = p + 2 * gridDim.x;
+        const int pn = p + C::STAGES * gridDim.x;
         if (pn < BH)
-          fill_stage<KCH>(sQ, &full[st], &map_q, &map_k, &map_v, slots, pn, H);
+          fill_stage<KCH, DHP>(sQ, &full[st], &map_q, &map_k, &map_v, slots, pn, H);
       }
     }
   }
 }
 
-// The TMA map of one operand, [B, H, S, 64] through element strides: dim 0 the
-// head dim, then sequence, head and batch ordered by stride; the box is the
-// whole (zero-filled past S) head.  *slots gets the dims of head and batch.
-cudaError_t head_map(CUtensorMap* map, const void* base, int B, int H, int S, Strides st,
+// The TMA map of one operand, [B, H, S, dh] through element strides: dim 0 the
+// head dim (dh columns; a box is 64 wide, zero filled past dh), then
+// sequence, head and batch ordered by stride; the box is `rows` rows of one
+// head (zero filled past S).  *slots gets the dims of head and batch.
+cudaError_t head_map(CUtensorMap* map, const void* base, int B, int H, int S, int dh, Strides st,
                      int rows, int* slots) {
   const long long ext[3] = {S, H, B}, str[3] = {st.s, st.h, st.b};
   int order[3] = {0, 1, 2};
@@ -329,8 +373,8 @@ cudaError_t head_map(CUtensorMap* map, const void* base, int B, int H, int S, St
       order[c] = order[c - 1];
       order[c - 1] = tmp;
     }
-  cuuint64_t dims[4] = {DH}, strides[3];
-  cuuint32_t box[4] = {DH};
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh)}, strides[3];
+  cuuint32_t box[4] = {ATOM};
   *slots = 0;
   for (int d = 0; d < 3; ++d) {
     const int which = order[d];
@@ -343,18 +387,18 @@ cudaError_t head_map(CUtensorMap* map, const void* base, int B, int H, int S, St
   return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, 4, dims, strides, box);
 }
 
-template <int KCH>
+template <int KCH, int DHP>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H, int S,
-                   Strides qs, Strides ks, Strides vs, Strides os, int causal,
-                   cudaStream_t stream) {
-  using C = AttnCfg<KCH>;
+                   int dh, Strides qs, Strides ks, Strides vs, Strides os, float scale_log2,
+                   int causal, cudaStream_t stream) {
+  using C = AttnCfg<KCH, DHP>;
   CUtensorMap map_q, map_k, map_v;
   int sq = 0, sk = 0, sv = 0;
-  cudaError_t e = head_map(&map_q, q, B, H, S, qs, C::ROWS, &sq);
-  if (e == cudaSuccess) e = head_map(&map_k, k, B, H, S, ks, C::ROWS, &sk);
-  if (e == cudaSuccess) e = head_map(&map_v, v, B, H, S, vs, C::ROWS, &sv);
+  cudaError_t e = head_map(&map_q, q, B, H, S, dh, qs, C::ROWS, &sq);
+  if (e == cudaSuccess) e = head_map(&map_k, k, B, H, S, dh, ks, C::ROWS, &sk);
+  if (e == cudaSuccess) e = head_map(&map_v, v, B, H, S, dh, vs, C::ROWS, &sv);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(attn_fwd_kernel<KCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  e = cudaFuncSetAttribute(attn_fwd_kernel<KCH, DHP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            C::SMEM);
   if (e != cudaSuccess) return e;
   // no more warps than strips (the kernel's phase argument needs it)
@@ -363,30 +407,42 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, 
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attn_fwd_kernel<KCH>, threads,
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attn_fwd_kernel<KCH, DHP>, threads,
                                                     C::SMEM);
   if (e != cudaSuccess) return e;
   const int BH = B * H, resident = sms * (per_sm > 0 ? per_sm : 1);
-  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(DH));
-  attn_fwd_kernel<KCH><<<BH < resident ? BH : resident, threads, C::SMEM, stream>>>(
-      map_q, map_k, map_v, sq | (sk << 4) | (sv << 8), o, os, BH, H, S, scale_log2, causal);
+  attn_fwd_kernel<KCH, DHP><<<BH < resident ? BH : resident, threads, C::SMEM, stream>>>(
+      map_q, map_k, map_v, sq | (sk << 4) | (sv << 8), o, os, BH, H, S, dh, scale_log2, causal);
   return cudaGetLastError();
 }
 
-// ---- S > 256: a query tile a block, the keys streamed twice
+// ---- the long path: a query tile a block, the keys streamed twice
 
 constexpr int LONG_WARPS = 4;                         // consumer warps: 16 query rows each
 constexpr int LONG_THREADS = (LONG_WARPS + 1) * 32;   // + one producer warp
 constexpr int KB = 64;                                // keys a block
-constexpr int LONG_STAGES = 3;
-constexpr int MAX_S = 4096;  // the longest tests/test_torch_cuda.py holds on the card
+// the longest S: its tile and key-block coordinates (< S + 64) stay in int32
+constexpr int MAX_S = 0x7fffffff - (KB - 1);
 
+// the ring's depth and the blocks an SM holds, by padded head width: three
+// blocks of three stages at 64; two of two at 128 (two of three do not fit);
+// one of three at 192; one of two at 256 (three stages do not fit)
+template <int DHP>
 struct LongCfg {
   static constexpr int QROWS = 16 * LONG_WARPS;
-  static constexpr int QTILE = QROWS * DH * 2;
-  static constexpr int KTILE = KB * DH * 2;
+  static constexpr int ATOMS = DHP / ATOM;
+  static constexpr int QTILE = QROWS * DHP * 2;
+  static constexpr int KTILE = KB * DHP * 2;
   static constexpr int STAGE = 2 * KTILE;  // k, v
-  static constexpr int SMEM = QTILE + LONG_STAGES * STAGE + (1 + 2 * LONG_STAGES) * 8 + 1024;
+  static constexpr int STAGES = DHP == 64 || DHP == 192 ? 3 : 2;
+  static constexpr int MIN_BLOCKS = DHP == 64 ? 3 : DHP == 128 ? 2 : 1;
+  static constexpr int SMEM = QTILE + STAGES * STAGE + (1 + 2 * STAGES) * 8 + 1024;
+  // Q fragments held in registers up to 128 columns; past that the
+  // accumulators take the registers and Q is read again at each use
+  static constexpr bool QHELD = DHP <= 128;
+  static constexpr int QF = QHELD ? DHP / 16 : 1;
+  static_assert(DHP % ATOM == 0 && SMEM <= SMEM_MAX && MIN_BLOCKS * (SMEM + 1024) <= SM_SMEM,
+                "shared memory");
 };
 
 // TMA coordinates of rows s0.. of a head's box (the sequence lies in the
@@ -400,21 +456,32 @@ __device__ __forceinline__ void seq_coords(int slots, int h, int b, int s0, int&
   if (ss == 3) c3 += s0;
 }
 
-// a strip's scores against key block kb (KB keys in sK), masked by index
-__device__ __forceinline__ void score_block(float (&s)[KB / 8][4], const uint32_t (&qf)[DH / 16][4],
+// a strip's scores against key block kb (KB keys in sK), masked by index; the
+// strip's Q fragments from qf, or (DHP > 128) from its rows lr0.. of sQ
+template <int DHP>
+__device__ __forceinline__ void score_block(float (&s)[KB / 8][4],
+                                            const uint32_t (&qf)[LongCfg<DHP>::QF][4],
+                                            const unsigned char* sQ, int lr0,
                                             const unsigned char* sK, int kb, int S, int causal,
                                             int row0, int row1, int lane) {
   const int k0 = kb * KB, t = lane % 4;
 #pragma unroll
   for (int nb = 0; nb < KB / 8; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
 #pragma unroll
-  for (int jj = 0; jj < KB / 16; ++jj) {
+  for (int kc = 0; kc < DHP / 16; ++kc) {
+    uint32_t a[4];
+    if constexpr (LongCfg<DHP>::QHELD) {
 #pragma unroll
-    for (int kc = 0; kc < DH / 16; ++kc) {
+      for (int e = 0; e < 4; ++e) a[e] = qf[kc][e];
+    } else {
+      ldmatrix_x4(a, sQ + swz_a(lr0 + lane % 16, kc * 2 + lane / 16, LongCfg<DHP>::QROWS));
+    }
+#pragma unroll
+    for (int jj = 0; jj < KB / 16; ++jj) {
       uint32_t kf[4];
-      ldmatrix_x4(kf, sK + swz(jj * 16 + lane % 8 + (lane / 16) * 8, kc * 2 + (lane / 8) % 2));
-      mma_bf16(s[2 * jj], qf[kc], kf[0], kf[1]);
-      mma_bf16(s[2 * jj + 1], qf[kc], kf[2], kf[3]);
+      ldmatrix_x4(kf, sK + swz_a(jj * 16 + lane % 8 + (lane / 16) * 8, kc * 2 + (lane / 8) % 2, KB));
+      mma_bf16(s[2 * jj], a, kf[0], kf[1]);
+      mma_bf16(s[2 * jj + 1], a, kf[2], kf[3]);
     }
   }
   if (causal || k0 + KB > S) {  // the same branch for the whole warp
@@ -434,17 +501,19 @@ __device__ __forceinline__ void score_block(float (&s)[KB / 8][4], const uint32_
 // (online: the sum rescaled when the max moves); pass 2 recomputes the
 // scores and feeds P = 2^(s c - m c) / l, normalised in f32 and only then
 // cast to bf16 as on the short path and in the TPU kernel, to PV.
-__global__ void __launch_bounds__(LONG_THREADS, 3)
+template <int DHP>
+__global__ void __launch_bounds__(LONG_THREADS, LongCfg<DHP>::MIN_BLOCKS)
 attn_long_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v, int slots, bf16* __restrict__ o,
-                 Strides os, int H, int S, int qtiles, float scale_log2, int causal) {
-  using C = LongCfg;
+                 Strides os, int H, int S, int dh, int qtiles, float scale_log2, int causal) {
+  using C = LongCfg<DHP>;
+  constexpr int NST = C::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* ring = sQ + C::QTILE;
-  uint64_t* qbar = reinterpret_cast<uint64_t*>(ring + LONG_STAGES * C::STAGE);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(ring + NST * C::STAGE);
   uint64_t* full = qbar + 1;
-  uint64_t* empty = full + LONG_STAGES;
+  uint64_t* empty = full + NST;
   const int p = blockIdx.x / qtiles, q0 = (blockIdx.x - p * qtiles) * C::QROWS;
   const int b = p / H, h = p - b * H;
   const int rows = S - q0 < C::QROWS ? S - q0 : C::QROWS;
@@ -453,7 +522,7 @@ attn_long_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
-    for (int s = 0; s < LONG_STAGES; ++s) {
+    for (int s = 0; s < NST; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], active);
     }
@@ -466,17 +535,23 @@ attn_long_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
     if (lane == 0) {
       mbar_arrive_expect_tx(qbar, C::QTILE);
       seq_coords(slots, h, b, q0, c1, c2, c3);
-      tma_load_4d(sQ, &map_q, qbar, 0, c1, c2, c3);
+#pragma unroll
+      for (int a = 0; a < C::ATOMS; ++a)
+        tma_load_4d(sQ + a * C::QROWS * 128, &map_q, qbar, a * ATOM, c1, c2, c3);
       for (int i = 0; i < 2 * nkb; ++i) {
-        const int st = i % LONG_STAGES, kb = i < nkb ? i : i - nkb;
-        if (i >= LONG_STAGES) mbar_wait(&empty[st], (i / LONG_STAGES - 1) & 1);
+        const int st = i % NST, kb = i < nkb ? i : i - nkb;
+        if (i >= NST) mbar_wait(&empty[st], (i / NST - 1) & 1);
         unsigned char* dst = ring + st * C::STAGE;
         mbar_arrive_expect_tx(&full[st], i < nkb ? C::KTILE : C::STAGE);
         seq_coords(slots >> 4, h, b, kb * KB, c1, c2, c3);
-        tma_load_4d(dst, &map_k, &full[st], 0, c1, c2, c3);
+#pragma unroll
+        for (int a = 0; a < C::ATOMS; ++a)
+          tma_load_4d(dst + a * KB * 128, &map_k, &full[st], a * ATOM, c1, c2, c3);
         if (i >= nkb) {
           seq_coords(slots >> 8, h, b, kb * KB, c1, c2, c3);
-          tma_load_4d(dst + C::KTILE, &map_v, &full[st], 0, c1, c2, c3);
+#pragma unroll
+          for (int a = 0; a < C::ATOMS; ++a)
+            tma_load_4d(dst + C::KTILE + a * KB * 128, &map_v, &full[st], a * ATOM, c1, c2, c3);
         }
       }
     }
@@ -489,19 +564,21 @@ attn_long_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
   // causal: the strip's last row is q0 + lr0 + 15; later blocks are all masked
   const int mine = causal ? (q0 + lr0 + 15) / KB + 1 : nkb;
   mbar_wait(qbar, 0);
-  uint32_t qf[DH / 16][4];
+  uint32_t qf[C::QF][4];
+  if constexpr (C::QHELD) {
 #pragma unroll
-  for (int kc = 0; kc < DH / 16; ++kc)
-    ldmatrix_x4(qf[kc], sQ + swz(lr0 + lane % 16, kc * 2 + lane / 16));
+    for (int kc = 0; kc < DHP / 16; ++kc)
+      ldmatrix_x4(qf[kc], sQ + swz_a(lr0 + lane % 16, kc * 2 + lane / 16, C::QROWS));
+  }
 
   // pass 1: each row's max m and sum l (this lane's partial sums until the end)
   float m0 = -3.0e38f, m1 = -3.0e38f, l0 = 0.f, l1 = 0.f;
   float s[KB / 8][4];
   for (int kb = 0; kb < nkb; ++kb) {
-    const int st = kb % LONG_STAGES;
-    mbar_wait(&full[st], (kb / LONG_STAGES) & 1);
+    const int st = kb % NST;
+    mbar_wait(&full[st], (kb / NST) & 1);
     if (kb < mine) {
-      score_block(s, qf, ring + st * C::STAGE, kb, S, causal, row0, row1, lane);
+      score_block<DHP>(s, qf, sQ, lr0, ring + st * C::STAGE, kb, S, causal, row0, row1, lane);
       float n0 = m0, n1 = m1;
 #pragma unroll
       for (int nb = 0; nb < KB / 8; ++nb) {
@@ -538,15 +615,15 @@ attn_long_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
   const float mc0 = m0 * scale_log2, mc1 = m1 * scale_log2;
 
   // pass 2: the normalised P, cast to bf16, against V
-  float acc[DH / 8][4];
+  float acc[DHP / 8][4];
 #pragma unroll
-  for (int nb = 0; nb < DH / 8; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
+  for (int nb = 0; nb < DHP / 8; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
   for (int kb = 0; kb < nkb; ++kb) {
-    const int i = nkb + kb, st = i % LONG_STAGES;
-    mbar_wait(&full[st], (i / LONG_STAGES) & 1);
+    const int i = nkb + kb, st = i % NST;
+    mbar_wait(&full[st], (i / NST) & 1);
     if (kb < mine) {
       const unsigned char* sK = ring + st * C::STAGE;
-      score_block(s, qf, sK, kb, S, causal, row0, row1, lane);
+      score_block<DHP>(s, qf, sQ, lr0, sK, kb, S, causal, row0, row1, lane);
 #pragma unroll
       for (int jj = 0; jj < KB / 16; ++jj) {
         uint32_t pa[4];
@@ -559,10 +636,10 @@ attn_long_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
         pa[3] = pack_bf16(ex2(fmaf(s[2 * jj + 1][2], scale_log2, -mc1)) * inv1,
                           ex2(fmaf(s[2 * jj + 1][3], scale_log2, -mc1)) * inv1);
 #pragma unroll
-        for (int dp = 0; dp < DH / 16; ++dp) {
+        for (int dp = 0; dp < DHP / 16; ++dp) {
           uint32_t vf[4];
-          ldmatrix_x4_trans(vf, sK + C::KTILE +
-                                    swz(jj * 16 + lane % 8 + ((lane / 8) % 2) * 8, dp * 2 + lane / 16));
+          ldmatrix_x4_trans(vf, sK + C::KTILE + swz_a(jj * 16 + lane % 8 + ((lane / 8) % 2) * 8,
+                                                      dp * 2 + lane / 16, KB));
           mma_bf16(acc[2 * dp], pa, vf[0], vf[1]);
           mma_bf16(acc[2 * dp + 1], pa, vf[2], vf[3]);
         }
@@ -572,41 +649,48 @@ attn_long_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
     if (lane == 0) mbar_arrive(&empty[st]);
   }
 
-  // the strip's output through its own Q rows, then out as 128-byte rows
+  // the strip's output through its own Q rows, then out as 16-byte runs
 #pragma unroll
-  for (int nb = 0; nb < DH / 8; ++nb) {
-    *reinterpret_cast<uint32_t*>(sQ + swz(lr0 + g, nb) + 4 * t) = pack_bf16(acc[nb][0], acc[nb][1]);
-    *reinterpret_cast<uint32_t*>(sQ + swz(lr0 + g + 8, nb) + 4 * t) = pack_bf16(acc[nb][2], acc[nb][3]);
+  for (int nb = 0; nb < DHP / 8; ++nb) {
+    *reinterpret_cast<uint32_t*>(sQ + swz_a(lr0 + g, nb, C::QROWS) + 4 * t) =
+        pack_bf16(acc[nb][0], acc[nb][1]);
+    *reinterpret_cast<uint32_t*>(sQ + swz_a(lr0 + g + 8, nb, C::QROWS) + 4 * t) =
+        pack_bf16(acc[nb][2], acc[nb][3]);
   }
   __syncwarp();
   bf16* ob = o + b * os.b + h * os.h;
 #pragma unroll
   for (int it = 0; it < 4; ++it) {
-    const int lr = lr0 + it * 4 + lane / 8, c = lane % 8;
-    if (q0 + lr < S)
-      *reinterpret_cast<uint4*>(ob + (q0 + lr) * os.s + c * 8) =
-          *reinterpret_cast<const uint4*>(sQ + swz(lr, c));
+#pragma unroll
+    for (int a = 0; a < C::ATOMS; ++a) {
+      const int lr = lr0 + it * 4 + lane / 8, c = a * 8 + lane % 8;
+      if (q0 + lr < S && c < dh / 8)
+        *reinterpret_cast<uint4*>(ob + static_cast<long long>(q0 + lr) * os.s + c * 8) =
+            *reinterpret_cast<const uint4*>(sQ + swz_a(lr, c, C::QROWS));
+    }
   }
 }
 
+template <int DHP>
 cudaError_t launch_long(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H,
-                        int S, Strides qs, Strides ks, Strides vs, Strides os, int causal,
-                        cudaStream_t stream) {
-  using C = LongCfg;
-  CUtensorMap map_q, map_k, map_v;
-  int sq = 0, sk = 0, sv = 0;
-  cudaError_t e = head_map(&map_q, q, B, H, S, qs, C::QROWS, &sq);
-  if (e == cudaSuccess) e = head_map(&map_k, k, B, H, S, ks, KB, &sk);
-  if (e == cudaSuccess) e = head_map(&map_v, v, B, H, S, vs, KB, &sv);
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(attn_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-  if (e != cudaSuccess) return e;
+                        int S, int dh, Strides qs, Strides ks, Strides vs, Strides os,
+                        float scale_log2, int causal, cudaStream_t stream) {
+  using C = LongCfg<DHP>;
   const int qtiles = (S + C::QROWS - 1) / C::QROWS;
   const long long blocks = static_cast<long long>(B) * H * qtiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(DH));
-  attn_long_kernel<<<static_cast<unsigned>(blocks), LONG_THREADS, C::SMEM, stream>>>(
-      map_q, map_k, map_v, sq | (sk << 4) | (sv << 8), o, os, H, S, qtiles, scale_log2, causal);
+  CUtensorMap map_q, map_k, map_v;
+  int sq = 0, sk = 0, sv = 0;
+  cudaError_t e = head_map(&map_q, q, B, H, S, dh, qs, C::QROWS, &sq);
+  if (e == cudaSuccess) e = head_map(&map_k, k, B, H, S, dh, ks, KB, &sk);
+  if (e == cudaSuccess) e = head_map(&map_v, v, B, H, S, dh, vs, KB, &sv);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(attn_long_kernel<DHP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           C::SMEM);
+  if (e != cudaSuccess) return e;
+  attn_long_kernel<DHP><<<static_cast<unsigned>(blocks), LONG_THREADS, C::SMEM, stream>>>(
+      map_q, map_k, map_v, sq | (sk << 4) | (sv << 8), o, os, H, S, dh, qtiles, scale_log2,
+      causal);
   return cudaGetLastError();
 }
 
@@ -702,7 +786,7 @@ template <int NW>
 __global__ void __launch_bounds__(REG_THREADS, 1)
 attn_reg_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                 const __grid_constant__ CUtensorMap map_v, int slots, bf16* __restrict__ o,
-                Strides os, int BH, int H, int S, float scale_log2, int causal) {
+                Strides os, int BH, int H, int S, int dh, float scale_log2, int causal) {
   using C = RegCfg<NW>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sK = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -791,7 +875,7 @@ attn_reg_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant
             out.y = pack_bf16(x0.z + y0.z, x0.w + y0.w);
             out.z = pack_bf16(x1.x + y1.x, x1.y + y1.y);
             out.w = pack_bf16(x1.z + y1.z, x1.w + y1.w);
-            if (q0 + r < S) *reinterpret_cast<uint4*>(ob + r * os.s + c * 8) = out;
+            if (q0 + r < S && c < dh / 8) *reinterpret_cast<uint4*>(ob + r * os.s + c * 8) = out;
           }
           if (!(last_pair && t == qtiles - 1))
             named_barrier_arrive(BAR_FREE, PART_THREADS);  // sPart may be written again
@@ -949,14 +1033,14 @@ attn_reg_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant
 
 template <int NW>
 cudaError_t launch_reg(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H, int S,
-                       Strides qs, Strides ks, Strides vs, Strides os, int causal,
-                       cudaStream_t stream) {
+                       int dh, Strides qs, Strides ks, Strides vs, Strides os, float scale_log2,
+                       int causal, cudaStream_t stream) {
   using C = RegCfg<NW>;
   CUtensorMap map_q, map_k, map_v;
   int sq = 0, sk = 0, sv = 0;
-  cudaError_t e = head_map(&map_q, q, B, H, S, qs, QT, &sq);
-  if (e == cudaSuccess) e = head_map(&map_k, k, B, H, S, ks, KBOX, &sk);
-  if (e == cudaSuccess) e = head_map(&map_v, v, B, H, S, vs, KBOX, &sv);
+  cudaError_t e = head_map(&map_q, q, B, H, S, dh, qs, QT, &sq);
+  if (e == cudaSuccess) e = head_map(&map_k, k, B, H, S, dh, ks, KBOX, &sk);
+  if (e == cudaSuccess) e = head_map(&map_v, v, B, H, S, dh, vs, KBOX, &sv);
   if (e != cudaSuccess) return e;
   e = cudaFuncSetAttribute(attn_reg_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            C::SMEM);
@@ -966,49 +1050,89 @@ cudaError_t launch_reg(const bf16* q, const bf16* k, const bf16* v, bf16* o, int
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return e;
   const int BH = B * H;
-  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(DH));
   attn_reg_kernel<NW><<<BH < sms ? BH : sms, REG_THREADS, C::SMEM, stream>>>(
-      map_q, map_k, map_v, sq | (sk << 4) | (sv << 8), o, os, BH, H, S, scale_log2, causal);
+      map_q, map_k, map_v, sq | (sk << 4) | (sv << 8), o, os, BH, H, S, dh, scale_log2, causal);
   return cudaGetLastError();
+}
+
+// Which kernel serves (dh, S), and at which padded head width *dhp:
+//   dh <= 64:        S <= 256 attn_fwd_kernel, S <= REG_MAX_S attn_reg_kernel,
+//                    longer attn_long_kernel, all at 64;
+//   64 < dh <= 128:  S <= 256 attn_fwd_kernel at 128 (a strip's 128 scores, 32
+//                    registers of Q fragments, 64 of output: under 255), longer
+//                    attn_long_kernel at 128 (attn_reg_kernel's shared memory
+//                    grows as DHP (4 KROWS + 768) bytes: 256 KB at 128 and
+//                    257 tokens, past the 227 KB a block has);
+//   128 < dh <= 256: attn_long_kernel at 192 or 256 at every S.
+// 0 when nothing serves them (dh outside 1..256, S outside 1..MAX_S).
+enum Route { NONE = 0, FWD = 1, REG = 2, LONG = 3 };
+Route route(int dh, int S, int* dhp) {
+  if (dh < 1 || dh > MAX_DH || S < 1 || S > MAX_S) return NONE;
+  *dhp = (dh + ATOM - 1) / ATOM * ATOM;
+  if (*dhp == 64) return S <= 256 ? FWD : S <= REG_MAX_S ? REG : LONG;
+  return *dhp == 128 && S <= 256 ? FWD : LONG;
+}
+
+template <int DHP>
+cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H, int S,
+                       int dh, Strides qs, Strides ks, Strides vs, Strides os, float sl,
+                       int causal, cudaStream_t st) {
+  if (S <= 64) return launch<4, DHP>(q, k, v, o, B, H, S, dh, qs, ks, vs, os, sl, causal, st);
+  if (S <= 128) return launch<8, DHP>(q, k, v, o, B, H, S, dh, qs, ks, vs, os, sl, causal, st);
+  if (S <= 208) return launch<13, DHP>(q, k, v, o, B, H, S, dh, qs, ks, vs, os, sl, causal, st);
+  return launch<16, DHP>(q, k, v, o, B, H, S, dh, qs, ks, vs, os, sl, causal, st);
 }
 
 }  // namespace
 
-// q, k, v, o: [B, H, S, 64] bf16 addressed through element strides (batch,
-// head, sequence); the head dim must be contiguous and rows 16-byte aligned.
+// route(dh, S) as 1000 * kernel (1 attn_fwd_kernel, 2 attn_reg_kernel, 3
+// attn_long_kernel) + the padded head width, 0 if no kernel serves it: what
+// ops/fused_attention.py::attention_route mirrors
+extern "C" int attn_route(int dh, int S) {
+  int dhp = 0;
+  const Route r = route(dh, S, &dhp);
+  return r == NONE ? 0 : 1000 * r + dhp;
+}
+
+// q, k, v, o: [B, H, S, dh] bf16 addressed through element strides (batch,
+// head, sequence); the head dim must be contiguous, dh % 8 == 0 and rows
+// 16-byte aligned.  The logits are scaled by `scale` (the caller's 1 /
+// sqrt(Dh) of the true head width, which the padded width must not replace).
 extern "C" int attn_fwd(const void* q, const void* k, const void* v, void* o,
-                        int B, int H, int S, long long qb, long long qh,
+                        int B, int H, int S, int dh, long long qb, long long qh,
                         long long qsq, long long kb, long long kh, long long ksq,
                         long long vb, long long vh, long long vsq, long long ob,
-                        long long oh, long long osq, int causal, void* stream) {
+                        long long oh, long long osq, float scale, int causal, void* stream) {
   const Strides qs{qb, qh, qsq}, ks{kb, kh, ksq}, vs{vb, vh, vsq}, os{ob, oh, osq};
   const bf16* q_ = static_cast<const bf16*>(q);
   const bf16* k_ = static_cast<const bf16*>(k);
   const bf16* v_ = static_cast<const bf16*>(v);
   bf16* o_ = static_cast<bf16*>(o);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int dhp = 0;
+  const Route r = route(dh, S, &dhp);
+  if (r == NONE || B <= 0 || H <= 0 || dh % 8 != 0 || static_cast<long long>(B) * H > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float sl = 1.4426950408889634f * scale;  // log2(e) * scale
   cudaError_t e;
-  if (S <= 0 || B <= 0 || H <= 0)
-    e = cudaErrorInvalidValue;
-  else if (S <= 64)
-    e = launch<4>(q_, k_, v_, o_, B, H, S, qs, ks, vs, os, causal, st);
-  else if (S <= 128)
-    e = launch<8>(q_, k_, v_, o_, B, H, S, qs, ks, vs, os, causal, st);
-  else if (S <= 208)
-    e = launch<13>(q_, k_, v_, o_, B, H, S, qs, ks, vs, os, causal, st);
-  else if (S <= 256)
-    e = launch<16>(q_, k_, v_, o_, B, H, S, qs, ks, vs, os, causal, st);
-  else if (S <= 2 * REG_NW[0])
-    e = launch_reg<REG_NW[0]>(q_, k_, v_, o_, B, H, S, qs, ks, vs, os, causal, st);
-  else if (S <= 2 * REG_NW[1])
-    e = launch_reg<REG_NW[1]>(q_, k_, v_, o_, B, H, S, qs, ks, vs, os, causal, st);
-  else if (S <= 2 * REG_NW[2])
-    e = launch_reg<REG_NW[2]>(q_, k_, v_, o_, B, H, S, qs, ks, vs, os, causal, st);
-  else if (S <= REG_MAX_S)
-    e = launch_reg<REG_NW[3]>(q_, k_, v_, o_, B, H, S, qs, ks, vs, os, causal, st);
-  else if (S <= MAX_S)
-    e = launch_long(q_, k_, v_, o_, B, H, S, qs, ks, vs, os, causal, st);
+  if (r == FWD)
+    e = dhp == 64 ? launch_fwd<64>(q_, k_, v_, o_, B, H, S, dh, qs, ks, vs, os, sl, causal, st)
+                  : launch_fwd<128>(q_, k_, v_, o_, B, H, S, dh, qs, ks, vs, os, sl, causal, st);
+  else if (r == REG && S <= 2 * REG_NW[0])
+    e = launch_reg<REG_NW[0]>(q_, k_, v_, o_, B, H, S, dh, qs, ks, vs, os, sl, causal, st);
+  else if (r == REG && S <= 2 * REG_NW[1])
+    e = launch_reg<REG_NW[1]>(q_, k_, v_, o_, B, H, S, dh, qs, ks, vs, os, sl, causal, st);
+  else if (r == REG && S <= 2 * REG_NW[2])
+    e = launch_reg<REG_NW[2]>(q_, k_, v_, o_, B, H, S, dh, qs, ks, vs, os, sl, causal, st);
+  else if (r == REG)
+    e = launch_reg<REG_NW[3]>(q_, k_, v_, o_, B, H, S, dh, qs, ks, vs, os, sl, causal, st);
+  else if (dhp == 64)
+    e = launch_long<64>(q_, k_, v_, o_, B, H, S, dh, qs, ks, vs, os, sl, causal, st);
+  else if (dhp == 128)
+    e = launch_long<128>(q_, k_, v_, o_, B, H, S, dh, qs, ks, vs, os, sl, causal, st);
+  else if (dhp == 192)
+    e = launch_long<192>(q_, k_, v_, o_, B, H, S, dh, qs, ks, vs, os, sl, causal, st);
   else
-    e = cudaErrorInvalidValue;
+    e = launch_long<256>(q_, k_, v_, o_, B, H, S, dh, qs, ks, vs, os, sl, causal, st);
   return static_cast<int>(e);
 }

@@ -75,6 +75,64 @@ __device__ __forceinline__ void load8<float>(const float* p, float (&v)[8]) {
   v[4] = x1.x; v[5] = x1.y; v[6] = x1.z; v[7] = x1.w;
 }
 
+// ---- row passes (LayerNorm, quantization, residual + LN): a row of K
+// values (K % 8 == 0) in registers, as CH chunks of 8 a thread; chunk c of
+// thread l lies at column (c L + l) 8.  Up to ROW_WARP_MAX columns one warp
+// holds a row (L = 32; CH = 4 to 1,024, the instantiation every width up to
+// it has always run, CH = 8 past it); past that one block does (L =
+// blockDim.x, a multiple of 32 of up to 1,024 threads, CH = 4) and its
+// statistics combine the warps' partials through shared memory, so a row
+// runs to ROW_MAX columns.
+constexpr int ROW_WARP_MAX = 2048;
+constexpr int ROW_BLOCK_CH = 4;
+constexpr int ROW_MAX = 1024 * 8 * ROW_BLOCK_CH;  // 32,768
+
+inline bool row_pass_takes(int K) { return K > 0 && K % 8 == 0 && K <= ROW_MAX; }
+
+// the threads of a block-per-row pass over K columns
+inline int row_block_threads(int K) {
+  return (K / 8 + 32 * ROW_BLOCK_CH - 1) / (32 * ROW_BLOCK_CH) * 32;
+}
+
+// the row's sum of x over the threads that hold it: the warp's shuffles and,
+// for a block's row, the warps' partials added in warp order through red[32]
+template <bool BLOCK>
+__device__ __forceinline__ float row_sum(float x, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) x += __shfl_xor_sync(0xffffffffu, x, off);
+  if constexpr (BLOCK) {
+    __syncthreads();  // red's earlier readers are done
+    if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = x;
+    __syncthreads();
+    x = 0.f;
+    for (int w = 0; w < static_cast<int>(blockDim.x / 32); ++w) x += red[w];
+  }
+  return x;
+}
+
+// the same for the row's maximum of non-negative values (max |y|)
+template <bool BLOCK>
+__device__ __forceinline__ float row_max(float x, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  if constexpr (BLOCK) {
+    __syncthreads();
+    if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = x;
+    __syncthreads();
+    x = 0.f;
+    for (int w = 0; w < static_cast<int>(blockDim.x / 32); ++w) x = fmaxf(x, red[w]);
+  }
+  return x;
+}
+
+// this thread's place in its row: (row, l, L) of a warp's row (eight rows a
+// 256-thread block) or of a block's
+template <bool BLOCK>
+__device__ __forceinline__ int3 row_place() {
+  if constexpr (BLOCK) return make_int3(blockIdx.x, threadIdx.x, blockDim.x);
+  return make_int3(blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32, threadIdx.x % 32, 32);
+}
+
 // 0.5 x (1 + erf(x / sqrt 2)) with the Abramowitz-Stegun 7.1.26 erf
 // (|err| <= 1.5e-7) that the TPU kernels use (kernel_math.gelu_exact), its
 // reciprocal and exponential from the hardware's approximate units: a few f32

@@ -12,8 +12,9 @@
 // in ~15 MB of VMEM; a Hopper block has 227 KB of shared memory, so the
 // weights stream through it and the work is split where a whole row is needed.
 // A LayerNorm cannot sit between a TMA load and a wgmma that reads shared
-// memory, so each LN is a row pass (one warp per row, the row held in
-// registers, the two-pass f32 statistics) that writes y = bf16(LN(.)), which
+// memory, so each LN is a row pass (one warp per row up to 2,048 columns, one
+// block per row past that, to 32,768: the row held in registers, the
+// two-pass f32 statistics; common.cuh) that writes y = bf16(LN(.)), which
 // is exactly what the TPU kernels feed their products (y.astype(dt)); y goes
 // through device memory once, written once and read once:
 //   fused_ln_qkv   = two launches:
@@ -43,18 +44,17 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int MAX_K = 32 * 8 * 4;  // a row pass holds a row of <= 1024 in registers
-
-// One warp's row (K <= MAX_K, K % 8 == 0) into registers, zero past K, and
-// its f32 LayerNorm statistics: the mean, then the mean squared deviation
-// (two passes over the registers); returns (mean, 1/sqrt(var + eps)).
-template <typename AT>
-__device__ __forceinline__ float2 load_row_stats(const AT* xr, int K, float eps, int lane,
-                                                 float (&v)[4][8]) {
+// A row (K % 8 == 0) into registers (CH chunks of 8 a thread, zero past K)
+// and its f32 LayerNorm statistics: the mean, then the mean squared
+// deviation (two passes over the registers); returns (mean, 1/sqrt(var +
+// eps)).  A warp's row or a block's (common.cuh).
+template <typename AT, int CH, bool BLOCK>
+__device__ __forceinline__ float2 load_row_stats(const AT* xr, int K, float eps, int lane, int L,
+                                                 float (&v)[CH][8], float* red) {
   float sum = 0.f;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int col = (c * 32 + lane) * 8;
+  for (int c = 0; c < CH; ++c) {
+    const int col = (c * L + lane) * 8;
     if (col < K) {
       load8<AT>(xr + col, v[c]);
     } else {
@@ -64,38 +64,37 @@ __device__ __forceinline__ float2 load_row_stats(const AT* xr, int K, float eps,
 #pragma unroll
     for (int e = 0; e < 8; ++e) sum += v[c][e];
   }
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  sum = row_sum<BLOCK>(sum, red);
   const float mu = sum / K;
   float sq = 0.f;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    if ((c * 32 + lane) * 8 < K) {
+  for (int c = 0; c < CH; ++c) {
+    if ((c * L + lane) * 8 < K) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) sq += (v[c][e] - mu) * (v[c][e] - mu);
     }
   }
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+  sq = row_sum<BLOCK>(sq, red);
   return make_float2(mu, rsqrtf(sq / K + eps));
 }
 
-// LN of bf16 (x, LN1) or f32 (x2, LN2) rows into a GEMM's bf16 operand, one
-// warp per row: y = bf16(((x - mu) * rstd) * s + b)
-template <typename AT>
-__global__ void __launch_bounds__(256) ln_rows_kernel(const AT* __restrict__ x,
-                                                      const float* __restrict__ ln_s,
-                                                      const float* __restrict__ ln_b,
-                                                      bf16* __restrict__ y, int rows, int K,
-                                                      float eps) {
-  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
+// LN of bf16 (x, LN1) or f32 (x2, LN2) rows into a GEMM's bf16 operand, a
+// warp or (BLOCK) a block per row: y = bf16(((x - mu) * rstd) * s + b)
+template <typename AT, int CH, bool BLOCK>
+__global__ void __launch_bounds__(BLOCK ? 1024 : 256) ln_rows_kernel(
+    const AT* __restrict__ x, const float* __restrict__ ln_s, const float* __restrict__ ln_b,
+    bf16* __restrict__ y, int rows, int K, float eps) {
+  __shared__ float red[32];
+  const int3 at = row_place<BLOCK>();
+  const int row = at.x, lane = at.y, L = at.z;
   if (row >= rows) return;
-  float v[4][8];
-  const float2 st = load_row_stats<AT>(x + static_cast<long long>(row) * K, K, eps, lane, v);
+  float v[CH][8];
+  const float2 st =
+      load_row_stats<AT, CH, BLOCK>(x + static_cast<long long>(row) * K, K, eps, lane, L, v, red);
   bf16* yr = y + static_cast<long long>(row) * K;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int col = (c * 32 + lane) * 8;
+  for (int c = 0; c < CH; ++c) {
+    const int col = (c * L + lane) * 8;
     if (col < K) {
       float s[8], b[8];
       load8<float>(ln_s + col, s);
@@ -109,14 +108,20 @@ __global__ void __launch_bounds__(256) ln_rows_kernel(const AT* __restrict__ x,
   }
 }
 
-bool row_pass_takes(int K) { return K > 0 && K <= MAX_K && K % 8 == 0; }
-
 template <typename AT>
 cudaError_t run_ln_rows(const void* x, const void* ln_s, const void* ln_b, void* y, int rows,
                         int K, float eps, cudaStream_t stream) {
-  ln_rows_kernel<AT><<<(rows + 7) / 8, 256, 0, stream>>>(
-      static_cast<const AT*>(x), static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
-      static_cast<bf16*>(y), rows, K, eps);
+  const AT* x_ = static_cast<const AT*>(x);
+  const float* s_ = static_cast<const float*>(ln_s);
+  const float* b_ = static_cast<const float*>(ln_b);
+  bf16* y_ = static_cast<bf16*>(y);
+  if (K <= 1024)
+    ln_rows_kernel<AT, 4, false><<<(rows + 7) / 8, 256, 0, stream>>>(x_, s_, b_, y_, rows, K, eps);
+  else if (K <= ROW_WARP_MAX)
+    ln_rows_kernel<AT, 8, false><<<(rows + 7) / 8, 256, 0, stream>>>(x_, s_, b_, y_, rows, K, eps);
+  else
+    ln_rows_kernel<AT, ROW_BLOCK_CH, true><<<rows, row_block_threads(K), 0, stream>>>(
+        x_, s_, b_, y_, rows, K, eps);
   return cudaGetLastError();
 }
 
@@ -124,7 +129,7 @@ cudaError_t run_ln_rows(const void* x, const void* ln_s, const void* ln_b, void*
 
 // qkv[g] = bf16(bf16(LN(x[g])) @ w[g] + b[g]);  x [G,T,D] bf16, w [G,D,O]
 // bf16, ln_s/ln_b [D] f32, b [G,O] f32, out [G,T,O] bf16; y [G,T,D] bf16 is
-// caller-allocated scratch.  D % 8 == 0, D <= 1024, O % 8 == 0 (16-byte TMA
+// caller-allocated scratch.  D % 8 == 0, D <= ROW_MAX (32,768), O % 8 == 0 (16-byte TMA
 // strides).  Two launches: the LN1 row pass into y, then the GEMM.
 extern "C" int ln_qkv(const void* x, const void* ln_s, const void* ln_b,
                       const void* w, const void* b, void* y, void* out, int G,
@@ -155,7 +160,7 @@ extern "C" int out_proj(const void* attn, const void* x, const void* wo, const v
 // x2 = x[g] + attn[g] @ wo[g] + bo[g] in f32.  attn, x [G,T,D] bf16; wo
 // [G,D,D], w1 [G,D,F], w2 [G,F,D] bf16; bo, b1, b2 [G,*] f32; ln [D] f32.
 // x2 [G,T,D] f32, y [G,T,D] bf16 and h [G,T,F] bf16 are caller-allocated
-// scratch.  D % 8 == 0, D <= 1024, F % 8 == 0.  Four launches: out-proj,
+// scratch.  D % 8 == 0, D <= ROW_MAX, F % 8 == 0.  Four launches: out-proj,
 // LN2, fc1, fc2.
 extern "C" int out_mlp(const void* attn, const void* x, const void* wo,
                        const void* bo, const void* ln_s, const void* ln_b,

@@ -16,7 +16,8 @@
 // 256-row tile and every weight in VMEM and quantize each activation row in
 // registers right where it is produced; a Hopper block has 227 KB of shared
 // memory, so the work is split at each point where a whole row is needed:
-//   ln_qkv_int8   = row pass (LN1 in f32, one warp per row held in registers,
+//   ln_qkv_int8   = row pass (LN1 in f32, a row held in registers by one warp,
+//                   or past 2,048 columns by one block, common.cuh;
 //                   then the row's max |y| and y / s rounded half to even ->
 //                   int8 [T, D] and s [T]), then the QKV GEMM (128 x 192
 //                   tiles, 2% faster than 128 x 256), epilogue
@@ -51,7 +52,6 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int ROW_MAX_K = 32 * 8 * 4;  // a row pass holds a row of <= 1024 in registers
 // the out-projection's column tile: 4 of them at D = 768; on an H100 at T =
 // 25,216 rows 128 x 192 (4 stages) took 82.7 us, 128 x 256 (3 stages, 3 tiles)
 // 86.6 us (PERF.md)
@@ -70,20 +70,22 @@ __device__ __forceinline__ uint32_t quant4(float a, float b, float c, float d, f
          ((static_cast<uint32_t>(qc) & 0xffu) << 16) | (static_cast<uint32_t>(qd) << 24);
 }
 
-// One warp per row: (LN in f32: the mean, then the mean squared deviation,
-// ((v - mu) * rstd) * s + b, as the row passes of fused_block.cu compute
-// it), then the row's int8 quantization.
-template <typename AT, bool LN>
-__global__ void __launch_bounds__(256) row_quant_kernel(
+// A warp or (BLOCK) a block per row (common.cuh): (LN in f32: the mean,
+// then the mean squared deviation, ((v - mu) * rstd) * s + b, as the row
+// passes of fused_block.cu compute it), then the row's int8 quantization.
+template <typename AT, bool LN, int CH, bool BLOCK>
+__global__ void __launch_bounds__(BLOCK ? 1024 : 256) row_quant_kernel(
     const AT* __restrict__ x, const float* __restrict__ ln_s, const float* __restrict__ ln_b,
     int8_t* __restrict__ q, float* __restrict__ s, int rows, int K, float eps) {
-  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
+  __shared__ float red[32];
+  const int3 at = row_place<BLOCK>();
+  const int row = at.x, lane = at.y, L = at.z;
   if (row >= rows) return;
   const AT* xr = x + static_cast<long long>(row) * K;
-  float v[4][8];
+  float v[CH][8];
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int col = (c * 32 + lane) * 8;
+  for (int c = 0; c < CH; ++c) {
+    const int col = (c * L + lane) * 8;
     if (col < K) {
       load8<AT>(xr + col, v[c]);
     } else {
@@ -94,26 +96,24 @@ __global__ void __launch_bounds__(256) row_quant_kernel(
   if (LN) {
     float sum = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
+    for (int c = 0; c < CH; ++c)
 #pragma unroll
       for (int e = 0; e < 8; ++e) sum += v[c][e];
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    sum = row_sum<BLOCK>(sum, red);
     const float mu = sum / K;
     float sq = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if ((c * 32 + lane) * 8 < K) {
+    for (int c = 0; c < CH; ++c) {
+      if ((c * L + lane) * 8 < K) {
 #pragma unroll
         for (int e = 0; e < 8; ++e) sq += (v[c][e] - mu) * (v[c][e] - mu);
       }
     }
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+    sq = row_sum<BLOCK>(sq, red);
     const float rstd = rsqrtf(sq / K + eps);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int col = (c * 32 + lane) * 8;
+    for (int c = 0; c < CH; ++c) {
+      const int col = (c * L + lane) * 8;
       if (col < K) {
 #pragma unroll
         for (int e = 0; e < 8; ++e)
@@ -124,16 +124,15 @@ __global__ void __launch_bounds__(256) row_quant_kernel(
   }
   float m = 0.f;
 #pragma unroll
-  for (int c = 0; c < 4; ++c)
+  for (int c = 0; c < CH; ++c)
 #pragma unroll
     for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(v[c][e]));  // padding lanes hold 0
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  m = row_max<BLOCK>(m, red);
   const float sc = row_scale(m);
   int8_t* qr = q + static_cast<long long>(row) * K;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int col = (c * 32 + lane) * 8;
+  for (int c = 0; c < CH; ++c) {
+    const int col = (c * L + lane) * 8;
     if (col < K)
       *reinterpret_cast<uint2*>(qr + col) =
           make_uint2(quant4(v[c][0], v[c][1], v[c][2], v[c][3], sc),
@@ -145,11 +144,21 @@ __global__ void __launch_bounds__(256) row_quant_kernel(
 template <typename AT, bool LN>
 cudaError_t run_row_quant(const void* x, const void* ln_s, const void* ln_b, void* q, void* s,
                           int rows, int K, float eps, cudaStream_t stream) {
-  if (K > ROW_MAX_K || K % 16 != 0) return cudaErrorInvalidValue;
-  row_quant_kernel<AT, LN><<<(rows + 7) / 8, 256, 0, stream>>>(
-      static_cast<const AT*>(x), static_cast<const float*>(ln_s),
-      static_cast<const float*>(ln_b), static_cast<int8_t*>(q), static_cast<float*>(s), rows,
-      K, eps);
+  if (!row_pass_takes(K) || K % 16 != 0) return cudaErrorInvalidValue;
+  const AT* x_ = static_cast<const AT*>(x);
+  const float* ls = static_cast<const float*>(ln_s);
+  const float* lb = static_cast<const float*>(ln_b);
+  int8_t* q_ = static_cast<int8_t*>(q);
+  float* s_ = static_cast<float*>(s);
+  if (K <= 1024)
+    row_quant_kernel<AT, LN, 4, false><<<(rows + 7) / 8, 256, 0, stream>>>(x_, ls, lb, q_, s_,
+                                                                         rows, K, eps);
+  else if (K <= ROW_WARP_MAX)
+    row_quant_kernel<AT, LN, 8, false><<<(rows + 7) / 8, 256, 0, stream>>>(x_, ls, lb, q_, s_,
+                                                                         rows, K, eps);
+  else
+    row_quant_kernel<AT, LN, ROW_BLOCK_CH, true><<<rows, row_block_threads(K), 0, stream>>>(
+        x_, ls, lb, q_, s_, rows, K, eps);
   return cudaGetLastError();
 }
 
@@ -205,7 +214,7 @@ cudaError_t mlp_tail(const void* x2, const void* ln_s, const void* ln_b, const v
 // qkv[g] = bf16(((quant(LN(x[g])) @ wq[g]) * s_row * ws[g]) + b[g]).  x [G,T,D]
 // bf16; ln_s/ln_b [D] f32; wq [G,O,D] int8 (K-major); ws, b [G,O] f32; out
 // [G,T,O] bf16; yq [G,T,D] int8 and ys [G*T] f32 are caller-allocated scratch.
-// D % 16 == 0, D <= 1024, O % 8 == 0 (16-byte TMA strides).  Two launches:
+// D % 16 == 0, D <= ROW_MAX (32,768), O % 8 == 0 (16-byte TMA strides).  Two launches:
 // the LN1 + quantize row pass, then the s8 GEMM.
 extern "C" int ln_qkv_int8(const void* x, const void* ln_s, const void* ln_b, const void* wq,
                            const void* ws, const void* b, void* yq, void* ys, void* out, int G,

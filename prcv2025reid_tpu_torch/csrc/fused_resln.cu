@@ -15,7 +15,9 @@
 // kernel holds a 512-row tile in VMEM; here one warp owns a row (24 values
 // per lane at D = 768) in registers, reads x and branch with 16-byte loads,
 // reduces with warp shuffles and writes both outputs, so every byte moves
-// once.  Eight rows per 256-thread block keep enough loads in flight.
+// once.  Eight rows per 256-thread block keep enough loads in flight.  Past
+// 1,024 columns a lane holds 8 chunks (to 2,048), past 2,048 a block holds
+// the row (to 32,768; common.cuh).
 #include "common.cuh"
 
 using namespace port;
@@ -23,9 +25,7 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int CHUNKS = 4;                // 8-value chunks per lane
-constexpr int MAX_D = 32 * 8 * CHUNKS;   // 1024
-constexpr int ROWS_PER_BLOCK = 8;
+constexpr int ROWS_PER_BLOCK = 8;  // of the warp-per-row pass
 
 __device__ __forceinline__ void unpack8(const uint4& raw, float (&v)[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -37,17 +37,21 @@ __device__ __forceinline__ void unpack8(const uint4& raw, float (&v)[8]) {
   }
 }
 
-__global__ void __launch_bounds__(32 * ROWS_PER_BLOCK) resln_kernel(
+// CHUNKS 8-value chunks a thread; a warp's row or (BLOCK) a block's
+template <int CHUNKS, bool BLOCK>
+__global__ void __launch_bounds__(BLOCK ? 1024 : 32 * ROWS_PER_BLOCK) resln_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ branch,
     const float* __restrict__ scale, const float* __restrict__ bias,
     bf16* __restrict__ xn, bf16* __restrict__ y, int rows, int D, float eps) {
-  const int row = blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / 32, lane = threadIdx.x % 32;
+  __shared__ float red[32];
+  const int3 at = row_place<BLOCK>();
+  const int row = at.x, lane = at.y, L = at.z;
   if (row >= rows) return;
   const long long base = static_cast<long long>(row) * D;
   float v[CHUNKS][8], sum = 0.f;
 #pragma unroll
   for (int c = 0; c < CHUNKS; ++c) {
-    const int col = (c * 32 + lane) * 8;
+    const int col = (c * L + lane) * 8;
     if (col < D) {
       float a[8], b[8];
       unpack8(*reinterpret_cast<const uint4*>(x + base + col), a);
@@ -65,23 +69,21 @@ __global__ void __launch_bounds__(32 * ROWS_PER_BLOCK) resln_kernel(
 #pragma unroll
     for (int e = 0; e < 8; ++e) sum += v[c][e];
   }
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  sum = row_sum<BLOCK>(sum, red);
   const float mu = sum / D;
   float sq = 0.f;
 #pragma unroll
   for (int c = 0; c < CHUNKS; ++c) {
-    if ((c * 32 + lane) * 8 < D) {
+    if ((c * L + lane) * 8 < D) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) sq += (v[c][e] - mu) * (v[c][e] - mu);
     }
   }
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+  sq = row_sum<BLOCK>(sq, red);
   const float rstd = rsqrtf(sq / D + eps);
 #pragma unroll
   for (int c = 0; c < CHUNKS; ++c) {
-    const int col = (c * 32 + lane) * 8;
+    const int col = (c * L + lane) * 8;
     if (col >= D) continue;
     const float4 s0 = *reinterpret_cast<const float4*>(scale + col);
     const float4 s1 = *reinterpret_cast<const float4*>(scale + col + 4);
@@ -102,16 +104,28 @@ __global__ void __launch_bounds__(32 * ROWS_PER_BLOCK) resln_kernel(
 }  // namespace
 
 // xn, y = fused_residual_ln(x, branch, scale, bias): x, branch, xn, y [N, D]
-// bf16 (rows 16-byte aligned: D % 8 == 0, D <= 1024); scale, bias [D] f32.
-// One launch.
+// bf16 (rows 16-byte aligned: D % 8 == 0, D <= ROW_MAX = 32,768); scale,
+// bias [D] f32.  One launch.
 extern "C" int resln(const void* x, const void* branch, const void* scale,
                      const void* bias, void* xn, void* y, int N, int D, float eps,
                      void* stream) {
-  if (D % 8 != 0 || D > MAX_D || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  resln_kernel<<<(N + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, 32 * ROWS_PER_BLOCK, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(branch),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<bf16*>(xn), static_cast<bf16*>(y), N, D, eps);
+  if (!row_pass_takes(D) || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* x_ = static_cast<const bf16*>(x);
+  const bf16* b_ = static_cast<const bf16*>(branch);
+  const float* s_ = static_cast<const float*>(scale);
+  const float* bias_ = static_cast<const float*>(bias);
+  bf16* xn_ = static_cast<bf16*>(xn);
+  bf16* y_ = static_cast<bf16*>(y);
+  const int blocks = (N + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
+  if (D <= 1024)
+    resln_kernel<4, false><<<blocks, 32 * ROWS_PER_BLOCK, 0, st>>>(x_, b_, s_, bias_, xn_, y_, N,
+                                                                  D, eps);
+  else if (D <= ROW_WARP_MAX)
+    resln_kernel<8, false><<<blocks, 32 * ROWS_PER_BLOCK, 0, st>>>(x_, b_, s_, bias_, xn_, y_, N,
+                                                                  D, eps);
+  else
+    resln_kernel<ROW_BLOCK_CH, true><<<N, row_block_threads(D), 0, st>>>(x_, b_, s_, bias_, xn_,
+                                                                       y_, N, D, eps);
   return static_cast<int>(cudaGetLastError());
 }

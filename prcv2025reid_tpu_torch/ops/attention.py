@@ -13,12 +13,12 @@ Hopper attention kernel (``fused_mha``).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
-from prcv2025reid_tpu_torch.ops import _kernels
-from prcv2025reid_tpu_torch.ops.fused_attention import HEAD_DIM, fused_mha
+from prcv2025reid_tpu_torch.ops.fused_attention import fused_mha
 
 
 def _causal_fill(logits: torch.Tensor, S: int) -> torch.Tensor:
@@ -83,16 +83,19 @@ def splash_attention_bshd(q, k, v) -> torch.Tensor:
     """The splash core on the [B, S, H, Dh] layout.  For CUDA tensors it
     launches the Hopper attention kernel (``fused_mha``), which masks keys
     >= S by index, so S needs no padding to a multiple of 128 (JAX pads
-    197 -> 256 under a key mask).  The kernel scales the logits by
-    Dh**-0.5 = 0.125 after the product; for its one head width, Dh = 64, that
-    is a power of two, so it equals splash's pre-scaled bf16 q exactly.  CPU
-    tensors run :func:`splash_plain`."""
+    197 -> 256 under a key mask).  Where Dh**-0.5 is a power of two (Dh a
+    power of 4: 16, 64, 256) the kernel's scaling after the product equals
+    splash's pre-scaled q exactly; at any other width (ViT-H's 80) q is
+    pre-scaled and rounded to its dtype as splash does, and the kernel runs
+    at scale 1.  CPU tensors run :func:`splash_plain`."""
     if not q.is_cuda:
         return splash_plain(q, k, v)
-    Dh = q.shape[-1]
-    _kernels.require(Dh == HEAD_DIM, f"splash_attention_bshd: the kernel takes Dh={HEAD_DIM} "
-                     f"(a power-of-two scale), got {Dh}")
-    out = fused_mha(*(t.permute(0, 2, 1, 3) for t in (q, k, v)))
+    scale = q.shape[-1] ** -0.5
+    if math.log2(scale).is_integer():
+        out = fused_mha(*(t.permute(0, 2, 1, 3) for t in (q, k, v)))
+    else:
+        qs = (q * scale).to(q.dtype)
+        out = fused_mha(*(t.permute(0, 2, 1, 3) for t in (qs, k, v)), scale=1.0)
     if not torch.compiler.is_exporting():  # an exported graph holds fused_mha's op
         splash_attention_bshd.launches += 1
     return out.permute(0, 2, 1, 3)

@@ -33,7 +33,9 @@ import torch
 from prcv2025reid_tpu_torch.ops import _kernels
 from prcv2025reid_tpu_torch.ops.kernel_math import LN_EPS, SQRT_HALF, gelu_exact, ln_f32
 
-MAX_LN_WIDTH = 1024  # the row passes hold a row in registers
+# the row passes hold a row in registers: a warp's to 2,048 columns, a block's
+# past that, to csrc/common.cuh ROW_MAX
+MAX_LN_WIDTH = 32768
 
 
 def quant_rows(y: torch.Tensor):

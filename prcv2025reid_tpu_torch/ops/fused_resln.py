@@ -20,7 +20,9 @@ import torch
 from prcv2025reid_tpu_torch.ops import _kernels
 from prcv2025reid_tpu_torch.ops.kernel_math import LN_EPS, ln_f32
 
-MAX_WIDTH = 1024  # one warp holds a row in registers
+# a warp holds a row in registers to 2,048 columns, a block past that, to
+# csrc/common.cuh ROW_MAX
+MAX_WIDTH = 32768
 
 
 def resln_plain(x, branch, scale, bias, eps: float = LN_EPS):

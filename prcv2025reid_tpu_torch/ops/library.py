@@ -62,14 +62,16 @@ def _like(x, *_):
     return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
-def _mha_fake(q, k, v, causal):
+def _mha_fake(q, k, v, causal, scale=None):
     B, H, S, Dh = q.shape
-    if q.device.type == "cuda":  # the kernel writes [B, S, H, Dh]
-        return q.new_empty(B, S, H, Dh).permute(0, 2, 1, 3)
+    if q.device.type == "cuda":  # the kernel writes [B, S, H, Dh rounded up to 8]
+        width = -(-Dh // 8) * 8
+        out = q.new_empty(B, S, H, width).permute(0, 2, 1, 3)
+        return out if width == Dh else out.narrow(-1, 0, Dh)
     return q.new_empty(B, H, S, Dh)
 
 
-fused_mha = _op("fused_mha", "Tensor q, Tensor k, Tensor v, bool causal",
+fused_mha = _op("fused_mha", "Tensor q, Tensor k, Tensor v, bool causal, float? scale=None",
                 fa.mha_launch, fa.mha_plain, _mha_fake)
 fused_ln_qkv = _op("fused_ln_qkv", f"Tensor x, {_LN}, Tensor w, Tensor b",
                    fb.ln_qkv_launch, fb.ln_qkv_plain, lambda x, s, b, w, bias: _rows(x, w.shape[-1]))

@@ -17,7 +17,14 @@ import torch
 from prcv2025reid_tpu_torch import TrainingConfig, build_model, make_combo_embed_step
 from prcv2025reid_tpu_torch.ops import attention as att
 from prcv2025reid_tpu_torch.ops import fused_block as fb
-from prcv2025reid_tpu_torch.ops.fused_attention import REG_MAX_SEQ, fused_mha, mha_plain
+from prcv2025reid_tpu_torch.ops import _kernels
+from prcv2025reid_tpu_torch.ops.fused_attention import (
+    MAX_HEAD_DIM,
+    REG_MAX_SEQ,
+    attention_route,
+    fused_mha,
+    mha_plain,
+)
 from prcv2025reid_tpu_torch.ops.fused_mlp import fused_mlp, mlp_plain
 from prcv2025reid_tpu_torch.ops.fused_resln import fused_residual_ln, resln_plain
 from prcv2025reid_tpu_torch.ops.matmul import BLOCK_ROWS, matmul_plain, tiled_matmul
@@ -91,14 +98,69 @@ def test_attention_kernel_long_sequence_gradient(cuda):
 
 
 def test_attention_kernel_refuses_past_its_longest_sequence(cuda):
-    z = torch.zeros(1, 1, 4097, 64, device=cuda, dtype=torch.bfloat16)
+    """The lengths end only where the tiles' int32 coordinates do; what the
+    kernel refuses now is a head wider than MAX_HEAD_DIM, through fused_mha
+    and the splash core alike, with no launch."""
+    z = torch.zeros(1, 1, 8, MAX_HEAD_DIM + 8, device=cuda, dtype=torch.bfloat16)
     before = fused_mha.launches
-    with pytest.raises(ValueError, match="S <= 4096"):
+    with pytest.raises(ValueError, match=f"Dh <= {MAX_HEAD_DIM}"):
         fused_mha(z, z, z)
-    with pytest.raises(ValueError, match="S <= 4096"):
+    with pytest.raises(ValueError, match=f"Dh <= {MAX_HEAD_DIM}"):
         zs = z.permute(0, 2, 1, 3)  # [B, S, H, Dh]
         att.splash_attention_bshd(zs, zs, zs)
+    with pytest.raises(ValueError, match="S <= 2147483584"):
+        attention_route(64, 2**31)
     assert fused_mha.launches == before
+
+
+# phase 3 of chip_smoke.py: every padded head width (64, 128, 192, 256), the
+# zero-padded widths (20: not a multiple of 8), ViT-H/14's 80, ViT-bigG's
+# 104; the lengths at each route's edges, causal at the text tower's 77
+HEAD_WIDTHS = [8, 16, 20, 40, 72, 80, 96, 104, 128, 200, 256]
+ROUTE_EDGES = [(1, False), (77, True), (197, False), (256, False), (257, False), (577, False),
+               (REG_MAX_SEQ, False), (REG_MAX_SEQ + 1, False)]
+
+
+def test_attention_route_is_the_kernels(cuda):
+    """ops/fused_attention.py's route table is the one csrc/attention.cu
+    dispatches by (its attn_route), at every width and the lengths' edges."""
+    fn = _kernels.lib("attention").attn_route
+    code = {"attn_fwd_kernel": 1, "attn_reg_kernel": 2, "attn_long_kernel": 3}
+    for dh in range(1, MAX_HEAD_DIM + 1):
+        for S in (1, 255, 256, 257, REG_MAX_SEQ, REG_MAX_SEQ + 1, 4097, 2**31 - 64):
+            kernel, dhp = attention_route(dh, S)
+            assert fn(dh, S) == 1000 * code[kernel] + dhp, (dh, S)
+    assert fn(MAX_HEAD_DIM + 1, 1) == 0 and fn(64, 2**31 - 63) == 0 and fn(64, 0) == 0
+
+
+@pytest.mark.parametrize("S,causal", ROUTE_EDGES)
+@pytest.mark.parametrize("Dh", HEAD_WIDTHS)
+def test_attention_kernel_head_widths(cuda, Dh, S, causal):
+    """#1 at every route of the (Dh, S) table against its plain version, on
+    views of one [B, S, 3, H, Dh] projection, at phase 3's tolerances."""
+    g = torch.Generator(device=cuda).manual_seed(Dh * 1000 + S)
+    qkv = torch.randn(2, S, 3, 3, Dh, generator=g, device=cuda).bfloat16()
+    q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    before = fused_mha.launches
+    out = fused_mha(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = mha_plain(q, k, v, causal)
+    assert fused_mha.launches == before + 1 and out.shape == (2, 3, S, Dh)
+    assert _rel(out, want) < 2e-3
+    assert (out.float() - want.float()).abs().max().item() < 5e-2
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S", [4097, 16385])
+@pytest.mark.parametrize("Dh", [64, 128])
+def test_attention_kernel_past_4096_tokens(cuda, Dh, S, causal):
+    g = torch.Generator(device=cuda).manual_seed(S + Dh)
+    q, k, v = (torch.randn(1, 2, S, Dh, generator=g, device=cuda).bfloat16() for _ in range(3))
+    out = fused_mha(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = mha_plain(q, k, v, causal)
+    assert _rel(out, want) < 2e-3
+    assert (out.float() - want.float()).abs().max().item() < 5e-2
 
 
 @pytest.mark.parametrize("S", [197, 64, 577])
@@ -137,6 +199,26 @@ def _block_operands(cuda, G, T, D, F):
 # in a ragged 64 at N = 1,024) on 16 images of 257 tokens
 BLOCK_SHAPES = [(300, 128, 512), (1, 128, 512), (77, 96, 208), (6304, 768, 3072),
                 (4112, 1024, 4096)]
+# the row passes past 1,024 columns (G = 1, a few hundred rows): a warp's row
+# of 8 chunks a lane (1,040 .. 2,048; ViT-H/14's 1,280 with F = 5,120) and a
+# block's (2,056, 8,192)
+WIDE_ROWS = [(1, 300, 1040, 1024), (1, 300, 1280, 5120), (1, 300, 1664, 4096),
+             (1, 300, 2048, 1024), (1, 300, 2056, 1024), (1, 300, 8192, 2048)]
+# the int8 plans take multiples of 16: a block's row at 2,064
+INT8_WIDE_ROWS = [(G, T, 2064 if D == 2056 else D, F) for G, T, D, F in WIDE_ROWS]
+
+
+@pytest.mark.parametrize("G,T,D,F", WIDE_ROWS)
+def test_block_kernels_past_1024_columns(cuda, G, T, D, F):
+    """#3 and #5 (bf16) with rows past a warp's four chunks a lane."""
+    d = _block_operands(cuda, G, T, D, F)
+    qkv = fb.fused_ln_qkv(d["x"], d["lns"], d["lnb"], d["wqkv"], d["bqkv"])
+    args = (d["attn"], d["x"], d["wo"], d["bo"], d["lns"], d["lnb"], d["w1"], d["b1"], d["w2"],
+            d["b2"])
+    out = fb.fused_out_mlp(*args)
+    torch.cuda.synchronize()
+    assert _rel(qkv, fb.ln_qkv_plain(d["x"], d["lns"], d["lnb"], d["wqkv"], d["bqkv"])) < 2e-3
+    assert _rel(out, fb.out_mlp_plain(*args)) < 2e-3
 
 
 @pytest.mark.parametrize("G", [1, 3])
@@ -157,7 +239,7 @@ def test_block_kernels(cuda, G, T, D, F):
 @pytest.mark.parametrize("G,T,D,F", [(2, 77, 128, 256), (2, 1000, 768, 3072), (1, 300, 96, 208),
                                      (3, 1, 96, 208), (3, 77, 96, 208), (1, 6304, 768, 3072),
                                      (3, 6304, 768, 3072), (1, 4112, 1024, 4096),
-                                     (3, 4112, 1024, 4096)])
+                                     (3, 4112, 1024, 4096)] + INT8_WIDE_ROWS)
 def test_int8_block_kernels(cuda, G, T, D, F):
     """#4, #6 and #7.  T not a multiple of the 128-row tile; D = 96 and F =
     208 not multiples of the column tiles or the k-tiles."""
@@ -497,10 +579,11 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="O=36 a multiple of 8"):  # the output's TMA stride
         zq = fb.quantize_weight(torch.zeros(1, 64, 36, device=cuda))
         fb.fused_ln_qkv_int8(d["x"], d["lns"], d["lnb"], *zq, torch.zeros(1, 36, device=cuda))
-    with pytest.raises(ValueError, match="<= 1024"):  # a row pass holds a row in registers
-        z = torch.zeros(1, 8, 1040, device=cuda, dtype=torch.bfloat16)
-        zq = fb.quantize_weight(torch.zeros(1, 1040, 64, device=cuda))
-        fb.fused_ln_qkv_int8(z, torch.ones(1040, device=cuda), torch.zeros(1040, device=cuda),
+    with pytest.raises(ValueError, match=f"<= {fb.MAX_LN_WIDTH}"):  # a block's row
+        wide = fb.MAX_LN_WIDTH + 16
+        z = torch.zeros(1, 8, wide, device=cuda, dtype=torch.bfloat16)
+        zq = fb.quantize_weight(torch.zeros(1, wide, 64, device=cuda))
+        fb.fused_ln_qkv_int8(z, torch.ones(wide, device=cuda), torch.zeros(wide, device=cuda),
                              *zq, torch.zeros(1, 64, device=cuda))
     with pytest.raises(ValueError, match="aligned"):  # contiguous, 2 bytes off 16
         off = torch.zeros(40 * 64 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(1, 40, 64)
@@ -519,9 +602,23 @@ def test_splash_core(cuda, S):
     torch.cuda.synchronize()
     assert out.shape == q.shape and att.splash_attention_bshd.launches == before + 1
     assert _rel(out, att.splash_plain(q, k, v)) < 1e-2
-    with pytest.raises(ValueError, match="Dh=64"):
-        z = torch.zeros(1, 8, 2, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=f"Dh <= {MAX_HEAD_DIM}"):
+        z = torch.zeros(1, 8, 2, MAX_HEAD_DIM + 8, device=cuda, dtype=torch.bfloat16)
         att.splash_attention_bshd(z, z, z)
+
+
+@pytest.mark.parametrize("Dh", [32, 80, 256])
+def test_splash_core_head_widths(cuda, Dh):
+    """At widths whose scale is no power of two (32, 80) the core pre-scales
+    q in its dtype as splash does; at 256 the kernel scales after the product."""
+    g = torch.Generator(device=cuda).manual_seed(Dh)
+    qkv = torch.randn(3, 257, 3, 4, Dh, generator=g, device=cuda).bfloat16()
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    out = att.splash_attention_bshd(q, k, v)
+    torch.cuda.synchronize()
+    want = att.splash_plain(q, k, v)
+    assert out.shape == q.shape and _rel(out, want) < 2e-3
+    assert (out.float() - want.float()).abs().max().item() < 5e-2
 
 
 @pytest.mark.parametrize("G", [1, 3])
@@ -546,7 +643,11 @@ def test_fused_mlp_kernel(cuda, G, N, D, F):
     assert _rel(out, mlp_plain(x, w1, b1, w2, b2)) < 1e-2
 
 
-@pytest.mark.parametrize("N,D", [(77, 200), (1000, 768), (4112, 1024)])
+# past 1,024 columns: a lane's 8 chunks (1,040 .. 2,048), a block's row (2,056
+# .. ROW_MAX = 32,768)
+@pytest.mark.parametrize("N,D", [(77, 200), (1000, 768), (4112, 1024), (300, 1040),
+                                 (300, 1280), (300, 1664), (300, 2048), (300, 2056),
+                                 (300, 8192), (40, 32768)])
 def test_fused_resln_kernel(cuda, N, D):
     g = torch.Generator(device=cuda).manual_seed(0)
     x, branch = (torch.randn(N, D, generator=g, device=cuda).bfloat16() for _ in range(2))
@@ -584,11 +685,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 2, 16, 64, device=cuda)  # f32
     with pytest.raises(ValueError, match="bfloat16"):
         fused_mha(q, q, q)
-    with pytest.raises(ValueError, match="Dh=64"):
-        z = torch.zeros(1, 2, 16, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=f"Dh <= {MAX_HEAD_DIM}"):
+        z = torch.zeros(1, 2, 16, MAX_HEAD_DIM + 8, device=cuda, dtype=torch.bfloat16)
         fused_mha(z, z, z)
     # the bf16 LN1 + QKV kernel: 16-byte TMA strides (D, O multiples of 8), a
-    # row in a warp's registers (D <= 1024), 16-byte aligned operands
+    # row in a block's registers (D <= MAX_LN_WIDTH), 16-byte aligned operands
     d = _block_operands(cuda, 1, 40, 64, 128)
     ln = (d["lns"], d["lnb"])
     with pytest.raises(ValueError, match="multiples of 8"):
@@ -598,10 +699,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fb.fused_ln_qkv(z, torch.ones(36, device=cuda), torch.zeros(36, device=cuda),
                         torch.zeros(1, 36, 64, device=cuda, dtype=torch.bfloat16),
                         torch.zeros(1, 64, device=cuda))
-    with pytest.raises(ValueError, match="D <= 1024"):
-        z = torch.zeros(1, 8, 1040, device=cuda, dtype=torch.bfloat16)
-        fb.fused_ln_qkv(z, torch.ones(1040, device=cuda), torch.zeros(1040, device=cuda),
-                        torch.zeros(1, 1040, 64, device=cuda, dtype=torch.bfloat16),
+    with pytest.raises(ValueError, match=f"D <= {fb.MAX_LN_WIDTH}"):
+        wide = fb.MAX_LN_WIDTH + 8
+        z = torch.zeros(1, 8, wide, device=cuda, dtype=torch.bfloat16)
+        fb.fused_ln_qkv(z, torch.ones(wide, device=cuda), torch.zeros(wide, device=cuda),
+                        torch.zeros(1, wide, 64, device=cuda, dtype=torch.bfloat16),
                         torch.zeros(1, 64, device=cuda))
     with pytest.raises(ValueError, match="aligned"):  # contiguous, 2 bytes off 16
         off = torch.zeros(40 * 64 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(1, 40, 64)

@@ -86,6 +86,18 @@ def test_fused_residual_ln_matches_pallas():
     np.testing.assert_allclose(y.numpy(), np.asarray(want_y), rtol=1e-4, atol=1e-5)
 
 
+# past 1,024 columns: ViT-H/14's 1,280 and ViT-bigG/14's 1,664 (a row in 8
+# chunks a lane on the card)
+@pytest.mark.parametrize("D", [1280, 1664])
+def test_fused_residual_ln_past_1024_columns_matches_pallas(D):
+    d = _resln_operands(np.random.default_rng(D), N=37, D=D)
+    names = ("x", "branch", "scale", "bias")
+    want_xn, want_y = jax_fused_residual_ln(*(jnp.asarray(d[k]) for k in names), 1e-5, 16, True)
+    xn, y = fused_residual_ln(*(_t(d[k]) for k in names))
+    np.testing.assert_allclose(xn.numpy(), np.asarray(want_xn), rtol=1e-6)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), rtol=1e-4, atol=1e-5)
+
+
 @pytest.mark.parametrize("kernel", ["fused_mlp", "fused_residual_ln"])
 def test_bf16_plain_versions_round_like_the_kernels(kernel):
     """In bf16 the plain versions round where the TPU kernels do: the GELU

@@ -27,6 +27,10 @@ G, T, D, F = 2, 70, 64, 128
 TOL = 2e-5
 FLIP_ATOL = 5e-2  # one int8 step of an input to a product, at these operand scales
 FLIP_FRACTION = 1e-3
+# past 1,024 columns a row has enough values that one may sit within an f32
+# ulp of a half step: measured one such row of 37 at D = 1,280 (its 1,280
+# outputs within 1.5e-3 of JAX's), none at 1,664
+FLIP_ROWS = 2
 
 
 def _t(a):
@@ -38,6 +42,18 @@ def assert_int8_close(got, want):
     assert got.shape == want.shape
     off = np.abs(got - want) > TOL + TOL * np.abs(want)
     assert off.mean() <= FLIP_FRACTION, f"{off.sum()} of {off.size} elements beyond {TOL}"
+    np.testing.assert_allclose(got, want, rtol=0, atol=FLIP_ATOL)
+
+
+def assert_int8_rows_close(got, want, max_rows=FLIP_ROWS):
+    """For rows of D outputs that one flip moves together (a flipped int8
+    value of a row's attention or LN2 quantization reaches all its outputs
+    through the next product): every element within FLIP_ATOL, those beyond
+    TOL confined to at most ``max_rows`` rows."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    off = (np.abs(got - want) > TOL + TOL * np.abs(want)).any(axis=-1)
+    assert off.sum() <= max_rows, f"{off.sum()} of {off.size} rows beyond {TOL}"
     np.testing.assert_allclose(got, want, rtol=0, atol=FLIP_ATOL)
 
 
@@ -169,6 +185,36 @@ def test_out_mlp_int8_plain_matches_pallas(quant, groups, data, quantized):
                             quantized["w1"][1], _t(data["b1"]), quantized["w2"][1],
                             _t(data["b2"]), quant=quant)
     torch.testing.assert_close(via, got, rtol=0, atol=0)
+
+
+# the row passes past 1,024 columns: ViT-H/14's 1,280 (MLP 5,120) and
+# ViT-bigG/14's 1,664 (MLP 8,192), one group of 37 rows, the weights scaled as
+# the model's (1/sqrt(fan-in): 0.125 at D = 64, the scale of the data above)
+@pytest.mark.parametrize("d,f", [(1280, 5120), (1664, 8192)])
+def test_int8_plans_past_1024_columns_match_pallas(d, f):
+    rng = np.random.default_rng(d)
+
+    def r(shape, scale=1.0):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    data = dict(x=r((1, 37, d)), attn=r((1, 37, d)), lns=1.0 + 0.1 * r((d,)),
+                lnb=0.1 * r((d,)), wqkv=r((1, d, 3 * d), d**-0.5), bqkv=0.1 * r((1, 3 * d)),
+                wo=r((1, d, d), d**-0.5), bo=0.1 * r((1, d)), w1=r((1, d, f), d**-0.5),
+                b1=0.1 * r((1, f)), w2=r((1, f, d), f**-0.5), b2=0.1 * r((1, d)))
+    qw = _quantize(data)
+    j = {k: jnp.asarray(v) for k, v in data.items()}
+    t = {k: _t(v) for k, v in data.items()}
+    want = jfb.fused_ln_qkv(j["x"], j["lns"], j["lnb"], qw["wqkv"][0], j["bqkv"], "int8", 32, True)
+    assert_int8_rows_close(tfb.ln_qkv_int8_plain(t["x"], t["lns"], t["lnb"], *qw["wqkv"][1],
+                                                 t["bqkv"]).numpy(), want)
+    common_j = (j["bo"], j["lns"], j["lnb"], qw["w1"][0], j["b1"], qw["w2"][0], j["b2"])
+    common_t = (t["bo"], t["lns"], t["lnb"], *qw["w1"][1], t["b1"], *qw["w2"][1], t["b2"])
+    want = jfb.fused_out_mlp(j["attn"], j["x"], qw["wo"][0], *common_j, "int8", 32, True)
+    assert_int8_rows_close(tfb.out_mlp_int8_plain(t["attn"], t["x"], *qw["wo"][1],
+                                                  *common_t).numpy(), want)
+    want = jfb.fused_out_mlp(j["attn"], j["x"], j["wo"], *common_j, "int8_mlp", 32, True)
+    assert_int8_rows_close(tfb.out_mlp_int8mlp_plain(t["attn"], t["x"], t["wo"],
+                                                     *common_t).numpy(), want)
 
 
 def test_int8_plain_versions_take_the_port_quantizer(data):

@@ -20,6 +20,7 @@ from prcv2025reid_tpu.ops.kernel_math import gelu_poly_bf16 as jax_gelu_poly
 from prcv2025reid_tpu.ops.kernel_math import gelu_stored as jax_gelu_stored
 from prcv2025reid_tpu.ops.pallas_attention import pallas_mha
 from prcv2025reid_tpu_torch.ops import attention as tatt
+from prcv2025reid_tpu_torch.ops import fused_attention as tfa
 from prcv2025reid_tpu_torch.ops import fused_block as tfb
 from prcv2025reid_tpu_torch.ops.fused_attention import fused_mha
 from prcv2025reid_tpu_torch.models.mer import apply_gelu
@@ -46,6 +47,75 @@ def test_fused_mha_matches_pallas(shape, causal, version):
     want = pallas_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, True, version)
     got = fused_mha(_t(q), _t(k), _t(v), causal=causal, kernel_version=version)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
+# head widths past 64 (and below it), as the TPU kernel takes any: zero-padded
+# on the card where not a multiple of 8 (20), ViT-H/14's 80, each padded
+# width's edge (128, 256)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("Dh", [8, 20, 40, 80, 96, 128, 256])
+def test_mha_plain_head_widths_match_pallas(Dh, causal):
+    rng = np.random.default_rng(Dh)
+    q, k, v = (rng.normal(size=(1, 2, 37, Dh)).astype(np.float32) for _ in range(3))
+    want = pallas_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, True, 2)
+    got = tfa.mha_plain(_t(q), _t(k), _t(v), causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_mha_plain_past_4096_tokens_matches_pallas(causal):
+    """S = 4,097 (JAX pads to 4,224), past the length the card kernel once
+    stopped at."""
+    rng = np.random.default_rng(4097)
+    q, k, v = (rng.normal(size=(1, 1, 4097, 16)).astype(np.float32) for _ in range(3))
+    want = pallas_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, True, 2)
+    got = fused_mha(_t(q), _t(k), _t(v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("Dh", [20, 80, 200])
+def test_kernel_operands_pad_the_head_and_keep_its_scale(Dh):
+    """What the card kernel computes, on the CPU: the wrapper's operands
+    (zero-padded to a multiple of 8 where Dh is not one), then TMA's zero
+    columns up to the padded width DHP, scaled by the TRUE Dh's 1/sqrt(Dh):
+    sliced back to Dh, JAX's result.  The padded width's scale is not."""
+    rng = np.random.default_rng(Dh + 1)
+    q, k, v = (rng.normal(size=(1, 2, 37, Dh)).astype(np.float32) for _ in range(3))
+    want = np.asarray(pallas_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), False, True, 2))
+    qp, kp, vp, scale = tfa.kernel_operands(_t(q), _t(k), _t(v))
+    width = -(-Dh // 8) * 8
+    assert qp.shape == (1, 2, 37, width) and scale == Dh ** -0.5
+    for padded, t in zip((qp, kp, vp), (q, k, v)):
+        assert torch.equal(padded[..., :Dh], _t(t)) and not padded[..., Dh:].any()
+    _, dhp = tfa.attention_route(Dh, 37)
+    full = [torch.nn.functional.pad(t, (0, dhp - width)) for t in (qp, kp, vp)]
+    got = tfa.mha_plain(*full, scale=scale)[..., :Dh]
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    wrong = tfa.mha_plain(*full, scale=dhp ** -0.5)[..., :Dh].numpy()
+    assert np.abs(wrong - want).max() > 100 * 2e-4
+
+
+# the route table of csrc/attention.cu at each edge (the card test holds the
+# C side's attn_route equal to it at every width)
+@pytest.mark.parametrize("dh,S,want", [
+    (1, 1, ("attn_fwd_kernel", 64)), (64, 256, ("attn_fwd_kernel", 64)),
+    (64, 257, ("attn_reg_kernel", 64)), (64, 656, ("attn_reg_kernel", 64)),
+    (64, 657, ("attn_long_kernel", 64)), (8, 2**31 - 64, ("attn_long_kernel", 64)),
+    (65, 1, ("attn_fwd_kernel", 128)), (80, 256, ("attn_fwd_kernel", 128)),
+    (80, 257, ("attn_long_kernel", 128)), (128, 256, ("attn_fwd_kernel", 128)),
+    (128, 4097, ("attn_long_kernel", 128)), (129, 1, ("attn_long_kernel", 192)),
+    (192, 77, ("attn_long_kernel", 192)), (193, 1, ("attn_long_kernel", 256)),
+    (256, 16385, ("attn_long_kernel", 256)),
+])
+def test_attention_route_edges(dh, S, want):
+    assert tfa.attention_route(dh, S) == want
+
+
+@pytest.mark.parametrize("dh,S,match", [(0, 1, "Dh"), (257, 1, "Dh <= 256"), (64, 0, "0 < S"),
+                                        (64, 2**31 - 63, "int32")])
+def test_attention_route_refuses_what_no_kernel_takes(dh, S, match):
+    with pytest.raises(ValueError, match=match):
+        tfa.attention_route(dh, S)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -185,6 +255,36 @@ def test_fused_out_mlp_matches_pallas_bf16(block_data):
     and LN parameters, as the model passes them), where the kernel's casts of
     y and h to bf16 before fc1 and fc2 are the TPU kernel's."""
     _check_fused_out_mlp(block_data, {"attn", "x", "wo", "w1", "w2"}, BF16_TOL)
+
+
+def _wide_block_data(d, f, seed):
+    """One group of 37 rows at width d, MLP width f, weights scaled as the
+    model's (1/sqrt(fan-in)), so the outputs stay of order 1 at any width."""
+    rng = np.random.default_rng(seed)
+
+    def r(shape, scale=1.0):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    return dict(
+        x=r((1, 37, d)), attn=r((1, 37, d)),
+        lns=1.0 + 0.1 * r((d,)), lnb=0.1 * r((d,)),
+        wqkv=r((1, d, 3 * d), d**-0.5), bqkv=0.1 * r((1, 3 * d)),
+        wo=r((1, d, d), d**-0.5), bo=0.1 * r((1, d)),
+        w1=r((1, d, f), d**-0.5), b1=0.1 * r((1, f)),
+        w2=r((1, f, d), f**-0.5), b2=0.1 * r((1, d)),
+    )
+
+
+# the row passes past 1,024 columns: ViT-H/14's 1,280 (MLP 5,120) and
+# ViT-bigG/14's 1,664 (MLP 8,192), where the card holds a row in 8 chunks a lane
+@pytest.mark.parametrize("d,f", [(1280, 5120), (1664, 8192)])
+def test_block_kernels_past_1024_columns_match_pallas(d, f):
+    data = _wide_block_data(d, f, seed=d)
+    j = {k: jnp.asarray(v) for k, v in data.items()}
+    want = jfb.fused_ln_qkv(j["x"], j["lns"], j["lnb"], j["wqkv"], j["bqkv"], "bf16", 32, True)
+    got = tfb.fused_ln_qkv(*(_t(data[k]) for k in ("x", "lns", "lnb", "wqkv", "bqkv")))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+    _check_fused_out_mlp(data, set(), 3e-5)
 
 
 def test_gelu_exact_matches_jax():

@@ -188,6 +188,103 @@ def test_l14_at_336_px_matches_jax(path, l14_336, request):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL)
 
 
+# OpenCLIP ViT-H/14's widths (model_configs/ViT-H-14.json: vision 1,280 wide,
+# 32 layers, heads of 80, MLP 5,120, patch 14 at 224 px; text 1,024 x 24, 16
+# heads; embed 1,024) as the TrainingConfig overrides a user passes as flags
+# (no preset), the SDM module at the fusion width so that it trains
+VIT_H = dict(vision_hidden_dim=1280, vision_layers=32, vision_heads=16, vision_mlp_dim=5120,
+             patch_size=14, image_size=224, text_hidden_dim=1024, text_layers=24,
+             text_heads=16, text_mlp_dim=4096, fusion_dim=1024, sdm_semantic_dim=1024)
+
+
+def vit_h_config(**over) -> JaxConfig:
+    """ViT-H/14's widths cut as the presets are (2 vision layers, 1 text)."""
+    return JaxConfig().replace(**{**VIT_H, **CUT, **over})
+
+
+@pytest.fixture(scope="module")
+def vit_h(tmp_path_factory):
+    """(JAX config, JAX variables, their npz file, a one-sample batch) at
+    ViT-H/14's widths; JAX's tree by ``jax.eval_shape``, as ``preset``."""
+    jcfg = vit_h_config()
+    rng = np.random.default_rng(5)
+    images = rng.integers(0, 256, (B, 4, 224, 224, 3), dtype=np.uint8)
+    batch = (images, np.ones((B, 4), np.float32), token_rows(B, [6], seed=6),
+             np.ones((B,), np.float32))
+    shapes = jax.eval_shape(functools.partial(
+        JaxModel(config=jcfg, num_classes=NUM_CLASSES).init, train=False),
+        {"params": jax.random.PRNGKey(0)}, *(jnp.asarray(a) for a in batch))
+    flat = init_params(port_config(jcfg), NUM_CLASSES, seed=0)
+    assert {k: v.shape for k, v in flat.items()} == {
+        k: tuple(v.shape) for k, v in tu.flatten_dict(shapes, sep="/").items()}
+    variables = tu.unflatten_dict({tuple(k.split("/")): jnp.asarray(v) for k, v in flat.items()})
+    path = params_to_npz(str(tmp_path_factory.mktemp("vit_h") / "params"), variables)
+    return jcfg, variables, path, batch
+
+
+@pytest.mark.parametrize("active", [("vis",), ("nir", "text")])
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_vit_h_widths_match_jax(path, active, vit_h, request):
+    """ViT-H/14's widths (heads of 80: #1 at a padded width of 128 on the
+    card, 257 tokens; rows of 1,280 in the row passes): encode_subset against
+    JAX's, whose use_pallas_attention path runs ``pallas_mha`` at Dh = 80 in
+    interpret mode."""
+    jcfg, variables, npz, batch = vit_h
+    over = PATHS[path]
+    if path == "pallas_attention":
+        request.getfixturevalue("pallas_attention")
+        want = jax_encode(jcfg, variables, batch, active, over)
+    else:
+        if ("vit_h", active) not in _JAX_PLAIN:
+            _JAX_PLAIN["vit_h", active] = jax_encode(jcfg, variables, batch, active, {})
+        want = _JAX_PLAIN["vit_h", active]
+    model = build_model(port_config(jcfg).replace(**over), npz, device="cpu")
+    blk = model.encoder.vision.blocks[0]
+    assert model.encoder.vision.pos_embed.shape == (257, 1280)
+    assert blk.num_heads == 16 and 1280 // blk.num_heads == 80
+    with torch.inference_mode():
+        got = model.encode_subset(*(torch.from_numpy(a) for a in batch), active)
+    assert got.dtype == torch.float32 and got.shape == (B, 1024)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL)
+
+
+def test_vit_h_widths_train_step_matches_jax():
+    """One train step at ViT-H/14's widths (SDM at the fusion width, 1,024)
+    against JAX's make_train_step + build_optimizer from the same
+    parameters, cut to 2 vision layers, 1 text layer and 64 px images (17
+    tokens) for the CPU's time, f32, no randomness: every metric within
+    1e-5 (the file's train-step tolerance, tests/test_torch_train.py)."""
+    from prcv2025reid_tpu.training import param_groups as jpg
+    from prcv2025reid_tpu.training.train_step import TrainState as JaxTrainState
+    from prcv2025reid_tpu.training.train_step import make_train_step as jax_make_train_step
+    from prcv2025reid_tpu_torch import init_train_state
+
+    no_rand = dict(drop_path=0.0, dropout_rate=0.0, fusion_dropout=0.0, sdm_dropout=0.0,
+                   modality_dropout=0.0)
+    jcfg = vit_h_config(image_size=56, num_ids_per_batch=2, instances_per_id=2, **no_rand)
+    rng = np.random.default_rng(7)
+    n = 4
+    batch = dict(images=rng.integers(0, 256, (n, 4, 56, 56, 3), dtype=np.uint8),
+                 image_mask=np.ones((n, 4), np.float32), text_tokens=token_rows(n, [5, 8, 6, 7],
+                                                                                seed=8),
+                 text_mask=np.ones((n,), np.float32), labels=np.array([0, 0, 1, 1], np.int32))
+    flat = init_params(port_config(jcfg), NUM_CLASSES, seed=1)
+    variables = tu.unflatten_dict({tuple(k.split("/")): jnp.asarray(v) for k, v in flat.items()})
+    tx = jpg.build_optimizer(jcfg, variables["params"], 1)
+    jstep = jax_make_train_step(JaxModel(config=jcfg, num_classes=NUM_CLASSES), tx, jcfg)
+    jstate = JaxTrainState.create(variables["params"], variables["batch_stats"], tx,
+                                  jax.random.PRNGKey(1), ring_size=1,
+                                  clip_window=jcfg.adaptive_clip_window)
+    _, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()}, jnp.float32(0.1),
+                  jnp.float32(0.18))
+    pcfg = port_config(jcfg)
+    model = build_model(pcfg, flat, device="cpu")
+    _, pm = make_train_step(model, pcfg, 1)(init_train_state(model, pcfg, 1), batch, 0.1, 0.18)
+    assert sorted(pm) == sorted(jm) and float(pm["skipped"]) == 0.0
+    for k in jm:
+        np.testing.assert_allclose(float(pm[k]), float(jm[k]), rtol=1e-5, atol=1e-5, err_msg=k)
+
+
 class _Reads(dict):
     """A checkpoint that records the keys read from it."""
 

@@ -21,7 +21,9 @@ either):
   - attention (``fused_mha``) at the gallery embed's shape, B = 128 images,
     H = 12, S = 197, Dh = 64, on views of one [B, S, 3, H, Dh] projection,
     at the text tower's causal shape, B = 128, H = 8, S = 77, and at the
-    ViT-L/14 preset's, B = 128, H = 16, S = 257 (224 px) and 577 (336 px);
+    ViT-L/14 preset's, B = 128, H = 16, S = 257 (224 px) and 577 (336 px),
+    and at OpenCLIP ViT-H/14's widths, B = 128, H = 16, S = 257, Dh = 80 (a
+    tree whose kernel takes Dh = 64 only times this tree's alone there);
   - the microbenchmark's tiled matmul, x [25,344, 768] @ w [768, 3072], in
     bf16 and in int8 (w stored K-major), for every block_rows;
   - the fused MLP (``fused_mlp``) at the gallery embed's G = 1, N = 25,216
@@ -146,6 +148,8 @@ def build_other(other: Path) -> dict:
 # (attn_reg_kernel) at L/14's 577 tokens.
 GALLERY, L14_224, L14_336 = ("fused_mha B=128 H=12 S=197", "fused_mha B=128 H=16 S=257",
                              "fused_mha B=128 H=16 S=577")
+# ViT-H/14's widths: 16 heads of 80 (attn_long_kernel at a padded width of 128)
+VIT_H = "fused_mha B=128 H=16 S=257 Dh=80"
 _REG_EXPS = [(f"          s[4 * i{j}] = ex2(fmaf(", f"          s[4 * i{j}] = (fmaf(")
              for j in ("", " + 1", " + 2", " + 3")]
 _REG_QK = [("      qk_tile<NW>(s, sQ + st * C::QTILE, kbuf);",
@@ -257,17 +261,17 @@ _REG_CONSUMER_EPILOGUE = [
 
 template <int NW>""")]
 DIAGNOSTICS = {
-    "loads_only": (GALLERY, [("    uint32_t qf[DH / 16][4];",
+    "loads_only": (GALLERY, [("    uint32_t qf[DHP / 16][4];",
                               "<cut>    fence_proxy_async();  // these reads")]),
     "compute_only": (GALLERY, [(
-        "          fill_stage<KCH>(sQ, &full[st], &map_q, &map_k, &map_v, slots, pn, H);",
+        "          fill_stage<KCH, DHP>(sQ, &full[st], &map_q, &map_k, &map_v, slots, pn, H);",
         "          mbar_arrive(&full[st]);")]),
     "no_softmax": (GALLERY, [("    float m0 = -3.0e38f, m1 = -3.0e38f;",
                               "<cut>    // PV: the normalised scores"),
                              ("    // PV: the normalised scores",
                               "    const float inv0 = 1.f, inv1 = 1.f;\n    // PV: the normalised scores")]),
-    "no_store": (GALLERY, [("      if (r < S)\n        *reinterpret_cast<uint4*>",
-                            "      if (r < 0)\n        *reinterpret_cast<uint4*>")]),
+    "no_store": (GALLERY, [("        if (r < S && c < dh / 8)\n          *reinterpret_cast<uint4*>",
+                            "        if (r < 0)\n          *reinterpret_cast<uint4*>")]),
     "reg_no_exp": (L14_336, _REG_EXPS),
     "reg_no_qk": (L14_336, _REG_QK),
     "reg_no_pv": (L14_336, _REG_PV),
@@ -317,18 +321,31 @@ def build_diagnostics() -> dict:
     return libs
 
 
+class NotInTree(Exception):
+    """The other tree's kernels do not take this case."""
+
+
 def attn_call(lib, q, k, v, causal=False):
-    """fused_mha's launch through ``lib.attn_fwd``: [B, H, S, 64] views in,
-    a [B, H, S, 64] view of a [B, S, H, 64] buffer out."""
+    """fused_mha's launch through ``lib.attn_fwd``: [B, H, S, Dh] views in
+    (Dh a multiple of 8), a [B, H, S, Dh] view of a [B, S, H, Dh] buffer
+    out.  A tree whose entry takes no head width (one without
+    ``attn_route``) takes Dh = 64 only and raises NotInTree for another."""
     B, H, S, Dh = q.shape
     out = torch.empty(B, S, H, Dh, dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
     fn = lib.attn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 12 + [
-        ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, S, *strides,
-            int(causal), _kernels.stream_ptr(q))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if hasattr(lib, "attn_route"):
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 12 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        rc = fn(*ptrs, B, H, S, Dh, *strides, Dh ** -0.5, int(causal), _kernels.stream_ptr(q))
+    else:
+        if Dh != 64:
+            raise NotInTree(f"attn_fwd of a tree without attn_route takes Dh = 64, not {Dh}")
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 12 + [
+            ctypes.c_int, ctypes.c_void_p]
+        rc = fn(*ptrs, B, H, S, *strides, int(causal), _kernels.stream_ptr(q))
     _kernels.check(rc, "attn_fwd")
     return out
 
@@ -573,11 +590,13 @@ def main() -> int:
         return (torch.randn(*shape, generator=gen, device=dev) * scale).bfloat16()
 
     cases = []
-    for label, (B, S, H, causal) in (("fused_mha B=128 H=12 S=197", (128, 197, 12, False)),
-                                      ("fused_mha causal B=128 H=8 S=77", (128, 77, 8, True)),
-                                      ("fused_mha B=128 H=16 S=257", (128, 257, 16, False)),
-                                      ("fused_mha B=128 H=16 S=577", (128, 577, 16, False))):
-        qkv = randn(B, S, 3, H, 64)
+    for label, (B, S, H, Dh, causal) in (
+            ("fused_mha B=128 H=12 S=197", (128, 197, 12, 64, False)),
+            ("fused_mha causal B=128 H=8 S=77", (128, 77, 8, 64, True)),
+            ("fused_mha B=128 H=16 S=257", (128, 257, 16, 64, False)),
+            ("fused_mha B=128 H=16 S=577", (128, 577, 16, 64, False)),
+            (VIT_H, (128, 257, 16, 80, False))):
+        qkv = randn(B, S, 3, H, Dh)
         q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
         cases.append((label, lambda lib, q=q, k=k, v=v, c=causal: attn_call(
             lib["attention"], q, k, v, c),
@@ -649,7 +668,14 @@ def main() -> int:
         cases = [c for c in cases if any(t in c[0] for t in args.only)]
         profiled = [c for c in profiled if any(t in c[0] for t in args.only)]
     for label, run, library, library_name in cases:
-        diff = (run(other).float() - run(this).float()).abs().max().item()
+        try:
+            diff = (run(other).float() - run(this).float()).abs().max().item()
+        except NotInTree as e:  # this tree alone, its two readings
+            print(json.dumps({"kernel": label, "other": str(e), "this_ms": [
+                time_ms(lambda: run(this), args.runs) for _ in range(2)],
+                **({library_name + "_ms": time_ms(library, args.runs)} if library else {}),
+                "card": card}))
+            continue
         ms = {"other": [], "this": []}
         for who in ("other", "this", "this", "other"):
             ms[who].append(time_ms(lambda who=who: run(other if who == "other" else this),
